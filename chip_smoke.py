@@ -1,0 +1,249 @@
+"""Drive rtk_tpu_torch's main path once on one CUDA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line):
+  1. build the CUDA kernel from csrc/ and print the toolchain and card;
+  2. the kernel against its plain PyTorch version on cornell_box at 64^2
+     and blob(6) (81,920 triangles) at 512^2, LBVH leaf 4 and step-
+     quantized SAH leaf 16 tables: closest, any, filter_mask, defer_uv;
+  3. the main path at full size through the user entry points:
+     build_scene(blob(6)) -> Tracer(scene).closest / .any on 8192^2
+     morton-ordered camera rays made on the card; the hit count must be
+     within 5000 of 41,019,791; then the kernel against its plain version
+     on the same tables and rays, both timed with CUDA events;
+  4. record parity of the step-quantized SAH tables at 512^2 against the
+     C++ oracle (native/rtk_oracle.cpp), at the bench's thresholds.
+Then the kernel summary as one JSON line, the card's name and power limit,
+and, last, {"ok": true, "device": {...}}.  Exits non-zero, printing no
+result, when there is no CUDA device or any phase fails.  Imports no jax.
+"""
+import json
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+# Expected 8192^2 hit count for blob(6) under the bench camera: the same
+# for every topology (ties change which triangle wins, never whether a
+# ray hits); device-made rays move a few silhouette hits.
+HEADLINE_EXPECT_HITS = 41_019_791
+HEADLINE_HIT_TOL = 5000
+CAM = dict(eye=(0, 0, 3.0), look_at=(0, 0, 0), up=(0, 1, 0), fov_deg=45)
+REL_TOL = 1e-6  # |kernel - plain| <= REL_TOL * (1 + |plain|) for t, u, v
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def timed(fn, reps=1, warm=True):
+    """(result, ms per call) with CUDA events, after one warm-up call."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def compare(got, want, what):
+    """hit and slot equal; t, u, v within REL_TOL*(1+|x|).  -> max |err|."""
+    check(torch.equal(got.hit, want.hit), f"{what}: hit differs")
+    check(torch.equal(got.slot, want.slot), f"{what}: slot differs")
+    err = 0.0
+    for f in ("t", "u", "v"):
+        a, b = getattr(got, f), getattr(want, f)
+        d = (a - b).abs()
+        check(bool((d <= REL_TOL * (1 + b.abs())).all()),
+              f"{what}: {f} differs by {float(d.max())}")
+        err = max(err, float(d.max()))
+    return err
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; none found")
+    import rtk_tpu_torch as rt
+    from rtk_tpu_torch.ops import packet_trace
+    from rtk_tpu_torch.ops.packet_trace import (trace_packets,
+                                                trace_packets_reference)
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.trace.packed import pack_scene
+    from rtk_tpu_torch.utils.native_sah import NativeOracle
+
+    dev = torch.device("cuda")
+    card = smi("name,power.limit")
+
+    # ---- phase 1: build and environment ----
+    t0 = time.perf_counter()
+    packet_trace.load_kernel()
+    build_s = time.perf_counter() - t0
+    nvcc = subprocess.run([packet_trace._nvcc(), "--version"], check=True,
+                          capture_output=True, text=True).stdout
+    ptxas = [ln.split("ptxas info    : ")[-1] for ln in
+             packet_trace.BUILD_LOG.splitlines() if "registers" in ln
+             or "spill" in ln]
+    print("phase 1 build:", json.dumps({
+        "nvcc": [ln for ln in nvcc.splitlines() if "release" in ln][0],
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "card": card, "kernel_build_s": round(build_s, 3),
+        "ptxas": ptxas}), flush=True)
+
+    # ---- phase 2: kernel vs plain version at test shapes ----
+    v6, f6 = scenes.blob(6)[1:]
+    check(f6.shape[0] == 81920, "blob(6) must have 81,920 triangles")
+    cornell = scenes.cornell_box()
+    cornell_soup = (cornell.reshape(-1, 3),
+                    np.arange(cornell.shape[0] * 3).reshape(-1, 3))
+    cam512 = scenes.camera_rays(**CAM, width=512, height=512, order="morton",
+                                device=dev)
+    cases = [("cornell64", cornell_soup, scenes.cornell_camera(64, 64,
+                                                               device=dev)),
+             ("blob6_512", (v6, f6), cam512)]
+    max_err = 0.0
+    p2 = {}
+    for name, mesh, rays in cases:
+        n_tris = mesh[1].shape[0]
+        mask = (np.arange(n_tris) % 2 + 1).astype(np.uint32)
+        tables = {
+            "lbvh4": pack_scene(rt.build_scene(mesh, device=dev),
+                                tri_mask=mask),
+            "sahq16": rt.build_sah_packed(mesh, rt.BuildConfig(leaf_size=16),
+                                          tri_mask=mask, step_quant=True,
+                                          device=dev)}
+        for topo, packed in tables.items():
+            for mode_name, kw in (("closest", {}), ("any", {"mode": "any"}),
+                                  ("mask", {"filter_mask": 1}),
+                                  ("defer_uv", {"defer_uv": True})):
+                what = f"{name}/{topo}/{mode_name}"
+                got, k_ms = timed(lambda: trace_packets(packed, rays, **kw),
+                                  reps=3)
+                want, p_ms = timed(
+                    lambda: trace_packets_reference(packed, rays, **kw),
+                    warm=False)
+                max_err = max(max_err, compare(got, want, what))
+                p2[what] = {"ms": round(k_ms, 4), "plain_ms": round(p_ms, 2),
+                            "hits": int(got.hit.sum())}
+    print("phase 2 kernel==plain:", json.dumps(
+        {"max_abs_err": max_err, "traces": p2}), flush=True)
+
+    # ---- phase 3: the main path at full size ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = rt.build_scene((v6, f6), device=dev)
+    tracer = rt.Tracer(scene)
+    packed = tracer.packed
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    rays = scenes.camera_rays(**CAM, width=8192, height=8192,
+                              order="morton", device=dev, on_device=True)
+    n = rays.count
+    torch.cuda.synchronize()
+    packet_trace.KERNEL_LAUNCHES = 0
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    start.record()
+    hits = tracer.closest(rays)
+    mid.record()
+    occ = tracer.any(rays)
+    end.record()
+    torch.cuda.synchronize()
+    launches = packet_trace.KERNEL_LAUNCHES
+    closest_ms = start.elapsed_time(mid)
+    any_ms = mid.elapsed_time(end)
+    check(launches >= 2, f"main path launched the kernel {launches} times")
+    n_hit = int(hits.hit.sum())
+    check(abs(n_hit - HEADLINE_EXPECT_HITS) <= HEADLINE_HIT_TOL,
+          f"8192^2 hit count {n_hit} vs expected {HEADLINE_EXPECT_HITS}")
+    check(torch.equal(occ.hit, hits.hit), "any-hit mask != closest mask")
+    check(bool(torch.isfinite(hits.t[hits.hit]).all()), "non-finite hit t")
+    # Steady state of the same call, and the kernel alone vs its plain
+    # version on the same sorted rays (these launches are not counted).
+    _, steady_ms = timed(lambda: tracer.closest(rays), reps=3)
+    comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
+                       rays.max_t[None]])
+    from rtk_tpu_torch.ops.morton import ray_coherence_key
+    order = torch.sort(ray_coherence_key(rays.origin, rays.direction),
+                       stable=True).indices
+    comps = comps[:, order].contiguous()
+    del order
+    kw = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size)
+    k_out, kernel_ms = timed(
+        lambda: packet_trace.packet_trace_kernel(packed.nodes, packed.tris,
+                                                 comps, **kw), reps=3)
+    p_out, plain_ms = timed(
+        lambda: packet_trace.packet_trace_reference(packed.nodes,
+                                                    packed.tris, comps, **kw),
+        warm=False)
+    main_err = compare(*(SimpleNamespace(t=o[0], u=o[1], v=o[2], slot=o[3],
+                                         hit=o[3] >= 0)
+                         for o in (k_out, p_out)), "main path kernel/plain")
+    max_err = max(max_err, main_err)
+    print("phase 3 main path:", json.dumps({
+        "rays": n, "hits": n_hit, "expect": HEADLINE_EXPECT_HITS,
+        "build_ms": round(build_ms, 1), "packed_depth": packed.depth,
+        "closest_ms": round(closest_ms, 2), "any_ms": round(any_ms, 2),
+        "steady_closest_ms": round(steady_ms, 2),
+        "closest_mrays_s": round(n / steady_ms / 1e3, 2),
+        "kernel_ms": round(kernel_ms, 2), "plain_ms": round(plain_ms, 1),
+        "kernel_launches": launches, "max_abs_err": main_err,
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+        "card": card}), flush=True)
+    del hits, occ, comps, k_out, p_out, rays
+
+    # ---- phase 4: record parity against the C++ oracle ----
+    sah = rt.build_sah_packed((v6, f6), rt.BuildConfig(leaf_size=16),
+                              step_quant=True, device=dev)
+    hl = trace_packets(sah, cam512, sort_rays=False, dual=True, ordered=True,
+                       defer_uv=True, leaf_loop=True, kz_static=2)
+    soup = rt.mesh.build_soup((v6, f6))
+    orc = NativeOracle(soup.tri_pos.reshape(-1, 9), leaf_max=16,
+                       step_quant=True)
+    ot, ou, ov, oidx = orc.trace(*(getattr(cam512, f).cpu().numpy() for f in
+                                   ("origin", "direction", "min_t", "max_t")))
+    gh, oh = hl.hit.cpu().numpy(), oidx >= 0
+    both = gh & oh
+    hit_mism = int((gh != oh).sum())
+    t_bad = int((np.abs(hl.t.cpu().numpy()[both] - ot[both]) > 1e-4).sum())
+    same = both & (hl.triangle_index.cpu().numpy() == oidx)
+    same_frac = float(same.sum() / max(both.sum(), 1))
+    gu, gv = hl.u.cpu().numpy(), hl.v.cpu().numpy()
+    uv_bad = int(((np.abs(gu[same] - ou[same]) > 1e-3)
+                  | (np.abs(gv[same] - ov[same]) > 1e-3)).sum())
+    ok = (hit_mism <= gh.size * 1e-4 and t_bad <= both.sum() * 1e-4
+          and same_frac > 0.95 and uv_bad <= same.sum() * 1e-4)
+    print(f"phase 4 record parity [sahq16 vs C++ oracle, 512^2]: "
+          f"{'OK' if ok else 'FAIL'} (hit mism {hit_mism}/{gh.size}, "
+          f"t bad {t_bad}, prim same {same_frac:.4f}, uv bad {uv_bad})",
+          flush=True)
+    check(ok, "record parity failed")
+
+    print(json.dumps({"kernels": [{
+        "name": "packet_trace", "route": "cuda",
+        "source": "rtk_tpu_torch/csrc/packet_trace.cu",
+        "replaces": "rtk_tpu/ops/pallas_trace.py:146",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

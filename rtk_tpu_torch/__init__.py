@@ -1,0 +1,24 @@
+"""rtk_tpu_torch: the rtk_tpu ray-query engine in PyTorch, with its traversal
+kernel written in CUDA for Hopper (H100).
+
+The same API and hit-record contract as rtk_tpu: build a scene (LBVH on
+the device, or a host SAH topology), trace closest-hit and any-hit ray
+batches.  Imports torch and numpy; never jax.
+"""
+
+from rtk_tpu_torch.api import (
+    BuildConfig,
+    Hits,
+    MeshDesc,
+    PacketHits,
+    Rays,
+    Scene,
+    TraceConfig,
+    Tracer,
+    TriangleSoup,
+    build_from_soup,
+    build_sah_packed,
+    build_scene,
+)
+
+__version__ = "0.1.0"

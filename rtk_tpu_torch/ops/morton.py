@@ -1,0 +1,60 @@
+"""Morton (Z-order) codes for LBVH construction and ray coherence sorting.
+
+rtk_tpu computes these in uint32; PyTorch has little unsigned arithmetic,
+so codes here are int64 tensors holding the same 30-bit values (every
+intermediate below fits in 31 bits, so no step can overflow or differ).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def expand_bits10(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of each value to every 3rd bit (int64)."""
+    v = v.to(torch.int64)
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton3d(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+             bits: int = 10) -> torch.Tensor:
+    """Morton codes of points (..., 3) quantised inside [lo, hi] bounds.
+
+    Returns int64 codes with 3*bits significant bits, equal to
+    rtk_tpu.ops.morton.morton3d's uint32 codes.
+    """
+    points = points.to(torch.float32)
+    scale = float((1 << bits) - 1)
+    extent = torch.clamp_min(hi - lo, 1e-30)
+    q = (points - lo) / extent
+    q = torch.clamp(q * scale, 0.0, scale)
+    qi = q.to(torch.int64)  # truncation, as the f32 -> u32 convert
+    shift = 10 - bits
+    ex = expand_bits10(qi << shift if shift else qi)
+    return (ex[..., 0] << 2) | (ex[..., 1] << 1) | ex[..., 2]
+
+
+def ray_coherence_key(origin: torch.Tensor,
+                      direction: torch.Tensor) -> torch.Tensor:
+    """Spatial-coherence sort key for a ray batch (int64, 30 bits).
+
+    Morton code of a probe point pushed along each ray: for shared-origin
+    batches (camera primaries) the probes spread over a sphere patch, so
+    the key orders rays by direction; for scattered origins (bounce
+    batches) origin locality dominates and direction refines it.  Rays
+    adjacent in this order visit nearly the same BVH nodes, so a warp of
+    them diverges less and shares more of its node fetches.
+    """
+    o = origin.to(torch.float32)
+    d = direction.to(torch.float32)
+    dn = d / torch.clamp_min(torch.linalg.vector_norm(d, dim=1, keepdim=True),
+                             1e-30)
+    o_lo = o.amin(dim=0)
+    o_hi = o.amax(dim=0)
+    diag = torch.linalg.vector_norm(o_hi - o_lo)
+    scale = torch.maximum(0.5 * diag, 1e-2 * (1.0 + o_hi.abs().amax()))
+    probe = o + dn * scale
+    return morton3d(probe, probe.amin(dim=0), probe.amax(dim=0), bits=10)

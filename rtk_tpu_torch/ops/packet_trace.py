@@ -1,0 +1,349 @@
+"""Packet-table traversal: the trace front-end, the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+`trace_packets` is the counterpart of rtk_tpu.ops.pallas_trace
+.trace_packets: it orders the rays by a coherence key (for batches of
+16384 rays and more), runs the traversal, restores the caller's order and
+returns a lazy PacketHits.  The traversal runs in
+  * `packet_trace_kernel`: the hand-written CUDA kernel
+    (csrc/packet_trace.cu, one thread per ray), for CUDA tensors;
+  * `packet_trace_reference`: a vectorised PyTorch traversal over the same
+    tables with the same child order and arithmetic, for CPU tensors.
+The two agree bit for bit.  A CUDA tensor always goes to the kernel: a
+build or launch failure raises, it never falls back.
+
+The TPU kernel's scheduling flags (dual, ordered, islab, narrow,
+leaf_loop, kz_static, tris128, hbm_tris, lesion, p_pk, pkt) pick how the
+TPU steps its packets through the same function.  trace_packets accepts
+them and they have no effect here.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+
+import torch
+
+from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
+from rtk_tpu_torch.ops.morton import ray_coherence_key
+from rtk_tpu_torch.trace.packed import MASK_COL, PackedScene
+from rtk_tpu_torch.types import PacketHits, Rays
+from rtk_tpu_torch.utils.build import PKG_ROOT, build_shared
+
+W = 8
+_BIG = 3.0e38
+SORT_RAYS_MIN = 16384  # coherence-sort batches at least this large
+REF_CHUNK = 1 << 22  # rays per plain-version pass (bounds its stack tensor)
+
+# Launches of the CUDA kernel in this process.  A run resets it and reads
+# it back to show that its main path went through the kernel.
+KERNEL_LAUNCHES = 0
+
+KERNEL_SRC = PKG_ROOT / "csrc" / "packet_trace.cu"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_lib = None
+BUILD_LOG = ""  # compiler output of this process's kernel build (ptxas -v)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def load_kernel():
+    """Build (at first use, keyed on the source hash) and load the kernel
+    library.  Raises if nvcc is missing or the build fails."""
+    global _lib, BUILD_LOG
+    if _lib is None:
+        so, BUILD_LOG = build_shared("packet_trace", [KERNEL_SRC],
+                                     [_nvcc(), *NVCC_FLAGS])
+        lib = ctypes.CDLL(str(so))
+        lib.rtk_packet_trace.restype = ctypes.c_int
+        lib.rtk_packet_trace.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 5)
+        lib.rtk_packet_trace_max_stack.restype = ctypes.c_int
+        lib.rtk_packet_trace_max_stack.argtypes = []
+        _lib = lib
+    return _lib
+
+
+def _check_tables(nodes, tris, rays8):
+    if nodes.dtype != torch.int32 or nodes.ndim != 2 or nodes.shape[1] != 8:
+        raise ValueError("nodes must be an (Nd*8, 8) int32 table")
+    if tris.dtype != torch.float32 or tris.ndim != 2 or tris.shape[1] != 16:
+        raise ValueError("tris must be a (Tp, 16) float32 table")
+    if rays8.dtype != torch.float32 or rays8.ndim != 2 or rays8.shape[0] != 8:
+        raise ValueError("rays must be an (8, N) float32 tensor")
+    if not (nodes.device == tris.device == rays8.device):
+        raise ValueError("tables and rays must be on one device")
+
+
+def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
+                        stack_size: int, mode: str = "closest",
+                        watertight: bool = True, qmask: int | None = None,
+                        defer_uv: bool = False):
+    """Launch the CUDA kernel on the current stream -> (t, u, v, slot).
+
+    rays8: (8, N) f32 rows [ox oy oz dx dy dz min_t max_t] on a CUDA
+    device.  stack_size: entries the tree can need (PackedScene
+    .stack_size); raises before launch if the compiled stack is smaller.
+    """
+    global KERNEL_LAUNCHES
+    _check_tables(nodes, tris, rays8)
+    if not rays8.is_cuda:
+        raise ValueError("packet_trace_kernel takes CUDA tensors")
+    nodes, tris, rays8 = (a.contiguous() for a in (nodes, tris, rays8))
+    if any(a.data_ptr() % 16 for a in (nodes, tris)):
+        raise ValueError("kernel tables must be 16-byte aligned")
+    lib = load_kernel()
+    cap = lib.rtk_packet_trace_max_stack()
+    if stack_size > cap:
+        raise ValueError(f"tree needs a {stack_size}-entry traversal stack; "
+                         f"the kernel is compiled for {cap}")
+    n = rays8.shape[1]
+    if n > 2 ** 31 - 1024:
+        raise ValueError(f"{n} rays exceed the kernel's 32-bit ray index")
+    dev = rays8.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rtk_packet_trace(
+            nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), n,
+            leaf_size, int(mode == "any"), int(watertight),
+            int(qmask is not None), int(qmask or 0), int(defer_uv),
+            t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"packet_trace kernel launch failed: CUDA error "
+                           f"{err}")
+    KERNEL_LAUNCHES += 1
+    return t, u, v, slot
+
+
+def _crcp(d):
+    """Clamped reciprocal: +-3e38 for d == 0 (sign from d >= 0)."""
+    big = torch.where(d >= 0, _BIG, -_BIG).to(d.dtype)
+    return torch.where(d == 0.0, big, 1.0 / d)
+
+
+def _popc8(v):
+    v = v - ((v >> 1) & 0x55)
+    v = (v & 0x33) + ((v >> 2) & 0x33)
+    return (v + (v >> 4)) & 0x0F
+
+
+def _trace_chunk(nodes3, tris, rays8, *, leaf_size, stack_size, mode,
+                 watertight, qmask, defer_uv):
+    """Per-ray depth-first traversal, every ray popping one entry a step."""
+    dev = rays8.device
+    ox, oy, oz, dx, dy, dz, mint, maxt = rays8
+    m = rays8.shape[1]
+    origin = torch.stack([ox, oy, oz], dim=1)
+    direction = torch.stack([dx, dy, dz], dim=1)
+    rcp = _crcp(direction)
+    best_t = maxt.clone()
+    best_u = torch.zeros_like(maxt)
+    best_v = torch.zeros_like(maxt)
+    best_s = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    stack = torch.zeros((m, max(stack_size, 1)), dtype=torch.int32,
+                        device=dev)
+    sp = torch.where(maxt <= mint, 0, 1).to(torch.int64)  # root = entry 0
+    wbits = 1 << torch.arange(W, device=dev, dtype=torch.int32)
+    k_iota = torch.arange(leaf_size, device=dev)
+
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        e = stack[act, sp[act]]
+        inner = e >= 0
+
+        ia, ie = act[inner], e[inner].long()
+        if ia.numel():
+            rows = nodes3[ie]  # (k, 8, 8) i32
+            b = rows[..., :6].contiguous().view(torch.float32)
+            o, r = origin[ia, None, :], rcp[ia, None, :]
+            pos = r >= 0
+            near = (torch.where(pos, b[..., :3], b[..., 3:]) - o) * r
+            far = (torch.where(pos, b[..., 3:], b[..., :3]) - o) * r
+            enter = torch.maximum(torch.maximum(near[..., 0], near[..., 1]),
+                                  torch.maximum(near[..., 2],
+                                                mint[ia, None]))
+            exit_ = torch.minimum(torch.minimum(far[..., 0], far[..., 1]),
+                                  torch.minimum(far[..., 2],
+                                                best_t[ia, None]))
+            fc, fl = rows[:, 0, 6:7], rows[:, 0, 7:8]
+            im, lm = rows[:, 1, 6:7] & 0xFF, (rows[:, 1, 6:7] >> 8) & 0xFF
+            is_i = (im & wbits) != 0
+            is_l = (lm & wbits) != 0
+            below = wbits - 1
+            entry = torch.where(is_i, fc + _popc8(im & below),
+                                -(fl + _popc8(lm & below)) - 2)
+            hit = (enter <= exit_) & (is_i | is_l)
+            # Near-to-far by entry distance, ties by slot, misses last:
+            # two stable sorts give the (miss, enter, slot) order.
+            o1 = torch.sort(torch.where(hit, enter, float("inf")), dim=1,
+                            stable=True).indices
+            o2 = torch.sort((~hit.gather(1, o1)).to(torch.int8), dim=1,
+                            stable=True).indices
+            ent = entry.gather(1, o1.gather(1, o2))
+            cnt = hit.sum(dim=1)
+            base = sp[ia]
+            for j in range(W):  # push far first: top = nearest
+                sel = j < cnt
+                rj = ia[sel]
+                stack[rj, base[sel] + j] = ent[sel, cnt[sel] - 1 - j]
+            sp[ia] = base + cnt
+
+        la, le = act[~inner], e[~inner].long()
+        if la.numel():
+            slots = (-le - 2)[:, None] * leaf_size + k_iota  # (k, K)
+            trow = tris[slots]  # (k, K, 16)
+            t, u, v, ok = intersect_triangles(
+                origin[la], ray_shear(direction[la]),
+                trow[..., :9].reshape(-1, leaf_size, 3, 3),
+                mint[la], best_t[la], watertight=watertight)
+            if qmask is not None:
+                ok &= (trow[..., MASK_COL].to(torch.int32) & qmask) != 0
+            # The nearest accepted triangle, first on ties: the kernel's
+            # sequential t < best update over the leaf's rows.
+            tk, kk = torch.where(ok, t, float("inf")).min(dim=1)
+            upd = ok.any(dim=1)
+            lu, ku = la[upd], kk[upd]
+            best_t[lu] = tk[upd]
+            best_s[lu] = slots[upd, ku].to(torch.int32)
+            if not defer_uv:
+                best_u[lu] = u[upd, ku]
+                best_v[lu] = v[upd, ku]
+            if mode == "any":
+                sp[la[best_s[la] >= 0]] = 0
+    return best_t, best_u, best_v, best_s
+
+
+def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
+                           stack_size: int, mode: str = "closest",
+                           watertight: bool = True,
+                           qmask: int | None = None, defer_uv: bool = False):
+    """The kernel's plain PyTorch version on any device -> (t, u, v, slot).
+
+    Same tables, child order and arithmetic as csrc/packet_trace.cu.  Rays
+    run REF_CHUNK at a time to bound the (rays, stack_size) stack tensor.
+    """
+    _check_tables(nodes, tris, rays8)
+    nodes3 = nodes.reshape(-1, W, 8)
+    outs = [_trace_chunk(nodes3, tris, rays8[:, s:s + REF_CHUNK],
+                         leaf_size=leaf_size, stack_size=stack_size,
+                         mode=mode, watertight=watertight, qmask=qmask,
+                         defer_uv=defer_uv)
+            for s in range(0, max(rays8.shape[1], 1), REF_CHUNK)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def packet_trace(nodes, tris, rays8, **kw):
+    """The kernel wrapper: CUDA tensors launch the kernel, CPU tensors take
+    the plain version."""
+    if rays8.is_cuda:
+        return packet_trace_kernel(nodes, tris, rays8, **kw)
+    if rays8.device.type != "cpu":
+        raise ValueError(f"no packet traversal for device {rays8.device}")
+    return packet_trace_reference(nodes, tris, rays8, **kw)
+
+
+def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
+           sort_rays, filter_mask, defer_uv) -> PacketHits:
+    if mode not in ("closest", "any"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if packed.branching != W:
+        raise NotImplementedError(
+            "only 8-wide packed tables are ported (W=16 tables: ROADMAP K3)")
+    if rays.device != packed.device:
+        raise ValueError(f"rays on {rays.device}, scene on {packed.device}")
+    n = rays.count
+    comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
+                       rays.max_t[None]]).to(torch.float32)
+    if sort_rays is None:
+        sort_rays = n >= SORT_RAYS_MIN
+    idx = None
+    if sort_rays:
+        idx = torch.sort(ray_coherence_key(rays.origin, rays.direction),
+                         stable=True).indices
+        comps = comps[:, idx]
+    qmask = None if filter_mask is None else int(filter_mask) & 0xFFFFFF
+    t, u, v, slot = run(packed.nodes, packed.tris, comps.contiguous(),
+                        leaf_size=packed.leaf_size,
+                        stack_size=packed.stack_size, mode=mode,
+                        watertight=watertight, qmask=qmask,
+                        defer_uv=defer_uv)
+    if idx is not None:
+        # Back to the caller's order: one scatter per output.
+        def unsort(a):
+            out = torch.empty_like(a)
+            out[idx] = a
+            return out
+
+        t, u, v, slot = map(unsort, (t, u, v, slot))
+    hit = slot >= 0
+    zero = torch.zeros((), device=t.device)
+    return PacketHits(
+        hit=hit, t=t, u_k=torch.where(hit, u, zero),
+        v_k=torch.where(hit, v, zero), slot=slot, origin=rays.origin,
+        direction=rays.direction, tri_v=packed.tri_v,
+        tri_vidx=packed.tri_vidx, tri_mesh=packed.tri_mesh,
+        tri_prim=packed.tri_prim, uv_deferred=defer_uv)
+
+
+def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
+                  watertight: bool = True, sort_rays: bool | None = None,
+                  filter_mask: int | None = None, defer_uv: bool = False,
+                  filter_fn=None, interpret: bool | None = None,
+                  dual: bool | None = None, ordered: bool | None = None,
+                  islab: bool | None = None, narrow: bool | None = None,
+                  leaf_loop: bool | None = None, kz_static: int | None = None,
+                  tris128: bool | None = None, hbm_tris: bool | None = None,
+                  lesion: str | None = None, p_pk: int | None = None,
+                  pkt: int | None = None) -> PacketHits:
+    """Trace rays through the packed tables (rtk_trace_ray contract,
+    rtk.c:543-577): t, u, v and the packed triangle slot per ray, the rest
+    of the record lazily through PacketHits.  A miss keeps t = max_t.
+
+    mode: "closest" (nearest hit in the open window (min_t, max_t)) or
+      "any" (each ray stops at its first hit leaf).
+    filter_mask: test only triangles whose packed mask bits (pack_scene
+      tri_mask) share a bit with it.
+    defer_uv: the kernel writes t and slot only; .u/.v are recomputed.
+    sort_rays: coherence-sort the batch first (None: for >= 16384 rays);
+      results come back in the caller's order either way.
+
+    interpret, dual, ordered, islab, narrow, leaf_loop, kz_static, tris128,
+    hbm_tris, lesion, p_pk and pkt select the TPU kernel's schedule; they
+    are accepted and have no effect.  filter_fn is not ported yet and
+    raises.
+    """
+    if filter_fn is not None:
+        raise NotImplementedError(
+            "filter_fn in the kernel's leaf phase is not ported yet "
+            "(ROADMAP K1 filter_fn)")
+    return _front(packet_trace, packed, rays, mode, watertight, sort_rays,
+                  filter_mask, defer_uv)
+
+
+def trace_packets_reference(packed: PackedScene, rays: Rays,
+                            mode: str = "closest", watertight: bool = True,
+                            sort_rays: bool | None = None,
+                            filter_mask: int | None = None,
+                            defer_uv: bool = False) -> PacketHits:
+    """trace_packets through the plain PyTorch traversal on any device."""
+    return _front(packet_trace_reference, packed, rays, mode, watertight,
+                  sort_rays, filter_mask, defer_uv)

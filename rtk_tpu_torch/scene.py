@@ -1,0 +1,179 @@
+"""Scene: the device-resident acceleration structure (a dataclass of tensors).
+
+The LBVH build of rtk_tpu.scene in PyTorch: Morton codes of triangle
+centroids, one stable sort, the Karras topology over leaf clusters, a
+range-query refit of the bounds and the wide collapse.  Every output is
+bit-equal to rtk_tpu's on the same input.  Triangles are stored in
+traversal (Morton-sorted) order so every leaf is a contiguous slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from rtk_tpu_torch.builder.collapse import collapse_wide
+from rtk_tpu_torch.builder.lbvh import (karras_topology_scan, leaf_code,
+                                        refit_ranges_flat)
+from rtk_tpu_torch.config import BuildConfig
+from rtk_tpu_torch.ops.morton import morton3d
+
+
+@dataclasses.dataclass
+class Scene:
+    """Built acceleration structure + geometry, all tensors on one device."""
+
+    # Wide BVH (SoA). Row 0 is the root. Child encoding: >=0 wide node id,
+    # -1 empty, <=-2 leaf id -(c)-2.  Slot values are *binary* node ids
+    # (rows are binary-indexed, see builder/collapse.py).
+    node_child: torch.Tensor  # (Nn, W) i32
+    node_min: torch.Tensor  # (Nn, W, 3) f32
+    node_max: torch.Tensor  # (Nn, W, 3) f32
+    # Binary topology + bounds (the packed kernel tables derive from these).
+    bin_left: torch.Tensor  # (Li,) i32
+    bin_right: torch.Tensor  # (Li,) i32
+    bin_lo: torch.Tensor  # (Li,) i32 first leaf of the node's range
+    bin_hi: torch.Tensor  # (Li,) i32 last leaf
+    bin_min: torch.Tensor  # (Li, 3) f32
+    bin_max: torch.Tensor  # (Li, 3) f32
+    leaf_min: torch.Tensor  # (L, 3) f32
+    leaf_max: torch.Tensor  # (L, 3) f32
+    # Triangles in traversal (Morton-sorted) order, padded to L*leaf_size.
+    tri_v: torch.Tensor  # (Tp, 3, 3) f32
+    tri_vidx: torch.Tensor  # (Tp, 3) i32 original vertex indices
+    tri_mesh: torch.Tensor  # (Tp,) i32
+    tri_prim: torch.Tensor  # (Tp,) i32
+    perm: torch.Tensor  # (Tp,) i32 sorted slot -> original soup index (-1 pad)
+    bounds_min: torch.Tensor  # (3,) f32
+    bounds_max: torch.Tensor  # (3,) f32
+    num_tris: int
+    leaf_size: int
+    branching: int
+    num_leaves: int
+    # BuildConfig(wide_nodes=False) skips the wide collapse; node_child/
+    # node_min/node_max are then 1-row dummies.
+    has_wide: bool = True
+
+    @property
+    def num_padded_tris(self) -> int:
+        return self.tri_v.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v.device
+
+
+def centroid_codes(tri_pos: torch.Tensor, morton_bits: int = 10):
+    """(codes, lo, hi): Morton codes of the triangle centroids inside the
+    scene bounds, evaluated exactly as rtk_tpu's build does
+    ((a + b + c) * f32(1/3), then quantise), so the codes are bit-equal."""
+    lo = tri_pos.amin(dim=(0, 1))
+    hi = tri_pos.amax(dim=(0, 1))
+    third = torch.tensor(1.0 / 3.0, dtype=torch.float32, device=tri_pos.device)
+    cc = (tri_pos[:, 0] + tri_pos[:, 1] + tri_pos[:, 2]) * third
+    return morton3d(cc, lo, hi, bits=morton_bits), lo, hi
+
+
+def _build_impl(tri_pos, tri_vidx, tri_mesh, tri_prim, *, leaf_size,
+                branching, morton_bits, wide=True):
+    dev = tri_pos.device
+    t = tri_pos.shape[0]
+    n_leaf = max(1, -(-t // leaf_size))
+    tp = n_leaf * leaf_size
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    codes, lo, hi = centroid_codes(tri_pos, morton_bits)
+    # Lexicographic (code, index) order == a stable sort on the code.
+    sort_codes, perm = torch.sort(codes, stable=True)
+
+    pad = tp - t
+    sort_v = torch.cat([tri_pos[perm],
+                        torch.zeros((pad, 3, 3), dtype=torch.float32,
+                                    device=dev)])
+    perm_p = torch.cat([perm.to(torch.int32), torch.full((pad,), -1, **i32)])
+    valid = perm_p >= 0
+    if tri_vidx is None and tri_mesh is None and tri_prim is None:
+        # Default metadata is a pure function of the permutation.
+        sort_prim = torch.where(valid, perm_p, -1)
+        sort_mesh = torch.where(valid, 0, -1).to(torch.int32)
+        sort_vidx = torch.stack([torch.where(valid, perm_p * 3 + j, -1)
+                                 for j in range(3)], dim=1)
+    else:
+        if tri_vidx is None:
+            tri_vidx = (torch.arange(t, **i32)[:, None] * 3
+                        + torch.arange(3, **i32)[None, :])
+        if tri_mesh is None:
+            tri_mesh = torch.zeros((t,), **i32)
+        if tri_prim is None:
+            tri_prim = torch.arange(t, **i32)
+        sort_vidx = torch.cat([tri_vidx[perm], torch.full((pad, 3), -1, **i32)])
+        sort_mesh = torch.cat([tri_mesh[perm], torch.full((pad,), -1, **i32)])
+        sort_prim = torch.cat([tri_prim[perm], torch.full((pad,), -1, **i32)])
+
+    # Per-leaf AABBs over (L, K) chunks of the sorted triangles.
+    vmin = torch.where(valid[:, None], sort_v.amin(dim=1), float("inf"))
+    vmax = torch.where(valid[:, None], sort_v.amax(dim=1), -float("inf"))
+    leaf_min = vmin.reshape(n_leaf, leaf_size, 3).amin(dim=1)
+    leaf_max = vmax.reshape(n_leaf, leaf_size, 3).amax(dim=1)
+
+    w = branching
+    if n_leaf == 1:
+        # Degenerate scene: a single wide root with one leaf child.
+        node_child = torch.full((1, w), -1, **i32)
+        node_child[0, 0] = leaf_code(0)
+        node_min = torch.full((1, w, 3), 1.0, device=dev)
+        node_max = torch.full((1, w, 3), -1.0, device=dev)
+        node_min[0, 0] = leaf_min[0]
+        node_max[0, 0] = leaf_max[0]
+        bin_left = torch.full((1,), leaf_code(0), **i32)
+        bin_right = torch.full((1,), -1, **i32)  # empty slot
+        bin_lo = torch.zeros((1,), **i32)
+        bin_hi = torch.zeros((1,), **i32)
+        bmin, bmax = leaf_min, leaf_max
+    else:
+        cluster_codes = sort_codes[::leaf_size]
+        bin_left, bin_right, bin_lo, bin_hi = karras_topology_scan(
+            cluster_codes)
+        bmin, bmax = refit_ranges_flat(bin_lo, bin_hi, leaf_min, leaf_max)
+        if wide:
+            node_child, node_min, node_max = collapse_wide(
+                bin_left, bin_right, bmin, bmax, leaf_min, leaf_max, w)
+        else:
+            node_child = torch.full((1, w), -1, **i32)
+            node_min = torch.full((1, w, 3), 1.0, device=dev)
+            node_max = torch.full((1, w, 3), -1.0, device=dev)
+
+    return dict(
+        node_child=node_child, node_min=node_min, node_max=node_max,
+        bin_left=bin_left, bin_right=bin_right, bin_lo=bin_lo, bin_hi=bin_hi,
+        bin_min=bmin, bin_max=bmax, leaf_min=leaf_min, leaf_max=leaf_max,
+        tri_v=sort_v, tri_vidx=sort_vidx.to(torch.int32),
+        tri_mesh=sort_mesh.to(torch.int32), tri_prim=sort_prim.to(torch.int32),
+        perm=perm_p, bounds_min=lo, bounds_max=hi)
+
+
+def build_from_soup(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
+                    config: BuildConfig = BuildConfig(),
+                    device="cpu") -> Scene:
+    """Build a Scene from canonical triangle-soup arrays on `device`."""
+    def cvt(a, dt):
+        if a is None:
+            return None
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
+        return torch.as_tensor(a, device=device).to(dt)
+
+    tri_pos = cvt(tri_pos, torch.float32).reshape(-1, 3, 3)
+    t = tri_pos.shape[0]
+    if t == 0:
+        raise ValueError("cannot build an empty scene")
+    arrays = _build_impl(
+        tri_pos, cvt(tri_vidx, torch.int32), cvt(tri_mesh, torch.int32),
+        cvt(tri_prim, torch.int32), leaf_size=config.leaf_size,
+        branching=config.branching, morton_bits=config.morton_bits,
+        wide=config.wide_nodes)
+    n_leaf = max(1, -(-t // config.leaf_size))
+    return Scene(num_tris=t, leaf_size=config.leaf_size,
+                 branching=config.branching, num_leaves=n_leaf,
+                 has_wide=config.wide_nodes or n_leaf == 1, **arrays)

@@ -1,0 +1,50 @@
+"""The parameter carry: rtk_tpu scene tables (handed over as NumPy arrays)
+-> this package's Scene / PackedScene on a given device.
+
+A test takes rtk_tpu's arrays with np.asarray, passes the dict here, and
+feeds both packages the very same tables.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from rtk_tpu_torch.scene import Scene
+from rtk_tpu_torch.trace.packed import PackedScene, tree_depth
+
+SCENE_ARRAYS = tuple(f.name for f in dataclasses.fields(Scene)
+                     if f.type == "torch.Tensor")
+PACKED_ARRAYS = tuple(f.name for f in dataclasses.fields(PackedScene)
+                      if f.type == "torch.Tensor")
+
+# Integer tables keep int32 (rtk_tpu's dtype); floats are float32.
+_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int32,
+           np.dtype(np.float32): torch.float32,
+           np.dtype(np.float64): torch.float32}
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy: rtk_tpu hands out read-only views
+    return torch.as_tensor(a, device=device).to(_DTYPES[a.dtype])
+
+
+def scene_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
+                      branching: int, num_leaves: int, has_wide: bool = True,
+                      device="cpu") -> Scene:
+    """Scene from a dict holding every name in SCENE_ARRAYS."""
+    return Scene(**{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS},
+                 num_tris=num_tris, leaf_size=leaf_size,
+                 branching=branching, num_leaves=num_leaves,
+                 has_wide=has_wide)
+
+
+def packed_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
+                       branching: int = 8, device="cpu") -> PackedScene:
+    """PackedScene from a dict holding every name in PACKED_ARRAYS; the
+    tree depth is read from the `meta` table."""
+    return PackedScene(
+        **{k: _tensor(arrays[k], device) for k in PACKED_ARRAYS},
+        num_tris=num_tris, leaf_size=leaf_size, branching=branching,
+        depth=tree_depth(np.asarray(arrays["meta"])))

@@ -1,0 +1,354 @@
+"""PackedScene: the kernel's scene tables (rtk_tpu.trace.packed, in torch).
+
+The packed wide tree is built from the *binary* topology with a greedy
+collapse: starting from a node's two children, repeatedly expand the
+internal slot with the largest surface area until all 8 slots are used.
+Nodes are numbered in BFS order with each node's internal children (and
+leaf children) contiguous, so the kernel derives every child pointer from
+(first_child, first_leaf, slot masks).  The host part (_greedy_slots,
+_pack_meta) is the same NumPy code as rtk_tpu's; the tables are gathered
+with torch on the scene's device and are bit-equal to rtk_tpu's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+W = 8
+NODE_ROW_I32 = 8  # per child: [minx miny minz maxx maxy maxz meta0 meta1]
+TRI_ROW_F32 = 16  # [v0(3) v1(3) v2(3) | mask mesh prim | 4 pad]
+
+MASK_COL = 9  # filter-mask bits as an exact float value (<= 2^24)
+MASK_ALL = float(0xFFFFFF)  # 24-bit all-pass mask
+MESH_COL = 10  # mesh index as an exact float value
+PRIM_COL = 11  # triangle index as an exact float value
+
+
+@dataclasses.dataclass
+class PackedScene:
+    """Dense scene tables + mappings; product of pack_scene(scene).
+
+    nodes holds 8 rows per packed node (one per child slot): columns 0-5
+    are the child AABB (f32 bit patterns in an int32 table), and the first
+    two rows carry node metadata in columns 6-7: row0 = (first_child,
+    first_leaf), row1 = (int_mask | leaf_mask << 8, unused).  One node is
+    256 contiguous bytes.
+    """
+
+    nodes: torch.Tensor  # (Nd*8, 8) i32 child rows with embedded meta
+    meta: torch.Tensor  # (Nd, 4) i32: first_child, first_leaf, masks, pad
+    tris: torch.Tensor  # (Tp, 16) f32 vertex rows in packed-leaf order
+    # Hit-assembly arrays in packed order (indexed by the kernel's slot).
+    tri_v: torch.Tensor  # (Tp, 3, 3) f32
+    tri_vidx: torch.Tensor  # (Tp, 3) i32
+    tri_mesh: torch.Tensor  # (Tp,) i32
+    tri_prim: torch.Tensor  # (Tp,) i32
+    slot_src: torch.Tensor  # (Nd, 8) i32: binary node id / leaf code / -1
+    tri_perm: torch.Tensor  # (Tp,) i32 source triangle per packed slot
+    num_tris: int
+    leaf_size: int
+    # Number of BFS levels of internal nodes; bounds the traversal stack
+    # at 1 + depth * (W - 1) entries.
+    depth: int
+    branching: int = W
+
+    @property
+    def num_nodes(self) -> int:
+        return self.meta.shape[0]
+
+    @property
+    def num_padded_tris(self) -> int:
+        return self.tri_v.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes.device
+
+    @property
+    def stack_size(self) -> int:
+        """Entries a depth-first traversal of this tree can hold at once:
+        each level pops one entry and pushes at most W."""
+        return 1 + self.depth * (self.branching - 1)
+
+
+def _area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    d = np.maximum(hi - lo, 0.0)
+    return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+
+def _greedy_slots(left, right, area, root=0, w=W):
+    """Greedy wide collapse, level by level (vectorised host NumPy).
+
+    Returns slot_src (Nd, w) int64 (binary id >= 0, leaf code <= -2,
+    -1 empty) in BFS order from `root`; internal children appear in
+    row-major slot order, which is exactly the contiguous-child numbering.
+    A leaf-code root becomes a single-leaf row.
+    """
+    levels = []
+    frontier = np.atleast_1d(np.asarray(root, np.int64))
+    first = True
+    while frontier.size:
+        f = frontier.shape[0]
+        slots = np.full((f, w), -1, np.int64)
+        if first:
+            isleaf = frontier <= -2
+            isempty = frontier == -1
+            fc = np.clip(frontier, 0, None)
+            slots[:, 0] = np.where(isempty, -1,
+                                   np.where(isleaf, frontier, left[fc]))
+            slots[:, 1] = np.where(isleaf | isempty, -1, right[fc])
+            first = False
+        else:
+            slots[:, 0] = left[frontier]
+            slots[:, 1] = right[frontier]
+        nslots = np.full(f, 2, np.int64)
+        rows = np.arange(f)
+        for _ in range(w - 2):
+            internal = slots >= 0
+            a = np.where(internal, area[np.clip(slots, 0, None)], -np.inf)
+            a[nslots >= w] = -np.inf  # no free slot left
+            pick = a.argmax(1)
+            ok = a[rows, pick] > -np.inf
+            b = slots[rows, pick]
+            bc = np.clip(b, 0, None)
+            r = rows[ok]
+            slots[r, pick[ok]] = left[bc][ok]
+            slots[r, nslots[ok]] = right[bc][ok]
+            nslots[ok] += 1
+        levels.append(slots)
+        frontier = slots[slots >= 0]
+    return np.concatenate(levels, axis=0)
+
+
+def _pack_meta(slot_src: np.ndarray):
+    """(first_child, first_leaf, masks) per node + leaf visit order."""
+    int_m = slot_src >= 0
+    leaf_m = slot_src <= -2
+    n_int = int_m.sum(1)
+    n_leaf = leaf_m.sum(1)
+    fc = 1 + np.concatenate([[0], np.cumsum(n_int)[:-1]])
+    fl = np.concatenate([[0], np.cumsum(n_leaf)[:-1]])
+    w = slot_src.shape[1]
+    bits = 1 << np.arange(w, dtype=np.int64)[None, :]
+    masks = (int_m * bits).sum(1) | ((leaf_m * bits).sum(1) << w)
+    leaf_order = -slot_src[leaf_m] - 2  # row-major == fl ranks
+    meta = np.stack(
+        [fc, fl, masks, np.zeros_like(fc)], axis=1).astype(np.int32)
+    return meta, leaf_order.astype(np.int64)
+
+
+def tree_depth(meta: np.ndarray) -> int:
+    """Number of BFS levels of a packed table, read from its metadata.
+
+    BFS numbering with contiguous children means the children of level
+    rows [lo, hi) are rows [hi, hi + (their internal child count))."""
+    meta = np.asarray(meta)
+    n_int = np.array([bin(int(m) & ((1 << W) - 1)).count("1")
+                      for m in meta[:, 2]])
+    depth, lo, hi = 0, 0, 1
+    while lo < hi:
+        depth += 1
+        lo, hi = hi, hi + int(n_int[lo:hi].sum())
+    return depth
+
+
+def _gather_rows(bin_min, bin_max, leaf_min, leaf_max, slot_src, meta):
+    """Build the (Nd*8, 8) i32 child rows with embedded metadata."""
+    slot_src = slot_src.to(torch.int64)
+    internal = (slot_src >= 0)[..., None]
+    leaf = (slot_src <= -2)[..., None]
+    si = slot_src.clamp(0, bin_min.shape[0] - 1)
+    li = (-slot_src - 2).clamp(0, leaf_min.shape[0] - 1)
+    lo = torch.where(internal, bin_min[si],
+                     torch.where(leaf, leaf_min[li], 1.0))
+    hi = torch.where(internal, bin_max[si],
+                     torch.where(leaf, leaf_max[li], -1.0))
+    bounds = torch.cat([lo, hi], dim=-1).contiguous().view(torch.int32)
+    nd, w = slot_src.shape
+    rows = torch.zeros((nd, w, NODE_ROW_I32), dtype=torch.int32,
+                       device=bounds.device)
+    rows[..., :6] = bounds
+    rows[:, 0, 6] = meta[:, 0]
+    rows[:, 0, 7] = meta[:, 1]
+    rows[:, 1, 6] = meta[:, 2]
+    return rows.reshape(nd * w, NODE_ROW_I32)
+
+
+def _tri_rows(tri_v, valid, mask=None, mesh=None, prim=None):
+    """Kernel triangle table rows.  Padding slots (valid=False) become NaN
+    vertices: the intersector rejects them through the t-window without
+    ever taking the exact-sign path (NaN == 0 is false).
+
+    Column MASK_COL carries the per-triangle filter bits as an exact float
+    value (all-pass when no mask is given); MESH_COL and PRIM_COL carry the
+    triangle's identity as exact float values."""
+    tp = tri_v.shape[0]
+    dev = tri_v.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    flat = torch.where(valid[:, None], tri_v.reshape(tp, 9), float("nan"))
+
+    def col(a, fill):
+        if a is None:
+            return torch.full((tp, 1), fill, **f32)
+        return torch.as_tensor(a).to(**f32).reshape(tp, 1)
+
+    return torch.cat([flat, col(mask, MASK_ALL), col(mesh, 0.0),
+                      col(prim, -1.0), torch.zeros((tp, 4), **f32)], dim=1)
+
+
+def _check_mask(tri_mask) -> np.ndarray:
+    tri_mask = np.asarray(tri_mask, np.int64)
+    if (tri_mask >> 24).any():
+        raise ValueError("tri_mask uses more than 24 bits")
+    return tri_mask
+
+
+def pack_scene(scene, tri_mask=None) -> PackedScene:
+    """Pack a built Scene for the packet kernel (on the scene's device).
+
+    tri_mask: optional (num_tris,) per-triangle filter-mask bits in
+    ORIGINAL soup order (24 bits used).  A trace with filter_mask=m tests
+    only triangles with (tri_mask & m) != 0."""
+    k = scene.leaf_size
+    dev = scene.device
+    if scene.num_leaves == 1:
+        slot_src = np.full((1, W), -1, np.int64)
+        slot_src[0, 0] = -2  # leaf 0
+    else:
+        left = scene.bin_left.cpu().numpy().astype(np.int64)
+        right = scene.bin_right.cpu().numpy().astype(np.int64)
+        area = _area(scene.bin_min.cpu().numpy(), scene.bin_max.cpu().numpy())
+        slot_src = _greedy_slots(left, right, area)
+    meta, leaf_order = _pack_meta(slot_src)
+    assert leaf_order.shape[0] == scene.num_leaves
+
+    tri_perm = (leaf_order[:, None] * k + np.arange(k)[None, :]).reshape(-1)
+    perm = torch.as_tensor(tri_perm, device=dev)
+    slot_src_t = torch.as_tensor(slot_src.astype(np.int32), device=dev)
+    meta_t = torch.as_tensor(meta, device=dev)
+    tri_v = scene.tri_v[perm]
+    tri_prim = scene.tri_prim[perm]
+    tri_mesh = scene.tri_mesh[perm]
+    mask_p = None
+    if tri_mask is not None:
+        tri_mask = _check_mask(tri_mask)
+        # soup order -> Morton-sorted order -> packed order.
+        soup_of_sorted = scene.perm.cpu().numpy()
+        sorted_mask = np.where(
+            soup_of_sorted >= 0,
+            tri_mask[np.clip(soup_of_sorted, 0, tri_mask.shape[0] - 1)], 0)
+        mask_p = sorted_mask[tri_perm].astype(np.float64)
+    return PackedScene(
+        nodes=_gather_rows(scene.bin_min, scene.bin_max, scene.leaf_min,
+                           scene.leaf_max, slot_src_t, meta_t),
+        meta=meta_t,
+        tris=_tri_rows(tri_v, tri_prim >= 0, mask_p, tri_mesh, tri_prim),
+        tri_v=tri_v,
+        tri_vidx=scene.tri_vidx[perm],
+        tri_mesh=tri_mesh,
+        tri_prim=tri_prim,
+        slot_src=slot_src_t,
+        tri_perm=perm.to(torch.int32),
+        num_tris=scene.num_tris,
+        leaf_size=k,
+        depth=tree_depth(meta),
+    )
+
+
+def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
+                     order, root, leaf_size: int, tri_vidx=None,
+                     tri_mesh=None, tri_prim=None, tri_mask=None,
+                     device="cpu") -> PackedScene:
+    """Pack an arbitrary host-built binary BVH for the packet kernel.
+
+    Feeds any binary topology (e.g. the C++ binned SAH via
+    NativeOracle.export_tree) through the same greedy wide collapse as
+    pack_scene.  left/right: child node id or -1 for leaves; first/count
+    index into `order` (leaf triangle lists, <= leaf_size each); box_lo/hi:
+    (Nn, 3) node bounds; root: the root node id.  tri_v: (T, 3, 3) soup;
+    tri_perm holds original soup ids (pad -1).
+    """
+    if np.ndim(root) != 0:
+        raise NotImplementedError(
+            "forest roots (multi-BLAS tables) are not ported yet")
+    left = np.asarray(left, np.int64)
+    right = np.asarray(right, np.int64)
+    first = np.asarray(first, np.int64)
+    count = np.asarray(count, np.int64)
+    box_lo = np.asarray(box_lo, np.float32)
+    box_hi = np.asarray(box_hi, np.float32)
+    order = np.asarray(order, np.int64)
+    k = leaf_size
+    if count.size and count.max() > k:
+        raise ValueError(f"leaf count {count.max()} exceeds leaf_size {k}")
+
+    is_leaf = left < 0
+    leaf_nodes = np.nonzero(is_leaf)[0]
+    nl = leaf_nodes.shape[0]
+    lidx = np.full(left.shape[0], -1, np.int64)
+    lidx[leaf_nodes] = np.arange(nl)
+
+    def mapped(child):
+        c = np.clip(child, 0, None)
+        return np.where(is_leaf[c], -(lidx[c] + 2), child)
+
+    root = int(root)
+    root_m = -(lidx[root] + 2) if is_leaf[root] else root
+    slot_src = _greedy_slots(mapped(left), mapped(right),
+                             _area(box_lo, box_hi), root=root_m)
+    meta, leaf_order = _pack_meta(slot_src)
+    assert leaf_order.shape[0] == nl, (leaf_order.shape[0], nl)
+
+    # (nl, k) triangle ids per leaf (pad -1), in leaf-visit order.
+    tids = np.full((nl, k), -1, np.int64)
+    col = np.arange(k)[None, :]
+    fc_ = first[leaf_nodes][:, None]
+    cn_ = count[leaf_nodes][:, None]
+    take = col < cn_
+    tids[take] = order[(fc_ + np.minimum(col, cn_ - 1))[take]]
+    tri_ids = tids[leaf_order].reshape(-1)
+
+    dev = torch.device(device)
+    i32 = dict(dtype=torch.int32, device=dev)
+    valid = torch.as_tensor(tri_ids >= 0, device=dev)
+    gather = torch.as_tensor(np.where(tri_ids >= 0, tri_ids, 0), device=dev)
+    tv = torch.as_tensor(np.asarray(tri_v, np.float32),
+                         device=dev).reshape(-1, 3, 3)[gather]
+    if tri_vidx is None:
+        tvi = (gather[:, None] * 3 + torch.arange(3, device=dev)[None, :])
+    else:
+        tvi = torch.as_tensor(np.asarray(tri_vidx), device=dev)[gather]
+    tm = (torch.zeros_like(gather) if tri_mesh is None
+          else torch.as_tensor(np.asarray(tri_mesh), device=dev)[gather])
+    tp_ = (gather if tri_prim is None
+           else torch.as_tensor(np.asarray(tri_prim), device=dev)[gather])
+    tp_ = torch.where(valid, tp_, -1).to(torch.int32)
+    mask = None
+    if tri_mask is not None:
+        # Padding rows take triangle 0's bits, as rtk_tpu's table does.
+        mask = _check_mask(tri_mask)[gather.cpu().numpy()].astype(np.float32)
+
+    slot_src_t = torch.as_tensor(slot_src.astype(np.int32), device=dev)
+    meta_t = torch.as_tensor(meta, device=dev)
+    lo_t = torch.as_tensor(box_lo, device=dev)
+    hi_t = torch.as_tensor(box_hi, device=dev)
+    leaf_t = torch.as_tensor(leaf_nodes, device=dev)
+    tm = tm.to(torch.int32)
+    return PackedScene(
+        nodes=_gather_rows(lo_t, hi_t, lo_t[leaf_t], hi_t[leaf_t],
+                           slot_src_t, meta_t),
+        meta=meta_t,
+        tris=_tri_rows(tv, valid, mask, tm, tp_),
+        tri_v=tv,
+        tri_vidx=tvi.to(torch.int32),
+        tri_mesh=tm,
+        tri_prim=tp_,
+        slot_src=slot_src_t,
+        tri_perm=torch.as_tensor(np.where(tri_ids >= 0, tri_ids, -1),
+                                 **i32),
+        num_tris=int(np.asarray(tri_v).reshape(-1, 9).shape[0]),
+        leaf_size=k,
+        depth=tree_depth(meta),
+    )

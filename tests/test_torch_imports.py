@@ -1,0 +1,44 @@
+"""rtk_tpu_torch never imports jax or flax: the card machine has neither."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Importing a module whose entry in sys.modules is None raises ImportError,
+# so any jax/flax import anywhere under the package fails the subprocess.
+# (A subprocess: this test process imported jax through conftest.)
+_PROBE = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["flax"] = None
+    import rtk_tpu_torch
+    {extra}
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "flax", "jaxlib", "rtk_tpu")
+                 and sys.modules[m] is not None)
+    assert not bad, bad
+    print("ok")
+""")
+
+MODULES = [
+    "rtk_tpu_torch.ops.packet_trace", "rtk_tpu_torch.testing.scenes",
+    "rtk_tpu_torch.testing.carry", "rtk_tpu_torch.utils.native_sah",
+]
+
+
+@pytest.mark.parametrize("module", [None] + MODULES)
+def test_port_imports_without_jax(module):
+    extra = f"import {module}" if module else ""
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)

@@ -13,7 +13,16 @@ Phases (each prints one line):
      within 5000 of 41,019,791; then the kernel against its plain version
      on the same tables and rays, both timed with CUDA events;
   4. record parity of the step-quantized SAH tables at 512^2 against the
-     C++ oracle (native/rtk_oracle.cpp), at the bench's thresholds.
+     C++ oracle (native/rtk_oracle.cpp), at the bench's thresholds;
+  5. the instanced path (BASELINE config 5, bench.py:757-801): 125
+     instances of blob(6) (10.24M instanced triangles) traced at 1024^2
+     through trace_closest_instanced_packets and the kernel's roots
+     variant, on the merged LBVH forest and the step-quantized SAH
+     forest; held against one flat 10.24M-triangle world-space scene
+     traced by Tracer.closest, the two forests against each other, the
+     kernel against its plain version (whole trace on a 256^2 subset, and
+     the round-0 traversal alone at full size), and 1 candidate against
+     12 (the exact residual).
 Then the kernel summary as one JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.  Imports no jax.
@@ -34,6 +43,14 @@ HEADLINE_EXPECT_HITS = 41_019_791
 HEADLINE_HIT_TOL = 5000
 CAM = dict(eye=(0, 0, 3.0), look_at=(0, 0, 0), up=(0, 1, 0), fov_deg=45)
 REL_TOL = 1e-6  # |kernel - plain| <= REL_TOL * (1 + |plain|) for t, u, v
+# Phase 5: BASELINE config 5 as bench.py:757-801 builds it.
+INST_CAM = dict(eye=(7, 6.5, 8), look_at=(2.2, 2.2, 2.2), up=(0, 1, 0),
+                fov_deg=55)
+INST_CANDIDATES = 12
+FLAT_T_TOL = 2e-4  # t within FLAT_T_TOL*(1+|t|) of the flat world trace...
+FLAT_T_SHARE = 0.9999  # ...on this share of common hits (and hit
+FLAT_HIT_MISMATCH = 1e-4  # mismatches on at most this share of the rays)
+FOREST_T_TOL = 1e-5  # LBVH forest vs SAH forest, and 1 vs 12 candidates
 
 
 def check(cond, msg):
@@ -73,6 +90,180 @@ def compare(got, want, what):
               f"{what}: {f} differs by {float(d.max())}")
         err = max(err, float(d.max()))
     return err
+
+
+def config5(rt, dev, subdivisions=6, side=5):
+    """BASELINE config 5 (bench.py:757-801): one blob BLAS (81,920
+    triangles at subdivisions=6), side^3 instances on a grid with scales
+    and offsets from default_rng(7).  -> (blas soup, transforms,
+    InstancedScene, {table name: PackedInstancedScene})."""
+    from rtk_tpu_torch.builder.sah import build_sah_forest
+    from rtk_tpu_torch.testing import scenes
+
+    blas_tris = scenes.blob(subdivisions=subdivisions)[0]
+    blas = rt.build_from_soup(
+        blas_tris, config=rt.BuildConfig(branching=8, leaf_size=8),
+        device=dev)
+    n_inst = side ** 3
+    tf = np.zeros((n_inst, 3, 4), np.float32)
+    rng5 = np.random.default_rng(7)
+    for i in range(n_inst):
+        gx, gy, gz = i % side, (i // side) % side, i // (side * side)
+        sc = 0.35 + 0.15 * rng5.random()
+        tf[i, :, :3] = np.eye(3, dtype=np.float32) * sc
+        tf[i, :, 3] = (np.array([gx, gy, gz], np.float32) * 1.1
+                       + rng5.random(3).astype(np.float32) * 0.2)
+    iscene = rt.build_instanced([blas], np.zeros(n_inst, np.int64), tf)
+    sah, sah_roots = build_sah_forest(
+        [blas_tris], rt.BuildConfig(branching=8, leaf_size=16), device=dev)
+    return blas_tris, tf, iscene, {
+        "lbvh8": rt.pack_instanced(iscene),
+        "sahq16": rt.pack_instanced(iscene, packed=sah,
+                                    packed_roots=sah_roots)}
+
+
+def compare_instanced(got, want, what, t_tol):
+    """Hits equal; t within t_tol*(1+|t|); the instance equal except where
+    two instances tie on t exactly.  -> (max |t err|, instance ties)."""
+    (gh, gi), (wh, wi) = got, want
+    check(torch.equal(gh.hit, wh.hit), f"{what}: hit differs")
+    d = (gh.t - wh.t).abs()[wh.hit]
+    check(bool((d <= t_tol * (1 + wh.t.abs()[wh.hit])).all()),
+          f"{what}: t differs by {float(d.max()) if d.numel() else 0.0}")
+    differ = gi != wi
+    check(bool((gh.t == wh.t)[differ].all()),
+          f"{what}: instance differs off a t tie")
+    return (float(d.max()) if d.numel() else 0.0), int(differ.sum())
+
+
+def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
+    """The instanced path at BASELINE config 5; returns its record.  The
+    counts are read around the main-path traces only."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.ops import packet_trace
+    from rtk_tpu_torch.testing import scenes
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    sync()
+    t0 = time.perf_counter()
+    blas_tris, tf, iscene, tables = config5(rt, dev, subdivisions, side)
+    sync()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    rays = scenes.camera_rays(**INST_CAM, width=width, height=width,
+                              order="morton", device=dev, on_device=True)
+    n = rays.count
+    kw = dict(max_candidates=INST_CANDIDATES)
+
+    # The main path: both tables, counts zeroed just before, read after.
+    sync()
+    packet_trace.KERNEL_LAUNCHES = packet_trace.ROOTS_LAUNCHES = 0
+    main, stats = {}, {}
+    for name, ps in tables.items():
+        stats[name] = {}
+        main[name] = rt.trace_closest_instanced_packets(ps, rays, **kw,
+                                                        stats=stats[name])
+    sync()
+    launches = {"kernel": packet_trace.KERNEL_LAUNCHES,
+                "roots": packet_trace.ROOTS_LAUNCHES}
+    rec = {"rays": n, "instances": iscene.num_instances,
+           "instanced_tris": iscene.total_triangles,
+           "build_ms": round(build_ms, 1), "launches": launches,
+           "depth": {k: ps.packed.depth for k, ps in tables.items()}}
+    for name, (hits, inst) in main.items():
+        check(bool(torch.isfinite(hits.t[hits.hit]).all()),
+              f"{name}: non-finite hit t")
+        check(torch.equal(inst >= 0, hits.hit), f"{name}: instance vs hit")
+        rec[name] = {"hits": int(hits.hit.sum()), **stats[name]}
+
+    # The two forests agree.
+    rec["forest_max_t_err"], rec["forest_inst_ties"] = compare_instanced(
+        main["sahq16"], main["lbvh8"], "sahq16 vs lbvh8", FOREST_T_TOL)
+
+    # Steady state (CUDA events, after the warm-up above), and calibrated
+    # round caps, which must not change the answer.
+    for name, ps in tables.items():
+        _, ms = timed(lambda: rt.trace_closest_instanced_packets(ps, rays,
+                                                                 **kw),
+                      reps=3, warm=False)
+        caps = instancing.calibrate_round_caps(ps, rays, **kw)
+        capped = rt.trace_closest_instanced_packets(ps, rays, **kw,
+                                                    round_caps=caps)
+        compare_instanced(capped, main[name], f"{name} capped", 0.0)
+        _, capped_ms = timed(lambda: rt.trace_closest_instanced_packets(
+            ps, rays, **kw, round_caps=caps), reps=3, warm=False)
+        rec[name].update(ms=round(ms, 3), mrays_s=round(n / ms / 1e3, 3),
+                         calibrated_caps=caps, capped_ms=round(capped_ms, 3))
+
+    # Kernel vs plain: the whole trace on a 256^2 strided subset, and 1
+    # candidate (the exact residual) against 12.
+    sub = rays[::stride]
+    max_err = 0.0
+    for name, ps in tables.items():
+        got, k_ms = timed(lambda: rt.trace_closest_instanced_packets(
+            ps, sub, **kw), warm=False)
+        want, p_ms = timed(lambda: rt.trace_closest_instanced_packets(
+            ps, sub, **kw, plain=True), warm=False)
+        max_err = max(max_err, compare(got[0], want[0], f"{name} subset"))
+        check(torch.equal(got[1], want[1]), f"{name} subset: instance")
+        res = {}
+        one = rt.trace_closest_instanced_packets(ps, sub, max_candidates=1,
+                                                 stats=res)
+        err1, ties1 = compare_instanced(one, got, f"{name} 1 vs 12",
+                                        FOREST_T_TOL)
+        rec[name].update(subset_ms=round(k_ms, 3), subset_plain_ms=round(
+            p_ms, 2), subset_rays=sub.count, c1_residual=res["residual"],
+            c1_max_t_err=err1, c1_inst_ties=ties1)
+
+    # The roots variant alone vs its plain version at the main path's round-0
+    # shape: every ray with a candidate, in its first candidate's object
+    # space, from that instance's BLAS root (LBVH forest).
+    ps = tables["lbvh8"]
+    cand, _, _ = instancing._instance_candidates(iscene, rays, 1)
+    rows = torch.nonzero(cand[:, 0] >= 0).squeeze(1)
+    inst = cand[rows, 0].long()
+    o, d = instancing._object_rays(iscene.object_from_world[inst],
+                                   rays.origin[rows], rays.direction[rows])
+    comps = torch.cat([o.T, d.T, rays.min_t[rows][None],
+                       rays.max_t[rows][None]]).contiguous()
+    roots = ps.packed_roots[iscene.instance_blas[inst]].contiguous()
+    tk = dict(leaf_size=ps.packed.leaf_size, stack_size=ps.packed.stack_size,
+              roots=roots)
+    k_out, kernel_ms = timed(lambda: packet_trace.packet_trace(
+        ps.packed.nodes, ps.packed.tris, comps, **tk), reps=3)
+    p_out, plain_ms = timed(lambda: packet_trace.packet_trace_reference(
+        ps.packed.nodes, ps.packed.tris, comps, **tk), warm=False)
+    max_err = max(max_err, compare(*(SimpleNamespace(
+        t=o_[0], u=o_[1], v=o_[2], slot=o_[3], hit=o_[3] >= 0)
+        for o_ in (k_out, p_out)), "round-0 roots kernel/plain"))
+    rec.update(round0_rays=int(rows.numel()), kernel_ms=round(kernel_ms, 3),
+               plain_ms=round(plain_ms, 1), max_abs_err=max_err)
+    del cand, rows, inst, o, d, comps, roots, k_out, p_out
+
+    # Independent check: the same rays through one flat scene of all the
+    # transformed copies, built and traced through the flat entry points.
+    world = (np.einsum("iab,tvb->itva", tf[:, :, :3], blas_tris)
+             + tf[:, None, None, :, 3]).reshape(-1, 3, 3)
+    sync()
+    t0 = time.perf_counter()
+    flat = rt.build_scene((world.reshape(-1, 3),
+                           np.arange(world.shape[0] * 3).reshape(-1, 3)),
+                          device=dev)
+    del world
+    fh = rt.Tracer(flat).closest(rays)
+    sync()
+    flat_ms = (time.perf_counter() - t0) * 1e3
+    for name, (hits, _) in main.items():
+        mism = int((hits.hit != fh.hit).sum())
+        both = hits.hit & fh.hit
+        ok_t = ((hits.t - fh.t).abs() <= FLAT_T_TOL * (1 + fh.t.abs()))[both]
+        share = float(ok_t.float().mean()) if ok_t.numel() else 1.0
+        check(mism <= FLAT_HIT_MISMATCH * n,
+              f"{name} vs flat: {mism} hit mismatches of {n}")
+        check(share >= FLAT_T_SHARE, f"{name} vs flat: t agrees on {share}")
+        rec[name].update(flat_hit_mismatch=mism, flat_t_share=share)
+    rec.update(flat_tris=flat.num_tris, flat_hits=int(fh.hit.sum()),
+               flat_build_trace_ms=round(flat_ms, 1))
+    return rec
 
 
 def main():
@@ -232,13 +423,27 @@ def main():
           f"t bad {t_bad}, prim same {same_frac:.4f}, uv bad {uv_bad})",
           flush=True)
     check(ok, "record parity failed")
+    del sah, hl, cam512
+
+    # ---- phase 5: the instanced path at BASELINE config 5 ----
+    p5 = phase5(rt, dev)
+    check(p5["launches"]["roots"] > 0,
+          "the instanced path never launched the roots variant")
+    print("phase 5 instanced:", json.dumps({**p5, "card": card}),
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "packet_trace", "route": "cuda",
         "source": "rtk_tpu_torch/csrc/packet_trace.cu",
         "replaces": "rtk_tpu/ops/pallas_trace.py:146",
         "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "name": "packet_trace_roots", "route": "cuda",
+        "source": "rtk_tpu_torch/csrc/packet_trace.cu",
+        "replaces": "rtk_tpu/ops/pallas_trace.py:347",
+        "launches": p5["launches"]["roots"],
+        "max_abs_err": p5["max_abs_err"], "ms": p5["kernel_ms"],
+        "plain_ms": p5["plain_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@ kernel written in CUDA for Hopper (H100).
 
 The same API and hit-record contract as rtk_tpu: build a scene (LBVH on
 the device, or a host SAH topology), trace closest-hit and any-hit ray
-batches.  Imports torch and numpy; never jax.
+batches, and trace instanced (TLAS/BLAS) scenes.  Imports torch and
+numpy; never jax.
 """
 
 from rtk_tpu_torch.api import (
@@ -17,8 +18,12 @@ from rtk_tpu_torch.api import (
     Tracer,
     TriangleSoup,
     build_from_soup,
+    build_instanced,
     build_sah_packed,
     build_scene,
+    pack_instanced,
+    trace_closest_instanced,
+    trace_closest_instanced_packets,
 )
 
 __version__ = "0.1.0"

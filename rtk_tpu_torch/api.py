@@ -3,11 +3,16 @@
 Mirrors rtk_tpu.api:
     rtk_build_scene -> build_scene(meshes, device=...) -> Scene
     rtk_trace_ray   -> Tracer(scene).closest(rays) / .any(rays)
+    instancing      -> build_instanced -> pack_instanced ->
+                       trace_closest_instanced_packets
 """
 from __future__ import annotations
 
 from rtk_tpu_torch.builder.sah import build_sah_packed
 from rtk_tpu_torch.config import BuildConfig, TraceConfig
+from rtk_tpu_torch.instancing import (build_instanced, pack_instanced,
+                                      trace_closest_instanced,
+                                      trace_closest_instanced_packets)
 from rtk_tpu_torch.mesh import MeshDesc, TriangleSoup, build_soup
 from rtk_tpu_torch.scene import Scene, build_from_soup
 from rtk_tpu_torch.tracer import Tracer
@@ -30,5 +35,6 @@ def build_scene(meshes, config: BuildConfig = BuildConfig(),
 __all__ = [
     "BuildConfig", "TraceConfig", "MeshDesc", "TriangleSoup", "Rays", "Hits",
     "PacketHits", "Scene", "Tracer", "build_scene", "build_sah_packed",
-    "build_from_soup",
+    "build_from_soup", "build_instanced", "pack_instanced",
+    "trace_closest_instanced", "trace_closest_instanced_packets",
 ]

@@ -62,10 +62,14 @@ __device__ __forceinline__ float edge_f64(float ax, float ay, float bx,
   return (float)((double)ax * (double)by - (double)ay * (double)bx);
 }
 
+// roots: null (every ray starts at row 0) or (n,) per-ray entry rows of a
+// multi-root table (pallas_trace.py:347-360 takes one per 128-ray packet;
+// a thread per ray makes the per-ray root the natural form).
 __global__ void __launch_bounds__(RTK_BLOCK)
 packet_trace_kernel(const int4* __restrict__ nodes,
                     const float4* __restrict__ tris,
-                    const float* __restrict__ rays, int n, int leaf_size,
+                    const float* __restrict__ rays,
+                    const int* __restrict__ roots, int n, int leaf_size,
                     int mode_any, int watertight, int use_mask, int qmask,
                     int defer_uv, float* __restrict__ out_t,
                     float* __restrict__ out_u, float* __restrict__ out_v,
@@ -102,7 +106,7 @@ packet_trace_kernel(const int4* __restrict__ nodes,
 
     int stack[RTK_MAX_STACK];
     int sp = 0;
-    stack[sp++] = 0;  // the root
+    stack[sp++] = roots ? __ldg(roots + i) : 0;  // the ray's root row
     while (sp > 0) {
       const int e = stack[--sp];
       if (e >= 0) {
@@ -211,18 +215,20 @@ extern "C" {
 int rtk_packet_trace_max_stack() { return RTK_MAX_STACK; }
 
 // rays: (8, n) f32 [ox oy oz dx dy dz min_t max_t]; nodes (Nd*8, 8) i32
-// and tris (Tp, 16) f32, both 16-byte aligned.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success); does not synchronise.
+// and tris (Tp, 16) f32, both 16-byte aligned; roots: null or (n,) i32
+// rows in [0, Nd).  Launches on `stream` and returns cudaGetLastError()
+// (0 on success); does not synchronise.
 int rtk_packet_trace(const void* nodes, const void* tris, const void* rays,
-                     int n, int leaf_size, int mode_any, int watertight,
-                     int use_mask, int qmask, int defer_uv, void* out_t,
-                     void* out_u, void* out_v, void* out_slot,
+                     const void* roots, int n, int leaf_size, int mode_any,
+                     int watertight, int use_mask, int qmask, int defer_uv,
+                     void* out_t, void* out_u, void* out_v, void* out_slot,
                      void* stream) {
   if (n > 0) {
     const int grid = (n + RTK_BLOCK - 1) / RTK_BLOCK;
     packet_trace_kernel<<<grid, RTK_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int4*)nodes, (const float4*)tris, (const float*)rays, n,
-        leaf_size, mode_any, watertight, use_mask, qmask, defer_uv,
+        (const int4*)nodes, (const float4*)tris, (const float*)rays,
+        (const int*)roots, n, leaf_size, mode_any, watertight, use_mask,
+        qmask, defer_uv,
         (float*)out_t, (float*)out_u, (float*)out_v, (int*)out_slot);
   }
   return (int)cudaGetLastError();

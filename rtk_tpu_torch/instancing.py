@@ -1,0 +1,558 @@
+"""Two-level TLAS/BLAS instancing (rtk_tpu.instancing in PyTorch).
+
+  * All BLAS scenes merge into ONE concatenated node/triangle space (child
+    and leaf ids offset per BLAS), so one traversal serves every instance:
+    the per-ray BLAS root is just a start row.
+  * The top level is a dense (rays x instances) slab test that keeps each
+    ray's nearest C instance candidates by AABB entry distance.
+  * Candidate rounds walk them nearest-first: a ray transforms into the
+    candidate's object space (affine inverse, direction unnormalised so
+    object-space t == world-space t) and traces the merged BLAS from that
+    instance's root with its current best t as the upper bound.
+  * A ray whose (C+1)-th candidate still enters before its best hit is
+    unproven and re-traces over all instances (the exactness residual).
+
+trace_closest_instanced_packets traces each round through trace_packets
+with a root row per ray: the CUDA kernel's roots variant for tensors on
+the card, its plain version for CPU tensors.  A round takes only the rays
+still live for it, grouped by instance as a coherence order; the TPU's
+padding of each instance's rays to whole 128-ray packets (one root per
+packet) is not needed when every thread carries its own root.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from rtk_tpu_torch.config import TraceConfig
+from rtk_tpu_torch.ops.packet_trace import (DEFAULT_P, PKT, trace_packets,
+                                            trace_packets_reference)
+from rtk_tpu_torch.scene import Scene
+from rtk_tpu_torch.trace import stack as _stack
+from rtk_tpu_torch.types import Hits, PacketHits, Rays
+
+@dataclasses.dataclass
+class InstancedScene:
+    """Merged BLAS forest + instance table, all tensors on one device."""
+
+    merged: Scene  # concatenated BLAS scenes (multi-root)
+    roots: torch.Tensor  # (B,) i32 root row of each BLAS in `merged`
+    instance_blas: torch.Tensor  # (I,) i32
+    world_from_object: torch.Tensor  # (I, 3, 4) affine
+    object_from_world: torch.Tensor  # (I, 3, 4) affine inverse
+    inst_lo: torch.Tensor  # (I, 3) world AABB of each instance
+    inst_hi: torch.Tensor  # (I, 3)
+    blas_tris: tuple = ()  # real triangle count per BLAS
+    blas_slots: tuple = ()  # padded triangle rows per BLAS in `merged`
+    # Stack entries a stack-engine traversal of the deepest BLAS can need.
+    max_stack: int = 0
+
+    @property
+    def num_instances(self) -> int:
+        return self.instance_blas.shape[0]
+
+    @property
+    def total_triangles(self) -> int:
+        """Effective triangle count: sum over instances of their BLAS size."""
+        if not self.blas_tris:
+            return 0
+        counts = np.asarray(self.blas_tris)
+        return int(counts[self.instance_blas.cpu().numpy()].sum())
+
+    @property
+    def device(self) -> torch.device:
+        return self.instance_blas.device
+
+
+def _affine_inverse(m: np.ndarray) -> np.ndarray:
+    """(3,4) world-from-object -> (3,4) object-from-world."""
+    lin = m[:, :3]
+    t = m[:, 3]
+    inv = np.linalg.inv(lin)
+    return np.concatenate([inv, (-inv @ t)[:, None]], axis=1)
+
+
+def merge_blas(scenes: Sequence[Scene]) -> tuple[Scene, np.ndarray]:
+    """Concatenate BLAS Scenes into one multi-root Scene.
+
+    All scenes must share leaf_size and branching and carry the wide node
+    arrays.  Returns (merged, roots): roots[b] is BLAS b's root row."""
+    k = scenes[0].leaf_size
+    w = scenes[0].branching
+    for s in scenes:
+        if s.leaf_size != k or s.branching != w:
+            raise ValueError("BLAS scenes must share leaf_size/branching")
+        if not s.has_wide:
+            # The merge offsets binary AND wide ids by node_child row
+            # counts (equal only when the wide arrays are real), and the
+            # exactness residual runs the stack engine, which needs them.
+            raise ValueError(
+                "BLAS scenes must be built with wide_nodes=True "
+                "(the instanced path's stack-engine residual and the "
+                "merge offsets need the wide node arrays)")
+
+    node_off = np.cumsum([0] + [s.node_child.shape[0] for s in scenes])
+    leaf_off = np.cumsum([0] + [s.num_padded_tris // k for s in scenes])
+    tri_off = np.cumsum([0] + [s.num_padded_tris for s in scenes])
+
+    def shifted(name):
+        # Internal ids move by node_off[b], leaf codes -(l)-2 by leaf_off[b].
+        return torch.cat([
+            torch.where(c >= 0, c + int(node_off[b]),
+                        torch.where(c <= -2, c - int(leaf_off[b]), c))
+            for b, c in enumerate(getattr(s, name) for s in scenes)])
+
+    def cat(name, per_blas=lambda a, b: a):
+        return torch.cat([per_blas(getattr(s, name), b)
+                          for b, s in enumerate(scenes)])
+
+    merged = Scene(
+        node_child=shifted("node_child"),
+        node_min=cat("node_min"),
+        node_max=cat("node_max"),
+        bin_left=shifted("bin_left"),
+        bin_right=shifted("bin_right"),
+        bin_lo=cat("bin_lo", lambda a, b: a + int(leaf_off[b])),
+        bin_hi=cat("bin_hi", lambda a, b: a + int(leaf_off[b])),
+        bin_min=cat("bin_min"),
+        bin_max=cat("bin_max"),
+        leaf_min=cat("leaf_min"),
+        leaf_max=cat("leaf_max"),
+        tri_v=cat("tri_v"),
+        tri_vidx=cat("tri_vidx"),
+        tri_mesh=cat("tri_mesh"),
+        tri_prim=cat("tri_prim"),
+        perm=cat("perm", lambda a, b: torch.where(a >= 0, a + int(tri_off[b]),
+                                                  -1)),
+        bounds_min=functools.reduce(torch.minimum,
+                                    [s.bounds_min for s in scenes]),
+        bounds_max=functools.reduce(torch.maximum,
+                                    [s.bounds_max for s in scenes]),
+        num_tris=int(tri_off[-1]),  # padding rows are degenerate: harmless
+        leaf_size=k,
+        branching=w,
+        num_leaves=int(leaf_off[-1]),
+    )
+    return merged, node_off[:-1].astype(np.int32)
+
+
+def build_instanced(blas: Sequence[Scene], instance_blas,
+                    transforms) -> InstancedScene:
+    """Assemble an InstancedScene on the BLAS scenes' device.
+
+    Args:
+      blas: unique BLAS Scenes.
+      instance_blas: (I,) int, BLAS index per instance.
+      transforms: (I, 3, 4) world-from-object affine per instance.
+    """
+    merged, roots = merge_blas(blas)
+    dev = merged.device
+    instance_blas = np.asarray(instance_blas, np.int32).reshape(-1)
+    if not instance_blas.size or not (
+            0 <= instance_blas.min() and instance_blas.max() < len(blas)):
+        raise ValueError(f"instance_blas must name at least one instance "
+                         f"and index the {len(blas)} BLAS")
+    transforms = np.asarray(transforms, np.float32).reshape(-1, 3, 4)
+    inv = np.stack([_affine_inverse(m) for m in transforms]).astype(np.float32)
+
+    # World AABB per instance: transform the 8 corners of the BLAS bounds.
+    lo = np.stack([blas[b].bounds_min.cpu().numpy() for b in instance_blas])
+    hi = np.stack([blas[b].bounds_max.cpu().numpy() for b in instance_blas])
+    bits = ((np.arange(8)[:, None] >> np.arange(3)) & 1).astype(bool)
+    corners = np.where(bits[None], hi[:, None], lo[:, None])  # (I, 8, 3)
+    world = (np.einsum("iab,icb->ica", transforms[:, :, :3], corners)
+             + transforms[:, None, :, 3])
+    f32 = dict(dtype=torch.float32, device=dev)
+    return InstancedScene(
+        merged=merged,
+        roots=torch.as_tensor(roots, device=dev),
+        instance_blas=torch.as_tensor(instance_blas, device=dev),
+        world_from_object=torch.as_tensor(transforms, **f32),
+        object_from_world=torch.as_tensor(inv, **f32),
+        inst_lo=torch.as_tensor(world.min(axis=1), **f32),
+        inst_hi=torch.as_tensor(world.max(axis=1), **f32),
+        blas_tris=tuple(int(s.num_tris) for s in blas),
+        blas_slots=tuple(int(s.num_padded_tris) for s in blas),
+        max_stack=_stack.wide_depth(merged, roots) * (merged.branching - 1),
+    )
+
+
+def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int):
+    """Nearest-C instance candidates per ray by AABB entry distance: a
+    dense (rays x instances) slab test over ray chunks, C passes of masked
+    argmin (the first instance on ties).
+
+    Returns (cand_idx (N, C) i32 [-1 = none], cand_t (N, C) f32 [inf =
+    none], overflow (N,) f32: the (C+1)-th entry distance, the exactness
+    bound of the cap)."""
+    n = rays.count
+    n_inst = iscene.num_instances
+    c = min(c, n_inst)
+    chunk = max(1024, (1 << 24) // n_inst)  # bounds the (chunk, I) slab
+    lo, hi = iscene.inst_lo[None], iscene.inst_hi[None]
+    outs = []
+    for s in range(0, max(n, 1), chunk):
+        o = rays.origin[s:s + chunk, None]
+        d = rays.direction[s:s + chunk]
+        # NaN-free clamped reciprocal (finite huge instead of inf): a zero
+        # direction component against a touching plane would give 0 * inf.
+        big = torch.where(d >= 0, 3.0e38, -3.0e38)
+        rcp = torch.where(d == 0.0, big, 1.0 / d)[:, None]
+        t0 = (lo - o) * rcp
+        t1 = (hi - o) * rcp
+        near = torch.fmin(t0, t1)
+        far = torch.fmax(t0, t1)
+        enter = torch.fmax(torch.fmax(near[..., 0], near[..., 1]),
+                           torch.fmax(near[..., 2],
+                                      rays.min_t[s:s + chunk, None]))
+        exit_ = torch.fmin(torch.fmin(far[..., 0], far[..., 1]),
+                           torch.fmin(far[..., 2],
+                                      rays.max_t[s:s + chunk, None]))
+        score = torch.where(enter <= exit_, enter, float("inf"))
+        idxs, ts = [], []
+        for _ in range(c):
+            v, j = score.min(dim=1)
+            idxs.append(torch.where(torch.isfinite(v), j, -1))
+            ts.append(v)
+            score.scatter_(1, j[:, None], float("inf"))
+        outs.append((torch.stack(idxs, 1).to(torch.int32),
+                     torch.stack(ts, 1), score.min(dim=1).values))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _object_rays(object_from_world, origin, direction):
+    """World rays -> object space of per-ray (N, 3, 4) affines: each
+    component a fixed sum of products, the same bits on every device."""
+    m = object_from_world
+    o = (m[:, :, 0] * origin[:, 0:1] + m[:, :, 1] * origin[:, 1:2]
+         + m[:, :, 2] * origin[:, 2:3] + m[:, :, 3])
+    d = (m[:, :, 0] * direction[:, 0:1] + m[:, :, 1] * direction[:, 1:2]
+         + m[:, :, 2] * direction[:, 2:3])
+    return o, d
+
+
+def _stack_config(iscene: InstancedScene, config: TraceConfig) -> TraceConfig:
+    """The stack engine's config with a stack deep enough for every BLAS."""
+    return dataclasses.replace(
+        config, max_stack=max(config.max_stack, iscene.max_stack))
+
+
+def trace_closest_instanced(iscene: InstancedScene, rays: Rays,
+                            max_candidates: int = 8,
+                            config: TraceConfig = TraceConfig()):
+    """Closest hit over an instanced scene through the stack engine.
+
+    Returns (hits, instance_index (N,) i32, -1 on miss).  Hit vertex
+    positions are in the OBJECT space of the hit instance; t/u/v/mesh/
+    triangle follow the usual contract and t is a world-space distance.
+    The traversal stack is sized from the deepest BLAS (at least
+    config.max_stack).
+    """
+    n = rays.count
+    dev = rays.device
+    cfg = _stack_config(iscene, config)
+    cand_idx, cand_t, _ = _instance_candidates(iscene, rays, max_candidates)
+    best = Hits(
+        hit=torch.zeros((n,), dtype=torch.bool, device=dev),
+        t=rays.max_t.clone(),
+        u=torch.zeros((n,), device=dev),
+        v=torch.zeros((n,), device=dev),
+        mesh_index=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        triangle_index=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        vertex_position=torch.zeros((n, 3, 3), device=dev),
+        vertex_index=torch.full((n, 3), -1, dtype=torch.int32, device=dev),
+    )
+    best_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for s in range(cand_idx.shape[1]):
+        rows = torch.nonzero(cand_t[:, s] < best.t).squeeze(1)
+        if not rows.numel():
+            break
+        inst = cand_idx[rows, s].long()
+        o, d = _object_rays(iscene.object_from_world[inst],
+                            rays.origin[rows], rays.direction[rows])
+        h = _stack._trace_loop(
+            iscene.merged, Rays(o, d, rays.min_t[rows], best.t[rows]),
+            mode="closest", config=cfg,
+            start_node=iscene.roots[iscene.instance_blas[inst]])
+        better = h.hit & (h.t < best.t[rows])
+        r = rows[better]
+        for f in dataclasses.fields(Hits):
+            getattr(best, f.name)[r] = getattr(h, f.name)[better]
+        best_inst[r] = inst[better].to(torch.int32)
+    return best, best_inst
+
+
+# ---------------------------------------------------------------------------
+# Packet-kernel instanced tracing.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PackedInstancedScene:
+    iscene: InstancedScene
+    packed: object  # PackedScene of the merged forest
+    packed_roots: torch.Tensor  # (B,) i32 packed root row per BLAS
+    # (merged Tp,) i32: packed slot of each triangle slot of iscene.merged
+    # (the exactness residual traces `merged` and reports packed slots).
+    slot_of_sorted: torch.Tensor
+
+
+def _slot_of_sorted(iscene: InstancedScene, packed, soup_ids: bool):
+    """Invert packed.tri_perm into a map from the merged Scene's triangle
+    slots to packed slots.
+
+    soup_ids: tri_perm holds ids into the BLAS soups laid end to end
+    (build_sah_forest's tables) rather than merged slots (pack_forest's).
+    Raises if the tables do not hold the BLAS list in order."""
+    merged = iscene.merged
+    dev = merged.device
+    tri_perm = packed.tri_perm.to(torch.int64)
+    if soup_ids:
+        # soup id -> (BLAS b, id in b's soup) -> merged.perm's key for it
+        # (the id offset by the padded rows of the BLAS before b) -> slot.
+        real_off = torch.as_tensor(np.cumsum([0, *iscene.blas_tris]),
+                                   device=dev)
+        pad_off = torch.as_tensor(np.cumsum([0, *iscene.blas_slots]),
+                                  device=dev)
+        b = torch.searchsorted(real_off[1:], tri_perm, right=True)
+        b = b.clamp(max=len(iscene.blas_tris) - 1)
+        key = tri_perm - real_off[b] + pad_off[b]
+        perm = merged.perm.to(torch.int64)
+        sorted_of_key = torch.full((merged.num_padded_tris,), -1,
+                                   dtype=torch.int64, device=dev)
+        ok = perm >= 0
+        sorted_of_key[perm[ok]] = torch.nonzero(ok).squeeze(1)
+        tri_perm = torch.where(
+            tri_perm >= 0,
+            sorted_of_key[key.clamp(0, merged.num_padded_tris - 1)], -1)
+    valid = tri_perm >= 0
+    slots = torch.nonzero(valid).squeeze(1)
+    out = torch.full((merged.num_padded_tris,), -1, dtype=torch.int32,
+                     device=dev)
+    out[tri_perm[valid]] = slots.to(torch.int32)
+    if not torch.equal(merged.tri_prim[tri_perm[valid]],
+                       packed.tri_prim[valid]):
+        raise ValueError("the packed tables do not hold the instanced "
+                         "scene's BLAS list in order")
+    return out
+
+
+def pack_instanced(iscene: InstancedScene, packed=None,
+                   packed_roots=None) -> PackedInstancedScene:
+    """Pack the merged BLAS forest for the packet kernel.
+
+    packed/packed_roots: optional override tables from
+    builder.sah.build_sah_forest over the same BLAS list in the same order
+    (static BLAS geometry traced many times gains from the SAH topology as
+    flat static scenes do); the record contract is unchanged."""
+    from rtk_tpu_torch.trace.packed import pack_forest
+
+    soup_ids = packed is not None
+    if packed is None:
+        packed, packed_roots = pack_forest(iscene.merged,
+                                           iscene.roots.cpu().numpy())
+    elif packed_roots is None:
+        raise ValueError("pack_instanced(packed=...) needs packed_roots")
+    return PackedInstancedScene(
+        iscene=iscene, packed=packed,
+        packed_roots=torch.as_tensor(np.asarray(packed_roots, np.int64),
+                                     device=iscene.device).to(torch.int32),
+        slot_of_sorted=_slot_of_sorted(iscene, packed, soup_ids))
+
+
+def _grouped_size(n: int, n_inst: int, unit: int, p_pk: int):
+    """(M, block) of the reference's grouped round layout: every ray plus
+    up to unit-1 padding rows per instance, in whole blocks of p_pk
+    packets.  round_caps are counted in its rows."""
+    blk = p_pk * unit
+    chunk = min(16384, max(1, n))
+    np_ = n + ((-n) % chunk)
+    return (np_ + n_inst * unit + blk - 1) // blk * blk, blk
+
+
+def _pow2_cap(need: int, blk: int, m: int) -> int:
+    q = blk
+    while q < need:
+        q *= 2
+    return min(q, m)
+
+
+def _residual_exhaustive(pscene: PackedInstancedScene, rays: Rays, best):
+    """Exhaustive candidate rounds over ALL instances through the stack
+    engine for the unproven rays (`rays`, `best` already compacted to
+    them); the stack engine's merged slot maps to a packed slot."""
+    iscene = pscene.iscene
+    cfg = _stack_config(iscene, TraceConfig())
+    cand_idx, cand_t, _ = _instance_candidates(iscene, rays,
+                                               iscene.num_instances)
+    for s in range(cand_idx.shape[1]):
+        rows = torch.nonzero(cand_t[:, s] < best["t"]).squeeze(1)
+        if not rows.numel():
+            break
+        inst = cand_idx[rows, s].long()
+        o, d = _object_rays(iscene.object_from_world[inst],
+                            rays.origin[rows], rays.direction[rows])
+        h, sorted_slot = _stack._trace_loop(
+            iscene.merged, Rays(o, d, rays.min_t[rows], best["t"][rows]),
+            mode="closest", config=cfg,
+            start_node=iscene.roots[iscene.instance_blas[inst]],
+            return_slot=True)
+        better = h.hit & (h.t < best["t"][rows])
+        r = rows[better]
+        best["t"][r] = h.t[better]
+        best["u"][r] = h.u[better]
+        best["v"][r] = h.v[better]
+        best["slot"][r] = pscene.slot_of_sorted[sorted_slot[better].long()]
+        best["inst"][r] = inst[better].to(torch.int32)
+
+
+def trace_closest_instanced_packets(
+        pscene: PackedInstancedScene, rays: Rays, max_candidates: int = 8,
+        interpret: bool = False, exact: bool = True, leaf_loop: bool = False,
+        ordered: bool = False, p_pk: int = DEFAULT_P, round_caps=None,
+        return_live_counts: bool = False, unit: int | None = None,
+        plain: bool = False, stats: dict | None = None):
+    """Closest hit over an instanced scene through the packet traversal.
+
+    Per candidate round s: the rays whose s-th candidate enters before
+    their best hit (cand_t[:, s] < best_t), grouped by instance, move to
+    that instance's object space and trace the packed forest from its
+    BLAS root (trace_packets with ray_roots); improvements scatter back.
+
+    Returns (PacketHits, instance_index (N,) i32), plus the per-round live
+    counts (C,) with return_live_counts.  Hit vertex positions are in the
+    OBJECT space of the hit instance; position() and t are world-space.
+
+    exact: rays the C-candidate cap cannot prove, and live rows a round
+      cap cut, re-trace over all instances (_residual_exhaustive).
+    round_caps: None, "auto" (from the candidate-rank populations) or C
+      row capacities in the reference's grouped layout (unit-ray packets
+      per instance, p_pk packets per block): live rows past a round's cap
+      go to the residual.  With exact=True no cap changes the result.
+    plain: run every round through the kernel's plain version
+      (trace_packets_reference) on any device.
+    stats: optional dict, filled with "live_counts", "caps" and
+      "residual" (the number of rays re-traced exhaustively).
+    interpret, leaf_loop and ordered pick the TPU kernel's schedule and
+    have no effect here.
+    """
+    trace = trace_packets_reference if plain else trace_packets
+    iscene = pscene.iscene
+    packed = pscene.packed
+    if rays.device != iscene.device:
+        raise ValueError(f"rays on {rays.device}, scene on {iscene.device}")
+    n = rays.count
+    dev = rays.device
+    unit = PKT if unit is None else int(unit)
+    n_inst = iscene.num_instances
+    C = min(max_candidates, n_inst)
+    M, blk = _grouped_size(n, n_inst, unit, p_pk)
+
+    cand_idx, cand_t, overflow = _instance_candidates(iscene, rays, C)
+    if round_caps == "auto":
+        # Each round's rows bounded by its candidate-rank population
+        # (ignores best-t evolution, so an upper bound on its live set).
+        cnt = ((cand_idx >= 0) & (cand_t < rays.max_t[:, None])).sum(0)
+        round_caps = tuple(
+            _pow2_cap(c + unit * min(c, n_inst), blk, M)
+            for c in cnt.tolist())
+    elif round_caps is not None:
+        round_caps = tuple(int(c_) for c_ in round_caps)
+        if len(round_caps) != C:
+            raise ValueError(f"round_caps needs {C} entries")
+
+    best = {"t": rays.max_t.clone(),
+            "u": torch.zeros((n,), device=dev),
+            "v": torch.zeros((n,), device=dev),
+            "slot": torch.full((n,), -1, dtype=torch.int32, device=dev),
+            "inst": torch.full((n,), -1, dtype=torch.int32, device=dev)}
+    over_cap = torch.zeros((n,), dtype=torch.bool, device=dev)
+    live_counts = []
+    for s in range(C):
+        live = cand_t[:, s] < best["t"]
+        rows = torch.nonzero(live).squeeze(1)
+        live_counts.append(rows.numel())
+        if not rows.numel():
+            continue  # candidates are nearest-first: later rounds are empty
+        inst = cand_idx[rows, s].long()
+        order = torch.sort(inst, stable=True).indices
+        rows, inst = rows[order], inst[order]
+        if round_caps is not None and round_caps[s] < M:
+            # Row of each live ray in the reference's grouped layout.
+            counts = torch.bincount(inst, minlength=n_inst)
+            padded = (counts + unit - 1) // unit * unit
+            pos = ((torch.cumsum(padded, 0) - padded)[inst]
+                   + torch.arange(rows.numel(), device=dev)
+                   - (torch.cumsum(counts, 0) - counts)[inst])
+            keep = pos < round_caps[s]
+            over_cap[rows[~keep]] = True
+            rows, inst = rows[keep], inst[keep]
+        o, d = _object_rays(iscene.object_from_world[inst],
+                            rays.origin[rows], rays.direction[rows])
+        bt = best["t"][rows]
+        h = trace(packed, Rays(o, d, rays.min_t[rows], bt),
+                  ray_roots=pscene.packed_roots[iscene.instance_blas[inst]],
+                  sort_rays=False)
+        better = h.hit & (h.t < bt)
+        r = rows[better]
+        best["t"][r] = h.t[better]
+        best["u"][r] = h.u[better]
+        best["v"][r] = h.v[better]
+        best["slot"][r] = h.slot[better]
+        best["inst"][r] = inst[better].to(torch.int32)
+
+    n_res = 0
+    if exact:
+        # A ray whose (C+1)-th instance entry is still closer than its best
+        # hit is unproven, and so is one a round cap cut.
+        idx = torch.nonzero((overflow < best["t"]) | over_cap).squeeze(1)
+        n_res = idx.numel()
+        if n_res:
+            sub = {k: v[idx] for k, v in best.items()}
+            _residual_exhaustive(pscene, rays[idx], sub)
+            for k, v in best.items():
+                v[idx] = sub[k]
+    if stats is not None:
+        stats.update(live_counts=live_counts, caps=round_caps,
+                     residual=n_res)
+
+    hits = PacketHits(
+        hit=best["slot"] >= 0, t=best["t"], u_k=best["u"], v_k=best["v"],
+        slot=best["slot"],
+        # World rays: position() is the world-space hit point.
+        origin=rays.origin, direction=rays.direction,
+        tri_v=packed.tri_v, tri_vidx=packed.tri_vidx,
+        tri_mesh=packed.tri_mesh, tri_prim=packed.tri_prim)
+    if return_live_counts:
+        return hits, best["inst"], torch.tensor(live_counts)
+    return hits, best["inst"]
+
+
+def calibrate_round_caps(pscene: PackedInstancedScene, rays: Rays,
+                         max_candidates: int = 8, margin: float = 1.5,
+                         p_pk: int = DEFAULT_P, unit: int | None = None,
+                         **kw):
+    """round_caps for later traces from one uncapped trace's per-round
+    live counts (cand_t[s] < best_t as best evolves), margin x measured,
+    quantised to powers of two of a block.  A hotter later batch only
+    sends rows to the exactness residual; it never loses a hit."""
+    _, _, counts = trace_closest_instanced_packets(
+        pscene, rays, max_candidates=max_candidates, p_pk=p_pk,
+        return_live_counts=True, unit=unit, **kw)
+    return caps_from_counts(counts.numpy(), rays.count,
+                            pscene.iscene.num_instances, margin=margin,
+                            p_pk=p_pk, unit=unit)
+
+
+def caps_from_counts(counts, n: int, n_inst: int, margin: float = 1.5,
+                     p_pk: int = DEFAULT_P, unit: int | None = None):
+    """round_caps tuple from measured per-round live counts (callers that
+    pool counts over several batches take an elementwise max first)."""
+    unit = PKT if unit is None else int(unit)
+    M, blk = _grouped_size(n, n_inst, unit, p_pk)
+    return tuple(
+        _pow2_cap(int(int(c) * margin) + unit * min(int(c), n_inst), blk, M)
+        for c in counts)

@@ -12,10 +12,16 @@ returns a lazy PacketHits.  The traversal runs in
 The two agree bit for bit.  A CUDA tensor always goes to the kernel: a
 build or launch failure raises, it never falls back.
 
+Multi-root tables (forests of BLAS trees, the instanced path) take a root
+row per ray: `ray_roots`, or the reference's `packet_roots`, one per
+128-ray packet.  The kernel reads each ray's root where the single-root
+trace starts at row 0.
+
 The TPU kernel's scheduling flags (dual, ordered, islab, narrow,
 leaf_loop, kz_static, tris128, hbm_tris, lesion, p_pk, pkt) pick how the
 TPU steps its packets through the same function.  trace_packets accepts
-them and they have no effect here.
+them and they have no effect here, except that pkt and p_pk set the
+packet geometry that packet_roots is laid out in.
 """
 from __future__ import annotations
 
@@ -35,10 +41,14 @@ W = 8
 _BIG = 3.0e38
 SORT_RAYS_MIN = 16384  # coherence-sort batches at least this large
 REF_CHUNK = 1 << 22  # rays per plain-version pass (bounds its stack tensor)
+PKT = 128  # rays per packet of the reference's packet_roots layout
+DEFAULT_P = 8  # packets per block of that layout
 
-# Launches of the CUDA kernel in this process.  A run resets it and reads
-# it back to show that its main path went through the kernel.
+# Launches of the CUDA kernel in this process, and of its roots variant
+# (launches with per-ray roots, counted in both).  A run resets them and
+# reads them back to show that its main path went through the kernel.
 KERNEL_LAUNCHES = 0
+ROOTS_LAUNCHES = 0
 
 KERNEL_SRC = PKG_ROOT / "csrc" / "packet_trace.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -67,7 +77,7 @@ def load_kernel():
         lib = ctypes.CDLL(str(so))
         lib.rtk_packet_trace.restype = ctypes.c_int
         lib.rtk_packet_trace.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
             + [ctypes.c_void_p] * 5)
         lib.rtk_packet_trace_max_stack.restype = ctypes.c_int
         lib.rtk_packet_trace_max_stack.argtypes = []
@@ -86,17 +96,36 @@ def _check_tables(nodes, tris, rays8):
         raise ValueError("tables and rays must be on one device")
 
 
+def _check_roots(roots, nodes, rays8):
+    """Per-ray root rows: (N,) int32 on the rays' device, each a row of the
+    node table (a bad root would read outside it).  One host sync."""
+    if roots is None:
+        return None
+    n = rays8.shape[1]
+    if roots.dtype != torch.int32 or tuple(roots.shape) != (n,):
+        raise ValueError(f"roots must be an ({n},) int32 tensor")
+    if roots.device != rays8.device:
+        raise ValueError("roots and rays must be on one device")
+    if n:
+        lo, hi = (int(x) for x in torch.aminmax(roots))
+        if lo < 0 or hi >= nodes.shape[0] // W:
+            raise ValueError(f"root rows span [{lo}, {hi}]; the table has "
+                             f"{nodes.shape[0] // W} rows")
+    return roots.contiguous()
+
+
 def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
                         stack_size: int, mode: str = "closest",
                         watertight: bool = True, qmask: int | None = None,
-                        defer_uv: bool = False):
+                        defer_uv: bool = False, roots=None):
     """Launch the CUDA kernel on the current stream -> (t, u, v, slot).
 
     rays8: (8, N) f32 rows [ox oy oz dx dy dz min_t max_t] on a CUDA
-    device.  stack_size: entries the tree can need (PackedScene
+    device.  stack_size: entries the deepest tree can need (PackedScene
     .stack_size); raises before launch if the compiled stack is smaller.
+    roots: None (every ray starts at row 0) or (N,) int32 root rows.
     """
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, ROOTS_LAUNCHES
     _check_tables(nodes, tris, rays8)
     if not rays8.is_cuda:
         raise ValueError("packet_trace_kernel takes CUDA tensors")
@@ -111,6 +140,7 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     n = rays8.shape[1]
     if n > 2 ** 31 - 1024:
         raise ValueError(f"{n} rays exceed the kernel's 32-bit ray index")
+    roots = _check_roots(roots, nodes, rays8)
     dev = rays8.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     u = torch.empty_like(t)
@@ -119,8 +149,9 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtk_packet_trace(
-            nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), n,
-            leaf_size, int(mode == "any"), int(watertight),
+            nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(),
+            None if roots is None else roots.data_ptr(), n, leaf_size,
+            int(mode == "any"), int(watertight),
             int(qmask is not None), int(qmask or 0), int(defer_uv),
             t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
             stream)
@@ -128,6 +159,7 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
         raise RuntimeError(f"packet_trace kernel launch failed: CUDA error "
                            f"{err}")
     KERNEL_LAUNCHES += 1
+    ROOTS_LAUNCHES += roots is not None
     return t, u, v, slot
 
 
@@ -143,7 +175,7 @@ def _popc8(v):
     return (v + (v >> 4)) & 0x0F
 
 
-def _trace_chunk(nodes3, tris, rays8, *, leaf_size, stack_size, mode,
+def _trace_chunk(nodes3, tris, rays8, roots, *, leaf_size, stack_size, mode,
                  watertight, qmask, defer_uv):
     """Per-ray depth-first traversal, every ray popping one entry a step."""
     dev = rays8.device
@@ -158,7 +190,9 @@ def _trace_chunk(nodes3, tris, rays8, *, leaf_size, stack_size, mode,
     best_s = torch.full((m,), -1, dtype=torch.int32, device=dev)
     stack = torch.zeros((m, max(stack_size, 1)), dtype=torch.int32,
                         device=dev)
-    sp = torch.where(maxt <= mint, 0, 1).to(torch.int64)  # root = entry 0
+    if roots is not None:
+        stack[:, 0] = roots  # each ray's root row (default: row 0)
+    sp = torch.where(maxt <= mint, 0, 1).to(torch.int64)
     wbits = 1 << torch.arange(W, device=dev, dtype=torch.int32)
     k_iota = torch.arange(leaf_size, device=dev)
 
@@ -235,15 +269,18 @@ def _trace_chunk(nodes3, tris, rays8, *, leaf_size, stack_size, mode,
 def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
                            stack_size: int, mode: str = "closest",
                            watertight: bool = True,
-                           qmask: int | None = None, defer_uv: bool = False):
+                           qmask: int | None = None, defer_uv: bool = False,
+                           roots=None):
     """The kernel's plain PyTorch version on any device -> (t, u, v, slot).
 
     Same tables, child order and arithmetic as csrc/packet_trace.cu.  Rays
     run REF_CHUNK at a time to bound the (rays, stack_size) stack tensor.
     """
     _check_tables(nodes, tris, rays8)
+    roots = _check_roots(roots, nodes, rays8)
     nodes3 = nodes.reshape(-1, W, 8)
     outs = [_trace_chunk(nodes3, tris, rays8[:, s:s + REF_CHUNK],
+                         None if roots is None else roots[s:s + REF_CHUNK],
                          leaf_size=leaf_size, stack_size=stack_size,
                          mode=mode, watertight=watertight, qmask=qmask,
                          defer_uv=defer_uv)
@@ -261,8 +298,39 @@ def packet_trace(nodes, tris, rays8, **kw):
     return packet_trace_reference(nodes, tris, rays8, **kw)
 
 
+def _ray_roots(packed: PackedScene, n: int, packet_roots, ray_roots, pkt,
+               p_pk):
+    """(N,) int32 root row per ray from either spelling, or None.
+
+    packet_roots keeps the reference's contract (pallas_trace.py:1639-
+    1706): one root per pkt-ray packet (128 by default) of a batch padded
+    to whole blocks of p_pk packets; a short list pads with root 0 and a
+    longer one raises."""
+    if packet_roots is not None and ray_roots is not None:
+        raise ValueError("pass packet_roots or ray_roots, not both")
+    dev = packed.device
+    if ray_roots is not None:
+        roots = torch.as_tensor(ray_roots, device=dev).to(torch.int32)
+        if tuple(roots.shape) != (n,):
+            raise ValueError(f"ray_roots must have shape ({n},)")
+        return roots
+    if packet_roots is None:
+        return None
+    unit = PKT if pkt is None else int(pkt)
+    block = (DEFAULT_P if p_pk is None else int(p_pk)) * unit
+    n_packets = -(-n // block) * block // unit
+    roots = torch.as_tensor(packet_roots, device=dev).to(torch.int32)
+    roots = roots.reshape(-1)
+    if roots.shape[0] > n_packets:
+        raise ValueError(f"packet_roots has {roots.shape[0]} entries for "
+                         f"{n_packets} {unit}-ray packets")
+    # A short list pads with root 0, as the block-padding packets do.
+    roots = torch.cat([roots, roots.new_zeros(n_packets - roots.shape[0])])
+    return torch.repeat_interleave(roots, unit)[:n].contiguous()
+
+
 def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
-           sort_rays, filter_mask, defer_uv) -> PacketHits:
+           sort_rays, filter_mask, defer_uv, roots) -> PacketHits:
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
     if packed.branching != W:
@@ -274,7 +342,10 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
     comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
                        rays.max_t[None]]).to(torch.float32)
     if sort_rays is None:
-        sort_rays = n >= SORT_RAYS_MIN
+        sort_rays = n >= SORT_RAYS_MIN and roots is None
+    if sort_rays and roots is not None:
+        raise ValueError("sort_rays cannot reorder rays that carry per-"
+                         "packet or per-ray roots; pass sort_rays=False")
     idx = None
     if sort_rays:
         idx = torch.sort(ray_coherence_key(rays.origin, rays.direction),
@@ -285,7 +356,7 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
                         leaf_size=packed.leaf_size,
                         stack_size=packed.stack_size, mode=mode,
                         watertight=watertight, qmask=qmask,
-                        defer_uv=defer_uv)
+                        defer_uv=defer_uv, roots=roots)
     if idx is not None:
         # Back to the caller's order: one scatter per output.
         def unsort(a):
@@ -307,6 +378,7 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
 def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
                   watertight: bool = True, sort_rays: bool | None = None,
                   filter_mask: int | None = None, defer_uv: bool = False,
+                  packet_roots=None, ray_roots=None,
                   filter_fn=None, interpret: bool | None = None,
                   dual: bool | None = None, ordered: bool | None = None,
                   islab: bool | None = None, narrow: bool | None = None,
@@ -323,27 +395,38 @@ def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
     filter_mask: test only triangles whose packed mask bits (pack_scene
       tri_mask) share a bit with it.
     defer_uv: the kernel writes t and slot only; .u/.v are recomputed.
-    sort_rays: coherence-sort the batch first (None: for >= 16384 rays);
-      results come back in the caller's order either way.
+    sort_rays: coherence-sort the batch first (None: for >= 16384 rays
+      without roots); results come back in the caller's order either way.
+      Rays that carry roots cannot be sorted.
+    ray_roots: (N,) int32 packed root row per ray (multi-root tables such
+      as pack_forest / build_sah_forest; default: every ray at row 0).
+    packet_roots: the same, one root per pkt-ray packet (128 unless pkt
+      is given) of the batch padded to blocks of p_pk packets (8).
 
     interpret, dual, ordered, islab, narrow, leaf_loop, kz_static, tris128,
     hbm_tris, lesion, p_pk and pkt select the TPU kernel's schedule; they
-    are accepted and have no effect.  filter_fn is not ported yet and
-    raises.
+    are accepted and have no effect beyond the packet_roots layout.
+    filter_fn is not ported yet and raises.
     """
     if filter_fn is not None:
         raise NotImplementedError(
             "filter_fn in the kernel's leaf phase is not ported yet "
             "(ROADMAP K1 filter_fn)")
+    roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
+                       p_pk)
     return _front(packet_trace, packed, rays, mode, watertight, sort_rays,
-                  filter_mask, defer_uv)
+                  filter_mask, defer_uv, roots)
 
 
 def trace_packets_reference(packed: PackedScene, rays: Rays,
                             mode: str = "closest", watertight: bool = True,
                             sort_rays: bool | None = None,
                             filter_mask: int | None = None,
-                            defer_uv: bool = False) -> PacketHits:
+                            defer_uv: bool = False, packet_roots=None,
+                            ray_roots=None, pkt: int | None = None,
+                            p_pk: int | None = None) -> PacketHits:
     """trace_packets through the plain PyTorch traversal on any device."""
+    roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
+                       p_pk)
     return _front(packet_trace_reference, packed, rays, mode, watertight,
-                  sort_rays, filter_mask, defer_uv)
+                  sort_rays, filter_mask, defer_uv, roots)

@@ -41,10 +41,13 @@ def scene_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
 
 
 def packed_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
-                       branching: int = 8, device="cpu") -> PackedScene:
+                       branching: int = 8, roots=None,
+                       device="cpu") -> PackedScene:
     """PackedScene from a dict holding every name in PACKED_ARRAYS; the
-    tree depth is read from the `meta` table."""
+    tree depth is read from the `meta` table: the deepest tree over
+    `roots` (the table's entry rows; default: every row that no other row
+    names as a child)."""
     return PackedScene(
         **{k: _tensor(arrays[k], device) for k in PACKED_ARRAYS},
         num_tris=num_tris, leaf_size=leaf_size, branching=branching,
-        depth=tree_depth(np.asarray(arrays["meta"])))
+        depth=tree_depth(np.asarray(arrays["meta"]), roots))

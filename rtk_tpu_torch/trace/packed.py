@@ -49,8 +49,8 @@ class PackedScene:
     tri_perm: torch.Tensor  # (Tp,) i32 source triangle per packed slot
     num_tris: int
     leaf_size: int
-    # Number of BFS levels of internal nodes; bounds the traversal stack
-    # at 1 + depth * (W - 1) entries.
+    # BFS levels of the deepest tree in the table (the maximum over its
+    # roots); bounds the traversal stack at 1 + depth * (W - 1) entries.
     depth: int
     branching: int = W
 
@@ -122,14 +122,20 @@ def _greedy_slots(left, right, area, root=0, w=W):
     return np.concatenate(levels, axis=0)
 
 
-def _pack_meta(slot_src: np.ndarray):
-    """(first_child, first_leaf, masks) per node + leaf visit order."""
+def _pack_meta(slot_src: np.ndarray, node_base: int = 0,
+               leaf_base: int = 0, root_rows: int = 1):
+    """(first_child, first_leaf, masks) per node + leaf visit order.
+
+    node_base/leaf_base offset the contiguous numbering of one block of a
+    multi-block forest (pack_forest).  root_rows: the number of level-0
+    rows (a multi-root BFS from _greedy_slots(root=array) puts all R roots
+    first, so the first child row is R, not 1)."""
     int_m = slot_src >= 0
     leaf_m = slot_src <= -2
     n_int = int_m.sum(1)
     n_leaf = leaf_m.sum(1)
-    fc = 1 + np.concatenate([[0], np.cumsum(n_int)[:-1]])
-    fl = np.concatenate([[0], np.cumsum(n_leaf)[:-1]])
+    fc = node_base + root_rows + np.concatenate([[0], np.cumsum(n_int)[:-1]])
+    fl = leaf_base + np.concatenate([[0], np.cumsum(n_leaf)[:-1]])
     w = slot_src.shape[1]
     bits = 1 << np.arange(w, dtype=np.int64)[None, :]
     masks = (int_m * bits).sum(1) | ((leaf_m * bits).sum(1) << w)
@@ -139,18 +145,48 @@ def _pack_meta(slot_src: np.ndarray):
     return meta, leaf_order.astype(np.int64)
 
 
-def tree_depth(meta: np.ndarray) -> int:
-    """Number of BFS levels of a packed table, read from its metadata.
+_POPC8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
 
-    BFS numbering with contiguous children means the children of level
-    rows [lo, hi) are rows [hi, hi + (their internal child count))."""
-    meta = np.asarray(meta)
-    n_int = np.array([bin(int(m) & ((1 << W) - 1)).count("1")
-                      for m in meta[:, 2]])
-    depth, lo, hi = 0, 0, 1
-    while lo < hi:
+
+def _ranks(counts: np.ndarray) -> np.ndarray:
+    """0..c-1 for each entry c of counts, concatenated."""
+    starts = np.cumsum(counts) - counts
+    return np.arange(int(counts.sum())) - np.repeat(starts, counts)
+
+
+def table_roots(meta: np.ndarray) -> np.ndarray:
+    """Rows no other row names as an internal child: the entry rows of
+    every tree in the table, whatever its layout."""
+    meta = np.asarray(meta, np.int64)
+    cnt = _POPC8[meta[:, 2] & 0xFF]
+    child = np.repeat(meta[:, 0], cnt) + _ranks(cnt)
+    named = np.zeros(meta.shape[0], bool)
+    named[child] = True
+    return np.flatnonzero(~named)
+
+
+def tree_depth(meta: np.ndarray, roots=None) -> int:
+    """Number of BFS levels of the deepest tree of a packed table, read
+    from its metadata: the maximum over `roots` (default: table_roots).
+
+    Children are followed through (first_child, internal mask), so the
+    walk is right for every layout: one tree, per-root blocks one after
+    another (pack_forest), or R root rows first (pack_multiroot and the
+    forest form of pack_binary_tree)."""
+    meta = np.asarray(meta, np.int64)
+    if roots is None:
+        roots = table_roots(meta)
+    rows = np.asarray(roots, np.int64).reshape(-1)
+    if rows.size and (rows.min() < 0 or rows.max() >= meta.shape[0]):
+        raise ValueError("tree root outside the node table")
+    n_int = _POPC8[meta[:, 2] & 0xFF]
+    depth = 0
+    while rows.size:
+        if depth > meta.shape[0]:
+            raise ValueError("node table has a cycle")
         depth += 1
-        lo, hi = hi, hi + int(n_int[lo:hi].sum())
+        cnt = n_int[rows]
+        rows = np.repeat(meta[rows, 0], cnt) + _ranks(cnt)
     return depth
 
 
@@ -205,25 +241,21 @@ def _check_mask(tri_mask) -> np.ndarray:
     return tri_mask
 
 
-def pack_scene(scene, tri_mask=None) -> PackedScene:
-    """Pack a built Scene for the packet kernel (on the scene's device).
+def _scene_binary(scene):
+    """(left, right, area) of a Scene's binary topology on the host."""
+    return (scene.bin_left.cpu().numpy().astype(np.int64),
+            scene.bin_right.cpu().numpy().astype(np.int64),
+            _area(scene.bin_min.cpu().numpy(), scene.bin_max.cpu().numpy()))
 
-    tri_mask: optional (num_tris,) per-triangle filter-mask bits in
-    ORIGINAL soup order (24 bits used).  A trace with filter_mask=m tests
-    only triangles with (tri_mask & m) != 0."""
+
+def _pack_scene_tables(scene, slot_src, meta, leaf_order, tri_mask,
+                       roots) -> PackedScene:
+    """Gather a Scene's bounds and triangles into the tables of one packed
+    layout (slot_src, meta, leaf_order); roots: the table's entry rows."""
     k = scene.leaf_size
     dev = scene.device
-    if scene.num_leaves == 1:
-        slot_src = np.full((1, W), -1, np.int64)
-        slot_src[0, 0] = -2  # leaf 0
-    else:
-        left = scene.bin_left.cpu().numpy().astype(np.int64)
-        right = scene.bin_right.cpu().numpy().astype(np.int64)
-        area = _area(scene.bin_min.cpu().numpy(), scene.bin_max.cpu().numpy())
-        slot_src = _greedy_slots(left, right, area)
-    meta, leaf_order = _pack_meta(slot_src)
-    assert leaf_order.shape[0] == scene.num_leaves
-
+    assert leaf_order.shape[0] == scene.num_leaves, \
+        (leaf_order.shape[0], scene.num_leaves)
     tri_perm = (leaf_order[:, None] * k + np.arange(k)[None, :]).reshape(-1)
     perm = torch.as_tensor(tri_perm, device=dev)
     slot_src_t = torch.as_tensor(slot_src.astype(np.int32), device=dev)
@@ -253,8 +285,65 @@ def pack_scene(scene, tri_mask=None) -> PackedScene:
         tri_perm=perm.to(torch.int32),
         num_tris=scene.num_tris,
         leaf_size=k,
-        depth=tree_depth(meta),
+        depth=tree_depth(meta, roots),
     )
+
+
+def pack_scene(scene, tri_mask=None) -> PackedScene:
+    """Pack a built Scene for the packet kernel (on the scene's device).
+
+    tri_mask: optional (num_tris,) per-triangle filter-mask bits in
+    ORIGINAL soup order (24 bits used).  A trace with filter_mask=m tests
+    only triangles with (tri_mask & m) != 0."""
+    if scene.num_leaves == 1:
+        slot_src = np.full((1, W), -1, np.int64)
+        slot_src[0, 0] = -2  # leaf 0
+    else:
+        slot_src = _greedy_slots(*_scene_binary(scene))
+    meta, leaf_order = _pack_meta(slot_src)
+    return _pack_scene_tables(scene, slot_src, meta, leaf_order, tri_mask,
+                              [0])
+
+
+def pack_multiroot(scene, roots, tri_mask=None) -> PackedScene:
+    """Pack a forest of disjoint subtrees of one Scene in a single BFS.
+
+    roots: (R,) binary node ids (or leaf codes <= -2 for single-leaf
+    subtrees, or -1 for EMPTY rows) whose subtrees are disjoint and
+    jointly cover every leaf exactly once.  The packed entry row of root r
+    is r.  tri_mask: as in pack_scene."""
+    roots = np.asarray(roots, np.int64)
+    slot_src = _greedy_slots(*_scene_binary(scene), root=roots)
+    meta, leaf_order = _pack_meta(slot_src, root_rows=roots.shape[0])
+    return _pack_scene_tables(scene, slot_src, meta, leaf_order, tri_mask,
+                              np.arange(roots.shape[0]))
+
+
+def pack_forest(scene, roots) -> tuple[PackedScene, np.ndarray]:
+    """Pack a multi-root (merged-BLAS) Scene for the packet kernel, one
+    BFS block per root, the blocks one after another.
+
+    roots: binary root node ids in the merged space (one per BLAS).
+    Returns (packed, packed_roots): packed_roots[b] is the packed row to
+    start traversal at for BLAS b."""
+    left, right, area = _scene_binary(scene)
+    slot_parts, meta_parts, leaf_parts, packed_roots = [], [], [], []
+    node_base = leaf_base = 0
+    for r in np.asarray(roots, np.int64):
+        ss = _greedy_slots(left, right, area, root=int(r))
+        meta, leaf_order = _pack_meta(ss, node_base=node_base,
+                                      leaf_base=leaf_base)
+        packed_roots.append(node_base)
+        node_base += ss.shape[0]
+        leaf_base += leaf_order.shape[0]
+        slot_parts.append(ss)
+        meta_parts.append(meta)
+        leaf_parts.append(leaf_order)
+    packed_roots = np.asarray(packed_roots, np.int32)
+    packed = _pack_scene_tables(
+        scene, np.concatenate(slot_parts), np.concatenate(meta_parts),
+        np.concatenate(leaf_parts), None, packed_roots)
+    return packed, packed_roots
 
 
 def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
@@ -269,10 +358,12 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
     index into `order` (leaf triangle lists, <= leaf_size each); box_lo/hi:
     (Nn, 3) node bounds; root: the root node id.  tri_v: (T, 3, 3) soup;
     tri_perm holds original soup ids (pad -1).
+
+    root may be an array of binary root ids whose subtrees are disjoint
+    and jointly cover every leaf exactly once (a forest, e.g. per-BLAS SAH
+    trees for the instanced path): the packed entry row of root r is then
+    r (the pack_multiroot layout).
     """
-    if np.ndim(root) != 0:
-        raise NotImplementedError(
-            "forest roots (multi-BLAS tables) are not ported yet")
     left = np.asarray(left, np.int64)
     right = np.asarray(right, np.int64)
     first = np.asarray(first, np.int64)
@@ -294,11 +385,14 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
         c = np.clip(child, 0, None)
         return np.where(is_leaf[c], -(lidx[c] + 2), child)
 
-    root = int(root)
-    root_m = -(lidx[root] + 2) if is_leaf[root] else root
+    roots = np.asarray(root, np.int64).reshape(-1)
+    roots_m = np.where(is_leaf[roots], -(lidx[roots] + 2), roots)
+    forest = np.ndim(root) != 0
     slot_src = _greedy_slots(mapped(left), mapped(right),
-                             _area(box_lo, box_hi), root=root_m)
-    meta, leaf_order = _pack_meta(slot_src)
+                             _area(box_lo, box_hi),
+                             root=roots_m if forest else int(roots_m[0]))
+    meta, leaf_order = _pack_meta(slot_src,
+                                  root_rows=roots.shape[0] if forest else 1)
     assert leaf_order.shape[0] == nl, (leaf_order.shape[0], nl)
 
     # (nl, k) triangle ids per leaf (pad -1), in leaf-visit order.
@@ -350,5 +444,5 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
                                  **i32),
         num_tris=int(np.asarray(tri_v).reshape(-1, 9).shape[0]),
         leaf_size=k,
-        depth=tree_depth(meta),
+        depth=tree_depth(meta, np.arange(roots.shape[0])),
     )

@@ -88,3 +88,116 @@ def test_kernel_refuses_too_deep_tree(cuda):
         packet_trace.packet_trace_kernel(
             packed.nodes, packed.tris, rays, leaf_size=packed.leaf_size,
             stack_size=cap + 1)
+
+
+def chain_forest(chain):
+    """Binary arrays (pack_binary_tree's arguments) of a two-tree forest: a
+    single leaf (root 2*chain+1), then a chain of `chain` internal nodes,
+    each with one leaf (root 0), whose greedy 8-wide collapse is about
+    chain/7 levels deep."""
+    leaves = chain + 2
+    n_nodes = chain + leaves
+    left = np.full(n_nodes, -1, np.int64)
+    right = np.full(n_nodes, -1, np.int64)
+    left[:chain - 1] = np.arange(1, chain)
+    left[chain - 1] = chain
+    right[:chain] = np.arange(chain + 1, 2 * chain + 1)
+    first = np.zeros(n_nodes, np.int64)
+    count = np.zeros(n_nodes, np.int64)
+    first[chain:] = np.arange(leaves)
+    count[chain:] = 1
+    lo = np.zeros((n_nodes, 3), np.float32)
+    hi = np.ones((n_nodes, 3), np.float32)
+    tri_v = np.random.default_rng(3).normal(size=(leaves, 3, 3)).astype(
+        np.float32)
+    return (tri_v, left, right, first, count, lo, hi, np.arange(leaves),
+            np.array([2 * chain + 1, 0]))
+
+
+def test_kernel_refuses_deep_forest(cuda):
+    """The second tree of this forest needs more than the compiled stack;
+    the first alone would fit.  The wrapper refuses before launch."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+
+    tri_v, *tree, roots = chain_forest(280)
+    packed = pack_binary_tree(tri_v, *tree, roots, leaf_size=1, device=cuda)
+    cap = packet_trace.load_kernel().rtk_packet_trace_max_stack()
+    assert packed.stack_size > cap
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 8, 8,
+                              device=cuda)
+    before = packet_trace.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="stack"):
+        packet_trace.trace_packets(packed, rays,
+                                   ray_roots=torch.zeros(
+                                       64, dtype=torch.int32, device=cuda))
+    assert packet_trace.KERNEL_LAUNCHES == before
+
+
+def _two_blas_forests(device):
+    """cornell_box then blob(3), merged, as a pack_forest table and as a
+    pack_multiroot table with one EMPTY root row after the two BLAS."""
+    from rtk_tpu_torch.instancing import merge_blas
+    from rtk_tpu_torch.trace.packed import pack_forest, pack_multiroot
+
+    merged, roots = merge_blas([
+        rtk_tpu_torch.build_scene(_soup_of(t), device=device)
+        for t in (scenes.cornell_box(), scenes.blob(3)[0])])
+    forest, forest_roots = pack_forest(merged, roots)
+    multi = pack_multiroot(merged, np.append(roots, -1))
+    return [(forest, forest_roots), (multi, np.arange(3))]
+
+
+def test_roots_variant_matches_reference(cuda):
+    """Per-packet and per-ray roots, dead rays and an empty root row: the
+    kernel's roots variant equals its plain version bit for bit."""
+    rng = np.random.default_rng(4)
+    n = 1000
+    dead = rng.random(n) < 0.2
+    rays = rtk_tpu_torch.Rays.make(
+        rng.normal(size=(n, 3)) * 0.3 + [0, 0, 3.0],
+        rng.normal(size=(n, 3)) * 0.3 + [0, 0, -1.0], 0.0,
+        np.where(dead, 0.0, 3.0e38), device=cuda)
+    for packed, roots in _two_blas_forests(cuda):
+        per_ray = torch.as_tensor(roots[rng.integers(0, len(roots), n)],
+                                  dtype=torch.int32, device=cuda)
+        for kw in (dict(packet_roots=roots[[1, 0, 1, 0, 0, 1, 1, 0]]),
+                   dict(ray_roots=per_ray),
+                   dict(ray_roots=per_ray, mode="any"),
+                   dict(ray_roots=per_ray, defer_uv=True)):
+            before = packet_trace.ROOTS_LAUNCHES
+            got, want = _both(packed, rays, **kw)
+            assert packet_trace.ROOTS_LAUNCHES == before + 1
+            _assert_same(got, want)
+            assert not got.hit[torch.as_tensor(dead, device=cuda)].any()
+            assert got.hit.any()
+        if len(roots) == 3:  # rays rooted at the empty row never hit
+            empty = per_ray == int(roots[2])
+            assert empty.any() and not got.hit[empty].any()
+
+
+def test_instanced_kernel_matches_reference(cuda):
+    """The whole instanced trace through the roots variant equals the same
+    trace through the plain version, exact residual included."""
+    from rtk_tpu_torch.instancing import (build_instanced, pack_instanced,
+                                          trace_closest_instanced_packets)
+
+    rng = np.random.default_rng(9)
+    blas = [rtk_tpu_torch.build_scene(_soup_of(t), device=cuda)
+            for t in (scenes.blob(2)[0],
+                      scenes.box([-0.5, -0.5, -0.5], [0.5, 0.5, 0.5]))]
+    tf = np.zeros((12, 3, 4), np.float32)
+    tf[:, :, :3] = np.eye(3) * (0.5 + rng.random((12, 1, 1)))
+    tf[:, :, 3] = rng.random((12, 3)) * 8 - 4
+    pscene = pack_instanced(build_instanced(blas, rng.integers(0, 2, 12), tf))
+    rays = scenes.camera_rays((0, 2, 12), (0, 0, 0), (0, 1, 0), 45, 64, 64,
+                              device=cuda)
+    for c in (12, 1):
+        before = packet_trace.ROOTS_LAUNCHES
+        got, gi = trace_closest_instanced_packets(pscene, rays,
+                                                  max_candidates=c)
+        assert packet_trace.ROOTS_LAUNCHES > before
+        want, wi = trace_closest_instanced_packets(pscene, rays,
+                                                   max_candidates=c,
+                                                   plain=True)
+        _assert_same(got, want)
+        assert torch.equal(gi, wi) and got.hit.any()

@@ -6,7 +6,8 @@ Phases (each prints one line):
   1. build the CUDA kernel from csrc/ and print the toolchain and card;
   2. the kernel against its plain PyTorch version on cornell_box at 64^2
      and blob(6) (81,920 triangles) at 512^2, LBVH leaf 4 and step-
-     quantized SAH leaf 16 tables: closest, any, filter_mask, defer_uv;
+     quantized SAH leaf 16 tables: closest, any, filter_mask, defer_uv,
+     each with its time and bound;
   3. the main path at full size through the user entry points:
      build_scene(blob(6)) -> Tracer(scene).closest / .any on 8192^2
      morton-ordered camera rays made on the card; the hit count must be
@@ -22,11 +23,26 @@ Phases (each prints one line):
      traced by Tracer.closest, the two forests against each other, the
      kernel against its plain version (whole trace on a 256^2 subset, and
      the round-0 traversal alone at full size), and 1 candidate against
-     12 (the exact residual).
-Then the kernel summary as one JSON line, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, when there is no CUDA device or any phase fails.  Imports no jax.
+     12 (the exact residual);
+  6. the filtered-query and statistics path at the main path's width:
+     build_scene(blob(6)) -> Tracer(scene, tri_mask) on 8192^2 rays with
+     jit_filter predicates (the kernel's filter variant) held against the
+     mask filter bit for bit and against the caller's ray identity through
+     the coherence sort; per-ray counts through the stats variant and
+     measure_trace; both variants against their plain versions (512^2,
+     LBVH leaf 4 and SAH leaf 16 tables, and alone at 8192^2); the stack
+     engine (trace_closest with an unmarked callable) against the filter
+     kernel at 1024^2; save -> load of the scene and the SAH tables; and
+     the rtk compat shim (a 4-thread task build, single-ray
+     rtk_trace_ray / rtk_trace_ray_filter on 64 rays).
+Then the kernel summary as one JSON line (per kernel: launches on its
+path, max |kernel - plain|, kernel and plain ms, and the bound: the least
+time the card could take, from the per-ray pops the stats variant counts),
+the card's name and power limit, and, last, {"ok": true, "device": {...}}.
+Exits non-zero, printing no result, when there is no CUDA device or any
+phase fails.  Imports no jax.
 """
+import io
 import json
 import subprocess
 import sys
@@ -51,6 +67,22 @@ FLAT_T_TOL = 2e-4  # t within FLAT_T_TOL*(1+|t|) of the flat world trace...
 FLAT_T_SHARE = 0.9999  # ...on this share of common hits (and hit
 FLAT_HIT_MISMATCH = 1e-4  # mismatches on at most this share of the rays)
 FOREST_T_TOL = 1e-5  # LBVH forest vs SAH forest, and 1 vs 12 candidates
+# Phase 6 predicates (each its own filter build, all built in phase 1).
+ODD_TRI = lambda c: c.triangle_index % 2 == 1  # noqa: E731
+EVEN_RAY = lambda c: c.ray_index % 2 == 0  # noqa: E731
+# tests/test_packet.py:330's predicate, on triangle and t.
+TRI_T = lambda c: (c.triangle_index % 3 == 1) & (c.t > 2.0)  # noqa: E731
+STACK_T_REL = 1e-6  # stack engine vs filter kernel (test_packet.py:337)
+STACK_SAME_TRI = 0.95  # share of hits on the same triangle (exact ties)
+# The bound (on-chip-measurement guide: published H100 SXM peaks).
+PEAK_F32_OPS = 67e12  # f32 operations a second outside the tensor cores
+PEAK_BYTES = 3.35e12  # HBM bytes a second
+# f32 operations per test, counted from csrc/packet_trace.cu: a child
+# slab test is 6 sub, 6 mul, 6 max/min and 1 compare; a triangle test is
+# 24 for the translate and shear of 3 vertices, 9 for the edge functions,
+# 4 min/max, 3 for 1/det, 6 for t and 4 compares.
+OPS_PER_CHILD = 19
+OPS_PER_TRI = 50
 
 
 def check(cond, msg):
@@ -235,8 +267,13 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
     max_err = max(max_err, compare(*(SimpleNamespace(
         t=o_[0], u=o_[1], v=o_[2], slot=o_[3], hit=o_[3] >= 0)
         for o_ in (k_out, p_out)), "round-0 roots kernel/plain"))
+    # 4 more bytes a ray: its root row.
+    b_ms, b_by = bound(packet_trace.packet_trace_kernel(
+        ps.packed.nodes, ps.packed.tris, comps, **tk, stats=True)[4],
+        ps.packed, 52)
     rec.update(round0_rays=int(rows.numel()), kernel_ms=round(kernel_ms, 3),
-               plain_ms=round(plain_ms, 1), max_abs_err=max_err)
+               plain_ms=round(plain_ms, 1), max_abs_err=max_err,
+               bound_ms=b_ms, bound_by=b_by)
     del cand, rows, inst, o, d, comps, roots, k_out, p_out
 
     # Independent check: the same rays through one flat scene of all the
@@ -266,6 +303,254 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
     return rec
 
 
+def bound(counts, packed, bytes_per_ray=48):
+    """(bound_ms, bound_by) of one traversal: the larger of its f32
+    operations over the card's f32 peak and its bytes over the card's
+    memory rate.  Operations: the internal and leaf pops the stats variant
+    counted, times the live child slots of a node (the table's mean) times
+    OPS_PER_CHILD, and times leaf_size triangle tests of OPS_PER_TRI.
+    Bytes: bytes_per_ray (rays in, outputs out, and any per-ray extras)
+    per ray and the two tables once."""
+    m = packed.meta[:, 2].long()
+    slots = (m & 0xFF) | ((m >> 8) & 0xFF)
+    live = float(((slots[:, None] >> torch.arange(8, device=m.device)) & 1)
+                 .sum(1).double().mean())
+    c = counts.double().sum(dim=1)
+    ops = (float(c[1]) * live * OPS_PER_CHILD
+           + float(c[2]) * packed.leaf_size * OPS_PER_TRI)
+    nbytes = (counts.shape[1] * bytes_per_ray
+              + packed.nodes.numel() * 4 + packed.tris.numel() * 4)
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def bits_equal(a, b):
+    """Equal bit for bit (NaN padding rows of the triangle table too)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def same_hits(a, b, what, fields=("hit", "slot", "t", "u", "v")):
+    for f in fields:
+        check(torch.equal(getattr(a, f), getattr(b, f)),
+              f"{what}: {f} differs")
+
+
+def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
+    """The filtered-query and statistics path; returns its record and the
+    two kernel entries.  Counts are zeroed just before the main-path
+    traces and read just after."""
+    from rtk_tpu_torch import compat
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.ops.morton import ray_coherence_key
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.trace.packed import pack_scene
+    from rtk_tpu_torch.utils import serialize
+    from rtk_tpu_torch.utils.stats import measure_trace
+
+    odd, even_ray, tri_t = (rt.jit_filter(f)
+                            for f in (ODD_TRI, EVEN_RAY, TRI_T))
+    n_tris = f6.shape[0]
+    mask = np.where(np.arange(n_tris) % 2 == 1, 1, 2).astype(np.uint32)
+    scene = rt.build_scene((v6, f6), device=dev)
+    tracer = rt.Tracer(scene, tri_mask=mask)
+    packed = tracer.packed
+    rays = scenes.camera_rays(**CAM, width=width, height=width,
+                              order="morton", device=dev, on_device=True)
+    n = rays.count
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    torch.cuda.synchronize()
+    pt.KERNEL_LAUNCHES = pt.FILTER_LAUNCHES = pt.STATS_LAUNCHES = 0
+    ev[0].record()
+    h_f = tracer.closest(rays, filter_fn=odd)
+    ev[1].record()
+    a_f = tracer.any(rays, filter_fn=odd)
+    ev[2].record()
+    h_r = tracer.closest(rays, filter_fn=even_ray)
+    ev[3].record()
+    _, counts = pt.trace_packets(packed, rays, stats=True)
+    ev[4].record()
+    ms_stats = measure_trace(tracer, rays, iters=1, with_steps=True)
+    torch.cuda.synchronize()
+    launches = {"kernel": pt.KERNEL_LAUNCHES, "filter": pt.FILTER_LAUNCHES,
+                "stats": pt.STATS_LAUNCHES}
+    check(launches["filter"] >= 3 and launches["stats"] >= 2,
+          f"phase 6 launches {launches}")
+    rec = {"rays": n, "launches": launches,
+           "filter_closest_ms": ev[0].elapsed_time(ev[1]),
+           "filter_any_ms": ev[1].elapsed_time(ev[2]),
+           "ray_filter_ms": ev[2].elapsed_time(ev[3]),
+           "stats_trace_ms": ev[3].elapsed_time(ev[4]),
+           "measure_trace": {"ms": ms_stats.seconds * 1e3,
+                             "mrays_s": ms_stats.mrays_per_s,
+                             "steps_per_block": ms_stats.steps_per_block}}
+
+    # The filter kernel against an independent answer: the mask filter.
+    h_m = tracer.closest(rays, filter_mask=1)
+    a_m = tracer.any(rays, filter_mask=1)
+    same_hits(h_f, h_m, "odd filter vs mask, closest")
+    same_hits(a_f, a_m, "odd filter vs mask, any", ("hit", "slot", "t"))
+    base = tracer.closest(rays)
+    even = torch.arange(n, device=dev) % 2 == 0
+    check(torch.equal(h_r.hit, base.hit & even),
+          "ray filter: hit != base & even ray")
+    rec.update(filter_hits=int(h_f.hit.sum()), any_hits=int(a_f.hit.sum()),
+               ray_filter_hits=int(h_r.hit.sum()),
+               base_hits=int(base.hit.sum()))
+    del h_m, a_m, a_f, h_r, even
+
+    # Per-ray counts of the 8192^2 trace (caller order).
+    check(bool((counts[0] == counts[1] + counts[2]).all()),
+          "stats: steps != internal + leaf pops")
+    rec["per_ray_mean"] = dict(zip(
+        ("steps", "internal_pops", "leaf_pops"),
+        counts.double().mean(dim=1).tolist()))
+
+    # Each variant alone against its plain version at 8192^2, on the
+    # coherence-sorted rays the front end hands the kernel.
+    order = torch.sort(ray_coherence_key(rays.origin, rays.direction),
+                       stable=True).indices
+    comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
+                       rays.max_t[None]])[:, order].contiguous()
+    ridx = order.to(torch.int32)
+    del order
+    kw = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size)
+    entries = {}
+    for name, extra, per_ray in (
+            ("packet_trace_filter", dict(filter_fn=odd, ray_index=ridx), 52),
+            ("packet_trace_stats", dict(stats=True), 60)):
+        k_out, k_ms = timed(lambda: pt.packet_trace_kernel(
+            packed.nodes, packed.tris, comps, **kw, **extra), reps=3)
+        p_out, p_ms = timed(lambda: pt.packet_trace_reference(
+            packed.nodes, packed.tris, comps, **kw, **extra), warm=False)
+        err = compare(*(SimpleNamespace(t=o[0], u=o[1], v=o[2], slot=o[3],
+                                        hit=o[3] >= 0)
+                        for o in (k_out, p_out)), f"{name} 8192^2")
+        if "stats" in extra:
+            check(torch.equal(k_out[4], p_out[4]), "stats 8192^2: counts")
+            run_counts = k_out[4]
+        else:  # the filter trace's own pops
+            run_counts = pt.packet_trace_kernel(
+                packed.nodes, packed.tris, comps, **kw, **extra,
+                stats=True)[4]
+        b_ms, b_by = bound(run_counts, packed, per_ray)
+        entries[name] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err,
+                         "bound_ms": b_ms, "bound_by": b_by}
+        del k_out, p_out, run_counts
+    del comps, ridx
+
+    # Both variants against their plain versions at 512^2 on LBVH leaf 4
+    # and SAH step-quant leaf 16 tables: t, u, v, slot and counts equal,
+    # and any-hit counts <= closest-hit counts per ray.
+    tables = {"lbvh4": pack_scene(scene, tri_mask=mask),
+              "sahq16": rt.build_sah_packed(
+                  (v6, f6), rt.BuildConfig(leaf_size=16), tri_mask=mask,
+                  step_quant=True, device=dev)}
+    p512 = {}
+    for topo, pk in tables.items():
+        cnt = {}
+        for mode in ("closest", "any"):
+            for fname, flt, kwx in (("odd", odd, {}), ("ray", even_ray, {}),
+                                    ("tri_t_defer", tri_t,
+                                     {"defer_uv": True})):
+                what = f"512/{topo}/{mode}/{fname}"
+                got, _ = timed(lambda: pt.trace_packets(
+                    pk, cam512, mode=mode, filter_fn=flt, stats=True, **kwx),
+                    warm=False)
+                want = pt.trace_packets_reference(
+                    pk, cam512, mode=mode, filter_fn=flt, stats=True, **kwx)
+                entries["packet_trace_filter"]["max_abs_err"] = max(
+                    entries["packet_trace_filter"]["max_abs_err"],
+                    compare(got[0], want[0], what))
+                check(torch.equal(got[1], want[1]), f"{what}: counts")
+                cnt[mode, fname] = got[1]
+                p512[what] = int(got[0].hit.sum())
+        for fname in ("odd", "ray", "tri_t_defer"):
+            check(bool((cnt["any", fname] <= cnt["closest", fname]).all()),
+                  f"512/{topo}/{fname}: any counts > closest counts")
+    rec["hits_512"] = p512
+
+    # The stack engine (unmarked callable, plain PyTorch on the card)
+    # against the filter kernel at 1024^2.
+    rays1k = scenes.camera_rays(**CAM, width=stack_width,
+                                height=stack_width, order="morton",
+                                device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = rt.trace_closest(scene, rays1k, filter_fn=TRI_T)
+    torch.cuda.synchronize()
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    hk = tracer.closest(rays1k, filter_fn=tri_t)
+    check(torch.equal(hs.hit, hk.hit), "stack vs filter kernel: hit")
+    d = ((hs.t - hk.t).abs() / hk.t.abs().clamp(min=1e-30))[hk.hit]
+    check(bool((d <= STACK_T_REL).all()), "stack vs filter kernel: t")
+    same = float((hs.triangle_index == hk.triangle_index)[hk.hit]
+                 .float().mean())
+    check(same >= STACK_SAME_TRI, f"stack vs filter kernel: same {same}")
+    rec.update(stack_ms=stack_ms, stack_hits=int(hs.hit.sum()),
+               stack_max_t_rel=float(d.max()) if d.numel() else 0.0,
+               stack_same_tri=same)
+    del hs, hk
+
+    # Save -> load on the card: tables bit-equal, traces equal.
+    plain_tracer = rt.Tracer(scene)
+    buf = io.BytesIO()
+    nbytes = rt.save_scene(scene, buf)
+    loaded = rt.load_scene(buf.getvalue(), device=dev)
+    for f in serialize._FIELDS:
+        check(bits_equal(getattr(loaded, f), getattr(scene, f)),
+              f"load_scene: {f}")
+    same_hits(rt.Tracer(loaded).closest(rays1k),
+              plain_tracer.closest(rays1k), "loaded scene trace")
+    sah = tables["sahq16"]
+    buf = io.BytesIO()
+    rt.save_packed_scene(sah, buf)
+    lsah = rt.load_any(buf.getvalue(), device=dev)
+    for f in serialize._PACKED_FIELDS:
+        check(bits_equal(getattr(lsah, f), getattr(sah, f)),
+              f"load_packed_scene: {f}")
+    check(lsah.depth == sah.depth, "load_packed_scene: depth")
+    same_hits(pt.trace_packets(lsah, rays1k), pt.trace_packets(sah, rays1k),
+              "loaded SAH trace")
+    rec.update(scene_blob_bytes=nbytes, sah_blob_bytes=len(buf.getvalue()))
+
+    # The rtk shim: a 4-thread task build, then 64 single rays.
+    t0 = time.perf_counter()
+    cscene = compat.rtk_build_scene(compat.RtkSceneDesc([(v6, f6)]),
+                                    device=dev, num_threads=4)
+    rec["compat_build_ms"] = (time.perf_counter() - t0) * 1e3
+    for f in serialize._FIELDS:
+        check(bits_equal(getattr(cscene, f), getattr(scene, f)),
+              f"rtk_build_scene: {f}")
+    sub = rays1k[::rays1k.count // 64]
+    check(sub.count == 64, "64 single rays")
+    want = plain_tracer.closest(sub)
+    want_f = plain_tracer.closest(sub, filter_fn=odd)
+    for i in range(sub.count):
+        ray = compat.RtkRay(tuple(sub.origin[i].tolist()),
+                            tuple(sub.direction[i].tolist()),
+                            float(sub.min_t[i]), float(sub.max_t[i]))
+        for (found, hit), w in (
+                (compat.rtk_trace_ray(cscene, ray), want),
+                (compat.rtk_trace_ray_filter(
+                    cscene, ray, lambda user, r, c: ODD_TRI(c)), want_f)):
+            check(found == bool(w.hit[i]), f"compat ray {i}: hit")
+            if found:
+                wt = float(w.t[i])
+                check(abs(hit.t - wt) <= STACK_T_REL * abs(wt),
+                      f"compat ray {i}: t {hit.t} vs {wt}")
+    rec["compat_rays"] = sub.count
+    rec["compat_hits"] = int(want.hit.sum())
+    rec["compat_filter_hits"] = int(want_f.hit.sum())
+    for name in entries:
+        entries[name]["launches"] = launches[name.split("_")[-1]]
+    return rec, entries
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -281,19 +566,31 @@ def main():
     card = smi("name,power.limit")
 
     # ---- phase 1: build and environment ----
+    # The kernel and one filter build per phase-6 predicate, one nvcc
+    # each, started together.
+    filters = {name: rt.jit_filter(f) for name, f in (
+        ("odd_tri", ODD_TRI), ("even_ray", EVEN_RAY), ("tri_t", TRI_T))}
     t0 = time.perf_counter()
-    packet_trace.load_kernel()
+    packet_trace.load_kernels(filters.values())
     build_s = time.perf_counter() - t0
     nvcc = subprocess.run([packet_trace._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
-    ptxas = [ln.split("ptxas info    : ")[-1] for ln in
-             packet_trace.BUILD_LOG.splitlines() if "registers" in ln
-             or "spill" in ln]
+
+    def ptxas(key):
+        return [ln.split("ptxas info    : ")[-1] for ln in
+                packet_trace.BUILD_LOGS[key].splitlines()
+                if "registers" in ln or "spill" in ln]
+
+    builds = {"plain_build": {"s": packet_trace.BUILD_SECONDS[None],
+                              "ptxas": ptxas(None)}}
+    for name, flt in filters.items():
+        builds[name] = {"s": packet_trace.BUILD_SECONDS[flt.key],
+                        "ptxas": ptxas(flt.key)}
     print("phase 1 build:", json.dumps({
         "nvcc": [ln for ln in nvcc.splitlines() if "release" in ln][0],
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "card": card, "kernel_build_s": round(build_s, 3),
-        "ptxas": ptxas}), flush=True)
+        "card": card, "all_builds_s": round(build_s, 3),
+        "builds": builds}), flush=True)
 
     # ---- phase 2: kernel vs plain version at test shapes ----
     v6, f6 = scenes.blob(6)[1:]
@@ -328,8 +625,12 @@ def main():
                     lambda: trace_packets_reference(packed, rays, **kw),
                     warm=False)
                 max_err = max(max_err, compare(got, want, what))
+                # The bound of this trace, from its own per-ray pops.
+                b_ms, b_by = bound(trace_packets(packed, rays, **kw,
+                                                 stats=True)[1], packed)
                 p2[what] = {"ms": round(k_ms, 4), "plain_ms": round(p_ms, 2),
-                            "hits": int(got.hit.sum())}
+                            "hits": int(got.hit.sum()), "bound_ms": b_ms,
+                            "bound_by": b_by}
     print("phase 2 kernel==plain:", json.dumps(
         {"max_abs_err": max_err, "traces": p2}), flush=True)
 
@@ -385,6 +686,8 @@ def main():
                                          hit=o[3] >= 0)
                          for o in (k_out, p_out)), "main path kernel/plain")
     max_err = max(max_err, main_err)
+    main_bound = bound(packet_trace.packet_trace_kernel(
+        packed.nodes, packed.tris, comps, **kw, stats=True)[4], packed)
     print("phase 3 main path:", json.dumps({
         "rays": n, "hits": n_hit, "expect": HEADLINE_EXPECT_HITS,
         "build_ms": round(build_ms, 1), "packed_depth": packed.depth,
@@ -393,6 +696,7 @@ def main():
         "closest_mrays_s": round(n / steady_ms / 1e3, 2),
         "kernel_ms": round(kernel_ms, 2), "plain_ms": round(plain_ms, 1),
         "kernel_launches": launches, "max_abs_err": main_err,
+        "bound_ms": main_bound[0], "bound_by": main_bound[1],
         "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
         "card": card}), flush=True)
     del hits, occ, comps, k_out, p_out, rays
@@ -423,7 +727,7 @@ def main():
           f"t bad {t_bad}, prim same {same_frac:.4f}, uv bad {uv_bad})",
           flush=True)
     check(ok, "record parity failed")
-    del sah, hl, cam512
+    del sah, hl
 
     # ---- phase 5: the instanced path at BASELINE config 5 ----
     p5 = phase5(rt, dev)
@@ -432,18 +736,33 @@ def main():
     print("phase 5 instanced:", json.dumps({**p5, "card": card}),
           flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "packet_trace", "route": "cuda",
-        "source": "rtk_tpu_torch/csrc/packet_trace.cu",
-        "replaces": "rtk_tpu/ops/pallas_trace.py:146",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}, {
-        "name": "packet_trace_roots", "route": "cuda",
-        "source": "rtk_tpu_torch/csrc/packet_trace.cu",
-        "replaces": "rtk_tpu/ops/pallas_trace.py:347",
-        "launches": p5["launches"]["roots"],
-        "max_abs_err": p5["max_abs_err"], "ms": p5["kernel_ms"],
-        "plain_ms": p5["plain_ms"]}]}))
+    # ---- phase 6: filtered queries and per-ray statistics ----
+    p6, p6_kernels = phase6(rt, dev, v6, f6, cam512)
+    print("phase 6 filter/stats:", json.dumps({**p6, "card": card}),
+          flush=True)
+
+    src = "rtk_tpu_torch/csrc/packet_trace.cu"
+    kernels = [
+        {"name": "packet_trace", "replaces": "rtk_tpu/ops/pallas_trace.py:146",
+         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+         "plain_ms": plain_ms, "bound_ms": main_bound[0],
+         "bound_by": main_bound[1]},
+        {"name": "packet_trace_roots",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:347",
+         "launches": p5["launches"]["roots"],
+         "max_abs_err": p5["max_abs_err"], "ms": p5["kernel_ms"],
+         "plain_ms": p5["plain_ms"], "bound_ms": p5["bound_ms"],
+         "bound_by": p5["bound_by"]},
+        {"name": "packet_trace_filter",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:1003",
+         **p6_kernels["packet_trace_filter"]},
+        {"name": "packet_trace_stats",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:514",
+         **p6_kernels["packet_trace_stats"]}]
+    # No PyTorch call traverses a BVH: library_ms is null for every entry.
+    print(json.dumps({"kernels": [
+        {"route": "cuda", "source": src, "library_ms": None, **k}
+        for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,15 @@ kernel written in CUDA for Hopper (H100).
 
 The same API and hit-record contract as rtk_tpu: build a scene (LBVH on
 the device, or a host SAH topology), trace closest-hit and any-hit ray
-batches, and trace instanced (TLAS/BLAS) scenes.  Imports torch and
-numpy; never jax.
+batches (with filter callables), trace instanced (TLAS/BLAS) scenes, save
+and load scenes in rtk_tpu's blob format, and drive it through rtk's task
+lifecycle and C entry points (tasks, compat).  Imports torch and numpy;
+never jax.
 """
 
 from rtk_tpu_torch.api import (
     BuildConfig,
+    HitCandidate,
     Hits,
     MeshDesc,
     PacketHits,
@@ -21,7 +24,17 @@ from rtk_tpu_torch.api import (
     build_instanced,
     build_sah_packed,
     build_scene,
+    jit_filter,
+    load_any,
+    load_instanced_scene,
+    load_packed_scene,
+    load_scene,
     pack_instanced,
+    save_instanced_scene,
+    save_packed_scene,
+    save_scene,
+    trace_any,
+    trace_closest,
     trace_closest_instanced,
     trace_closest_instanced_packets,
 )

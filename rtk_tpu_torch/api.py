@@ -1,10 +1,19 @@
 """Public API: build scenes and trace ray batches (PyTorch / CUDA).
 
-Mirrors rtk_tpu.api:
-    rtk_build_scene -> build_scene(meshes, device=...) -> Scene
-    rtk_trace_ray   -> Tracer(scene).closest(rays) / .any(rays)
-    instancing      -> build_instanced -> pack_instanced ->
-                       trace_closest_instanced_packets
+Mirrors rtk_tpu.api (rtk.h:119-130 in batched form):
+    rtk_build_scene      -> build_scene(meshes, device=...) -> Scene
+    rtk_trace_ray        -> Tracer(scene).closest(rays) / .any(rays), or
+                            trace_closest / trace_any (stack engine)
+    rtk_trace_ray_filter -> the same with filter_fn= (jit_filter marks a
+                            predicate for the kernel's filter variant)
+    the rtk blob         -> save_scene / load_scene and the packed and
+                            instanced forms, load_any
+    instancing           -> build_instanced -> pack_instanced ->
+                            trace_closest_instanced_packets
+The task lifecycle (rtk_start_build ... rtk_finish_build_to) is
+rtk_tpu_torch.tasks, and the ten rtk entry points rtk_tpu_torch.compat.
+Builders and loaders put the scene on the card unless `device` says
+otherwise.
 """
 from __future__ import annotations
 
@@ -15,12 +24,17 @@ from rtk_tpu_torch.instancing import (build_instanced, pack_instanced,
                                       trace_closest_instanced_packets)
 from rtk_tpu_torch.mesh import MeshDesc, TriangleSoup, build_soup
 from rtk_tpu_torch.scene import Scene, build_from_soup
-from rtk_tpu_torch.tracer import Tracer
-from rtk_tpu_torch.types import Hits, PacketHits, Rays
+from rtk_tpu_torch.trace.stack import trace_any, trace_closest
+from rtk_tpu_torch.tracer import Tracer, jit_filter
+from rtk_tpu_torch.types import HitCandidate, Hits, PacketHits, Rays
+from rtk_tpu_torch.utils.serialize import (load_any, load_instanced_scene,
+                                           load_packed_scene, load_scene,
+                                           save_instanced_scene,
+                                           save_packed_scene, save_scene)
 
 
 def build_scene(meshes, config: BuildConfig = BuildConfig(),
-                device="cpu") -> Scene:
+                device="cuda") -> Scene:
     """Build a Scene from one or more meshes on `device`.
 
     Accepts a MeshDesc, a (positions, indices) tuple, a TriangleSoup, or a
@@ -34,7 +48,10 @@ def build_scene(meshes, config: BuildConfig = BuildConfig(),
 
 __all__ = [
     "BuildConfig", "TraceConfig", "MeshDesc", "TriangleSoup", "Rays", "Hits",
-    "PacketHits", "Scene", "Tracer", "build_scene", "build_sah_packed",
-    "build_from_soup", "build_instanced", "pack_instanced",
+    "PacketHits", "HitCandidate", "Scene", "Tracer", "jit_filter",
+    "build_scene", "build_sah_packed", "build_from_soup", "trace_closest",
+    "trace_any", "save_scene", "load_scene", "save_packed_scene",
+    "load_packed_scene", "save_instanced_scene", "load_instanced_scene",
+    "load_any", "build_instanced", "pack_instanced",
     "trace_closest_instanced", "trace_closest_instanced_packets",
 ]

@@ -18,7 +18,7 @@ from rtk_tpu_torch.utils.native_sah import NativeOracle
 
 def build_sah_packed(meshes, config: BuildConfig = BuildConfig(),
                      tri_mask=None, step_quant: bool = False,
-                     device="cpu") -> PackedScene:
+                     device="cuda") -> PackedScene:
     """Build a PackedScene with host-native binned-SAH topology on `device`.
 
     Accepts the same mesh inputs as build_scene (MeshDesc, (positions,
@@ -39,7 +39,7 @@ def build_sah_packed(meshes, config: BuildConfig = BuildConfig(),
 
 
 def build_sah_forest(blas_tri_pos, config: BuildConfig = BuildConfig(),
-                     step_quant: bool = True, device="cpu"):
+                     step_quant: bool = True, device="cuda"):
     """Host-SAH trees for a BLAS forest, packed as ONE multi-root table.
 
     blas_tri_pos: sequence of (T_b, 3, 3) soups, one per unique BLAS.

@@ -27,9 +27,28 @@
 // which watertightness rests on, and every value equals the plain PyTorch
 // version in rtk_tpu_torch/ops/packet_trace.py bit for bit.  Exact-zero
 // edge functions are recomputed in f64 and rounded to f32 (rtk.c:294-336).
+//
+// Two product variants of the TPU kernel ride the same source:
+//   * stats (pallas_trace.py:514-530): a nullable (3, n) int32 `counts`
+//     output, per ray: entries popped, internal pops, leaf pops.  The
+//     counters live in registers; null skips the final store.
+//   * filter_fn (pallas_trace.py:1003-1018, :1146-1156): built with
+//     -DRTK_FILTER and a generated header (ops/filter_capture.py) that
+//     defines rtk_filter_pred, the caller's predicate captured from Python
+//     and emitted as C++.  Each distinct predicate is its own build, as
+//     each is its own kernel on the TPU.  The predicate sees (t, u, v,
+//     mesh, triangle, caller ray index) of a candidate that passed the
+//     geometric test and is ANDed into the accept test; u and v are
+//     computed for it even under defer_uv.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef RTK_FILTER
+#ifndef RTK_FILTER_DEFINED
+#error "RTK_FILTER builds force-include a generated rtk_filter_pred header"
+#endif
+#endif
 
 #define RTK_W 8
 #define RTK_MAX_STACK 256  // entries; the wrapper refuses deeper trees
@@ -65,17 +84,24 @@ __device__ __forceinline__ float edge_f64(float ax, float ay, float bx,
 // roots: null (every ray starts at row 0) or (n,) per-ray entry rows of a
 // multi-root table (pallas_trace.py:347-360 takes one per 128-ray packet;
 // a thread per ray makes the per-ray root the natural form).
+// ray_index: read by filter builds only; null (the caller's index is i) or
+// (n,) caller indices of coherence-sorted rays (pallas_trace.py:1475-1481).
+// counts: null or (3, n) per-ray steps, internal pops, leaf pops.
 __global__ void __launch_bounds__(RTK_BLOCK)
 packet_trace_kernel(const int4* __restrict__ nodes,
                     const float4* __restrict__ tris,
                     const float* __restrict__ rays,
-                    const int* __restrict__ roots, int n, int leaf_size,
+                    const int* __restrict__ roots,
+                    const int* __restrict__ ray_index, int n, int leaf_size,
                     int mode_any, int watertight, int use_mask, int qmask,
                     int defer_uv, float* __restrict__ out_t,
                     float* __restrict__ out_u, float* __restrict__ out_v,
-                    int* __restrict__ out_slot) {
+                    int* __restrict__ out_slot, int* __restrict__ counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+#ifdef RTK_FILTER
+  const int rid = ray_index ? __ldg(ray_index + i) : i;
+#endif
   const size_t sn = (size_t)n;
   const float ox = rays[i], oy = rays[sn + i], oz = rays[2 * sn + i];
   const float dx = rays[3 * sn + i], dy = rays[4 * sn + i],
@@ -84,6 +110,7 @@ packet_trace_kernel(const int4* __restrict__ nodes,
 
   float best_t = maxt, best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1;
+  int n_int = 0, n_leaf = 0;  // internal and leaf pops (stats)
 
   // Dead rays (max_t <= min_t) do no traversal (pallas_trace.py:385).
   if (!(maxt <= mint)) {
@@ -110,6 +137,7 @@ packet_trace_kernel(const int4* __restrict__ nodes,
     while (sp > 0) {
       const int e = stack[--sp];
       if (e >= 0) {
+        ++n_int;
         // Internal node: 8 child rows of 8 int32, 2 int4 per row.  Row 0
         // carries (first_child, first_leaf) in cols 6-7, row 1 the masks.
         const int4* row = nodes + (size_t)e * (2 * RTK_W);
@@ -156,6 +184,7 @@ packet_trace_kernel(const int4* __restrict__ nodes,
       } else {
         // Leaf l: triangle rows [l*K, (l+1)*K), 16 floats each:
         // [v0 v1 v2 | mask mesh prim | pad].
+        ++n_leaf;
         const int base = (-e - 2) * leaf_size;
         for (int k = 0; k < leaf_size; ++k) {
           const float4* tr = tris + (size_t)(base + k) * 4;
@@ -189,7 +218,13 @@ packet_trace_kernel(const int4* __restrict__ nodes,
           const float rcp_det = 1.0f / (u + v + w);
           const float t = (u * zs[0] + v * zs[1] + w * zs[2]) * rcp_det;
           // Accept inside (min_t, best): the first hit found wins a tie.
-          if (!(lo < 0.0f && hi > 0.0f) && t > mint && t < best_t) {
+          bool accept = !(lo < 0.0f && hi > 0.0f) && t > mint && t < best_t;
+#ifdef RTK_FILTER
+          // Mesh and triangle ids are exact float columns (< 2^24).
+          accept = accept && rtk_filter_pred(t, u * rcp_det, v * rcp_det,
+                                             (int)q2.z, (int)q2.w, rid);
+#endif
+          if (accept) {
             best_t = t;
             best_slot = base + k;
             if (!defer_uv) {
@@ -206,6 +241,11 @@ packet_trace_kernel(const int4* __restrict__ nodes,
   out_u[i] = best_u;
   out_v[i] = best_v;
   out_slot[i] = best_slot;
+  if (counts) {
+    counts[i] = n_int + n_leaf;
+    counts[sn + i] = n_int;
+    counts[2 * sn + i] = n_leaf;
+  }
 }
 
 }  // namespace
@@ -216,20 +256,22 @@ int rtk_packet_trace_max_stack() { return RTK_MAX_STACK; }
 
 // rays: (8, n) f32 [ox oy oz dx dy dz min_t max_t]; nodes (Nd*8, 8) i32
 // and tris (Tp, 16) f32, both 16-byte aligned; roots: null or (n,) i32
-// rows in [0, Nd).  Launches on `stream` and returns cudaGetLastError()
-// (0 on success); does not synchronise.
+// rows in [0, Nd); ray_index: null or (n,) i32 caller indices (filter
+// builds); counts: null or (3, n) i32.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success); does not synchronise.
 int rtk_packet_trace(const void* nodes, const void* tris, const void* rays,
-                     const void* roots, int n, int leaf_size, int mode_any,
-                     int watertight, int use_mask, int qmask, int defer_uv,
-                     void* out_t, void* out_u, void* out_v, void* out_slot,
+                     const void* roots, const void* ray_index, int n,
+                     int leaf_size, int mode_any, int watertight,
+                     int use_mask, int qmask, int defer_uv, void* out_t,
+                     void* out_u, void* out_v, void* out_slot, void* counts,
                      void* stream) {
   if (n > 0) {
     const int grid = (n + RTK_BLOCK - 1) / RTK_BLOCK;
     packet_trace_kernel<<<grid, RTK_BLOCK, 0, (cudaStream_t)stream>>>(
         (const int4*)nodes, (const float4*)tris, (const float*)rays,
-        (const int*)roots, n, leaf_size, mode_any, watertight, use_mask,
-        qmask, defer_uv,
-        (float*)out_t, (float*)out_u, (float*)out_v, (int*)out_slot);
+        (const int*)roots, (const int*)ray_index, n, leaf_size, mode_any,
+        watertight, use_mask, qmask, defer_uv, (float*)out_t, (float*)out_u,
+        (float*)out_v, (int*)out_slot, (int*)counts);
   }
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,12 @@ row per ray: `ray_roots`, or the reference's `packet_roots`, one per
 128-ray packet.  The kernel reads each ray's root where the single-root
 trace starts at row 0.
 
+`filter_fn` takes a predicate captured by ops/filter_capture.jit_filter:
+the kernel's filter variant is a separate nvcc build per predicate, and
+the plain version calls the predicate on torch tensors.  `stats=True`
+returns per-ray counts of popped entries, internal pops and leaf pops
+beside the hits (the kernel's nullable `counts` output).
+
 The TPU kernel's scheduling flags (dual, ordered, islab, narrow,
 leaf_loop, kz_static, tris128, hbm_tris, lesion, p_pk, pkt) pick how the
 TPU steps its packets through the same function.  trace_packets accepts
@@ -25,17 +31,22 @@ packet geometry that packet_roots is laid out in.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import os
 import shutil
+import threading
+import time
 
 import torch
 
+from rtk_tpu_torch.ops.filter_capture import JitFilter
 from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
 from rtk_tpu_torch.ops.morton import ray_coherence_key
-from rtk_tpu_torch.trace.packed import MASK_COL, PackedScene
-from rtk_tpu_torch.types import PacketHits, Rays
-from rtk_tpu_torch.utils.build import PKG_ROOT, build_shared
+from rtk_tpu_torch.trace.packed import (MASK_COL, MESH_COL, PRIM_COL,
+                                        PackedScene)
+from rtk_tpu_torch.types import HitCandidate, PacketHits, Rays
+from rtk_tpu_torch.utils.build import BUILD_DIR, PKG_ROOT, build_shared
 
 W = 8
 _BIG = 3.0e38
@@ -43,20 +54,31 @@ SORT_RAYS_MIN = 16384  # coherence-sort batches at least this large
 REF_CHUNK = 1 << 22  # rays per plain-version pass (bounds its stack tensor)
 PKT = 128  # rays per packet of the reference's packet_roots layout
 DEFAULT_P = 8  # packets per block of that layout
+FILTER_MAX_TRIS = 1 << 24  # triangle ids ride f32 columns, exact below 2^24
 
-# Launches of the CUDA kernel in this process, and of its roots variant
-# (launches with per-ray roots, counted in both).  A run resets them and
-# reads them back to show that its main path went through the kernel.
+# Launches of the CUDA kernel in this process, and of its variants
+# (launches with per-ray roots, a filter predicate or per-ray counts, each
+# also counted in KERNEL_LAUNCHES).  A run resets them and reads them back
+# to show that its main path went through the kernel.
 KERNEL_LAUNCHES = 0
 ROOTS_LAUNCHES = 0
+FILTER_LAUNCHES = 0
+STATS_LAUNCHES = 0
 
-KERNEL_SRC = PKG_ROOT / "csrc" / "packet_trace.cu"
+CSRC = PKG_ROOT / "csrc"
+KERNEL_SRC = CSRC / "packet_trace.cu"
+FILTER_OPS = CSRC / "filter_ops.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_lib = None
-BUILD_LOG = ""  # compiler output of this process's kernel build (ptxas -v)
+# Loaded kernel libraries by filter key (None: the build without a
+# filter), the compiler output (ptxas -v) and seconds of each build made
+# by this process.
+_libs: dict = {}
+_libs_lock = threading.Lock()
+BUILD_LOGS: dict = {}
+BUILD_SECONDS: dict = {}
 
 
 def _nvcc() -> str:
@@ -67,22 +89,58 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def load_kernel():
-    """Build (at first use, keyed on the source hash) and load the kernel
-    library.  Raises if nvcc is missing or the build fails."""
-    global _lib, BUILD_LOG
-    if _lib is None:
-        so, BUILD_LOG = build_shared("packet_trace", [KERNEL_SRC],
-                                     [_nvcc(), *NVCC_FLAGS])
-        lib = ctypes.CDLL(str(so))
-        lib.rtk_packet_trace.restype = ctypes.c_int
-        lib.rtk_packet_trace.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-            + [ctypes.c_void_p] * 5)
-        lib.rtk_packet_trace_max_stack.restype = ctypes.c_int
-        lib.rtk_packet_trace_max_stack.argtypes = []
-        _lib = lib
-    return _lib
+def _build(flt: JitFilter | None):
+    """Build one kernel library (at first use, keyed on the hash of its
+    sources) -> (ctypes library, compiler output, seconds)."""
+    t0 = time.perf_counter()
+    if flt is None:
+        so, log = build_shared("packet_trace", [KERNEL_SRC],
+                               [_nvcc(), *NVCC_FLAGS])
+    else:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        header = BUILD_DIR / f"filter-{flt.key}.h"
+        if not header.exists() or header.read_text() != flt.source:
+            tmp = header.with_name(
+                f"{header.name}.tmp{os.getpid()}-{threading.get_ident()}")
+            tmp.write_text(flt.source)
+            os.replace(tmp, header)
+        so, log = build_shared(
+            "packet_trace_filter", [KERNEL_SRC],
+            [_nvcc(), *NVCC_FLAGS, "-DRTK_FILTER", f"-I{CSRC}",
+             "-include", str(header)], deps=[FILTER_OPS, header])
+    lib = ctypes.CDLL(str(so))
+    lib.rtk_packet_trace.restype = ctypes.c_int
+    lib.rtk_packet_trace.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p] * 6)
+    lib.rtk_packet_trace_max_stack.restype = ctypes.c_int
+    lib.rtk_packet_trace_max_stack.argtypes = []
+    return lib, log, time.perf_counter() - t0
+
+
+def load_kernel(filter_fn: JitFilter | None = None):
+    """Build (at first use, keyed on the source hash and, for a filter
+    build, the predicate's) and load the kernel library.  Raises if nvcc
+    is missing or the build fails."""
+    key = None if filter_fn is None else filter_fn.key
+    with _libs_lock:
+        if key in _libs:
+            return _libs[key]
+    lib, log, sec = _build(filter_fn)
+    with _libs_lock:
+        _libs.setdefault(key, lib)
+        BUILD_LOGS.setdefault(key, log)
+        BUILD_SECONDS.setdefault(key, sec)
+        return _libs[key]
+
+
+def load_kernels(filters=()):
+    """Build the kernel and the filter build of each of `filters` at once,
+    one nvcc process each, started together."""
+    todo = [None, *filters]
+    with concurrent.futures.ThreadPoolExecutor(len(todo)) as ex:
+        for fut in [ex.submit(load_kernel, f) for f in todo]:
+            fut.result()
 
 
 def _check_tables(nodes, tris, rays8):
@@ -114,25 +172,54 @@ def _check_roots(roots, nodes, rays8):
     return roots.contiguous()
 
 
+def _require_captured(filter_fn):
+    if filter_fn is not None and not isinstance(filter_fn, JitFilter):
+        raise TypeError(
+            "the kernel takes a filter captured by jit_filter; run other "
+            "callables on the stack engine (trace_closest/trace_any, or "
+            "Tracer.closest/any with the callable unmarked)")
+
+
+def _check_filter(filter_fn, ray_index, rays8):
+    _require_captured(filter_fn)
+    if ray_index is None:
+        return None
+    if filter_fn is None:
+        raise ValueError("ray_index is read by filter traces only")
+    n = rays8.shape[1]
+    if (ray_index.dtype != torch.int32 or tuple(ray_index.shape) != (n,)
+            or ray_index.device != rays8.device):
+        raise ValueError(f"ray_index must be an ({n},) int32 tensor on the "
+                         "rays' device")
+    return ray_index.contiguous()
+
+
 def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
                         stack_size: int, mode: str = "closest",
                         watertight: bool = True, qmask: int | None = None,
-                        defer_uv: bool = False, roots=None):
-    """Launch the CUDA kernel on the current stream -> (t, u, v, slot).
+                        defer_uv: bool = False, roots=None, filter_fn=None,
+                        ray_index=None, stats: bool = False):
+    """Launch the CUDA kernel on the current stream -> (t, u, v, slot),
+    and the (3, N) int32 counts as a fifth output with stats=True.
 
     rays8: (8, N) f32 rows [ox oy oz dx dy dz min_t max_t] on a CUDA
     device.  stack_size: entries the deepest tree can need (PackedScene
     .stack_size); raises before launch if the compiled stack is smaller.
     roots: None (every ray starts at row 0) or (N,) int32 root rows.
+    filter_fn: None or a jit_filter predicate (its own kernel build);
+    ray_index: None (the caller's index is the column) or (N,) int32
+    caller indices the predicate sees.  stats: per-ray counts of popped
+    entries, internal pops and leaf pops.
     """
-    global KERNEL_LAUNCHES, ROOTS_LAUNCHES
+    global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
     _check_tables(nodes, tris, rays8)
     if not rays8.is_cuda:
         raise ValueError("packet_trace_kernel takes CUDA tensors")
     nodes, tris, rays8 = (a.contiguous() for a in (nodes, tris, rays8))
     if any(a.data_ptr() % 16 for a in (nodes, tris)):
         raise ValueError("kernel tables must be 16-byte aligned")
-    lib = load_kernel()
+    ray_index = _check_filter(filter_fn, ray_index, rays8)
+    lib = load_kernel(filter_fn)
     cap = lib.rtk_packet_trace_max_stack()
     if stack_size > cap:
         raise ValueError(f"tree needs a {stack_size}-entry traversal stack; "
@@ -146,21 +233,28 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    counts = (torch.empty((3, n), dtype=torch.int32, device=dev) if stats
+              else None)
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtk_packet_trace(
-            nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(),
-            None if roots is None else roots.data_ptr(), n, leaf_size,
-            int(mode == "any"), int(watertight),
-            int(qmask is not None), int(qmask or 0), int(defer_uv),
-            t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
-            stream)
+            nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), ptr(roots),
+            ptr(ray_index), n, leaf_size, int(mode == "any"),
+            int(watertight), int(qmask is not None), int(qmask or 0),
+            int(defer_uv), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+            slot.data_ptr(), ptr(counts), stream)
     if err != 0:
         raise RuntimeError(f"packet_trace kernel launch failed: CUDA error "
                            f"{err}")
     KERNEL_LAUNCHES += 1
     ROOTS_LAUNCHES += roots is not None
-    return t, u, v, slot
+    FILTER_LAUNCHES += filter_fn is not None
+    STATS_LAUNCHES += stats
+    return (t, u, v, slot, counts) if stats else (t, u, v, slot)
 
 
 def _crcp(d):
@@ -175,12 +269,17 @@ def _popc8(v):
     return (v + (v >> 4)) & 0x0F
 
 
-def _trace_chunk(nodes3, tris, rays8, roots, *, leaf_size, stack_size, mode,
-                 watertight, qmask, defer_uv):
-    """Per-ray depth-first traversal, every ray popping one entry a step."""
+def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
+                 stack_size, mode, watertight, qmask, defer_uv, filter_fn,
+                 stats):
+    """Per-ray depth-first traversal, every ray popping one entry a step.
+    ray_index: the caller's index of each column (for filter_fn)."""
     dev = rays8.device
     ox, oy, oz, dx, dy, dz, mint, maxt = rays8
     m = rays8.shape[1]
+    # Pops per ray, counted where the kernel counts them.
+    n_int = torch.zeros((m,), dtype=torch.int32, device=dev)
+    n_leaf = torch.zeros((m,), dtype=torch.int32, device=dev)
     origin = torch.stack([ox, oy, oz], dim=1)
     direction = torch.stack([dx, dy, dz], dim=1)
     rcp = _crcp(direction)
@@ -203,6 +302,9 @@ def _trace_chunk(nodes3, tris, rays8, roots, *, leaf_size, stack_size, mode,
         sp[act] -= 1
         e = stack[act, sp[act]]
         inner = e >= 0
+        if stats:
+            n_int[act] += inner.to(torch.int32)
+            n_leaf[act] += (~inner).to(torch.int32)
 
         ia, ie = act[inner], e[inner].long()
         if ia.numel():
@@ -251,6 +353,14 @@ def _trace_chunk(nodes3, tris, rays8, roots, *, leaf_size, stack_size, mode,
                 mint[la], best_t[la], watertight=watertight)
             if qmask is not None:
                 ok &= (trow[..., MASK_COL].to(torch.int32) & qmask) != 0
+            if filter_fn is not None:
+                # The caller's predicate on (rays, K) candidates, with u
+                # and v even under defer_uv (pallas_trace.py:1003-1018).
+                ok &= filter_fn(HitCandidate(
+                    t=t, u=u, v=v,
+                    mesh_index=trow[..., MESH_COL].to(torch.int32),
+                    triangle_index=trow[..., PRIM_COL].to(torch.int32),
+                    ray_index=ray_index[la, None].expand(-1, leaf_size)))
             # The nearest accepted triangle, first on ties: the kernel's
             # sequential t < best update over the leaf's rows.
             tk, kk = torch.where(ok, t, float("inf")).min(dim=1)
@@ -263,29 +373,44 @@ def _trace_chunk(nodes3, tris, rays8, roots, *, leaf_size, stack_size, mode,
                 best_v[lu] = v[upd, ku]
             if mode == "any":
                 sp[la[best_s[la] >= 0]] = 0
-    return best_t, best_u, best_v, best_s
+    out = (best_t, best_u, best_v, best_s)
+    if stats:
+        out += (torch.stack([n_int + n_leaf, n_int, n_leaf]),)
+    return out
 
 
 def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
                            stack_size: int, mode: str = "closest",
                            watertight: bool = True,
                            qmask: int | None = None, defer_uv: bool = False,
-                           roots=None):
-    """The kernel's plain PyTorch version on any device -> (t, u, v, slot).
+                           roots=None, filter_fn=None, ray_index=None,
+                           stats: bool = False):
+    """The kernel's plain PyTorch version on any device -> (t, u, v, slot)
+    and, with stats=True, the (3, N) counts.
 
-    Same tables, child order and arithmetic as csrc/packet_trace.cu.  Rays
-    run REF_CHUNK at a time to bound the (rays, stack_size) stack tensor.
+    Same tables, child order and arithmetic as csrc/packet_trace.cu; a
+    filter_fn is called on torch tensors.  Rays run REF_CHUNK at a time to
+    bound the (rays, stack_size) stack tensor.
     """
     _check_tables(nodes, tris, rays8)
     roots = _check_roots(roots, nodes, rays8)
+    ray_index = _check_filter(filter_fn, ray_index, rays8)
+    if filter_fn is not None and ray_index is None:
+        ray_index = torch.arange(rays8.shape[1], dtype=torch.int32,
+                                 device=rays8.device)
     nodes3 = nodes.reshape(-1, W, 8)
+
+    def part(a, s):
+        return None if a is None else a[s:s + REF_CHUNK]
+
     outs = [_trace_chunk(nodes3, tris, rays8[:, s:s + REF_CHUNK],
-                         None if roots is None else roots[s:s + REF_CHUNK],
+                         part(roots, s), part(ray_index, s),
                          leaf_size=leaf_size, stack_size=stack_size,
                          mode=mode, watertight=watertight, qmask=qmask,
-                         defer_uv=defer_uv)
+                         defer_uv=defer_uv, filter_fn=filter_fn,
+                         stats=stats)
             for s in range(0, max(rays8.shape[1], 1), REF_CHUNK)]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+    return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
 
 
 def packet_trace(nodes, tris, rays8, **kw):
@@ -330,7 +455,8 @@ def _ray_roots(packed: PackedScene, n: int, packet_roots, ray_roots, pkt,
 
 
 def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
-           sort_rays, filter_mask, defer_uv, roots) -> PacketHits:
+           sort_rays, filter_mask, defer_uv, roots, filter_fn=None,
+           stats=False):
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
     if packed.branching != W:
@@ -338,6 +464,14 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
             "only 8-wide packed tables are ported (W=16 tables: ROADMAP K3)")
     if rays.device != packed.device:
         raise ValueError(f"rays on {rays.device}, scene on {packed.device}")
+    if filter_fn is not None:
+        # The predicate reads triangle identity from exact f32 columns
+        # (pallas_trace.py:1719-1722).
+        _require_captured(filter_fn)
+        if packed.num_tris >= FILTER_MAX_TRIS:
+            raise ValueError(
+                "packet-kernel filter callables need triangle ids exact "
+                "in f32 (< 2^24 triangles); use the stack engine")
     n = rays.count
     comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
                        rays.max_t[None]]).to(torch.float32)
@@ -346,46 +480,51 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
     if sort_rays and roots is not None:
         raise ValueError("sort_rays cannot reorder rays that carry per-"
                          "packet or per-ray roots; pass sort_rays=False")
-    idx = None
+    idx = ray_index = None
     if sort_rays:
         idx = torch.sort(ray_coherence_key(rays.origin, rays.direction),
                          stable=True).indices
         comps = comps[:, idx]
+        if filter_fn is not None:
+            # The caller's ray index survives the sort (:1475-1481).
+            ray_index = idx.to(torch.int32)
     qmask = None if filter_mask is None else int(filter_mask) & 0xFFFFFF
-    t, u, v, slot = run(packed.nodes, packed.tris, comps.contiguous(),
-                        leaf_size=packed.leaf_size,
-                        stack_size=packed.stack_size, mode=mode,
-                        watertight=watertight, qmask=qmask,
-                        defer_uv=defer_uv, roots=roots)
+    out = run(packed.nodes, packed.tris, comps.contiguous(),
+              leaf_size=packed.leaf_size, stack_size=packed.stack_size,
+              mode=mode, watertight=watertight, qmask=qmask,
+              defer_uv=defer_uv, roots=roots, filter_fn=filter_fn,
+              ray_index=ray_index, stats=stats)
     if idx is not None:
         # Back to the caller's order: one scatter per output.
         def unsort(a):
-            out = torch.empty_like(a)
-            out[idx] = a
-            return out
+            out_ = torch.empty_like(a)
+            out_[..., idx] = a
+            return out_
 
-        t, u, v, slot = map(unsort, (t, u, v, slot))
+        out = tuple(map(unsort, out))
+    t, u, v, slot = out[:4]
     hit = slot >= 0
     zero = torch.zeros((), device=t.device)
-    return PacketHits(
+    hits = PacketHits(
         hit=hit, t=t, u_k=torch.where(hit, u, zero),
         v_k=torch.where(hit, v, zero), slot=slot, origin=rays.origin,
         direction=rays.direction, tri_v=packed.tri_v,
         tri_vidx=packed.tri_vidx, tri_mesh=packed.tri_mesh,
         tri_prim=packed.tri_prim, uv_deferred=defer_uv)
+    return (hits, out[4]) if stats else hits
 
 
 def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
                   watertight: bool = True, sort_rays: bool | None = None,
                   filter_mask: int | None = None, defer_uv: bool = False,
-                  packet_roots=None, ray_roots=None,
+                  packet_roots=None, ray_roots=None, stats: bool = False,
                   filter_fn=None, interpret: bool | None = None,
                   dual: bool | None = None, ordered: bool | None = None,
                   islab: bool | None = None, narrow: bool | None = None,
                   leaf_loop: bool | None = None, kz_static: int | None = None,
                   tris128: bool | None = None, hbm_tris: bool | None = None,
                   lesion: str | None = None, p_pk: int | None = None,
-                  pkt: int | None = None) -> PacketHits:
+                  pkt: int | None = None):
     """Trace rays through the packed tables (rtk_trace_ray contract,
     rtk.c:543-577): t, u, v and the packed triangle slot per ray, the rest
     of the record lazily through PacketHits.  A miss keeps t = max_t.
@@ -394,6 +533,12 @@ def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
       "any" (each ray stops at its first hit leaf).
     filter_mask: test only triangles whose packed mask bits (pack_scene
       tri_mask) share a bit with it.
+    filter_fn: a predicate captured by jit_filter (HitCandidate -> bool),
+      ANDed into the leaf phase's accept test; ray_index is the caller's
+      row even when the batch is sorted.  Other callables raise (run them
+      on the stack engine).  Needs fewer than 2^24 triangles.
+    stats: also return the (3, N) int32 per-ray counts, in the caller's
+      order: entries popped, internal pops, leaf pops -> (hits, counts).
     defer_uv: the kernel writes t and slot only; .u/.v are recomputed.
     sort_rays: coherence-sort the batch first (None: for >= 16384 rays
       without roots); results come back in the caller's order either way.
@@ -406,16 +551,11 @@ def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
     interpret, dual, ordered, islab, narrow, leaf_loop, kz_static, tris128,
     hbm_tris, lesion, p_pk and pkt select the TPU kernel's schedule; they
     are accepted and have no effect beyond the packet_roots layout.
-    filter_fn is not ported yet and raises.
     """
-    if filter_fn is not None:
-        raise NotImplementedError(
-            "filter_fn in the kernel's leaf phase is not ported yet "
-            "(ROADMAP K1 filter_fn)")
     roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
                        p_pk)
     return _front(packet_trace, packed, rays, mode, watertight, sort_rays,
-                  filter_mask, defer_uv, roots)
+                  filter_mask, defer_uv, roots, filter_fn, stats)
 
 
 def trace_packets_reference(packed: PackedScene, rays: Rays,
@@ -424,9 +564,10 @@ def trace_packets_reference(packed: PackedScene, rays: Rays,
                             filter_mask: int | None = None,
                             defer_uv: bool = False, packet_roots=None,
                             ray_roots=None, pkt: int | None = None,
-                            p_pk: int | None = None) -> PacketHits:
+                            p_pk: int | None = None, stats: bool = False,
+                            filter_fn=None):
     """trace_packets through the plain PyTorch traversal on any device."""
     roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
                        p_pk)
     return _front(packet_trace_reference, packed, rays, mode, watertight,
-                  sort_rays, filter_mask, defer_uv, roots)
+                  sort_rays, filter_mask, defer_uv, roots, filter_fn, stats)

@@ -155,7 +155,7 @@ def _build_impl(tri_pos, tri_vidx, tri_mesh, tri_prim, *, leaf_size,
 
 def build_from_soup(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
                     config: BuildConfig = BuildConfig(),
-                    device="cpu") -> Scene:
+                    device="cuda") -> Scene:
     """Build a Scene from canonical triangle-soup arrays on `device`."""
     def cvt(a, dt):
         if a is None:

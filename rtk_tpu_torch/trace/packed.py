@@ -349,7 +349,7 @@ def pack_forest(scene, roots) -> tuple[PackedScene, np.ndarray]:
 def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
                      order, root, leaf_size: int, tri_vidx=None,
                      tri_mesh=None, tri_prim=None, tri_mask=None,
-                     device="cpu") -> PackedScene:
+                     device="cuda") -> PackedScene:
     """Pack an arbitrary host-built binary BVH for the packet kernel.
 
     Feeds any binary topology (e.g. the C++ binned SAH via

@@ -13,10 +13,15 @@ per ray:
      near-to-far with a compare-exchange network (rtk.c:489-536), descend
      to the nearest and push the rest with their entry t.
 
+A filter callable (rtk_filter_fn, rtk.h:117) sees each leaf's (N, K)
+candidates as a HitCandidate and returns a bool mask; it is plain Python
+on real tensors, so any torch code works here (the kernel's filter
+variant takes only predicates that jit_filter can capture).
+
 Unlike the reference, a push that would overflow max_stack raises instead
-of being dropped.  The instanced path's exactness residual and
-trace_closest_instanced run on it; Tracer(engine="stack") and filter
-callables wait for ROADMAP A11.
+of being dropped.  trace_closest / trace_any, Tracer(engine="stack"),
+compat's single-ray calls, the instanced path's exactness residual and
+trace_closest_instanced run on it.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import torch
 from rtk_tpu_torch.config import TraceConfig
 from rtk_tpu_torch.ops.intersect import (intersect_triangles, ray_shear,
                                          rcp_direction, slab_test)
-from rtk_tpu_torch.types import Hits, Rays
+from rtk_tpu_torch.types import HitCandidate, Hits, Rays
 
 INF = float("inf")
 
@@ -58,12 +63,18 @@ def _sort_w(ts, children, w):
     return t_cols, c_cols
 
 
+__all__ = ["HitCandidate", "trace_closest", "trace_any", "wide_depth"]
+
+
 def _trace_loop(scene, rays: Rays, *, mode: str, config: TraceConfig,
-                start_node=None, init_hit_t=None, return_slot=False):
+                filter_fn=None, start_node=None, init_hit_t=None,
+                return_slot=False):
     """Trace `rays` through `scene` from `start_node` (per ray; default:
     wide node 0) -> Hits, or (Hits, sorted-scene slot) with return_slot.
 
     mode: "closest" or "any" (a ray stops at its first accepted hit).
+    filter_fn: None or HitCandidate -> bool mask, ANDed into each leaf's
+      accept test (ray_index: the row of `rays`).
     init_hit_t: per-ray starting closest t (default: rays.max_t).
     """
     if not scene.has_wide:
@@ -85,6 +96,7 @@ def _trace_loop(scene, rays: Rays, *, mode: str, config: TraceConfig,
     shear = ray_shear(rays.direction)
     rcp = rcp_direction(rays.direction)
     rows = torch.arange(n, device=dev)
+    rows32 = rows.to(torch.int32)
     lane = torch.arange(k, device=dev)
 
     cur = (torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -139,6 +151,11 @@ def _trace_loop(scene, rays: Rays, *, mode: str, config: TraceConfig,
             origin, shear, scene.tri_v[tidx], min_t, hit_t,
             watertight=config.watertight)
         valid = valid & (lane[None, :] < count[:, None]) & is_leaf[:, None]
+        if filter_fn is not None:
+            valid = valid & filter_fn(HitCandidate(
+                t=t, u=u, v=v, mesh_index=scene.tri_mesh[tidx],
+                triangle_index=scene.tri_prim[tidx],
+                ray_index=rows32[:, None].expand(n, k)))
         # Nearest valid lane, the first on ties (rtk.c:366-385).
         tb, kb = torch.where(valid, t, INF).min(dim=1)
         improved = tb < hit_t  # strict (rtk.c:371)
@@ -194,6 +211,27 @@ def _trace_loop(scene, rays: Rays, *, mode: str, config: TraceConfig,
     if return_slot:
         return hits, hit_slot.to(torch.int32)
     return hits
+
+
+def _trace(scene, rays: Rays, mode, filter_fn, config) -> Hits:
+    if rays.device != scene.device:
+        raise ValueError(f"rays on {rays.device}, scene on {scene.device}")
+    return _trace_loop(scene, rays, mode=mode, config=config,
+                       filter_fn=filter_fn)
+
+
+def trace_closest(scene, rays: Rays, filter_fn=None,
+                  config: TraceConfig = TraceConfig()) -> Hits:
+    """Nearest-hit trace (rtk_trace_ray, rtk.c:543-577) in plain
+    PyTorch on the scene's device; filter_fn: HitCandidate -> bool."""
+    return _trace(scene, rays, "closest", filter_fn, config)
+
+
+def trace_any(scene, rays: Rays, filter_fn=None,
+              config: TraceConfig = TraceConfig()) -> Hits:
+    """Any-hit trace: each ray stops at its first accepted hit (the
+    semantics rtk_trace_ray_filter promises, rtk.c:579-582)."""
+    return _trace(scene, rays, "any", filter_fn, config)
 
 
 def wide_depth(scene, roots=(0,)) -> int:

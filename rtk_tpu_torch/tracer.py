@@ -1,24 +1,37 @@
-"""Tracer: the query front-end over a built Scene.
+"""Tracer: the engine-selecting query front-end over a built Scene.
 
-The scene's kernel tables are packed once, on first use, and cached on the
-Tracer.  Queries run through ops/packet_trace.trace_packets: the CUDA
-kernel for a scene on a CUDA device, its plain PyTorch version for a scene
-on the CPU.  rtk_tpu's other engines are not ported yet; asking for one
-raises and names its ROADMAP item.
+Two engines implement the same hit-record contract (rtk_trace_ray,
+rtk.c:543-577):
+
+  * "packet": ops/packet_trace.trace_packets over the scene's kernel
+    tables (packed once, on first use, and cached here): the CUDA kernel
+    for a scene on a CUDA device, its plain PyTorch version on the CPU.
+    Needs branching=8 scenes.
+  * "stack": trace/stack.py's lockstep traversal in plain PyTorch on the
+    scene's device; any branching, and any filter callable.
+
+"auto" is "packet" for branching-8 scenes and "stack" otherwise.  A filter
+callable marked with jit_filter runs inside the kernel's filter variant;
+an unmarked one routes to the stack engine, which calls it on real
+tensors (rtk_tpu/tracer.py:111-199).  rtk_tpu's other engines are not
+ported yet; asking for one raises and names its ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 from rtk_tpu_torch.config import TraceConfig
+from rtk_tpu_torch.ops.filter_capture import JitFilter, jit_filter
 from rtk_tpu_torch.scene import Scene
-from rtk_tpu_torch.types import PacketHits, Rays
+from rtk_tpu_torch.types import Hits, PacketHits, Rays
+
+AnyHits = Union[Hits, PacketHits]
 
 # rtk_tpu engines that wait for a later port, with their ROADMAP items.
-_LATER_ENGINES = {
-    "stack": "A11", "stackless": "A12", "binned": "A12", "grid": "A12",
-    "march": "A12",
-}
+_LATER_ENGINES = {"stackless": "A12", "binned": "A12", "grid": "A12",
+                  "march": "A12"}
+
+__all__ = ["Tracer", "jit_filter"]
 
 
 class Tracer:
@@ -26,19 +39,22 @@ class Tracer:
                  config: TraceConfig = TraceConfig(), tri_mask=None):
         """tri_mask: optional (num_tris,) per-triangle filter bits (soup
         order, 24 bits).  Queries passing filter_mask=m then test only
-        triangles with (tri_mask & m) != 0."""
+        triangles with (tri_mask & m) != 0 (packet engine)."""
         if engine in _LATER_ENGINES:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet (ROADMAP "
-                f"{_LATER_ENGINES[engine]}); use engine='packet'")
-        if engine not in ("auto", "packet"):
+                f"{_LATER_ENGINES[engine]}); use engine='packet' or "
+                "'stack'")
+        if engine not in ("auto", "packet", "stack"):
             raise ValueError(f"unknown engine {engine!r}")
-        if scene.branching != 8:
+        eligible = scene.branching == 8
+        if engine == "packet" and not eligible:
             raise ValueError("packet engine requires branching=8 scenes")
         self.scene = scene
         self.config = config
         self.tri_mask = tri_mask
-        self.engine = "packet"
+        self.engine = (engine if engine != "auto"
+                       else ("packet" if eligible else "stack"))
         self._packed = None
 
     @property
@@ -50,28 +66,36 @@ class Tracer:
         return self._packed
 
     def _trace(self, rays: Rays, mode: str, filter_fn: Optional[Callable],
-               filter_mask: Optional[int]) -> PacketHits:
-        if filter_fn is not None:
-            raise NotImplementedError(
-                "filter_fn callables are not ported yet (ROADMAP K1 "
-                "filter_fn, A11 stack engine); use tri_mask + filter_mask")
-        from rtk_tpu_torch.ops.packet_trace import trace_packets
+               filter_mask: Optional[int]) -> AnyHits:
+        if self.engine == "packet" and (filter_fn is None
+                                        or isinstance(filter_fn, JitFilter)):
+            from rtk_tpu_torch.ops.packet_trace import trace_packets
 
-        return trace_packets(self.packed, rays, mode=mode,
-                             watertight=self.config.watertight,
-                             filter_mask=filter_mask,
-                             defer_uv=self.config.defer_uv)
+            return trace_packets(self.packed, rays, mode=mode,
+                                 watertight=self.config.watertight,
+                                 filter_mask=filter_mask,
+                                 filter_fn=filter_fn,
+                                 defer_uv=self.config.defer_uv)
+        if filter_mask is not None:
+            raise ValueError(
+                "filter_mask runs on the packet engine only; use filter_fn "
+                "on the stack engine")
+        from rtk_tpu_torch.trace import stack
+
+        fn = stack.trace_closest if mode == "closest" else stack.trace_any
+        return fn(self.scene, rays, filter_fn=filter_fn, config=self.config)
 
     def closest(self, rays: Rays, filter_fn: Optional[Callable] = None,
                 coherent: Optional[bool] = None,
-                filter_mask: Optional[int] = None) -> PacketHits:
+                filter_mask: Optional[int] = None) -> AnyHits:
         """Nearest-hit query (rtk_trace_ray).  `coherent` is the TPU
         engine's stepping hint and has no effect here; `filter_mask` runs
-        the built-in mask filter."""
+        the built-in mask filter; `filter_fn` (HitCandidate -> bool) keeps
+        or rejects candidates (jit_filter-marked: in the kernel)."""
         return self._trace(rays, "closest", filter_fn, filter_mask)
 
     def any(self, rays: Rays, filter_fn: Optional[Callable] = None,
             coherent: Optional[bool] = None,
-            filter_mask: Optional[int] = None) -> PacketHits:
+            filter_mask: Optional[int] = None) -> AnyHits:
         """Any-hit query (the intended rtk_trace_ray_filter semantics)."""
         return self._trace(rays, "any", filter_fn, filter_mask)

@@ -113,6 +113,22 @@ class Hits:
 
 
 @dataclasses.dataclass
+class HitCandidate:
+    """A candidate hit as a filter callable sees it (rtk_filter_fn,
+    rtk.h:117): it returns True to accept.  The stack engine passes (N, K)
+    tensors, the packet trace's plain version (rays, K) tensors, and
+    jit_filter symbolic fields.  t, u, v are float32; mesh_index,
+    triangle_index and ray_index (the caller's row) int32."""
+
+    t: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    mesh_index: torch.Tensor
+    triangle_index: torch.Tensor
+    ray_index: torch.Tensor
+
+
+@dataclasses.dataclass
 class PacketHits:
     """Lazily assembled hit records from the packet kernel.
 

@@ -11,27 +11,32 @@ import hashlib
 import os
 import pathlib
 import subprocess
+import threading
 
 PKG_ROOT = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_ROOT / "build"
 
 
-def build_shared(name: str, sources, command) -> tuple[pathlib.Path, str]:
+def build_shared(name: str, sources, command,
+                 deps=()) -> tuple[pathlib.Path, str]:
     """Compile `sources` with `command` (compiler and flags, without the
-    sources and `-o`) into BUILD_DIR/lib{name}-{hash}.so.
+    sources and `-o`) into BUILD_DIR/lib{name}-{hash}.so.  `deps` are
+    files the build reads without naming them as sources (headers); they
+    are hashed too.
 
     Returns (path, compiler output); the output is empty when the library
     was already built."""
     h = hashlib.sha256()
     for part in command:
         h.update(part.encode() + b"\0")
-    for src in sources:
+    for src in (*sources, *deps):
         h.update(pathlib.Path(src).read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    tmp = out.with_name(
+        f"{out.name}.tmp{os.getpid()}-{threading.get_ident()}")
     try:
         proc = subprocess.run(
             [*command, *map(str, sources), "-o", str(tmp)],

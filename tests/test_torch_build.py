@@ -12,6 +12,7 @@ from rtk_tpu_torch.scene import centroid_codes
 from rtk_tpu_torch.testing import carry, scenes
 
 torch.set_num_threads(2)
+CPU = "cpu"  # the builders default to the card; these tests run on the CPU
 
 
 def _soup(name):
@@ -44,7 +45,7 @@ def test_build_bit_equal(name, leaf):
     want = rtk_tpu.build_from_soup(
         tris, config=rtk_tpu.BuildConfig(leaf_size=leaf))
     got = rtk_tpu_torch.build_from_soup(
-        tris, config=rtk_tpu_torch.BuildConfig(leaf_size=leaf))
+        tris, config=rtk_tpu_torch.BuildConfig(leaf_size=leaf), device=CPU)
     assert (got.num_tris, got.num_leaves, got.leaf_size, got.has_wide) == (
         want.num_tris, want.num_leaves, want.leaf_size, want.has_wide)
     for f in carry.SCENE_ARRAYS:
@@ -67,7 +68,7 @@ def test_build_scene_mesh_metadata_bit_equal():
     box = scenes.box([-0.2, -0.2, -0.2], [0.2, 0.2, 0.2])
     meshes = [(v, f), (box.reshape(-1, 3), np.arange(36).reshape(-1, 3))]
     want = rtk_tpu.build_scene(meshes)
-    got = rtk_tpu_torch.build_scene(meshes)
+    got = rtk_tpu_torch.build_scene(meshes, device=CPU)
     for name in carry.SCENE_ARRAYS:
         assert_bits_equal(getattr(got, name), getattr(want, name), name)
 
@@ -75,7 +76,7 @@ def test_build_scene_mesh_metadata_bit_equal():
 def test_single_leaf_scene():
     tri = np.array([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32)
     want = rtk_tpu.build_from_soup(tri)
-    got = rtk_tpu_torch.build_from_soup(tri)
+    got = rtk_tpu_torch.build_from_soup(tri, device=CPU)
     assert got.num_leaves == 1 and got.has_wide
     for f in carry.SCENE_ARRAYS:
         assert_bits_equal(getattr(got, f), getattr(want, f), f)
@@ -83,4 +84,5 @@ def test_single_leaf_scene():
 
 def test_empty_scene_rejected():
     with pytest.raises(ValueError):
-        rtk_tpu_torch.build_from_soup(np.zeros((0, 3, 3), np.float32))
+        rtk_tpu_torch.build_from_soup(np.zeros((0, 3, 3), np.float32),
+                                       device=CPU)

@@ -19,6 +19,7 @@ from test_torch_kernel import chain_forest
 from test_torch_packed import assert_tables_equal
 
 torch.set_num_threads(2)
+CPU = "cpu"  # the builders default to the card; these tests run on the CPU
 
 STACK_CAP = 256  # entries of the CUDA kernel's compiled stack
 
@@ -86,7 +87,8 @@ def test_pack_multiroot_bit_equal(forest, masked):
 def test_build_sah_forest_bit_equal(forest, leaf):
     """The forest form of pack_binary_tree, behind build_sah_forest."""
     tris = forest[0]
-    got, got_roots = build_sah_forest(tris, BuildConfig(leaf_size=leaf))
+    got, got_roots = build_sah_forest(tris, BuildConfig(leaf_size=leaf),
+                                       device=CPU)
     want, want_roots = jsah.build_sah_forest(
         tris, rtk_tpu.BuildConfig(leaf_size=leaf))
     assert_tables_equal(got, want)
@@ -99,7 +101,8 @@ def test_deep_second_tree_sets_the_stack():
     stack: stack_size says so (the kernel wrapper refuses it, see
     test_torch_kernel.py), where a walk of the first root alone says 8."""
     tri_v, *tree, roots = chain_forest(280)
-    got = tpacked.pack_binary_tree(tri_v, *tree, roots, leaf_size=1)
+    got = tpacked.pack_binary_tree(tri_v, *tree, roots, leaf_size=1,
+                                   device=CPU)
     assert_tables_equal(got, jpacked.pack_binary_tree(tri_v, *tree, roots,
                                                       leaf_size=1))
     _check_depth(got, [0, 1])

@@ -30,6 +30,9 @@ _PROBE = textwrap.dedent("""
 MODULES = [
     "rtk_tpu_torch.ops.packet_trace", "rtk_tpu_torch.testing.scenes",
     "rtk_tpu_torch.testing.carry", "rtk_tpu_torch.utils.native_sah",
+    "rtk_tpu_torch.ops.filter_capture", "rtk_tpu_torch.utils.stats",
+    "rtk_tpu_torch.utils.serialize", "rtk_tpu_torch.tasks",
+    "rtk_tpu_torch.compat",
 ]
 
 

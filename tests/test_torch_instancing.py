@@ -24,6 +24,7 @@ from rtk_tpu_torch.trace import packed as tpacked
 from rtk_tpu_torch.trace import stack as tstack
 
 torch.set_num_threads(2)
+CPU = "cpu"  # the builders default to the card; these tests run on the CPU
 
 T_REL = 1e-5  # |t - t_ref| <= T_REL * (1 + |t_ref|) against rtk_tpu
 BRUTE_TOL = 2e-4  # tests/test_instancing.py's bar against brute force
@@ -55,7 +56,8 @@ class Case:
             [rtk_tpu.build_scene(_soup_of(t)) for t in self.srcs],
             inst_blas, tf)
         self.tis = tinst.build_instanced(
-            [rtk_tpu_torch.build_scene(_soup_of(t)) for t in self.srcs],
+            [rtk_tpu_torch.build_scene(_soup_of(t), device=CPU)
+             for t in self.srcs],
             inst_blas, tf)
         self.tps = tinst.pack_instanced(self.tis)
         self.world = np.concatenate(
@@ -141,7 +143,7 @@ def test_merge_and_build_bit_equal(case6):
     with pytest.raises(ValueError, match="wide_nodes"):
         tinst.merge_blas([rtk_tpu_torch.build_scene(
             _soup_of(case6.srcs[0]),
-            rtk_tpu_torch.BuildConfig(wide_nodes=False))])
+            rtk_tpu_torch.BuildConfig(wide_nodes=False), device=CPU)])
 
 
 def test_per_ray_roots_against_pallas_packet_roots(case6):
@@ -263,7 +265,8 @@ def test_sah_forest_tables(cam12):
     """build_sah_forest tables through pack_instanced: the LBVH forest's
     hits and t, and the residual's records mapped into the SAH tables."""
     tris = cam12.srcs
-    pk, roots = build_sah_forest(tris, rtk_tpu_torch.BuildConfig(leaf_size=4))
+    pk, roots = build_sah_forest(tris, rtk_tpu_torch.BuildConfig(leaf_size=4),
+                                device=CPU)
     sah = tinst.pack_instanced(cam12.tis, packed=pk, packed_roots=roots)
     full, _ = cam12.full
     for c in (12, 1):
@@ -278,7 +281,7 @@ def test_sah_forest_tables(cam12):
             hits.vertex_position.numpy()[same],
             full.vertex_position.numpy()[same])
     wrong, wrong_roots = build_sah_forest(
-        tris[::-1], rtk_tpu_torch.BuildConfig(leaf_size=4))
+        tris[::-1], rtk_tpu_torch.BuildConfig(leaf_size=4), device=CPU)
     with pytest.raises(ValueError, match="BLAS list"):
         tinst.pack_instanced(cam12.tis, packed=wrong,
                              packed_roots=wrong_roots)
@@ -292,7 +295,7 @@ def two_blas():
     jmerged, roots = jinst.merge_blas(
         [rtk_tpu.build_scene(_soup_of(t)) for t in tris])
     tmerged, _ = tinst.merge_blas(
-        [rtk_tpu_torch.build_scene(_soup_of(t)) for t in tris])
+        [rtk_tpu_torch.build_scene(_soup_of(t), device=CPU) for t in tris])
     jrays = jax_scenes.camera_rays((0.2, 0.1, 3.0), (0, 0, 0),
                                                (0, 1, 0), 60, 16, 16)
     rays = rtk_tpu_torch.Rays.make(

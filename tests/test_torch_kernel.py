@@ -201,3 +201,82 @@ def test_instanced_kernel_matches_reference(cuda):
                                                    plain=True)
         _assert_same(got, want)
         assert torch.equal(gi, wi) and got.hit.any()
+
+
+# Predicates of the filter variant: the mask filter's twin, ray identity,
+# test_packet.py's triangle-and-t filter, and one whose expression holds
+# many live values at once (floor division and remainder on negatives,
+# mixed int/float promotion, where, abs).
+FILTERS = {
+    "odd_tri": lambda c: c.triangle_index % 2 == 1,
+    "even_ray": lambda c: c.ray_index % 2 == 0,
+    "tri_t": lambda c: (c.triangle_index % 3 == 1) & (c.t > 2.0),
+    "heavy": lambda c: (
+        (torch.where(c.u > c.v, c.u * 3.0 - c.v, c.v // 0.125 - c.t)
+         + abs(c.triangle_index - 4096) % -7 * 0.5
+         - (c.ray_index // -3) % 5 / (c.t + 1.0)
+         < (c.mesh_index - 2) * 1.5 + c.t % 0.75 * 4.0)
+        | ((c.triangle_index ^ c.ray_index) & 12 == 4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FILTERS))
+def test_filter_variant_matches_reference(cuda, name):
+    """The filter build of each predicate equals its plain version (the
+    callable on torch tensors) bit for bit, on LBVH and SAH tables, with
+    sorted rays (the caller's ray index through the permutation), any-hit
+    and defer_uv; one launch each."""
+    flt = rtk_tpu_torch.jit_filter(FILTERS[name])
+    v, f = scenes.blob(4)[1:]
+    tables = (pack_scene(rtk_tpu_torch.build_scene((v, f), device=cuda)),
+              rtk_tpu_torch.build_sah_packed(
+                  (v, f), rtk_tpu_torch.BuildConfig(leaf_size=16),
+                  step_quant=True, device=cuda))
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 160,
+                              160, order="morton", device=cuda)
+    for packed in tables:
+        for kw in (dict(), dict(sort_rays=True), dict(mode="any"),
+                   dict(defer_uv=True)):
+            before = packet_trace.FILTER_LAUNCHES
+            got, want = _both(packed, rays, filter_fn=flt, **kw)
+            assert packet_trace.FILTER_LAUNCHES == before + 1
+            _assert_same(got, want)
+    assert got.hit.any()
+
+
+def test_filter_variant_equals_mask_filter(cuda):
+    v, f = scenes.blob(4)[1:]
+    mask = np.where(np.arange(f.shape[0]) % 2 == 1, 1, 2).astype(np.uint32)
+    tracer = rtk_tpu_torch.Tracer(
+        rtk_tpu_torch.build_scene((v, f), device=cuda), tri_mask=mask)
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 192,
+                              192, order="morton", device=cuda)
+    flt = rtk_tpu_torch.jit_filter(FILTERS["odd_tri"])
+    _assert_same(tracer.closest(rays, filter_fn=flt),
+                 tracer.closest(rays, filter_mask=1))
+    a, b = tracer.any(rays, filter_fn=flt), tracer.any(rays, filter_mask=1)
+    for field in ("hit", "slot", "t"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_stats_variant_matches_reference(cuda, mode):
+    """Per-ray counts from the kernel equal the plain version's; steps =
+    internal + leaf pops; any-hit counts <= closest-hit counts."""
+    v, f = scenes.blob(4)[1:]
+    packed = pack_scene(rtk_tpu_torch.build_scene((v, f), device=cuda))
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 160,
+                              160, order="morton", device=cuda)
+    before = packet_trace.STATS_LAUNCHES
+    got, counts = packet_trace.trace_packets(packed, rays, mode=mode,
+                                             stats=True)
+    torch.cuda.synchronize()
+    assert packet_trace.STATS_LAUNCHES == before + 1
+    want, want_counts = packet_trace.trace_packets_reference(
+        packed, rays, mode=mode, stats=True)
+    _assert_same(got, want)
+    assert torch.equal(counts, want_counts)
+    assert (counts >= 0).all() and torch.equal(counts[0],
+                                               counts[1] + counts[2])
+    _, closest = packet_trace.trace_packets(packed, rays, stats=True)
+    assert (counts <= closest).all()

@@ -12,6 +12,7 @@ from rtk_tpu_torch.trace import packed as tpacked
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
 torch.set_num_threads(2)
+CPU = "cpu"  # the builders default to the card; these tests run on the CPU
 
 
 def assert_tables_equal(got, want):
@@ -46,7 +47,7 @@ def test_pack_scene_bit_equal(name, leaf):
     jscene = rtk_tpu.build_from_soup(
         tris, config=rtk_tpu.BuildConfig(leaf_size=leaf))
     tscene = rtk_tpu_torch.build_from_soup(
-        tris, config=rtk_tpu_torch.BuildConfig(leaf_size=leaf))
+        tris, config=rtk_tpu_torch.BuildConfig(leaf_size=leaf), device=CPU)
     mask = (np.arange(tris.shape[0]) % 3 + 1).astype(np.uint32)
     for tri_mask in (None, mask):
         got = tpacked.pack_scene(tscene, tri_mask=tri_mask)
@@ -71,10 +72,11 @@ def test_pack_binary_tree_bit_equal(leaf, step_quant):
     kw = dict(leaf_size=leaf, tri_vidx=soup.tri_vidx, tri_mesh=soup.tri_mesh,
               tri_prim=soup.tri_prim, tri_mask=mask)
     want = jpacked.pack_binary_tree(tris, *tree, **kw)
-    assert_tables_equal(tpacked.pack_binary_tree(tris, *tree, **kw), want)
+    assert_tables_equal(tpacked.pack_binary_tree(tris, *tree, **kw,
+                                                 device=CPU), want)
     api = rtk_tpu_torch.build_sah_packed(
         (v, f), rtk_tpu_torch.BuildConfig(leaf_size=leaf),
-        tri_mask=mask, step_quant=step_quant)
+        tri_mask=mask, step_quant=step_quant, device=CPU)
     assert_tables_equal(api, want)
 
 
@@ -83,7 +85,7 @@ def test_pack_binary_tree_default_metadata():
     rows included)."""
     tris = np.asarray(scenes.cornell_box(), np.float32)
     tree = NativeOracle(tris, leaf_max=8).export_tree()
-    got = tpacked.pack_binary_tree(tris, *tree, leaf_size=8)
+    got = tpacked.pack_binary_tree(tris, *tree, leaf_size=8, device=CPU)
     assert_tables_equal(got, jpacked.pack_binary_tree(tris, *tree,
                                                       leaf_size=8))
 
@@ -96,7 +98,7 @@ def test_carried_tables_equal_the_port_pack():
     arrays = {k: np.asarray(getattr(jp, k)) for k in carry.PACKED_ARRAYS}
     got = carry.packed_from_arrays(arrays, num_tris=jp.num_tris,
                                    leaf_size=jp.leaf_size)
-    own = tpacked.pack_scene(rtk_tpu_torch.build_from_soup(tris))
+    own = tpacked.pack_scene(rtk_tpu_torch.build_from_soup(tris, device=CPU))
     assert_tables_equal(got, jp)
     assert got.depth == own.depth
 

@@ -18,6 +18,7 @@ from rtk_tpu_torch.trace.packed import pack_scene
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
 torch.set_num_threads(2)
+CPU = "cpu"  # the builders default to the card; these tests run on the CPU
 
 
 def _soup_of(tris):
@@ -100,7 +101,7 @@ def test_anyhit():
 
 def test_t_window():
     tri = np.array([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32)
-    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tri)))
+    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tri), device=CPU))
     o, d = [0.2, 0.2, 1.0], [0.0, 0.0, -1.0]
     for kw in (dict(min_t=1.5), dict(max_t=0.5)):
         rays = rtk_tpu_torch.Rays.make(o, d, **kw)
@@ -167,7 +168,7 @@ def test_watertight_closed_mesh():
     edge points and vertices all hit, closest and any."""
     verts, faces = scenes.icosphere(2)
     tris = verts[faces].astype(np.float32)
-    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tris)))
+    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tris), device=CPU))
     rng = np.random.default_rng(7)
     edges = np.concatenate(
         [faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0)
@@ -186,7 +187,7 @@ def test_sorted_and_unsorted_batches_agree():
     caller's order, bit-equal to the unsorted trace."""
     rng = np.random.default_rng(11)
     tris = rng.normal(size=(300, 3, 3)).astype(np.float32)
-    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tris)))
+    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tris), device=CPU))
     rays = rtk_tpu_torch.Rays.make(rng.normal(size=(512, 3)) * 3.0,
                                    rng.normal(size=(512, 3)))
     a = trace_packets(packed, rays, sort_rays=False)
@@ -197,7 +198,7 @@ def test_sorted_and_unsorted_batches_agree():
 
 def test_cpu_tensors_take_the_plain_version():
     tris = scenes.cornell_box()
-    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tris)))
+    packed = pack_scene(rtk_tpu_torch.build_scene(_soup_of(tris), device=CPU))
     rays = scenes.cornell_camera(8, 8)
     before = packet_trace.KERNEL_LAUNCHES
     a = trace_packets(packed, rays)
@@ -214,7 +215,8 @@ def test_slice_build_scene_tracer():
     jrays = jax_scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0),
                                    45, 24, 24, order="morton")
     jscene = rtk_tpu.build_scene((v, f))
-    tracer = rtk_tpu_torch.Tracer(rtk_tpu_torch.build_scene((v, f)))
+    tracer = rtk_tpu_torch.Tracer(
+        rtk_tpu_torch.build_scene((v, f), device=CPU))
     got = tracer.closest(_rays(jrays))
     want = rtk_tpu.trace_closest(jscene, jrays)
     _check(got, want)
@@ -238,7 +240,7 @@ def test_sah_packed_against_native_oracle():
     tris = scenes.blob(3)[0]
     packed = rtk_tpu_torch.build_sah_packed(
         _soup_of(tris), rtk_tpu_torch.BuildConfig(leaf_size=16),
-        step_quant=True)
+        step_quant=True, device=CPU)
     rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 32, 32,
                               order="morton")
     got = trace_packets(packed, rays)
@@ -259,11 +261,23 @@ def test_sah_packed_against_native_oracle():
     assert uv_bad <= same.sum() * 1e-4
 
 
-@pytest.mark.parametrize("engine", ["stack", "stackless", "grid"])
+@pytest.mark.parametrize("engine", ["stackless", "binned", "grid", "march"])
 def test_unported_engines_raise(engine):
-    scene = rtk_tpu_torch.build_scene(_soup_of(scenes.cornell_box()))
+    scene = rtk_tpu_torch.build_scene(_soup_of(scenes.cornell_box()),
+                                      device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtk_tpu_torch.Tracer(scene, engine=engine)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtk_tpu_torch.Tracer(scene).closest(scenes.cornell_camera(4, 4),
-                                            filter_fn=lambda c: c.t > 0)
+
+
+def test_stack_engine_and_filter_callables():
+    """Tracer(engine="stack") and a filter callable on the default engine,
+    once the cases of the test above, against rtk_tpu's stack engine."""
+    scene = rtk_tpu_torch.build_scene(_soup_of(scenes.cornell_box()),
+                                      device=CPU)
+    jscene = rtk_tpu.build_scene(_soup_of(scenes.cornell_box()))
+    jrays = jax_scenes.cornell_camera(8, 8)
+    fn = lambda c: c.t > 1.0  # noqa: E731
+    stack = rtk_tpu_torch.Tracer(scene, engine="stack")
+    _check(stack.closest(_rays(jrays)), rtk_tpu.trace_closest(jscene, jrays))
+    _check(rtk_tpu_torch.Tracer(scene).closest(_rays(jrays), filter_fn=fn),
+           rtk_tpu.trace_closest(jscene, jrays, filter_fn=fn))

@@ -74,7 +74,7 @@ EVEN_RAY = lambda c: c.ray_index % 2 == 0  # noqa: E731
 TRI_T = lambda c: (c.triangle_index % 3 == 1) & (c.t > 2.0)  # noqa: E731
 STACK_T_REL = 1e-6  # stack engine vs filter kernel (test_packet.py:337)
 STACK_SAME_TRI = 0.95  # share of hits on the same triangle (exact ties)
-# The bound (on-chip-measurement guide: published H100 SXM peaks).
+# The bound, from the published H100 SXM peaks.
 PEAK_F32_OPS = 67e12  # f32 operations a second outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM bytes a second
 # f32 operations per test, counted from csrc/packet_trace.cu: a child

@@ -37,7 +37,8 @@ Phases (each prints one line):
      rtk_trace_ray / rtk_trace_ray_filter on 64 rays).
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
-time the card could take, from the per-ray pops the stats variant counts),
+time the card could take, from the per-ray box and triangle tests the
+stats variant counts),
 the card's name and power limit, and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports no jax.
@@ -74,15 +75,22 @@ EVEN_RAY = lambda c: c.ray_index % 2 == 0  # noqa: E731
 TRI_T = lambda c: (c.triangle_index % 3 == 1) & (c.t > 2.0)  # noqa: E731
 STACK_T_REL = 1e-6  # stack engine vs filter kernel (test_packet.py:337)
 STACK_SAME_TRI = 0.95  # share of hits on the same triangle (exact ties)
-# The bound, from the published H100 SXM peaks.
-PEAK_F32_OPS = 67e12  # f32 operations a second outside the tensor cores
+# The bound, from the published H100 SXM peaks.  67 TFLOP/s of f32
+# outside the tensor cores counts a fused multiply-add as two operations.
+# The function is computed without fusing (-fmad=false: watertightness
+# rests on unfused products), so each f32 operation below is one
+# instruction, issued at half that rate.
+PEAK_F32_INSTR = 67e12 / 2  # f32 instructions a second
 PEAK_BYTES = 3.35e12  # HBM bytes a second
-# f32 operations per test, counted from csrc/packet_trace.cu: a child
-# slab test is 6 sub, 6 mul, 6 max/min and 1 compare; a triangle test is
-# 24 for the translate and shear of 3 vertices, 9 for the edge functions,
-# 4 min/max, 3 for 1/det, 6 for t and 4 compares.
-OPS_PER_CHILD = 19
-OPS_PER_TRI = 50
+# f32 operations per test, counted from csrc/packet_trace.cu: a child box
+# test is 6 sub, 6 mul, 6 max/min and 1 compare; a triangle test is 9 sub
+# to translate 3 vertices, 15 mul/add to shear them, 9 mul/sub for the
+# edge functions, 3 compares for the exact-zero test, 4 min/max, 2 add and
+# 1 divide for 1/det, 6 mul/add for t and 4 compares.  Per-ray set-up,
+# the near-to-far sort of the children and a filter's predicate are not
+# counted.
+OPS_PER_BOX = 19
+OPS_PER_TRI = 53
 
 
 def check(cond, msg):
@@ -305,22 +313,17 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
 
 def bound(counts, packed, bytes_per_ray=48):
     """(bound_ms, bound_by) of one traversal: the larger of its f32
-    operations over the card's f32 peak and its bytes over the card's
-    memory rate.  Operations: the internal and leaf pops the stats variant
-    counted, times the live child slots of a node (the table's mean) times
-    OPS_PER_CHILD, and times leaf_size triangle tests of OPS_PER_TRI.
-    Bytes: bytes_per_ray (rays in, outputs out, and any per-ray extras)
-    per ray and the two tables once."""
-    m = packed.meta[:, 2].long()
-    slots = (m & 0xFF) | ((m >> 8) & 0xFF)
-    live = float(((slots[:, None] >> torch.arange(8, device=m.device)) & 1)
-                 .sum(1).double().mean())
+    operations over the card's f32 instruction rate and its bytes over the
+    card's memory rate.  Operations: the child box tests and triangle
+    tests this run's rays needed (the stats variant's counts: live child
+    slots of the popped nodes; real, unmasked rows of the popped leaves),
+    times OPS_PER_BOX and OPS_PER_TRI.  Bytes: bytes_per_ray (rays in,
+    outputs out, and any per-ray extras) per ray and the two tables once."""
     c = counts.double().sum(dim=1)
-    ops = (float(c[1]) * live * OPS_PER_CHILD
-           + float(c[2]) * packed.leaf_size * OPS_PER_TRI)
+    ops = float(c[3]) * OPS_PER_BOX + float(c[4]) * OPS_PER_TRI
     nbytes = (counts.shape[1] * bytes_per_ray
               + packed.nodes.numel() * 4 + packed.tris.numel() * 4)
-    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = ops / PEAK_F32_INSTR * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -342,7 +345,7 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     """The filtered-query and statistics path; returns its record and the
     two kernel entries.  Counts are zeroed just before the main-path
     traces and read just after."""
-    from rtk_tpu_torch import compat
+    from rtk_tpu_torch import compat, tasks
     from rtk_tpu_torch.ops import packet_trace as pt
     from rtk_tpu_torch.ops.morton import ray_coherence_key
     from rtk_tpu_torch.testing import scenes
@@ -407,7 +410,7 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     check(bool((counts[0] == counts[1] + counts[2]).all()),
           "stats: steps != internal + leaf pops")
     rec["per_ray_mean"] = dict(zip(
-        ("steps", "internal_pops", "leaf_pops"),
+        ("steps", "internal_pops", "leaf_pops", "box_tests", "tri_tests"),
         counts.double().mean(dim=1).tolist()))
 
     # Each variant alone against its plain version at 8192^2, on the
@@ -422,7 +425,7 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     entries = {}
     for name, extra, per_ray in (
             ("packet_trace_filter", dict(filter_fn=odd, ray_index=ridx), 52),
-            ("packet_trace_stats", dict(stats=True), 60)):
+            ("packet_trace_stats", dict(stats=True), 68)):
         k_out, k_ms = timed(lambda: pt.packet_trace_kernel(
             packed.nodes, packed.tris, comps, **kw, **extra), reps=3)
         p_out, p_ms = timed(lambda: pt.packet_trace_reference(
@@ -518,14 +521,19 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
               "loaded SAH trace")
     rec.update(scene_blob_bytes=nbytes, sah_blob_bytes=len(buf.getvalue()))
 
-    # The rtk shim: a 4-thread task build, then 64 single rays.
+    # The task build on 4 host threads and the rtk shim's one-shot build
+    # equal build_scene; then 64 single rays through the shim.
     t0 = time.perf_counter()
+    tscene = tasks.build_scene_tasks([(v6, f6)], num_threads=4, device=dev)
+    rec["task_build_4_threads_ms"] = (time.perf_counter() - t0) * 1e3
     cscene = compat.rtk_build_scene(compat.RtkSceneDesc([(v6, f6)]),
-                                    device=dev, num_threads=4)
-    rec["compat_build_ms"] = (time.perf_counter() - t0) * 1e3
+                                    device=dev)
     for f in serialize._FIELDS:
+        check(bits_equal(getattr(tscene, f), getattr(scene, f)),
+              f"build_scene_tasks: {f}")
         check(bits_equal(getattr(cscene, f), getattr(scene, f)),
               f"rtk_build_scene: {f}")
+    del tscene
     sub = rays1k[::rays1k.count // 64]
     check(sub.count == 64, "64 single rays")
     want = plain_tracer.closest(sub)
@@ -566,12 +574,12 @@ def main():
     card = smi("name,power.limit")
 
     # ---- phase 1: build and environment ----
-    # The kernel and one filter build per phase-6 predicate, one nvcc
-    # each, started together.
+    # The kernel and one filter build per phase-6 predicate, in turn.
     filters = {name: rt.jit_filter(f) for name, f in (
         ("odd_tri", ODD_TRI), ("even_ray", EVEN_RAY), ("tri_t", TRI_T))}
     t0 = time.perf_counter()
-    packet_trace.load_kernels(filters.values())
+    for flt in (None, *filters.values()):
+        packet_trace.load_kernel(flt)
     build_s = time.perf_counter() - t0
     nvcc = subprocess.run([packet_trace._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout

@@ -128,13 +128,12 @@ def rtk_finish_build_to(build, buffer) -> int:
 
 
 def rtk_build_scene(desc, config: BuildConfig = BuildConfig(),
-                    device="cuda", num_threads: int = 1) -> Scene:
-    """rtk_build_scene (rtk.h:126): the task graph drained on
-    `num_threads` host threads."""
+                    device="cuda") -> Scene:
+    """rtk_build_scene (rtk.h:126): one-shot convenience build, the task
+    graph drained on the calling thread."""
     meshes, log_fn, log_user = _desc_meshes(desc)
-    return _tasks.build_scene_tasks(meshes, config, num_threads,
-                                    log_fn=log_fn, log_user=log_user,
-                                    device=device)
+    return _tasks.build_scene_tasks(meshes, config, log_fn=log_fn,
+                                    log_user=log_user, device=device)
 
 
 def rtk_free_scene(scene) -> None:

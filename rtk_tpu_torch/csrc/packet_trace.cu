@@ -29,9 +29,11 @@
 // edge functions are recomputed in f64 and rounded to f32 (rtk.c:294-336).
 //
 // Two product variants of the TPU kernel ride the same source:
-//   * stats (pallas_trace.py:514-530): a nullable (3, n) int32 `counts`
-//     output, per ray: entries popped, internal pops, leaf pops.  The
-//     counters live in registers; null skips the final store.
+//   * stats (pallas_trace.py:514-530): a nullable (5, n) int32 `counts`
+//     output, per ray: entries popped, internal pops, leaf pops, child
+//     box tests and triangle tests (the last two are the traversal's
+//     arithmetic work, beyond the TPU kernel's three lanes).  The counters
+//     live in registers; null skips the final store.
 //   * filter_fn (pallas_trace.py:1003-1018, :1146-1156): built with
 //     -DRTK_FILTER and a generated header (ops/filter_capture.py) that
 //     defines rtk_filter_pred, the caller's predicate captured from Python
@@ -86,7 +88,8 @@ __device__ __forceinline__ float edge_f64(float ax, float ay, float bx,
 // a thread per ray makes the per-ray root the natural form).
 // ray_index: read by filter builds only; null (the caller's index is i) or
 // (n,) caller indices of coherence-sorted rays (pallas_trace.py:1475-1481).
-// counts: null or (3, n) per-ray steps, internal pops, leaf pops.
+// counts: null or (5, n) per-ray steps, internal pops, leaf pops, box
+// tests, triangle tests.
 __global__ void __launch_bounds__(RTK_BLOCK)
 packet_trace_kernel(const int4* __restrict__ nodes,
                     const float4* __restrict__ tris,
@@ -110,7 +113,8 @@ packet_trace_kernel(const int4* __restrict__ nodes,
 
   float best_t = maxt, best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1;
-  int n_int = 0, n_leaf = 0;  // internal and leaf pops (stats)
+  // Internal and leaf pops, child box tests, triangle tests (stats).
+  int n_int = 0, n_leaf = 0, n_box = 0, n_tri = 0;
 
   // Dead rays (max_t <= min_t) do no traversal (pallas_trace.py:385).
   if (!(maxt <= mint)) {
@@ -145,6 +149,7 @@ packet_trace_kernel(const int4* __restrict__ nodes,
         const int4 m1 = __ldg(row + 3);
         const int fc = m0.z, fl = m0.w;
         const int im = m1.z & 0xFF, lm = (m1.z >> 8) & 0xFF;
+        n_box += __popc(im | lm);  // every live child is box-tested
         float key[RTK_W];
         int ent[RTK_W];
         int cnt = 0;
@@ -189,7 +194,11 @@ packet_trace_kernel(const int4* __restrict__ nodes,
         for (int k = 0; k < leaf_size; ++k) {
           const float4* tr = tris + (size_t)(base + k) * 4;
           const float4 q0 = __ldg(tr), q1 = __ldg(tr + 1), q2 = __ldg(tr + 2);
+          // Padding rows (NaN vertices) can never hit; masked-out rows
+          // are rejected before any arithmetic.
+          if (q0.x != q0.x) continue;
           if (use_mask && ((int)q2.y & qmask) == 0) continue;
+          ++n_tri;
           const float vx[3] = {q0.x, q0.w, q1.z};
           const float vy[3] = {q0.y, q1.x, q1.w};
           const float vz[3] = {q0.z, q1.y, q2.x};
@@ -207,7 +216,7 @@ packet_trace_kernel(const int4* __restrict__ nodes,
           float u = xs[1] * ys[2] - ys[1] * xs[2];
           float v = xs[2] * ys[0] - ys[2] * xs[0];
           float w = xs[0] * ys[1] - ys[0] * xs[1];
-          // NaN padding rows never take this path (NaN == 0 is false).
+          // NaN edge values never take this path (NaN == 0 is false).
           if (watertight && (u == 0.0f || v == 0.0f || w == 0.0f)) {
             u = edge_f64(xs[1], ys[1], xs[2], ys[2]);
             v = edge_f64(xs[2], ys[2], xs[0], ys[0]);
@@ -245,6 +254,8 @@ packet_trace_kernel(const int4* __restrict__ nodes,
     counts[i] = n_int + n_leaf;
     counts[sn + i] = n_int;
     counts[2 * sn + i] = n_leaf;
+    counts[3 * sn + i] = n_box;
+    counts[4 * sn + i] = n_tri;
   }
 }
 
@@ -257,7 +268,7 @@ int rtk_packet_trace_max_stack() { return RTK_MAX_STACK; }
 // rays: (8, n) f32 [ox oy oz dx dy dz min_t max_t]; nodes (Nd*8, 8) i32
 // and tris (Tp, 16) f32, both 16-byte aligned; roots: null or (n,) i32
 // rows in [0, Nd); ray_index: null or (n,) i32 caller indices (filter
-// builds); counts: null or (3, n) i32.  Launches on `stream` and returns
+// builds); counts: null or (5, n) i32.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); does not synchronise.
 int rtk_packet_trace(const void* nodes, const void* tris, const void* rays,
                      const void* roots, const void* ray_index, int n,

@@ -20,8 +20,9 @@ trace starts at row 0.
 `filter_fn` takes a predicate captured by ops/filter_capture.jit_filter:
 the kernel's filter variant is a separate nvcc build per predicate, and
 the plain version calls the predicate on torch tensors.  `stats=True`
-returns per-ray counts of popped entries, internal pops and leaf pops
-beside the hits (the kernel's nullable `counts` output).
+returns per-ray counts of popped entries, internal pops, leaf pops, child
+box tests and triangle tests beside the hits (the kernel's nullable
+`counts` output).
 
 The TPU kernel's scheduling flags (dual, ordered, islab, narrow,
 leaf_loop, kz_static, tris128, hbm_tris, lesion, p_pk, pkt) pick how the
@@ -31,11 +32,9 @@ packet geometry that packet_roots is laid out in.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import os
 import shutil
-import threading
 import time
 
 import torch
@@ -76,7 +75,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # filter), the compiler output (ptxas -v) and seconds of each build made
 # by this process.
 _libs: dict = {}
-_libs_lock = threading.Lock()
 BUILD_LOGS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -100,8 +98,7 @@ def _build(flt: JitFilter | None):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         header = BUILD_DIR / f"filter-{flt.key}.h"
         if not header.exists() or header.read_text() != flt.source:
-            tmp = header.with_name(
-                f"{header.name}.tmp{os.getpid()}-{threading.get_ident()}")
+            tmp = header.with_name(f"{header.name}.tmp{os.getpid()}")
             tmp.write_text(flt.source)
             os.replace(tmp, header)
         so, log = build_shared(
@@ -123,24 +120,9 @@ def load_kernel(filter_fn: JitFilter | None = None):
     build, the predicate's) and load the kernel library.  Raises if nvcc
     is missing or the build fails."""
     key = None if filter_fn is None else filter_fn.key
-    with _libs_lock:
-        if key in _libs:
-            return _libs[key]
-    lib, log, sec = _build(filter_fn)
-    with _libs_lock:
-        _libs.setdefault(key, lib)
-        BUILD_LOGS.setdefault(key, log)
-        BUILD_SECONDS.setdefault(key, sec)
-        return _libs[key]
-
-
-def load_kernels(filters=()):
-    """Build the kernel and the filter build of each of `filters` at once,
-    one nvcc process each, started together."""
-    todo = [None, *filters]
-    with concurrent.futures.ThreadPoolExecutor(len(todo)) as ex:
-        for fut in [ex.submit(load_kernel, f) for f in todo]:
-            fut.result()
+    if key not in _libs:
+        _libs[key], BUILD_LOGS[key], BUILD_SECONDS[key] = _build(filter_fn)
+    return _libs[key]
 
 
 def _check_tables(nodes, tris, rays8):
@@ -200,7 +182,7 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
                         defer_uv: bool = False, roots=None, filter_fn=None,
                         ray_index=None, stats: bool = False):
     """Launch the CUDA kernel on the current stream -> (t, u, v, slot),
-    and the (3, N) int32 counts as a fifth output with stats=True.
+    and the (5, N) int32 counts as a fifth output with stats=True.
 
     rays8: (8, N) f32 rows [ox oy oz dx dy dz min_t max_t] on a CUDA
     device.  stack_size: entries the deepest tree can need (PackedScene
@@ -209,7 +191,9 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     filter_fn: None or a jit_filter predicate (its own kernel build);
     ray_index: None (the caller's index is the column) or (N,) int32
     caller indices the predicate sees.  stats: per-ray counts of popped
-    entries, internal pops and leaf pops.
+    entries, internal pops, leaf pops, child box tests (live child slots
+    of the popped nodes) and triangle tests (rows of the popped leaves
+    that are not NaN padding and pass the mask).
     """
     global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
     _check_tables(nodes, tris, rays8)
@@ -233,7 +217,7 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    counts = (torch.empty((3, n), dtype=torch.int32, device=dev) if stats
+    counts = (torch.empty((5, n), dtype=torch.int32, device=dev) if stats
               else None)
 
     def ptr(a):
@@ -277,9 +261,9 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
     dev = rays8.device
     ox, oy, oz, dx, dy, dz, mint, maxt = rays8
     m = rays8.shape[1]
-    # Pops per ray, counted where the kernel counts them.
-    n_int = torch.zeros((m,), dtype=torch.int32, device=dev)
-    n_leaf = torch.zeros((m,), dtype=torch.int32, device=dev)
+    # Pops and tests per ray, counted where the kernel counts them.
+    n_int, n_leaf, n_box, n_tri = torch.zeros((4, m), dtype=torch.int32,
+                                              device=dev)
     origin = torch.stack([ox, oy, oz], dim=1)
     direction = torch.stack([dx, dy, dz], dim=1)
     rcp = _crcp(direction)
@@ -322,6 +306,8 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
                                                 best_t[ia, None]))
             fc, fl = rows[:, 0, 6:7], rows[:, 0, 7:8]
             im, lm = rows[:, 1, 6:7] & 0xFF, (rows[:, 1, 6:7] >> 8) & 0xFF
+            if stats:
+                n_box[ia] += _popc8(im | lm)[:, 0]
             is_i = (im & wbits) != 0
             is_l = (lm & wbits) != 0
             below = wbits - 1
@@ -351,8 +337,15 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
                 origin[la], ray_shear(direction[la]),
                 trow[..., :9].reshape(-1, leaf_size, 3, 3),
                 mint[la], best_t[la], watertight=watertight)
+            # The rows tested: not NaN padding (never a hit) and, under a
+            # mask, passing it; the kernel skips the rest before any
+            # arithmetic.
+            tested = trow[..., 0] == trow[..., 0]
             if qmask is not None:
-                ok &= (trow[..., MASK_COL].to(torch.int32) & qmask) != 0
+                tested &= (trow[..., MASK_COL].to(torch.int32) & qmask) != 0
+                ok &= tested
+            if stats:
+                n_tri[la] += tested.sum(dim=1, dtype=torch.int32)
             if filter_fn is not None:
                 # The caller's predicate on (rays, K) candidates, with u
                 # and v even under defer_uv (pallas_trace.py:1003-1018).
@@ -375,7 +368,7 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
                 sp[la[best_s[la] >= 0]] = 0
     out = (best_t, best_u, best_v, best_s)
     if stats:
-        out += (torch.stack([n_int + n_leaf, n_int, n_leaf]),)
+        out += (torch.stack([n_int + n_leaf, n_int, n_leaf, n_box, n_tri]),)
     return out
 
 
@@ -386,7 +379,7 @@ def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
                            roots=None, filter_fn=None, ray_index=None,
                            stats: bool = False):
     """The kernel's plain PyTorch version on any device -> (t, u, v, slot)
-    and, with stats=True, the (3, N) counts.
+    and, with stats=True, the (5, N) counts.
 
     Same tables, child order and arithmetic as csrc/packet_trace.cu; a
     filter_fn is called on torch tensors.  Rays run REF_CHUNK at a time to
@@ -537,8 +530,9 @@ def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
       ANDed into the leaf phase's accept test; ray_index is the caller's
       row even when the batch is sorted.  Other callables raise (run them
       on the stack engine).  Needs fewer than 2^24 triangles.
-    stats: also return the (3, N) int32 per-ray counts, in the caller's
-      order: entries popped, internal pops, leaf pops -> (hits, counts).
+    stats: also return the (5, N) int32 per-ray counts, in the caller's
+      order: entries popped, internal pops, leaf pops, child box tests,
+      triangle tests -> (hits, counts).
     defer_uv: the kernel writes t and slot only; .u/.v are recomputed.
     sort_rays: coherence-sort the batch first (None: for >= 16384 rays
       without roots); results come back in the caller's order either way.

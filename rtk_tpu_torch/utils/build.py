@@ -11,7 +11,6 @@ import hashlib
 import os
 import pathlib
 import subprocess
-import threading
 
 PKG_ROOT = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_ROOT / "build"
@@ -35,8 +34,7 @@ def build_shared(name: str, sources, command,
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(
-        f"{out.name}.tmp{os.getpid()}-{threading.get_ident()}")
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     try:
         proc = subprocess.run(
             [*command, *map(str, sources), "-o", str(tmp)],

@@ -57,8 +57,7 @@ def test_task_builds_equal_build_scene(threads):
                                                  num_threads=threads,
                                                  device=CPU), want)
     _assert_scenes_equal(compat.rtk_build_scene(
-        compat.RtkSceneDesc(_meshes()), device=CPU, num_threads=threads),
-        want)
+        compat.RtkSceneDesc(_meshes()), device=CPU), want)
 
 
 def test_single_thread_lifecycle():

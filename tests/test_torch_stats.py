@@ -1,7 +1,8 @@
 """utils/stats.py and the packet trace's per-ray counts against rtk_tpu:
 the stats variant's plain version (fields, the steps = internal + leaf
-identity, any-hit <= closest-hit), measure_trace, and log_build /
-scene_stats on the carried scene (the same lines and numbers)."""
+identity, the box and triangle tests, any-hit <= closest-hit),
+measure_trace, and log_build / scene_stats on the carried scene (the same
+lines and numbers)."""
 import json
 
 import numpy as np
@@ -37,9 +38,13 @@ def test_counts_fields_and_any_le_closest(leaf):
     hc, closest = trace_packets(packed, rays, stats=True)
     ha, anyhit = trace_packets(packed, rays, mode="any", stats=True)
     for c in (closest, anyhit):
-        assert c.shape == (3, rays.count) and c.dtype == torch.int32
+        assert c.shape == (5, rays.count) and c.dtype == torch.int32
         assert (c >= 0).all()
         assert torch.equal(c[0], c[1] + c[2])
+        # Each popped node tests its 2..8 live children; each popped leaf
+        # at most leaf_size rows, at least one.
+        assert (2 * c[1] <= c[3]).all() and (c[3] <= 8 * c[1]).all()
+        assert (c[2] <= c[4]).all() and (c[4] <= leaf * c[2]).all()
     assert (anyhit <= closest).all()
     # Every live ray pops its root; rays that hit popped a leaf.
     assert (closest[1] >= 1).all() and (closest[2][hc.hit] >= 1).all()
@@ -61,6 +66,42 @@ def test_counts_come_back_in_the_callers_order():
     assert torch.equal(a, b)
     _, c = trace_packets_reference(packed, rays[:100], stats=True)
     assert torch.equal(c, a[:, :100])
+
+
+def test_triangle_tests_skip_padding_and_masked_rows():
+    """Triangle tests count only the rows the function needs: a popped
+    leaf's real triangles that pass the mask, never its NaN padding.  A
+    predicate that rejects every candidate leaves best_t at max_t, so the
+    pops do not depend on the mask and the rows can be summed across
+    masks."""
+    tris = scenes.blob(3)[0]
+    n = tris.shape[0]
+    mask = np.where(np.arange(n) % 2 == 1, 1, 2).astype(np.uint32)
+    packed = rt.build_sah_packed(_soup_of(tris), rt.BuildConfig(leaf_size=16),
+                                 tri_mask=mask, device=CPU)
+    assert torch.isnan(packed.tris[:, 0]).any()  # leaves hold padding
+    rays = _blob_rays()
+    reject = rt.jit_filter(lambda c: c.t < -1.0)
+    runs = [trace_packets(packed, rays, filter_fn=reject, stats=True, **kw)
+            for kw in ({}, {"filter_mask": 1}, {"filter_mask": 2},
+                       {"filter_mask": 4})]
+    (h, full), (_, odd), (_, even), (_, none) = runs
+    assert not h.hit.any() and (full[2] > 0).any()
+    for c in (odd, even, none):
+        assert torch.equal(c[:4], full[:4])
+    assert torch.equal(odd[4] + even[4], full[4])
+    assert (none[4] == 0).all()
+    assert (full[4] < 16 * full[2]).any()  # padding is not counted
+
+
+def test_triangle_tests_equal_leaf_pops_without_padding():
+    tris = scenes.blob(3)[0]
+    packed = pack_scene(rt.build_scene(_soup_of(tris),
+                                       rt.BuildConfig(leaf_size=1),
+                                       device=CPU))
+    assert not torch.isnan(packed.tris[:, 0]).any()
+    _, c = trace_packets(packed, _blob_rays(), stats=True)
+    assert torch.equal(c[4], c[2])
 
 
 def test_dead_rays_count_nothing():

@@ -34,7 +34,18 @@ Phases (each prints one line):
      engine (trace_closest with an unmarked callable) against the filter
      kernel at 1024^2; save -> load of the scene and the SAH tables; and
      the rtk compat shim (a 4-thread task build, single-ray
-     rtk_trace_ray / rtk_trace_ray_filter on 64 rays).
+     rtk_trace_ray / rtk_trace_ray_filter on 64 rays);
+  7. the last two variants at full width: 16-wide tables (one step-
+     quantized SAH tree of blob(6), leaf 16, packed 8- and 16-wide, 8192^2
+     morton rays with sort_rays=False; the widths against each other, the
+     16-wide kernel against its plain version, with counts at 512^2), and
+     BASELINE
+     config 3, the atrium (409,600 tris, bench.py:590-664): SAH tables at
+     both widths, 1024^2 primaries and one cosine-sampled diffuse bounce
+     traced at both widths, and the fused grid march on the atrium's LBVH
+     through Tracer(engine="march") against the flat trace (closest on the
+     bounce and the primaries, any-hit masks), with the march kernel
+     against its plain version on the bounce (counts on a 256^2 subset).
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
 time the card could take, from the per-ray box and triangle tests the
@@ -45,9 +56,11 @@ phase fails.  Imports no jax.
 """
 import io
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -91,6 +104,11 @@ PEAK_BYTES = 3.35e12  # HBM bytes a second
 # counted.
 OPS_PER_BOX = 19
 OPS_PER_TRI = 53
+# Phase 7: the atrium's camera and bounce (bench.py:623-633).
+ATRIUM_CAM = dict(eye=(0, 6, 9), look_at=(0, 2, 0), up=(0, 1, 0),
+                  fov_deg=60)
+WIDTH_T_TOL = 1e-6  # 16- vs 8-wide: t within WIDTH_T_TOL*(1+|t|) (test_w16)
+WIDTH_MISMATCH = 1e-6  # ...and at most this share of the rays disagreeing
 
 
 def check(cond, msg):
@@ -130,6 +148,13 @@ def compare(got, want, what):
               f"{what}: {f} differs by {float(d.max())}")
         err = max(err, float(d.max()))
     return err
+
+
+def as_hits(out):
+    """The (t, u, v, slot, ...) outputs of a kernel or its plain version
+    as compare() reads them."""
+    return SimpleNamespace(t=out[0], u=out[1], v=out[2], slot=out[3],
+                           hit=out[3] >= 0)
 
 
 def config5(rt, dev, subdivisions=6, side=5):
@@ -272,9 +297,8 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
         ps.packed.nodes, ps.packed.tris, comps, **tk), reps=3)
     p_out, plain_ms = timed(lambda: packet_trace.packet_trace_reference(
         ps.packed.nodes, ps.packed.tris, comps, **tk), warm=False)
-    max_err = max(max_err, compare(*(SimpleNamespace(
-        t=o_[0], u=o_[1], v=o_[2], slot=o_[3], hit=o_[3] >= 0)
-        for o_ in (k_out, p_out)), "round-0 roots kernel/plain"))
+    max_err = max(max_err, compare(as_hits(k_out), as_hits(p_out),
+                                   "round-0 roots kernel/plain"))
     # 4 more bytes a ray: its root row.
     b_ms, b_by = bound(packet_trace.packet_trace_kernel(
         ps.packed.nodes, ps.packed.tris, comps, **tk, stats=True)[4],
@@ -409,9 +433,7 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     # Per-ray counts of the 8192^2 trace (caller order).
     check(bool((counts[0] == counts[1] + counts[2]).all()),
           "stats: steps != internal + leaf pops")
-    rec["per_ray_mean"] = dict(zip(
-        ("steps", "internal_pops", "leaf_pops", "box_tests", "tri_tests"),
-        counts.double().mean(dim=1).tolist()))
+    rec["per_ray_mean"] = per_ray_mean(counts)
 
     # Each variant alone against its plain version at 8192^2, on the
     # coherence-sorted rays the front end hands the kernel.
@@ -430,9 +452,7 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
             packed.nodes, packed.tris, comps, **kw, **extra), reps=3)
         p_out, p_ms = timed(lambda: pt.packet_trace_reference(
             packed.nodes, packed.tris, comps, **kw, **extra), warm=False)
-        err = compare(*(SimpleNamespace(t=o[0], u=o[1], v=o[2], slot=o[3],
-                                        hit=o[3] >= 0)
-                        for o in (k_out, p_out)), f"{name} 8192^2")
+        err = compare(as_hits(k_out), as_hits(p_out), f"{name} 8192^2")
         if "stats" in extra:
             check(torch.equal(k_out[4], p_out[4]), "stats 8192^2: counts")
             run_counts = k_out[4]
@@ -559,6 +579,244 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     return rec, entries
 
 
+def width_mismatch(a, b):
+    """Rays where two traces of one tree at two widths disagree: the hit,
+    t beyond WIDTH_T_TOL*(1+|t|), or the triangle off an exact-t tie."""
+    both = a.hit & b.hit
+    bad = (a.hit != b.hit) | (both & (
+        ((a.t - b.t).abs() > WIDTH_T_TOL * (1 + b.t.abs()))
+        | ((a.triangle_index != b.triangle_index) & (a.t != b.t))))
+    return int(bad.sum())
+
+
+def march_parity(got, ref, what):
+    """tests/test_grid.py::_assert_parity: equal hit masks, t within
+    1e-6*(1+|t|), another triangle only at an exact-t tie -> (max |t
+    err|, ties)."""
+    check(torch.equal(got.hit, ref.hit),
+          f"{what}: {int((got.hit != ref.hit).sum())} hit mismatches")
+    d = (got.t - ref.t).abs()
+    check(bool((d <= 1e-6 * (1 + ref.t.abs())).all()),
+          f"{what}: t differs by {float(d.max())}")
+    differ = got.slot != ref.slot
+    check(torch.equal(got.t[differ], ref.t[differ]),
+          f"{what}: another triangle off a t tie")
+    return float(d.max()), int(differ.sum())
+
+
+def sah_widths(rt, dev, soup):
+    """One step-quantized SAH tree with leaf 16 (the C++ oracle), packed
+    8- and 16-wide -> ({8: PackedScene, 16: PackedScene}, seconds)."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+    from rtk_tpu_torch.utils.native_sah import NativeOracle
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = NativeOracle(soup.reshape(-1, 9), leaf_max=16,
+                        step_quant=True).export_tree()
+    tables = {w: pack_binary_tree(soup, *tree, leaf_size=16, branching=w,
+                                  device=dev) for w in (8, 16)}
+    torch.cuda.synchronize()
+    return tables, time.perf_counter() - t0
+
+
+def kernel_alone(pt, packed, comps, **kw):
+    """(outputs, ms) of the kernel alone on (8, N) rows, 3 timed calls."""
+    return timed(lambda: pt.packet_trace_kernel(
+        packed.nodes, packed.tris, comps, leaf_size=packed.leaf_size,
+        stack_size=packed.stack_size, branching=packed.branching, **kw),
+        reps=3)
+
+
+def rows_of(rays):
+    return torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
+                      rays.max_t[None]]).contiguous()
+
+
+def per_ray_mean(counts):
+    """The stats variant's (5, N) counts as per-ray means by name."""
+    return dict(zip(("steps", "internal_pops", "leaf_pops", "box_tests",
+                     "tri_tests"), counts.double().mean(dim=1).tolist()))
+
+
+def phase7(rt, dev, soup6, cam512, width=8192, atrium_width=1024,
+           subset=256):
+    """16-wide tables on the headline and the atrium bounce, and the grid
+    march on the atrium; returns its record and the two kernel entries.
+    Counts are zeroed just before each main-path trace and read just
+    after; the comparisons with plain versions come after."""
+    from rtk_tpu_torch.models.path import cosine_sample, geometric_normal
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.ops.morton import ray_coherence_key
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.testing.grid import march_batch, trace_packets_march
+
+    sync = torch.cuda.synchronize
+    rec = {}
+    w16 = {"launches": 0, "max_abs_err": 0.0}
+    march = {"launches": 0, "max_abs_err": 0.0}
+
+    # ---- K3 on the headline: one SAH tree of blob(6), two widths ----
+    tables, rec["headline_build_s"] = sah_widths(rt, dev, soup6)
+    rays = scenes.camera_rays(**CAM, width=width, height=width,
+                              order="morton", device=dev, on_device=True)
+    n = rays.count
+    sync()
+    pt.KERNEL_LAUNCHES = pt.W16_LAUNCHES = 0
+    h16 = pt.trace_packets(tables[16], rays, sort_rays=False)
+    sync()
+    w16["launches"] += pt.W16_LAUNCHES
+    h8 = pt.trace_packets(tables[8], rays, sort_rays=False)
+    mism = width_mismatch(h16, h8)
+    check(mism <= WIDTH_MISMATCH * n,
+          f"headline 16- vs 8-wide: {mism} of {n} rays disagree")
+    comps = rows_of(rays)
+    del rays, h8
+    k_out, w16["ms"] = kernel_alone(pt, tables[16], comps)
+    _, w8_ms = kernel_alone(pt, tables[8], comps)
+    # The 16-wide kernel against its plain version on the same rows.
+    p_out, w16["plain_ms"] = timed(lambda: pt.packet_trace_reference(
+        tables[16].nodes, tables[16].tris, comps, leaf_size=16,
+        stack_size=tables[16].stack_size, branching=16), warm=False)
+    w16["max_abs_err"] = compare(as_hits(k_out), as_hits(p_out),
+                                 "w16 kernel/plain 8192^2")
+    del k_out, p_out
+    counts = {w: pt.packet_trace_kernel(
+        p.nodes, p.tris, comps, leaf_size=16, stack_size=p.stack_size,
+        branching=w, stats=True)[4] for w, p in tables.items()}
+    w16["bound_ms"], w16["bound_by"] = bound(counts[16], tables[16])
+    rec["headline"] = {
+        "rays": n, "hits": int(h16.hit.sum()), "width_mismatch": mism,
+        "depth": {w: p.depth for w, p in tables.items()},
+        "nodes": {w: p.num_nodes for w, p in tables.items()},
+        "w16_kernel_ms": w16["ms"], "w8_kernel_ms": w8_ms,
+        "w16_plain_ms": w16["plain_ms"],
+        "w8_bound_ms": bound(counts[8], tables[8])[0],
+        "per_ray_mean": {w: per_ray_mean(c) for w, c in counts.items()}}
+    del comps, counts, h16
+    # Both modes with their counts at 512^2 through the front end.
+    for kw in ({}, {"mode": "any"}):
+        got = pt.trace_packets(tables[16], cam512, sort_rays=False,
+                               stats=True, **kw)
+        want = pt.trace_packets_reference(tables[16], cam512,
+                                          sort_rays=False, stats=True, **kw)
+        w16["max_abs_err"] = max(w16["max_abs_err"], compare(
+            got[0], want[0], f"w16 512^2 {kw}"))
+        check(torch.equal(got[1], want[1]), f"w16 512^2 {kw}: counts")
+    del tables
+
+    # ---- the atrium: SAH tables at both widths, primaries, one bounce ----
+    atr = scenes.atrium()
+    tables, rec["atrium_sah_build_s"] = sah_widths(rt, dev, atr)
+    cam = scenes.camera_rays(**ATRIUM_CAM, width=atrium_width,
+                             height=atrium_width, order="morton", device=dev)
+    prim = pt.trace_packets(tables[8], cam)
+    nrm = geometric_normal(prim, cam.direction)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bounce = rt.Rays(origin=prim.position() + 1e-3 * nrm,
+                     direction=cosine_sample(gen, nrm),
+                     min_t=torch.full((cam.count,), 1e-3, device=dev),
+                     max_t=torch.where(prim.hit, float(np.float32(3.4e38)),
+                                       0.0))
+    sync()
+    pt.W16_LAUNCHES = 0
+    b16 = pt.trace_packets(tables[16], bounce)
+    sync()
+    w16["launches"] += pt.W16_LAUNCHES
+    b8 = pt.trace_packets(tables[8], bounce)
+    mism = width_mismatch(b16, b8)
+    check(mism <= WIDTH_MISMATCH * bounce.count,
+          f"atrium bounce 16- vs 8-wide: {mism} rays disagree")
+    ms = {w: timed(lambda: pt.trace_packets(p, bounce), reps=3)[1]
+          for w, p in tables.items()}
+    w16["max_abs_err"] = max(w16["max_abs_err"], compare(
+        b16, pt.trace_packets_reference(tables[16], bounce), "w16 bounce"))
+    # Each kernel alone on the coherence-sorted rows it is handed.
+    order = torch.sort(ray_coherence_key(bounce.origin, bounce.direction),
+                       stable=True).indices
+    brows = rows_of(bounce)[:, order].contiguous()
+    del order
+    rec["atrium"] = {
+        "tris": atr.shape[0], "rays": cam.count,
+        "primary_hits": int(prim.hit.sum()),
+        "bounce_hits": int(b16.hit.sum()), "width_mismatch": mism,
+        "depth": {w: p.depth for w, p in tables.items()},
+        "bounce_ms": ms,
+        "bounce_kernel_ms": {w: kernel_alone(pt, p, brows)[1]
+                             for w, p in tables.items()},
+        "per_ray_mean": {w: per_ray_mean(pt.packet_trace_kernel(
+            p.nodes, p.tris, brows, leaf_size=16, stack_size=p.stack_size,
+            branching=w, stats=True)[4]) for w, p in tables.items()}}
+    del tables, b8, b16
+
+    # ---- K2: the grid march on the atrium's LBVH (leaf 16) ----
+    sync()
+    t0 = time.perf_counter()
+    scene = rt.build_from_soup(atr, config=rt.BuildConfig(leaf_size=16),
+                               device=dev)
+    tracer = rt.Tracer(scene, engine="march")
+    flat = rt.Tracer(scene)
+    sync()
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = tracer.grid
+    sync()
+    grid_s = time.perf_counter() - t0
+    pt.MARCH_LAUNCHES = 0
+    hm = tracer.closest(bounce)
+    am = tracer.any(bounce)
+    pm = tracer.closest(cam)
+    sync()
+    march["launches"] = pt.MARCH_LAUNCHES
+    check(march["launches"] == 3, f"march launches {march['launches']}")
+    parity = {"bounce": march_parity(hm, flat.closest(bounce), "bounce"),
+              "primary": march_parity(pm, flat.closest(cam), "primary")}
+    check(torch.equal(am.hit, flat.any(bounce).hit), "march any-hit mask")
+    march_ms = timed(lambda: tracer.closest(bounce), reps=3)[1]
+    flat_ms = timed(lambda: flat.closest(bounce), reps=3)[1]
+    flat_kernel_ms = kernel_alone(pt, flat.packed, brows)[1]
+    del brows
+    mg, mrows, _ = march_batch(grid, bounce)
+    cm = grid.cells_march
+    mk = dict(leaf_size=cm.leaf_size, stack_size=cm.stack_size, grid=mg)
+    k_out, march["ms"] = timed(lambda: pt.packet_march_kernel(
+        cm.nodes, cm.tris, mrows, **mk), reps=3)
+    # The march kernel against its plain version (one round of the plain
+    # roots traversal per cell) on the same rows.
+    p_out, march["plain_ms"] = timed(lambda: pt.packet_march_reference(
+        cm.nodes, cm.tris, mrows, **mk), warm=False)
+    march["max_abs_err"] = compare(as_hits(k_out), as_hits(p_out),
+                                   "march kernel/plain")
+    march["bound_ms"], march["bound_by"] = bound(
+        pt.packet_march_kernel(cm.nodes, cm.tris, mrows, **mk,
+                               stats=True)[4], cm)
+    del mrows, k_out, p_out
+    # Both modes with their counts on a subset, through the front end.
+    sub = bounce[::(bounce.count // subset ** 2)]
+    for mode in ("closest", "any"):
+        got = trace_packets_march(grid, sub, mode=mode, stats=True)
+        want = trace_packets_march(grid, sub, mode=mode, stats=True,
+                                   plain=True)
+        march["max_abs_err"] = max(march["max_abs_err"], compare(
+            got[0], want[0], f"march subset {mode}"))
+        check(torch.equal(got[1], want[1]), f"march subset {mode}: counts")
+    _, counts = trace_packets_march(grid, bounce, stats=True)
+    _, flat_counts = pt.trace_packets(flat.packed, bounce, stats=True)
+    rec["march"] = {
+        "scene_build_s": scene_s, "grid_build_s": grid_s,
+        "dims": grid.dims, "occupied_cells": grid.n_occ,
+        "cells_rows": cm.num_nodes, "cells_tris": cm.num_padded_tris,
+        "bounce_hits": int(hm.hit.sum()), "primary_hits": int(pm.hit.sum()),
+        "max_t_err_ties": parity, "march_bounce_ms": march_ms,
+        "flat_bounce_ms": flat_ms, "kernel_ms": march["ms"],
+        "flat_kernel_ms": flat_kernel_ms, "plain_ms": march["plain_ms"],
+        "subset_rays": sub.count,
+        "flat_bound_ms": bound(flat_counts, flat.packed)[0],
+        "per_ray_mean": {"march": per_ray_mean(counts),
+                         "flat": per_ray_mean(flat_counts)}}
+    return rec, {"packet_trace_w16": w16, "packet_trace_march": march}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -574,20 +832,31 @@ def main():
     card = smi("name,power.limit")
 
     # ---- phase 1: build and environment ----
-    # The kernel and one filter build per phase-6 predicate, in turn.
+    # The kernel and one filter build per phase-6 predicate, one nvcc
+    # each, all started together.
     filters = {name: rt.jit_filter(f) for name, f in (
         ("odd_tri", ODD_TRI), ("even_ray", EVEN_RAY), ("tri_t", TRI_T))}
     t0 = time.perf_counter()
-    for flt in (None, *filters.values()):
-        packet_trace.load_kernel(flt)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        list(pool.map(packet_trace.load_kernel, (None, *filters.values())))
     build_s = time.perf_counter() - t0
     nvcc = subprocess.run([packet_trace._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
 
     def ptxas(key):
-        return [ln.split("ptxas info    : ")[-1] for ln in
-                packet_trace.BUILD_LOGS[key].splitlines()
-                if "registers" in ln or "spill" in ln]
+        """ptxas -v's registers, frame and spills per instantiation: w8,
+        w16 and (without a filter) w8_march."""
+        out, name = {}, None
+        for ln in packet_trace.BUILD_LOGS[key].splitlines():
+            m = re.search(r"Compiling entry function .*?ILi(\d+)ELb([01])E",
+                          ln)
+            if m:
+                name = f"w{m.group(1)}" + ("_march" if m.group(2) == "1"
+                                           else "")
+            elif name and ("registers" in ln or "spill" in ln):
+                out.setdefault(name, []).append(
+                    ln.split("ptxas info    : ")[-1].strip())
+        return out
 
     builds = {"plain_build": {"s": packet_trace.BUILD_SECONDS[None],
                               "ptxas": ptxas(None)}}
@@ -690,9 +959,8 @@ def main():
         lambda: packet_trace.packet_trace_reference(packed.nodes,
                                                     packed.tris, comps, **kw),
         warm=False)
-    main_err = compare(*(SimpleNamespace(t=o[0], u=o[1], v=o[2], slot=o[3],
-                                         hit=o[3] >= 0)
-                         for o in (k_out, p_out)), "main path kernel/plain")
+    main_err = compare(as_hits(k_out), as_hits(p_out),
+                       "main path kernel/plain")
     max_err = max(max_err, main_err)
     main_bound = bound(packet_trace.packet_trace_kernel(
         packed.nodes, packed.tris, comps, **kw, stats=True)[4], packed)
@@ -749,6 +1017,16 @@ def main():
     print("phase 6 filter/stats:", json.dumps({**p6, "card": card}),
           flush=True)
 
+    # ---- phase 7: 16-wide tables and the grid march at full width ----
+    p7, p7_kernels = phase7(rt, dev, v6[f6], cam512)
+    check(p7_kernels["packet_trace_w16"]["launches"] >= 2,
+          "phase 7 never launched the 16-wide instantiation")
+    print("phase 7 w16/march:", json.dumps({
+        **p7, "shapes": "w16 kernel and plain ms and bound at 8192^2 "
+        "(sort_rays=False rows), both modes' counts at 512^2; march kernel "
+        "and plain ms and bound on the 1024^2 atrium bounce, both modes' "
+        "counts on a 256^2 subset of it", "card": card}), flush=True)
+
     src = "rtk_tpu_torch/csrc/packet_trace.cu"
     kernels = [
         {"name": "packet_trace", "replaces": "rtk_tpu/ops/pallas_trace.py:146",
@@ -766,7 +1044,13 @@ def main():
          **p6_kernels["packet_trace_filter"]},
         {"name": "packet_trace_stats",
          "replaces": "rtk_tpu/ops/pallas_trace.py:514",
-         **p6_kernels["packet_trace_stats"]}]
+         **p6_kernels["packet_trace_stats"]},
+        {"name": "packet_trace_w16",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:163",
+         **p7_kernels["packet_trace_w16"]},
+        {"name": "packet_trace_march",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:387",
+         **p7_kernels["packet_trace_march"]}]
     # No PyTorch call traverses a BVH: library_ms is null for every entry.
     print(json.dumps({"kernels": [
         {"route": "cuda", "source": src, "library_ms": None, **k}

@@ -1,6 +1,6 @@
 // Packet-table traversal kernel for Hopper (sm_90a): the nearest (or any)
-// watertight hit of each ray over the packed BVH8 tables built by
-// rtk_tpu_torch/trace/packed.py.
+// watertight hit of each ray over the packed 8- or 16-wide BVH tables
+// built by rtk_tpu_torch/trace/packed.py.
 //
 // Replaces rtk_tpu/ops/pallas_trace.py::_make_kernel (the TPU kernel that
 // _run_kernel launches through pl.pallas_call).  Same tables, same
@@ -42,6 +42,26 @@
 //     mesh, triangle, caller ray index) of a candidate that passed the
 //     geometric test and is ANDed into the accept test; u and v are
 //     computed for it even under defer_uv.
+// and the two variants that change the traversal's shape, each its own
+// template instantiation (its own registers; the 8-wide build without
+// them is the same code as before they existed):
+//   * w_arity=16 (pallas_trace.py:163-174, :805-828): 16-wide node tables,
+//     16 rows a node and the leaf mask in bits 16-31 of the masks word.
+//     The near-to-far order stays the stable insertion by entry distance
+//     (ties by slot), the one-thread form of the TPU's 63-comparator
+//     Batcher network; a 16-wide node pushes up to 16 entries, so the
+//     stack holds trees up to 17 levels deep.
+//   * march (pallas_trace.py:387-427, :1190-1292): the fused macro-grid
+//     march over a table with one root row per grid cell (root row ==
+//     cell id, testing/grid.py).  Each ray enters the grid by a slab test
+//     (Amanatides-Woo), traverses its cell's tree with best_t carried from
+//     cell to cell, and retires when its best hit precedes the cell's
+//     exit (or, any-hit, at its first hit); otherwise it takes one DDA
+//     step, and stops when the step leaves the grid.  The TPU kernel's
+//     packets adopt one pending cell at a time and keep an in-cell mask,
+//     because 128 lanes share a stack; here each ray walks its own cell
+//     chain, and only the result is shared: the nearest hit over it.
+//     Bound as the traversal is: one dependent fetch chain per cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,7 +72,6 @@
 #endif
 #endif
 
-#define RTK_W 8
 #define RTK_MAX_STACK 256  // entries; the wrapper refuses deeper trees
 #define RTK_BLOCK 128
 
@@ -83,13 +102,158 @@ __device__ __forceinline__ float edge_f64(float ax, float ay, float bx,
   return (float)((double)ax * (double)by - (double)ay * (double)bx);
 }
 
+// The macro-grid of a march trace: cells per axis, the grid's low corner
+// and cell size (f32 as GridScene stores them), and its high corner
+// f32(lo + cs * dims), rounded once from f64 on the host as the
+// reference's Python-float constant is (grid.py:937-941).
+struct Grid {
+  int dx, dy, dz;
+  float lox, loy, loz, csx, csy, csz, hix, hiy, hiz;
+};
+
+// Per-ray constants of the traversal.
+struct RayC {
+  float ox, oy, oz, rx, ry, rz, mint;
+  int kx, ky, kz;
+  float sx, sy, sz, okx, oky, okz;
+};
+
+// Depth-first traversal of the W-wide tree rooted at row `root`, with the
+// best hit so far carried in and out (a march trace carries it from cell
+// to cell; a miss leaves it as it was).  Counters add up.
+template <int W>
+__device__ __forceinline__ void traverse(
+    int root, const int4* __restrict__ nodes, const float4* __restrict__ tris,
+    int leaf_size, int mode_any, int watertight, int use_mask, int qmask,
+    int defer_uv, int rid, const RayC& r, float& best_t, float& best_u,
+    float& best_v, int& best_slot, int& n_int, int& n_leaf, int& n_box,
+    int& n_tri) {
+  constexpr unsigned kMask = (1u << W) - 1u;
+  const bool px = r.rx >= 0.0f, py = r.ry >= 0.0f, pz = r.rz >= 0.0f;
+  int stack[RTK_MAX_STACK];
+  int sp = 0;
+  stack[sp++] = root;
+  while (sp > 0) {
+    const int e = stack[--sp];
+    if (e >= 0) {
+      ++n_int;
+      // Internal node: W child rows of 8 int32, 2 int4 per row.  Row 0
+      // carries (first_child, first_leaf) in cols 6-7, row 1 the masks
+      // (internal in bits 0..W-1, leaf in bits W..2W-1: read unsigned).
+      const int4* row = nodes + (size_t)e * (2 * W);
+      const int4 m0 = __ldg(row + 1);
+      const int4 m1 = __ldg(row + 3);
+      const int fc = m0.z, fl = m0.w;
+      const unsigned mz = (unsigned)m1.z;
+      const int im = (int)(mz & kMask), lm = (int)((mz >> W) & kMask);
+      n_box += __popc(im | lm);  // every live child is box-tested
+      float key[W];
+      int ent[W];
+      int cnt = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int bit = 1 << w;
+        if (!((im | lm) & bit)) continue;
+        const int4 a = __ldg(row + 2 * w);
+        const int4 b = __ldg(row + 2 * w + 1);
+        const float mnx = __int_as_float(a.x), mny = __int_as_float(a.y),
+                    mnz = __int_as_float(a.z), mxx = __int_as_float(a.w),
+                    mxy = __int_as_float(b.x), mxz = __int_as_float(b.y);
+        const float nx = ((px ? mnx : mxx) - r.ox) * r.rx;
+        const float fx = ((px ? mxx : mnx) - r.ox) * r.rx;
+        const float ny = ((py ? mny : mxy) - r.oy) * r.ry;
+        const float fy = ((py ? mxy : mny) - r.oy) * r.ry;
+        const float nz = ((pz ? mnz : mxz) - r.oz) * r.rz;
+        const float fz = ((pz ? mxz : mnz) - r.oz) * r.rz;
+        const float enter = max_nan(max_nan(nx, ny), max_nan(nz, r.mint));
+        const float exit = min_nan(min_nan(fx, fy), min_nan(fz, best_t));
+        if (!(enter <= exit)) continue;
+        const int below = bit - 1;
+        const int entry = (im & bit) ? fc + __popc(im & below)
+                                     : -(fl + __popc(lm & below)) - 2;
+        // Stable insertion by entry distance: ties keep slot order.
+        int j = cnt++;
+        while (j > 0 && key[j - 1] > enter) {
+          key[j] = key[j - 1];
+          ent[j] = ent[j - 1];
+          --j;
+        }
+        key[j] = enter;
+        ent[j] = entry;
+      }
+      // Far first, so the nearest child is on top of the stack.
+      for (int j = cnt - 1; j >= 0; --j) stack[sp++] = ent[j];
+    } else {
+      // Leaf l: triangle rows [l*K, (l+1)*K), 16 floats each:
+      // [v0 v1 v2 | mask mesh prim | pad].
+      ++n_leaf;
+      const int base = (-e - 2) * leaf_size;
+      for (int k = 0; k < leaf_size; ++k) {
+        const float4* tr = tris + (size_t)(base + k) * 4;
+        const float4 q0 = __ldg(tr), q1 = __ldg(tr + 1), q2 = __ldg(tr + 2);
+        // Padding rows (NaN vertices) can never hit; masked-out rows
+        // are rejected before any arithmetic.
+        if (q0.x != q0.x) continue;
+        if (use_mask && ((int)q2.y & qmask) == 0) continue;
+        ++n_tri;
+        const float vx[3] = {q0.x, q0.w, q1.z};
+        const float vy[3] = {q0.y, q1.x, q1.w};
+        const float vz[3] = {q0.z, q1.y, q2.x};
+        float xs[3], ys[3], zs[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          // Translate before shearing (pallas_trace.py:953-968).
+          const float tx = sel3(r.kx, vx[j], vy[j], vz[j]) - r.okx;
+          const float ty = sel3(r.ky, vx[j], vy[j], vz[j]) - r.oky;
+          const float tz = sel3(r.kz, vx[j], vy[j], vz[j]) - r.okz;
+          xs[j] = tx + r.sx * tz;
+          ys[j] = ty + r.sy * tz;
+          zs[j] = r.sz * tz;
+        }
+        float u = xs[1] * ys[2] - ys[1] * xs[2];
+        float v = xs[2] * ys[0] - ys[2] * xs[0];
+        float w = xs[0] * ys[1] - ys[0] * xs[1];
+        // NaN edge values never take this path (NaN == 0 is false).
+        if (watertight && (u == 0.0f || v == 0.0f || w == 0.0f)) {
+          u = edge_f64(xs[1], ys[1], xs[2], ys[2]);
+          v = edge_f64(xs[2], ys[2], xs[0], ys[0]);
+          w = edge_f64(xs[0], ys[0], xs[1], ys[1]);
+        }
+        const float lo = min_nan(min_nan(u, v), w);
+        const float hi = max_nan(max_nan(u, v), w);
+        const float rcp_det = 1.0f / (u + v + w);
+        const float t = (u * zs[0] + v * zs[1] + w * zs[2]) * rcp_det;
+        // Accept inside (min_t, best): the first hit found wins a tie.
+        bool accept = !(lo < 0.0f && hi > 0.0f) && t > r.mint && t < best_t;
+#ifdef RTK_FILTER
+        // Mesh and triangle ids are exact float columns (< 2^24).
+        accept = accept && rtk_filter_pred(t, u * rcp_det, v * rcp_det,
+                                           (int)q2.z, (int)q2.w, rid);
+#endif
+        if (accept) {
+          best_t = t;
+          best_slot = base + k;
+          if (!defer_uv) {
+            best_u = u * rcp_det;
+            best_v = v * rcp_det;
+          }
+        }
+      }
+      if (mode_any && best_slot >= 0) break;
+    }
+  }
+}
+
+// One thread per ray.  W: the node table's width (8 or 16).  MARCH: the
+// grid march (roots unused: a cell's root row is its id).
 // roots: null (every ray starts at row 0) or (n,) per-ray entry rows of a
 // multi-root table (pallas_trace.py:347-360 takes one per 128-ray packet;
 // a thread per ray makes the per-ray root the natural form).
 // ray_index: read by filter builds only; null (the caller's index is i) or
 // (n,) caller indices of coherence-sorted rays (pallas_trace.py:1475-1481).
 // counts: null or (5, n) per-ray steps, internal pops, leaf pops, box
-// tests, triangle tests.
+// tests, triangle tests (a march sums them over the ray's cells).
+template <int W, bool MARCH>
 __global__ void __launch_bounds__(RTK_BLOCK)
 packet_trace_kernel(const int4* __restrict__ nodes,
                     const float4* __restrict__ tris,
@@ -97,13 +261,15 @@ packet_trace_kernel(const int4* __restrict__ nodes,
                     const int* __restrict__ roots,
                     const int* __restrict__ ray_index, int n, int leaf_size,
                     int mode_any, int watertight, int use_mask, int qmask,
-                    int defer_uv, float* __restrict__ out_t,
+                    int defer_uv, Grid grid, float* __restrict__ out_t,
                     float* __restrict__ out_u, float* __restrict__ out_v,
                     int* __restrict__ out_slot, int* __restrict__ counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 #ifdef RTK_FILTER
   const int rid = ray_index ? __ldg(ray_index + i) : i;
+#else
+  const int rid = 0;
 #endif
   const size_t sn = (size_t)n;
   const float ox = rays[i], oy = rays[sn + i], oz = rays[2 * sn + i];
@@ -118,131 +284,97 @@ packet_trace_kernel(const int4* __restrict__ nodes,
 
   // Dead rays (max_t <= min_t) do no traversal (pallas_trace.py:385).
   if (!(maxt <= mint)) {
-    const float rx = crcp(dx), ry = crcp(dy), rz = crcp(dz);
-    const bool px = rx >= 0.0f, py = ry >= 0.0f, pz = rz >= 0.0f;
-
+    RayC r;
+    r.ox = ox;
+    r.oy = oy;
+    r.oz = oz;
+    r.rx = crcp(dx);
+    r.ry = crcp(dy);
+    r.rz = crcp(dz);
+    r.mint = mint;
     // Shear basis (rtk.c:550-567): kz = dominant |d| axis, ties x, y, z.
     const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
     const float maxc = max_nan(ax, max_nan(ay, az));
-    const int kz = ax == maxc ? 0 : (ay == maxc ? 1 : 2);
-    const int kx = kz == 2 ? 0 : kz + 1;
-    const int ky = kx == 2 ? 0 : kx + 1;
-    const float dkz = sel3(kz, dx, dy, dz);
-    const float sx = -sel3(kx, dx, dy, dz) / dkz;
-    const float sy = -sel3(ky, dx, dy, dz) / dkz;
-    const float sz = 1.0f / dkz;
-    const float okx = sel3(kx, ox, oy, oz);
-    const float oky = sel3(ky, ox, oy, oz);
-    const float okz = sel3(kz, ox, oy, oz);
+    r.kz = ax == maxc ? 0 : (ay == maxc ? 1 : 2);
+    r.kx = r.kz == 2 ? 0 : r.kz + 1;
+    r.ky = r.kx == 2 ? 0 : r.kx + 1;
+    const float dkz = sel3(r.kz, dx, dy, dz);
+    r.sx = -sel3(r.kx, dx, dy, dz) / dkz;
+    r.sy = -sel3(r.ky, dx, dy, dz) / dkz;
+    r.sz = 1.0f / dkz;
+    r.okx = sel3(r.kx, ox, oy, oz);
+    r.oky = sel3(r.ky, ox, oy, oz);
+    r.okz = sel3(r.kz, ox, oy, oz);
 
-    int stack[RTK_MAX_STACK];
-    int sp = 0;
-    stack[sp++] = roots ? __ldg(roots + i) : 0;  // the ray's root row
-    while (sp > 0) {
-      const int e = stack[--sp];
-      if (e >= 0) {
-        ++n_int;
-        // Internal node: 8 child rows of 8 int32, 2 int4 per row.  Row 0
-        // carries (first_child, first_leaf) in cols 6-7, row 1 the masks.
-        const int4* row = nodes + (size_t)e * (2 * RTK_W);
-        const int4 m0 = __ldg(row + 1);
-        const int4 m1 = __ldg(row + 3);
-        const int fc = m0.z, fl = m0.w;
-        const int im = m1.z & 0xFF, lm = (m1.z >> 8) & 0xFF;
-        n_box += __popc(im | lm);  // every live child is box-tested
-        float key[RTK_W];
-        int ent[RTK_W];
-        int cnt = 0;
-#pragma unroll
-        for (int w = 0; w < RTK_W; ++w) {
-          const int bit = 1 << w;
-          if (!((im | lm) & bit)) continue;
-          const int4 a = __ldg(row + 2 * w);
-          const int4 b = __ldg(row + 2 * w + 1);
-          const float mnx = __int_as_float(a.x), mny = __int_as_float(a.y),
-                      mnz = __int_as_float(a.z), mxx = __int_as_float(a.w),
-                      mxy = __int_as_float(b.x), mxz = __int_as_float(b.y);
-          const float nx = ((px ? mnx : mxx) - ox) * rx;
-          const float fx = ((px ? mxx : mnx) - ox) * rx;
-          const float ny = ((py ? mny : mxy) - oy) * ry;
-          const float fy = ((py ? mxy : mny) - oy) * ry;
-          const float nz = ((pz ? mnz : mxz) - oz) * rz;
-          const float fz = ((pz ? mxz : mnz) - oz) * rz;
-          const float enter = max_nan(max_nan(nx, ny), max_nan(nz, mint));
-          const float exit = min_nan(min_nan(fx, fy), min_nan(fz, best_t));
-          if (!(enter <= exit)) continue;
-          const int below = bit - 1;
-          const int entry = (im & bit) ? fc + __popc(im & below)
-                                       : -(fl + __popc(lm & below)) - 2;
-          // Stable insertion by entry distance: ties keep slot order.
-          int j = cnt++;
-          while (j > 0 && key[j - 1] > enter) {
-            key[j] = key[j - 1];
-            ent[j] = ent[j - 1];
-            --j;
-          }
-          key[j] = enter;
-          ent[j] = entry;
-        }
-        // Far first, so the nearest child is on top of the stack.
-        for (int j = cnt - 1; j >= 0; --j) stack[sp++] = ent[j];
-      } else {
-        // Leaf l: triangle rows [l*K, (l+1)*K), 16 floats each:
-        // [v0 v1 v2 | mask mesh prim | pad].
-        ++n_leaf;
-        const int base = (-e - 2) * leaf_size;
-        for (int k = 0; k < leaf_size; ++k) {
-          const float4* tr = tris + (size_t)(base + k) * 4;
-          const float4 q0 = __ldg(tr), q1 = __ldg(tr + 1), q2 = __ldg(tr + 2);
-          // Padding rows (NaN vertices) can never hit; masked-out rows
-          // are rejected before any arithmetic.
-          if (q0.x != q0.x) continue;
-          if (use_mask && ((int)q2.y & qmask) == 0) continue;
-          ++n_tri;
-          const float vx[3] = {q0.x, q0.w, q1.z};
-          const float vy[3] = {q0.y, q1.x, q1.w};
-          const float vz[3] = {q0.z, q1.y, q2.x};
-          float xs[3], ys[3], zs[3];
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            // Translate before shearing (pallas_trace.py:953-968).
-            const float tx = sel3(kx, vx[j], vy[j], vz[j]) - okx;
-            const float ty = sel3(ky, vx[j], vy[j], vz[j]) - oky;
-            const float tz = sel3(kz, vx[j], vy[j], vz[j]) - okz;
-            xs[j] = tx + sx * tz;
-            ys[j] = ty + sy * tz;
-            zs[j] = sz * tz;
-          }
-          float u = xs[1] * ys[2] - ys[1] * xs[2];
-          float v = xs[2] * ys[0] - ys[2] * xs[0];
-          float w = xs[0] * ys[1] - ys[0] * xs[1];
-          // NaN edge values never take this path (NaN == 0 is false).
-          if (watertight && (u == 0.0f || v == 0.0f || w == 0.0f)) {
-            u = edge_f64(xs[1], ys[1], xs[2], ys[2]);
-            v = edge_f64(xs[2], ys[2], xs[0], ys[0]);
-            w = edge_f64(xs[0], ys[0], xs[1], ys[1]);
-          }
-          const float lo = min_nan(min_nan(u, v), w);
-          const float hi = max_nan(max_nan(u, v), w);
-          const float rcp_det = 1.0f / (u + v + w);
-          const float t = (u * zs[0] + v * zs[1] + w * zs[2]) * rcp_det;
-          // Accept inside (min_t, best): the first hit found wins a tie.
-          bool accept = !(lo < 0.0f && hi > 0.0f) && t > mint && t < best_t;
-#ifdef RTK_FILTER
-          // Mesh and triangle ids are exact float columns (< 2^24).
-          accept = accept && rtk_filter_pred(t, u * rcp_det, v * rcp_det,
-                                             (int)q2.z, (int)q2.w, rid);
-#endif
-          if (accept) {
-            best_t = t;
-            best_slot = base + k;
-            if (!defer_uv) {
-              best_u = u * rcp_det;
-              best_v = v * rcp_det;
-            }
+    if (!MARCH) {
+      traverse<W>(roots ? __ldg(roots + i) : 0, nodes, tris, leaf_size,
+                  mode_any, watertight, use_mask, qmask, defer_uv, rid, r,
+                  best_t, best_u, best_v, best_slot, n_int, n_leaf, n_box,
+                  n_tri);
+    } else {
+      // Grid entry: the slab test against the grid box
+      // (pallas_trace.py:397-403).  A ray that misses it does no work.
+      float near = -kBig, far = kBig;
+      {
+        const float t0 = (grid.lox - ox) * r.rx, t1 = (grid.hix - ox) * r.rx;
+        near = max_nan(near, min_nan(t0, t1));
+        far = min_nan(far, max_nan(t0, t1));
+      }
+      {
+        const float t0 = (grid.loy - oy) * r.ry, t1 = (grid.hiy - oy) * r.ry;
+        near = max_nan(near, min_nan(t0, t1));
+        far = min_nan(far, max_nan(t0, t1));
+      }
+      {
+        const float t0 = (grid.loz - oz) * r.rz, t1 = (grid.hiz - oz) * r.rz;
+        near = max_nan(near, min_nan(t0, t1));
+        far = min_nan(far, max_nan(t0, t1));
+      }
+      if (near <= far && !(far < 0.0f)) {
+        // First cell and per-axis next-boundary t (pallas_trace.py:404-
+        // 425): cell = clip(floor((o + d*s0 - lo) / cs)), the boundary
+        // ahead lo + (cell + (d >= 0)) * cs, reached at (b - o) * rcp.
+        const float s0 = max_nan(near, 0.0f);
+        const float fx = floorf((ox + dx * s0 - grid.lox) / grid.csx);
+        const float fy = floorf((oy + dy * s0 - grid.loy) / grid.csy);
+        const float fz = floorf((oz + dz * s0 - grid.loz) / grid.csz);
+        int cx = (int)fminf(fmaxf(fx, 0.0f), (float)(grid.dx - 1));
+        int cy = (int)fminf(fmaxf(fy, 0.0f), (float)(grid.dy - 1));
+        int cz = (int)fminf(fmaxf(fz, 0.0f), (float)(grid.dz - 1));
+        const bool sx = dx >= 0.0f, sy = dy >= 0.0f, sz = dz >= 0.0f;
+        float tmx = (grid.lox + (float)(cx + sx) * grid.csx - ox) * r.rx;
+        float tmy = (grid.loy + (float)(cy + sy) * grid.csy - oy) * r.ry;
+        float tmz = (grid.loz + (float)(cz + sz) * grid.csz - oz) * r.rz;
+        const float tdx = grid.csx * fabsf(r.rx);
+        const float tdy = grid.csy * fabsf(r.ry);
+        const float tdz = grid.csz * fabsf(r.rz);
+        while (true) {
+          traverse<W>((cx * grid.dy + cy) * grid.dz + cz, nodes, tris,
+                      leaf_size, mode_any, watertight, use_mask, qmask,
+                      defer_uv, rid, r, best_t, best_u, best_v, best_slot,
+                      n_int, n_leaf, n_box, n_tri);
+          // Retire: the cell's exit bounds every later cell's entry, so a
+          // hit at or before it is final (pallas_trace.py:1214-1219).
+          const float exit_t = min_nan(tmx, min_nan(tmy, tmz));
+          if (best_t <= exit_t || (mode_any && best_slot >= 0)) break;
+          // One DDA step across the nearest boundary, ties x, y, z
+          // (pallas_trace.py:1221-1235); leaving the grid ends the march.
+          const bool mx = tmx <= tmy && tmx <= tmz;
+          const bool my = !mx && tmy <= tmz;
+          if (mx) {
+            cx += sx ? 1 : -1;
+            tmx += tdx;
+            if (cx < 0 || cx >= grid.dx) break;
+          } else if (my) {
+            cy += sy ? 1 : -1;
+            tmy += tdy;
+            if (cy < 0 || cy >= grid.dy) break;
+          } else {
+            cz += sz ? 1 : -1;
+            tmz += tdz;
+            if (cz < 0 || cz >= grid.dz) break;
           }
         }
-        if (mode_any && best_slot >= 0) break;
       }
     }
   }
@@ -259,32 +391,72 @@ packet_trace_kernel(const int4* __restrict__ nodes,
   }
 }
 
+template <int W, bool MARCH>
+int launch(const void* nodes, const void* tris, const void* rays,
+           const void* roots, const void* ray_index, int n, int leaf_size,
+           int mode_any, int watertight, int use_mask, int qmask,
+           int defer_uv, Grid grid, void* out_t, void* out_u, void* out_v,
+           void* out_slot, void* counts, void* stream) {
+  if (n > 0) {
+    const int blocks = (n + RTK_BLOCK - 1) / RTK_BLOCK;
+    packet_trace_kernel<W, MARCH>
+        <<<blocks, RTK_BLOCK, 0, (cudaStream_t)stream>>>(
+            (const int4*)nodes, (const float4*)tris, (const float*)rays,
+            (const int*)roots, (const int*)ray_index, n, leaf_size, mode_any,
+            watertight, use_mask, qmask, defer_uv, grid, (float*)out_t,
+            (float*)out_u, (float*)out_v, (int*)out_slot, (int*)counts);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int rtk_packet_trace_max_stack() { return RTK_MAX_STACK; }
 
-// rays: (8, n) f32 [ox oy oz dx dy dz min_t max_t]; nodes (Nd*8, 8) i32
-// and tris (Tp, 16) f32, both 16-byte aligned; roots: null or (n,) i32
-// rows in [0, Nd); ray_index: null or (n,) i32 caller indices (filter
-// builds); counts: null or (5, n) i32.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); does not synchronise.
+// rays: (8, n) f32 [ox oy oz dx dy dz min_t max_t]; nodes (Nd*w, 8) i32
+// with w = 8 or 16, and tris (Tp, 16) f32, both 16-byte aligned; roots:
+// null or (n,) i32 rows in [0, Nd); ray_index: null or (n,) i32 caller
+// indices (filter builds); counts: null or (5, n) i32.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success, -1 for a width
+// the library does not hold); does not synchronise.
 int rtk_packet_trace(const void* nodes, const void* tris, const void* rays,
                      const void* roots, const void* ray_index, int n,
-                     int leaf_size, int mode_any, int watertight,
+                     int leaf_size, int w, int mode_any, int watertight,
                      int use_mask, int qmask, int defer_uv, void* out_t,
                      void* out_u, void* out_v, void* out_slot, void* counts,
                      void* stream) {
-  if (n > 0) {
-    const int grid = (n + RTK_BLOCK - 1) / RTK_BLOCK;
-    packet_trace_kernel<<<grid, RTK_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int4*)nodes, (const float4*)tris, (const float*)rays,
-        (const int*)roots, (const int*)ray_index, n, leaf_size, mode_any,
-        watertight, use_mask, qmask, defer_uv, (float*)out_t, (float*)out_u,
-        (float*)out_v, (int*)out_slot, (int*)counts);
-  }
-  return (int)cudaGetLastError();
+  const Grid none = {};
+  if (w == 8)
+    return launch<8, false>(nodes, tris, rays, roots, ray_index, n,
+                            leaf_size, mode_any, watertight, use_mask, qmask,
+                            defer_uv, none, out_t, out_u, out_v, out_slot,
+                            counts, stream);
+  if (w == 16)
+    return launch<16, false>(nodes, tris, rays, roots, ray_index, n,
+                             leaf_size, mode_any, watertight, use_mask,
+                             qmask, defer_uv, none, out_t, out_u, out_v,
+                             out_slot, counts, stream);
+  return -1;
 }
+
+#ifndef RTK_FILTER
+// The grid march over an 8-wide table with one root row per cell (row ==
+// cell id): dims d*, low corner lo*, cell size cs*, high corner hi* =
+// f32(lo + cs * dims).  Other arguments as rtk_packet_trace's.
+int rtk_packet_march(const void* nodes, const void* tris, const void* rays,
+                     int n, int leaf_size, int mode_any, int watertight,
+                     int use_mask, int qmask, int dx, int dy, int dz,
+                     float lox, float loy, float loz, float csx, float csy,
+                     float csz, float hix, float hiy, float hiz, void* out_t,
+                     void* out_u, void* out_v, void* out_slot, void* counts,
+                     void* stream) {
+  const Grid grid = {dx, dy, dz, lox, loy, loz, csx, csy, csz, hix, hiy, hiz};
+  return launch<8, true>(nodes, tris, rays, nullptr, nullptr, n, leaf_size,
+                         mode_any, watertight, use_mask, qmask, 0, grid,
+                         out_t, out_u, out_v, out_slot, counts, stream);
+}
+#endif
 
 }  // extern "C"

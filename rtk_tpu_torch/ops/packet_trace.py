@@ -10,7 +10,15 @@ returns a lazy PacketHits.  The traversal runs in
   * `packet_trace_reference`: a vectorised PyTorch traversal over the same
     tables with the same child order and arithmetic, for CPU tensors.
 The two agree bit for bit.  A CUDA tensor always goes to the kernel: a
-build or launch failure raises, it never falls back.
+build or launch failure raises, it never falls back.  Tables are 8 or 16
+wide (PackedScene.branching); each width is its own instantiation of the
+kernel.
+
+`packet_march` is the grid march over a table with one root row per
+macro-grid cell (testing/grid.py): the kernel's march instantiation walks
+each ray's cell chain in one launch; its plain version runs rounds of the
+roots traversal over the live rays, one cell a round, with the kernel's
+DDA arithmetic.
 
 Multi-root tables (forests of BLAS trees, the instanced path) take a root
 row per ray: `ray_roots`, or the reference's `packet_roots`, one per
@@ -33,10 +41,12 @@ packet geometry that packet_roots is laid out in.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import time
 
+import numpy as np
 import torch
 
 from rtk_tpu_torch.ops.filter_capture import JitFilter
@@ -47,7 +57,6 @@ from rtk_tpu_torch.trace.packed import (MASK_COL, MESH_COL, PRIM_COL,
 from rtk_tpu_torch.types import HitCandidate, PacketHits, Rays
 from rtk_tpu_torch.utils.build import BUILD_DIR, PKG_ROOT, build_shared
 
-W = 8
 _BIG = 3.0e38
 SORT_RAYS_MIN = 16384  # coherence-sort batches at least this large
 REF_CHUNK = 1 << 22  # rays per plain-version pass (bounds its stack tensor)
@@ -56,13 +65,17 @@ DEFAULT_P = 8  # packets per block of that layout
 FILTER_MAX_TRIS = 1 << 24  # triangle ids ride f32 columns, exact below 2^24
 
 # Launches of the CUDA kernel in this process, and of its variants
-# (launches with per-ray roots, a filter predicate or per-ray counts, each
-# also counted in KERNEL_LAUNCHES).  A run resets them and reads them back
-# to show that its main path went through the kernel.
+# (launches with per-ray roots, a filter predicate, per-ray counts, a
+# 16-wide table or the grid march, each also counted in KERNEL_LAUNCHES).
+# A run resets them and reads them back to show that its main path went
+# through the kernel.
 KERNEL_LAUNCHES = 0
 ROOTS_LAUNCHES = 0
 FILTER_LAUNCHES = 0
 STATS_LAUNCHES = 0
+W16_LAUNCHES = 0
+MARCH_LAUNCHES = 0
+WIDTHS = (8, 16)  # node-table widths the kernel is instantiated for
 
 CSRC = PKG_ROOT / "csrc"
 KERNEL_SRC = CSRC / "packet_trace.cu"
@@ -106,12 +119,15 @@ def _build(flt: JitFilter | None):
             [_nvcc(), *NVCC_FLAGS, "-DRTK_FILTER", f"-I{CSRC}",
              "-include", str(header)], deps=[FILTER_OPS, header])
     lib = ctypes.CDLL(str(so))
-    lib.rtk_packet_trace.restype = ctypes.c_int
-    lib.rtk_packet_trace.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-        + [ctypes.c_void_p] * 6)
-    lib.rtk_packet_trace_max_stack.restype = ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rtk_packet_trace.restype = i32
+    lib.rtk_packet_trace.argtypes = [ptr] * 5 + [i32] * 8 + [ptr] * 6
+    lib.rtk_packet_trace_max_stack.restype = i32
     lib.rtk_packet_trace_max_stack.argtypes = []
+    if flt is None:  # the march is built without a filter only
+        lib.rtk_packet_march.restype = i32
+        lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
+                                         + [ptr] * 6)
     return lib, log, time.perf_counter() - t0
 
 
@@ -125,9 +141,12 @@ def load_kernel(filter_fn: JitFilter | None = None):
     return _libs[key]
 
 
-def _check_tables(nodes, tris, rays8):
-    if nodes.dtype != torch.int32 or nodes.ndim != 2 or nodes.shape[1] != 8:
-        raise ValueError("nodes must be an (Nd*8, 8) int32 table")
+def _check_tables(nodes, tris, rays8, w):
+    if w not in WIDTHS:
+        raise ValueError(f"node tables are 8 or 16 wide, not {w}")
+    if (nodes.dtype != torch.int32 or nodes.ndim != 2 or nodes.shape[1] != 8
+            or nodes.shape[0] % w):
+        raise ValueError(f"nodes must be an (Nd*{w}, 8) int32 table")
     if tris.dtype != torch.float32 or tris.ndim != 2 or tris.shape[1] != 16:
         raise ValueError("tris must be a (Tp, 16) float32 table")
     if rays8.dtype != torch.float32 or rays8.ndim != 2 or rays8.shape[0] != 8:
@@ -136,9 +155,10 @@ def _check_tables(nodes, tris, rays8):
         raise ValueError("tables and rays must be on one device")
 
 
-def _check_roots(roots, nodes, rays8):
+def _check_roots(roots, nodes, rays8, w):
     """Per-ray root rows: (N,) int32 on the rays' device, each a row of the
-    node table (a bad root would read outside it).  One host sync."""
+    w-wide node table (a bad root would read outside it).  One host
+    sync."""
     if roots is None:
         return None
     n = rays8.shape[1]
@@ -148,9 +168,9 @@ def _check_roots(roots, nodes, rays8):
         raise ValueError("roots and rays must be on one device")
     if n:
         lo, hi = (int(x) for x in torch.aminmax(roots))
-        if lo < 0 or hi >= nodes.shape[0] // W:
+        if lo < 0 or hi >= nodes.shape[0] // w:
             raise ValueError(f"root rows span [{lo}, {hi}]; the table has "
-                             f"{nodes.shape[0] // W} rows")
+                             f"{nodes.shape[0] // w} rows")
     return roots.contiguous()
 
 
@@ -176,42 +196,34 @@ def _check_filter(filter_fn, ray_index, rays8):
     return ray_index.contiguous()
 
 
-def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
-                        stack_size: int, mode: str = "closest",
-                        watertight: bool = True, qmask: int | None = None,
-                        defer_uv: bool = False, roots=None, filter_fn=None,
-                        ray_index=None, stats: bool = False):
-    """Launch the CUDA kernel on the current stream -> (t, u, v, slot),
-    and the (5, N) int32 counts as a fifth output with stats=True.
-
-    rays8: (8, N) f32 rows [ox oy oz dx dy dz min_t max_t] on a CUDA
-    device.  stack_size: entries the deepest tree can need (PackedScene
-    .stack_size); raises before launch if the compiled stack is smaller.
-    roots: None (every ray starts at row 0) or (N,) int32 root rows.
-    filter_fn: None or a jit_filter predicate (its own kernel build);
-    ray_index: None (the caller's index is the column) or (N,) int32
-    caller indices the predicate sees.  stats: per-ray counts of popped
-    entries, internal pops, leaf pops, child box tests (live child slots
-    of the popped nodes) and triangle tests (rows of the popped leaves
-    that are not NaN padding and pass the mask).
-    """
-    global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
-    _check_tables(nodes, tris, rays8)
+def _kernel_prelude(nodes, tris, rays8, stack_size, w, filter_fn=None):
+    """Checks shared by the kernel's launches -> (lib, nodes, tris,
+    rays8), contiguous, and the library built for filter_fn."""
+    _check_tables(nodes, tris, rays8, w)
     if not rays8.is_cuda:
         raise ValueError("packet_trace_kernel takes CUDA tensors")
     nodes, tris, rays8 = (a.contiguous() for a in (nodes, tris, rays8))
     if any(a.data_ptr() % 16 for a in (nodes, tris)):
         raise ValueError("kernel tables must be 16-byte aligned")
-    ray_index = _check_filter(filter_fn, ray_index, rays8)
     lib = load_kernel(filter_fn)
     cap = lib.rtk_packet_trace_max_stack()
     if stack_size > cap:
         raise ValueError(f"tree needs a {stack_size}-entry traversal stack; "
                          f"the kernel is compiled for {cap}")
+    if rays8.shape[1] > 2 ** 31 - 1024:
+        raise ValueError(f"{rays8.shape[1]} rays exceed the kernel's 32-bit "
+                         "ray index")
+    return lib, nodes, tris, rays8
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
+def _launch(call, rays8, stats):
+    """Allocate the outputs, run call(out pointers..., stream) on the rays'
+    device and raise on a launch error -> (t, u, v, slot[, counts])."""
     n = rays8.shape[1]
-    if n > 2 ** 31 - 1024:
-        raise ValueError(f"{n} rays exceed the kernel's 32-bit ray index")
-    roots = _check_roots(roots, nodes, rays8)
     dev = rays8.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     u = torch.empty_like(t)
@@ -219,26 +231,55 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     counts = (torch.empty((5, n), dtype=torch.int32, device=dev) if stats
               else None)
-
-    def ptr(a):
-        return None if a is None else a.data_ptr()
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtk_packet_trace(
-            nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), ptr(roots),
-            ptr(ray_index), n, leaf_size, int(mode == "any"),
-            int(watertight), int(qmask is not None), int(qmask or 0),
-            int(defer_uv), t.data_ptr(), u.data_ptr(), v.data_ptr(),
-            slot.data_ptr(), ptr(counts), stream)
+        err = call(t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
+                   _ptr(counts), stream)
     if err != 0:
         raise RuntimeError(f"packet_trace kernel launch failed: CUDA error "
                            f"{err}")
+    return (t, u, v, slot, counts) if stats else (t, u, v, slot)
+
+
+def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
+                        stack_size: int, mode: str = "closest",
+                        watertight: bool = True, qmask: int | None = None,
+                        defer_uv: bool = False, roots=None, filter_fn=None,
+                        ray_index=None, stats: bool = False,
+                        branching: int = 8):
+    """Launch the CUDA kernel on the current stream -> (t, u, v, slot),
+    and the (5, N) int32 counts as a fifth output with stats=True.
+
+    rays8: (8, N) f32 rows [ox oy oz dx dy dz min_t max_t] on a CUDA
+    device.  branching: the node table's width (8 or 16; each its own
+    instantiation).  stack_size: entries the deepest tree can need
+    (PackedScene.stack_size); raises before launch if the compiled stack
+    is smaller.  roots: None (every ray starts at row 0) or (N,) int32
+    root rows.  filter_fn: None or a jit_filter predicate (its own kernel
+    build); ray_index: None (the caller's index is the column) or (N,)
+    int32 caller indices the predicate sees.  stats: per-ray counts of
+    popped entries, internal pops, leaf pops, child box tests (live child
+    slots of the popped nodes) and triangle tests (rows of the popped
+    leaves that are not NaN padding and pass the mask).
+    """
+    global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
+    global W16_LAUNCHES
+    lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
+                                              stack_size, branching,
+                                              filter_fn)
+    ray_index = _check_filter(filter_fn, ray_index, rays8)
+    roots = _check_roots(roots, nodes, rays8, branching)
+    out = _launch(lambda *o: lib.rtk_packet_trace(
+        nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), _ptr(roots),
+        _ptr(ray_index), rays8.shape[1], leaf_size, branching,
+        int(mode == "any"), int(watertight), int(qmask is not None),
+        int(qmask or 0), int(defer_uv), *o), rays8, stats)
     KERNEL_LAUNCHES += 1
     ROOTS_LAUNCHES += roots is not None
     FILTER_LAUNCHES += filter_fn is not None
     STATS_LAUNCHES += stats
-    return (t, u, v, slot, counts) if stats else (t, u, v, slot)
+    W16_LAUNCHES += branching == 16
+    return out
 
 
 def _crcp(d):
@@ -247,18 +288,23 @@ def _crcp(d):
     return torch.where(d == 0.0, big, 1.0 / d)
 
 
-def _popc8(v):
-    v = v - ((v >> 1) & 0x55)
-    v = (v & 0x33) + ((v >> 2) & 0x33)
-    return (v + (v >> 4)) & 0x0F
+def _popc16(v):
+    """Set bits of each value in [0, 2^16) (int32 tensors)."""
+    v = v - ((v >> 1) & 0x5555)
+    v = (v & 0x3333) + ((v >> 2) & 0x3333)
+    v = (v + (v >> 4)) & 0x0F0F
+    return (v + (v >> 8)) & 0x1F
 
 
 def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
                  stack_size, mode, watertight, qmask, defer_uv, filter_fn,
                  stats):
     """Per-ray depth-first traversal, every ray popping one entry a step.
-    ray_index: the caller's index of each column (for filter_fn)."""
+    nodes3: (Nd, W, 8) node rows.  ray_index: the caller's index of each
+    column (for filter_fn)."""
     dev = rays8.device
+    w = nodes3.shape[1]
+    wmask = (1 << w) - 1
     ox, oy, oz, dx, dy, dz, mint, maxt = rays8
     m = rays8.shape[1]
     # Pops and tests per ray, counted where the kernel counts them.
@@ -276,7 +322,7 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
     if roots is not None:
         stack[:, 0] = roots  # each ray's root row (default: row 0)
     sp = torch.where(maxt <= mint, 0, 1).to(torch.int64)
-    wbits = 1 << torch.arange(W, device=dev, dtype=torch.int32)
+    wbits = 1 << torch.arange(w, device=dev, dtype=torch.int32)
     k_iota = torch.arange(leaf_size, device=dev)
 
     while True:
@@ -292,7 +338,7 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
 
         ia, ie = act[inner], e[inner].long()
         if ia.numel():
-            rows = nodes3[ie]  # (k, 8, 8) i32
+            rows = nodes3[ie]  # (k, W, 8) i32
             b = rows[..., :6].contiguous().view(torch.float32)
             o, r = origin[ia, None, :], rcp[ia, None, :]
             pos = r >= 0
@@ -305,14 +351,17 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
                                   torch.minimum(far[..., 2],
                                                 best_t[ia, None]))
             fc, fl = rows[:, 0, 6:7], rows[:, 0, 7:8]
-            im, lm = rows[:, 1, 6:7] & 0xFF, (rows[:, 1, 6:7] >> 8) & 0xFF
+            # Internal mask in bits 0..W-1, leaf mask above it (at W=16
+            # through the sign bit: the shift's sign fill is masked off).
+            im = rows[:, 1, 6:7] & wmask
+            lm = (rows[:, 1, 6:7] >> w) & wmask
             if stats:
-                n_box[ia] += _popc8(im | lm)[:, 0]
+                n_box[ia] += _popc16(im | lm)[:, 0]
             is_i = (im & wbits) != 0
             is_l = (lm & wbits) != 0
             below = wbits - 1
-            entry = torch.where(is_i, fc + _popc8(im & below),
-                                -(fl + _popc8(lm & below)) - 2)
+            entry = torch.where(is_i, fc + _popc16(im & below),
+                                -(fl + _popc16(lm & below)) - 2)
             hit = (enter <= exit_) & (is_i | is_l)
             # Near-to-far by entry distance, ties by slot, misses last:
             # two stable sorts give the (miss, enter, slot) order.
@@ -323,7 +372,7 @@ def _trace_chunk(nodes3, tris, rays8, roots, ray_index, *, leaf_size,
             ent = entry.gather(1, o1.gather(1, o2))
             cnt = hit.sum(dim=1)
             base = sp[ia]
-            for j in range(W):  # push far first: top = nearest
+            for j in range(w):  # push far first: top = nearest
                 sel = j < cnt
                 rj = ia[sel]
                 stack[rj, base[sel] + j] = ent[sel, cnt[sel] - 1 - j]
@@ -377,7 +426,7 @@ def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
                            watertight: bool = True,
                            qmask: int | None = None, defer_uv: bool = False,
                            roots=None, filter_fn=None, ray_index=None,
-                           stats: bool = False):
+                           stats: bool = False, branching: int = 8):
     """The kernel's plain PyTorch version on any device -> (t, u, v, slot)
     and, with stats=True, the (5, N) counts.
 
@@ -385,13 +434,13 @@ def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
     filter_fn is called on torch tensors.  Rays run REF_CHUNK at a time to
     bound the (rays, stack_size) stack tensor.
     """
-    _check_tables(nodes, tris, rays8)
-    roots = _check_roots(roots, nodes, rays8)
+    _check_tables(nodes, tris, rays8, branching)
+    roots = _check_roots(roots, nodes, rays8, branching)
     ray_index = _check_filter(filter_fn, ray_index, rays8)
     if filter_fn is not None and ray_index is None:
         ray_index = torch.arange(rays8.shape[1], dtype=torch.int32,
                                  device=rays8.device)
-    nodes3 = nodes.reshape(-1, W, 8)
+    nodes3 = nodes.reshape(-1, branching, 8)
 
     def part(a, s):
         return None if a is None else a[s:s + REF_CHUNK]
@@ -414,6 +463,160 @@ def packet_trace(nodes, tris, rays8, **kw):
     if rays8.device.type != "cpu":
         raise ValueError(f"no packet traversal for device {rays8.device}")
     return packet_trace_reference(nodes, tris, rays8, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchGrid:
+    """The macro-grid of a march trace as the kernel takes it: cells per
+    axis, the low corner and the cell size (f32 values, as GridScene
+    stores them) and the high corner lo + cs * dims, formed in f64 and
+    rounded to f32 once, as the reference's Python-float constant is
+    (testing/grid.py:937-941)."""
+
+    dims: tuple
+    lo: tuple
+    cs: tuple
+    hi: tuple
+
+    @staticmethod
+    def of(dims, grid_lo, cell_size) -> "MarchGrid":
+        dims = tuple(int(d) for d in dims)
+        lo = np.asarray(torch.as_tensor(grid_lo).cpu(), np.float32)
+        cs = np.asarray(torch.as_tensor(cell_size).cpu(), np.float32)
+        hi = [np.float32(float(lo[a]) + float(cs[a]) * dims[a])
+              for a in range(3)]
+        return MarchGrid(dims, tuple(float(x) for x in lo),
+                         tuple(float(x) for x in cs),
+                         tuple(float(x) for x in hi))
+
+
+def _check_grid(grid: MarchGrid, nodes):
+    if any(d < 1 for d in grid.dims):
+        raise ValueError(f"grid dims {grid.dims} must be positive")
+    cells = grid.dims[0] * grid.dims[1] * grid.dims[2]
+    if cells > nodes.shape[0] // 8:
+        raise ValueError(f"{cells} grid cells but the table has "
+                         f"{nodes.shape[0] // 8} root rows")
+
+
+def packet_march_kernel(nodes, tris, rays8, *, leaf_size: int,
+                        stack_size: int, grid: MarchGrid,
+                        mode: str = "closest", watertight: bool = True,
+                        qmask: int | None = None, stats: bool = False):
+    """Launch the kernel's march instantiation on the current stream ->
+    (t, u, v, slot[, counts]) over the 8-wide table `nodes` whose row c is
+    grid cell c's root (build_grid(march=True)).  Each ray walks its own
+    cell chain; counts sum over its cells.  Arguments as
+    packet_trace_kernel's."""
+    global KERNEL_LAUNCHES, STATS_LAUNCHES, MARCH_LAUNCHES
+    lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
+                                              stack_size, 8)
+    _check_grid(grid, nodes)
+    out = _launch(lambda *o: lib.rtk_packet_march(
+        nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), rays8.shape[1],
+        leaf_size, int(mode == "any"), int(watertight),
+        int(qmask is not None), int(qmask or 0), *grid.dims, *grid.lo,
+        *grid.cs, *grid.hi, *o), rays8, stats)
+    KERNEL_LAUNCHES += 1
+    STATS_LAUNCHES += stats
+    MARCH_LAUNCHES += 1
+    return out
+
+
+def march_entry(rays8, grid: MarchGrid):
+    """Each ray's grid entry, in the kernel's f32 arithmetic -> (live,
+    cell, tm, step, tdel): live rays enter the grid; cell (3, N) int64
+    indices of the first cell, tm (3, N) the t of the next boundary per
+    axis, step (3, N) +-1, tdel (3, N) the t across one cell."""
+    ox, oy, oz, dx, dy, dz, mint, maxt = rays8
+    o, d = (ox, oy, oz), (dx, dy, dz)
+    rcp = [_crcp(c) for c in d]
+    near = torch.full_like(ox, -_BIG)
+    far = torch.full_like(ox, _BIG)
+    for a in range(3):
+        t0 = (grid.lo[a] - o[a]) * rcp[a]
+        t1 = (grid.hi[a] - o[a]) * rcp[a]
+        near = torch.maximum(near, torch.minimum(t0, t1))
+        far = torch.minimum(far, torch.maximum(t0, t1))
+    live = (near <= far) & ~(far < 0.0) & ~(maxt <= mint)
+    s0 = torch.maximum(near, torch.zeros_like(near))
+    cell, tm, step, tdel = [], [], [], []
+    for a in range(3):
+        f = torch.floor((o[a] + d[a] * s0 - grid.lo[a]) / grid.cs[a])
+        c = torch.where(live, f.clamp(0.0, grid.dims[a] - 1), 0.0).long()
+        pos = d[a] >= 0.0
+        nb = grid.lo[a] + (c + pos.long()).to(torch.float32) * grid.cs[a]
+        cell.append(c)
+        tm.append((nb - o[a]) * rcp[a])
+        step.append(torch.where(pos, 1, -1))
+        tdel.append(grid.cs[a] * rcp[a].abs())
+    return (live, torch.stack(cell), torch.stack(tm), torch.stack(step),
+            torch.stack(tdel))
+
+
+def packet_march_reference(nodes, tris, rays8, *, leaf_size: int,
+                           stack_size: int, grid: MarchGrid,
+                           mode: str = "closest", watertight: bool = True,
+                           qmask: int | None = None, stats: bool = False):
+    """The march's plain PyTorch version on any device: rounds over the
+    live rays, each tracing its current cell's tree through the plain
+    roots traversal with max_t := best_t (the kernel's accept rule, strict
+    <, so a miss keeps the old record), then retiring or taking one DDA
+    step with the kernel's f32 arithmetic.  Equals packet_march_kernel
+    bit for bit."""
+    _check_tables(nodes, tris, rays8, 8)
+    _check_grid(grid, nodes)
+    n = rays8.shape[1]
+    dev = rays8.device
+    live, cell, tm, step, tdel = march_entry(rays8, grid)
+    best_t = rays8[7].clone()
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+    best_s = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    counts = torch.zeros((5, n), dtype=torch.int32, device=dev)
+    dims = torch.tensor(grid.dims, device=dev)[:, None]
+    act = torch.nonzero(live).squeeze(1)
+    while act.numel():
+        c = cell[:, act]
+        sub = rays8[:, act].clone()
+        sub[7] = best_t[act]
+        out = packet_trace_reference(
+            nodes, tris, sub, leaf_size=leaf_size, stack_size=stack_size,
+            mode=mode, watertight=watertight, qmask=qmask, stats=stats,
+            roots=((c[0] * grid.dims[1] + c[1]) * grid.dims[2]
+                   + c[2]).to(torch.int32))
+        upd = out[3] >= 0
+        for best, new in zip((best_t, best_u, best_v, best_s), out):
+            best[act] = torch.where(upd, new, best[act])
+        if stats:
+            counts[:, act] += out[4]
+        # Retire at a hit before the cell's exit (any-hit: at any hit),
+        # else step across the nearest boundary, ties x, y, z.
+        t3 = tm[:, act]
+        exit_t = torch.minimum(t3[0], torch.minimum(t3[1], t3[2]))
+        fin = best_t[act] <= exit_t
+        if mode == "any":
+            fin |= best_s[act] >= 0
+        act, t3 = act[~fin], t3[:, ~fin]
+        mx = (t3[0] <= t3[1]) & (t3[0] <= t3[2])
+        my = ~mx & (t3[1] <= t3[2])
+        ax = torch.stack([mx, my, ~mx & ~my])
+        cell[:, act] += torch.where(ax, step[:, act], 0)
+        tm[:, act] = torch.where(ax, t3 + tdel[:, act], t3)
+        c = cell[:, act]
+        act = act[((c >= 0) & (c < dims)).all(dim=0)]
+    out = (best_t, best_u, best_v, best_s)
+    return out + (counts,) if stats else out
+
+
+def packet_march(nodes, tris, rays8, **kw):
+    """The march wrapper: CUDA tensors launch the kernel's march
+    instantiation, CPU tensors take its plain version."""
+    if rays8.is_cuda:
+        return packet_march_kernel(nodes, tris, rays8, **kw)
+    if rays8.device.type != "cpu":
+        raise ValueError(f"no grid march for device {rays8.device}")
+    return packet_march_reference(nodes, tris, rays8, **kw)
 
 
 def _ray_roots(packed: PackedScene, n: int, packet_roots, ray_roots, pkt,
@@ -452,9 +655,6 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
            stats=False):
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
-    if packed.branching != W:
-        raise NotImplementedError(
-            "only 8-wide packed tables are ported (W=16 tables: ROADMAP K3)")
     if rays.device != packed.device:
         raise ValueError(f"rays on {rays.device}, scene on {packed.device}")
     if filter_fn is not None:
@@ -486,7 +686,7 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
               leaf_size=packed.leaf_size, stack_size=packed.stack_size,
               mode=mode, watertight=watertight, qmask=qmask,
               defer_uv=defer_uv, roots=roots, filter_fn=filter_fn,
-              ray_index=ray_index, stats=stats)
+              ray_index=ray_index, stats=stats, branching=packed.branching)
     if idx is not None:
         # Back to the caller's order: one scatter per output.
         def unsort(a):

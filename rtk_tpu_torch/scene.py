@@ -75,15 +75,19 @@ def centroid_codes(tri_pos: torch.Tensor, morton_bits: int = 10):
     return morton3d(cc, lo, hi, bits=morton_bits), lo, hi
 
 
-def _build_impl(tri_pos, tri_vidx, tri_mesh, tri_prim, *, leaf_size,
-                branching, morton_bits, wide=True):
+def _build_impl(tri_pos, tri_vidx, tri_mesh, tri_prim, codes=None, *,
+                leaf_size, branching, morton_bits, wide=True):
     dev = tri_pos.device
     t = tri_pos.shape[0]
     n_leaf = max(1, -(-t // leaf_size))
     tp = n_leaf * leaf_size
     i32 = dict(dtype=torch.int32, device=dev)
 
-    codes, lo, hi = centroid_codes(tri_pos, morton_bits)
+    if codes is None:
+        codes, lo, hi = centroid_codes(tri_pos, morton_bits)
+    else:
+        lo = tri_pos.amin(dim=(0, 1))
+        hi = tri_pos.amax(dim=(0, 1))
     # Lexicographic (code, index) order == a stable sort on the code.
     sort_codes, perm = torch.sort(codes, stable=True)
 
@@ -154,9 +158,14 @@ def _build_impl(tri_pos, tri_vidx, tri_mesh, tri_prim, *, leaf_size,
 
 
 def build_from_soup(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
-                    config: BuildConfig = BuildConfig(),
+                    config: BuildConfig = BuildConfig(), codes=None,
                     device="cuda") -> Scene:
-    """Build a Scene from canonical triangle-soup arrays on `device`."""
+    """Build a Scene from canonical triangle-soup arrays on `device`.
+
+    codes: optional (T,) sort keys in [0, 2^32) replacing the Morton codes
+    of the centroids; the topology then follows their prefix hierarchy
+    (the macro-grid's cell-major keys, testing/grid.py, use bit 31, so
+    they are held in int64, never int32)."""
     def cvt(a, dt):
         if a is None:
             return None
@@ -168,9 +177,17 @@ def build_from_soup(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
     t = tri_pos.shape[0]
     if t == 0:
         raise ValueError("cannot build an empty scene")
+    if codes is not None:
+        if not isinstance(codes, torch.Tensor):
+            codes = np.asarray(codes).astype(np.int64)  # uint32 keys too
+        codes = cvt(codes, torch.int64).reshape(-1)
+        if codes.shape[0] != t:
+            raise ValueError(f"{codes.shape[0]} codes for {t} triangles")
+        if t and (int(codes.min()) < 0 or int(codes.max()) >= 1 << 32):
+            raise ValueError("codes must lie in [0, 2^32)")
     arrays = _build_impl(
         tri_pos, cvt(tri_vidx, torch.int32), cvt(tri_mesh, torch.int32),
-        cvt(tri_prim, torch.int32), leaf_size=config.leaf_size,
+        cvt(tri_prim, torch.int32), codes, leaf_size=config.leaf_size,
         branching=config.branching, morton_bits=config.morton_bits,
         wide=config.wide_nodes)
     n_leaf = max(1, -(-t // config.leaf_size))

@@ -50,4 +50,4 @@ def packed_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
     return PackedScene(
         **{k: _tensor(arrays[k], device) for k in PACKED_ARRAYS},
         num_tris=num_tris, leaf_size=leaf_size, branching=branching,
-        depth=tree_depth(np.asarray(arrays["meta"]), roots))
+        depth=tree_depth(np.asarray(arrays["meta"]), roots, branching))

@@ -1,11 +1,12 @@
 """Procedural test scenes and camera-ray generation (NumPy generators).
 
 The same deterministic generators as rtk_tpu.testing.scenes, so both
-packages trace identical geometry: a Cornell box (~34 tris) and a
-displaced icosphere "blob" at bunny scale (81,920 tris at 6
-subdivisions).  Camera rays come back as rtk_tpu_torch Rays on a chosen
-device; `on_device=True` computes them there with torch instead of in
-host float64 (a 67M-ray host camera takes GBs of temporaries).
+packages trace identical geometry: a Cornell box (~34 tris), a displaced
+icosphere "blob" at bunny scale (81,920 tris at 6 subdivisions) and the
+atrium (409,600 tris).  Camera rays come back as rtk_tpu_torch Rays on a
+chosen device (the card unless the caller asks for another);
+`on_device=True` computes them there with torch instead of in host
+float64 (a 67M-ray host camera takes GBs of temporaries).
 """
 from __future__ import annotations
 
@@ -150,6 +151,48 @@ def blob(subdivisions=6, seed=0, displace=0.15):
     return verts.astype(np.float32)[faces].astype(np.float32), verts.astype(np.float32), faces
 
 
+def atrium(columns=8, seed=0):
+    """Sponza-scale procedural atrium (BASELINE config 3): a bumpy floor
+    and ceiling of 2 x 32,768 triangles, a grid of columns x columns
+    stretched icospheres (5,120 each) and four walls; 409,600 triangles at
+    the defaults.  The same soup as rtk_tpu's, bit for bit."""
+    parts = []
+    # floor as a subdivided grid (lots of tris, like scanned geometry)
+    rng = np.random.default_rng(seed)
+    vf, ff = grid_mesh(128, 128,
+                       lambda x, z: 0.02 * np.sin(9 * x) * np.cos(7 * z),
+                       extent=10.0)
+    parts.append(vf[ff])
+    vc, fc = grid_mesh(
+        128, 128, lambda x, z: 8.0 + 0.1 * np.sin(5 * x + 1) * np.cos(4 * z),
+        extent=10.0)
+    parts.append(vc[fc])
+    # columns: displaced icospheres stretched vertically
+    sphere_v, sphere_f = icosphere(4)
+    for i in range(columns):
+        for j in range(columns):
+            x = -8.0 + 16.0 * i / max(columns - 1, 1)
+            z = -8.0 + 16.0 * j / max(columns - 1, 1)
+            s = 0.35 + 0.1 * rng.random()
+            col = sphere_v * np.array([s, 4.0, s], np.float32)
+            col = col + np.array([x, 4.0, z], np.float32)
+            parts.append(col[sphere_f])
+    # walls
+    for sgn in (-1, 1):
+        vw, fw = grid_mesh(64, 32, None, extent=1.0)
+        wall = vw.copy()
+        wall[:, 1] = (vw[:, 2] + 1.0) * 4.0
+        wall[:, 2] = vw[:, 0] * 10.0
+        wall[:, 0] = sgn * 10.0
+        parts.append(wall[fw])
+        wall2 = vw.copy()
+        wall2[:, 1] = (vw[:, 2] + 1.0) * 4.0
+        wall2[:, 0] = vw[:, 0] * 10.0
+        wall2[:, 2] = sgn * 10.0
+        parts.append(wall2[fw])
+    return np.concatenate(parts, axis=0).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Cameras
 # ---------------------------------------------------------------------------
@@ -229,7 +272,7 @@ def _camera_rays_device(eye, look_at, up, fov_deg, width, height, max_t,
 
 
 def camera_rays(eye, look_at, up, fov_deg, width, height, max_t=1e30,
-                order="raster", device="cpu", on_device=False):
+                order="raster", device="cuda", on_device=False):
     """Pinhole primary rays on `device`.  Returns Rays.
 
     order="raster": row-major pixel order.  order="morton": Z-order pixel
@@ -264,7 +307,7 @@ def camera_rays(eye, look_at, up, fov_deg, width, height, max_t=1e30,
                      max_t=np.full(n, max_t, np.float32), device=device)
 
 
-def cornell_camera(width=256, height=256, device="cpu"):
+def cornell_camera(width=256, height=256, device="cuda"):
     return camera_rays(eye=(0.5, 0.5, 2.2), look_at=(0.5, 0.5, 0.0),
                        up=(0, 1, 0), fov_deg=40.0, width=width, height=height,
                        device=device)

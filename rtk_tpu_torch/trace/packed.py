@@ -30,14 +30,14 @@ PRIM_COL = 11  # triangle index as an exact float value
 class PackedScene:
     """Dense scene tables + mappings; product of pack_scene(scene).
 
-    nodes holds 8 rows per packed node (one per child slot): columns 0-5
-    are the child AABB (f32 bit patterns in an int32 table), and the first
-    two rows carry node metadata in columns 6-7: row0 = (first_child,
-    first_leaf), row1 = (int_mask | leaf_mask << 8, unused).  One node is
-    256 contiguous bytes.
+    nodes holds W = branching rows per packed node (one per child slot, 8
+    or 16): columns 0-5 are the child AABB (f32 bit patterns in an int32
+    table), and the first two rows carry node metadata in columns 6-7:
+    row0 = (first_child, first_leaf), row1 = (int_mask | leaf_mask << W,
+    unused).  One node is W*32 contiguous bytes.
     """
 
-    nodes: torch.Tensor  # (Nd*8, 8) i32 child rows with embedded meta
+    nodes: torch.Tensor  # (Nd*W, 8) i32 child rows with embedded meta
     meta: torch.Tensor  # (Nd, 4) i32: first_child, first_leaf, masks, pad
     tris: torch.Tensor  # (Tp, 16) f32 vertex rows in packed-leaf order
     # Hit-assembly arrays in packed order (indexed by the kernel's slot).
@@ -45,7 +45,7 @@ class PackedScene:
     tri_vidx: torch.Tensor  # (Tp, 3) i32
     tri_mesh: torch.Tensor  # (Tp,) i32
     tri_prim: torch.Tensor  # (Tp,) i32
-    slot_src: torch.Tensor  # (Nd, 8) i32: binary node id / leaf code / -1
+    slot_src: torch.Tensor  # (Nd, W) i32: binary node id / leaf code / -1
     tri_perm: torch.Tensor  # (Tp,) i32 source triangle per packed slot
     num_tris: int
     leaf_size: int
@@ -145,7 +145,18 @@ def _pack_meta(slot_src: np.ndarray, node_base: int = 0,
     return meta, leaf_order.astype(np.int64)
 
 
-_POPC8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
+def _popcount(v: np.ndarray) -> np.ndarray:
+    """Set bits of each value in [0, 2^32) (SWAR, int64 arrays)."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (v * 0x01010101 & 0xFFFFFFFF) >> 24
+
+
+def _internal_counts(meta: np.ndarray, w: int) -> np.ndarray:
+    """Internal children per row: the low w bits of the masks word (the
+    leaf mask rides above them, and at w=16 it reaches the sign bit)."""
+    return _popcount(np.asarray(meta, np.int64)[:, 2] & ((1 << w) - 1))
 
 
 def _ranks(counts: np.ndarray) -> np.ndarray:
@@ -154,20 +165,21 @@ def _ranks(counts: np.ndarray) -> np.ndarray:
     return np.arange(int(counts.sum())) - np.repeat(starts, counts)
 
 
-def table_roots(meta: np.ndarray) -> np.ndarray:
+def table_roots(meta: np.ndarray, w: int = W) -> np.ndarray:
     """Rows no other row names as an internal child: the entry rows of
-    every tree in the table, whatever its layout."""
+    every tree in a w-wide table, whatever its layout."""
     meta = np.asarray(meta, np.int64)
-    cnt = _POPC8[meta[:, 2] & 0xFF]
+    cnt = _internal_counts(meta, w)
     child = np.repeat(meta[:, 0], cnt) + _ranks(cnt)
     named = np.zeros(meta.shape[0], bool)
     named[child] = True
     return np.flatnonzero(~named)
 
 
-def tree_depth(meta: np.ndarray, roots=None) -> int:
-    """Number of BFS levels of the deepest tree of a packed table, read
-    from its metadata: the maximum over `roots` (default: table_roots).
+def tree_depth(meta: np.ndarray, roots=None, w: int = W) -> int:
+    """Number of BFS levels of the deepest tree of a w-wide packed table,
+    read from its metadata: the maximum over `roots` (default:
+    table_roots).
 
     Children are followed through (first_child, internal mask), so the
     walk is right for every layout: one tree, per-root blocks one after
@@ -175,11 +187,11 @@ def tree_depth(meta: np.ndarray, roots=None) -> int:
     forest form of pack_binary_tree)."""
     meta = np.asarray(meta, np.int64)
     if roots is None:
-        roots = table_roots(meta)
+        roots = table_roots(meta, w)
     rows = np.asarray(roots, np.int64).reshape(-1)
     if rows.size and (rows.min() < 0 or rows.max() >= meta.shape[0]):
         raise ValueError("tree root outside the node table")
-    n_int = _POPC8[meta[:, 2] & 0xFF]
+    n_int = _internal_counts(meta, w)
     depth = 0
     while rows.size:
         if depth > meta.shape[0]:
@@ -191,7 +203,8 @@ def tree_depth(meta: np.ndarray, roots=None) -> int:
 
 
 def _gather_rows(bin_min, bin_max, leaf_min, leaf_max, slot_src, meta):
-    """Build the (Nd*8, 8) i32 child rows with embedded metadata."""
+    """Build the (Nd*W, 8) i32 child rows with embedded metadata (W: the
+    width of slot_src)."""
     slot_src = slot_src.to(torch.int64)
     internal = (slot_src >= 0)[..., None]
     leaf = (slot_src <= -2)[..., None]
@@ -349,7 +362,7 @@ def pack_forest(scene, roots) -> tuple[PackedScene, np.ndarray]:
 def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
                      order, root, leaf_size: int, tri_vidx=None,
                      tri_mesh=None, tri_prim=None, tri_mask=None,
-                     device="cuda") -> PackedScene:
+                     branching: int = W, device="cuda") -> PackedScene:
     """Pack an arbitrary host-built binary BVH for the packet kernel.
 
     Feeds any binary topology (e.g. the C++ binned SAH via
@@ -363,7 +376,12 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
     and jointly cover every leaf exactly once (a forest, e.g. per-BLAS SAH
     trees for the instanced path): the packed entry row of root r is then
     r (the pack_multiroot layout).
+
+    branching: the node table's width, 8 or 16 (16 rows a node, the leaf
+    mask shifted by 16 in the masks word).
     """
+    if branching not in (8, 16):
+        raise ValueError(f"branching must be 8 or 16, not {branching}")
     left = np.asarray(left, np.int64)
     right = np.asarray(right, np.int64)
     first = np.asarray(first, np.int64)
@@ -390,7 +408,8 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
     forest = np.ndim(root) != 0
     slot_src = _greedy_slots(mapped(left), mapped(right),
                              _area(box_lo, box_hi),
-                             root=roots_m if forest else int(roots_m[0]))
+                             root=roots_m if forest else int(roots_m[0]),
+                             w=branching)
     meta, leaf_order = _pack_meta(slot_src,
                                   root_rows=roots.shape[0] if forest else 1)
     assert leaf_order.shape[0] == nl, (leaf_order.shape[0], nl)
@@ -444,5 +463,6 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
                                  **i32),
         num_tris=int(np.asarray(tri_v).reshape(-1, 9).shape[0]),
         leaf_size=k,
-        depth=tree_depth(meta, np.arange(roots.shape[0])),
+        depth=tree_depth(meta, np.arange(roots.shape[0]), branching),
+        branching=branching,
     )

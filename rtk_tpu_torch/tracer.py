@@ -10,6 +10,11 @@ rtk.c:543-577):
   * "stack": trace/stack.py's lockstep traversal in plain PyTorch on the
     scene's device; any branching, and any filter callable.
 
+  * "march": testing/grid.py's fused grid march (the kernel's march
+    instantiation on the card): the macro-grid is built once from the
+    scene and its packed tables, on first use; filter_mask culls there
+    too.  A filter callable routes to the stack engine.
+
 "auto" is "packet" for branching-8 scenes and "stack" otherwise.  A filter
 callable marked with jit_filter runs inside the kernel's filter variant;
 an unmarked one routes to the stack engine, which calls it on real
@@ -28,8 +33,7 @@ from rtk_tpu_torch.types import Hits, PacketHits, Rays
 AnyHits = Union[Hits, PacketHits]
 
 # rtk_tpu engines that wait for a later port, with their ROADMAP items.
-_LATER_ENGINES = {"stackless": "A12", "binned": "A12", "grid": "A12",
-                  "march": "A12"}
+_LATER_ENGINES = {"stackless": "A12", "binned": "A12", "grid": "A12"}
 
 __all__ = ["Tracer", "jit_filter"]
 
@@ -43,9 +47,9 @@ class Tracer:
         if engine in _LATER_ENGINES:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet (ROADMAP "
-                f"{_LATER_ENGINES[engine]}); use engine='packet' or "
-                "'stack'")
-        if engine not in ("auto", "packet", "stack"):
+                f"{_LATER_ENGINES[engine]}); use engine='packet', 'stack' "
+                "or 'march'")
+        if engine not in ("auto", "packet", "stack", "march"):
             raise ValueError(f"unknown engine {engine!r}")
         eligible = scene.branching == 8
         if engine == "packet" and not eligible:
@@ -56,6 +60,7 @@ class Tracer:
         self.engine = (engine if engine != "auto"
                        else ("packet" if eligible else "stack"))
         self._packed = None
+        self._grid = None
 
     @property
     def packed(self):
@@ -64,6 +69,20 @@ class Tracer:
 
             self._packed = pack_scene(self.scene, tri_mask=self.tri_mask)
         return self._packed
+
+    @property
+    def grid(self):
+        """The march engine's macro-grid (testing/grid.py GridScene), built
+        from the scene and its packed tables on first use."""
+        if self._grid is None:
+            from rtk_tpu_torch.testing.grid import build_grid_from_scene
+
+            # self.packed carries the tri_mask column; the per-cell tables
+            # get it packed in too.
+            self._grid = build_grid_from_scene(
+                self.scene, packed=self.packed, tri_mask=self.tri_mask,
+                march=True)
+        return self._grid
 
     def _trace(self, rays: Rays, mode: str, filter_fn: Optional[Callable],
                filter_mask: Optional[int]) -> AnyHits:
@@ -76,10 +95,16 @@ class Tracer:
                                  filter_mask=filter_mask,
                                  filter_fn=filter_fn,
                                  defer_uv=self.config.defer_uv)
+        if self.engine == "march" and filter_fn is None:
+            from rtk_tpu_torch.testing.grid import trace_packets_march
+
+            return trace_packets_march(self.grid, rays, mode=mode,
+                                       watertight=self.config.watertight,
+                                       filter_mask=filter_mask)
         if filter_mask is not None:
             raise ValueError(
-                "filter_mask runs on the packet engine only; use filter_fn "
-                "on the stack engine")
+                "filter_mask runs on the packet and march engines only; use "
+                "filter_fn on the stack engine")
         from rtk_tpu_torch.trace import stack
 
         fn = stack.trace_closest if mode == "closest" else stack.trace_any

@@ -37,10 +37,10 @@ class Rays:
     def make(origin, direction, min_t=None, max_t=None,
              device=None) -> "Rays":
         """Broadcast arrays or tensors into a Rays batch on `device`
-        (default: the origin tensor's device, else the CPU)."""
+        (default: the origin tensor's device, else the card)."""
         if device is None:
             device = (origin.device if isinstance(origin, torch.Tensor)
-                      else "cpu")
+                      else "cuda")
         origin = _f32(origin, device)
         direction = _f32(direction, device)
         if origin.ndim == 1:
@@ -231,7 +231,7 @@ class PacketHits:
             self, **{f: getattr(self, f)[idx] for f in per_ray})
 
 
-def miss_hits(n: int, device="cpu") -> Hits:
+def miss_hits(n: int, device="cuda") -> Hits:
     """An all-miss Hits batch (t at the rtk +inf sentinel)."""
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)

@@ -228,14 +228,13 @@ def load_packed_scene(f: Source, device="cuda"):
         raise ValueError("blob was saved with kz_tables=True, which is "
                          "no longer supported; re-pack the scene")
     branching = int(meta_ints[3]) if len(meta_ints) > 3 else 8
-    if branching != 8:
-        raise NotImplementedError(
-            f"blob holds {branching}-wide packed tables; only 8-wide "
-            "tables are ported (W=16 tables: ROADMAP K3)")
+    if branching not in (8, 16):
+        raise ValueError(f"blob holds {branching}-wide packed tables; "
+                         "the kernel reads 8- or 16-wide tables")
     return PackedScene(
         num_tris=int(num_tris), leaf_size=int(leaf_size),
         branching=branching,
-        depth=tree_depth(arrays["meta"].cpu().numpy()),
+        depth=tree_depth(arrays["meta"].cpu().numpy(), w=branching),
         **{n: arrays[n] for n in _PACKED_FIELDS})
 
 

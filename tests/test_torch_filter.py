@@ -129,7 +129,7 @@ def test_ray_filter_survives_the_coherence_sort():
     tris = scenes.blob(3)[0]
     packed = pack_scene(rt.build_scene(_soup_of(tris), device=CPU))
     rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 24,
-                              24)
+                              24, device="cpu")
     even = torch.arange(rays.count) % 2 == 0
     base = trace_packets(packed, rays)
     flt = rt.jit_filter(PREDICATES["by_ray"])
@@ -144,7 +144,7 @@ def test_filter_under_defer_uv_sees_u_and_v():
     tris = scenes.blob(3)[0]
     packed = pack_scene(rt.build_scene(_soup_of(tris), device=CPU))
     rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 24,
-                              24)
+                              24, device="cpu")
     flt = rt.jit_filter(lambda c: (c.u > 0.25) & (c.v < 0.5))
     a = trace_packets(packed, rays, filter_fn=flt)
     b = trace_packets(packed, rays, filter_fn=flt, defer_uv=True)
@@ -159,7 +159,7 @@ def test_tracer_routes_filters():
     callable goes to the stack engine (rtk_tpu/tracer.py:111-199), and
     filter_mask on the stack engine raises."""
     scene = rt.build_scene(_soup_of(scenes.cornell_box()), device=CPU)
-    rays = scenes.cornell_camera(8, 8)
+    rays = scenes.cornell_camera(8, 8, device="cpu")
     fn = PREDICATES["by_tri_and_t"]
     tracer = rt.Tracer(scene)
     assert isinstance(tracer.closest(rays, filter_fn=rt.jit_filter(fn)),
@@ -182,7 +182,7 @@ def test_filter_needs_exact_triangle_ids():
                                        device=CPU))
     big = dataclasses.replace(packed, num_tris=1 << 24)
     with pytest.raises(ValueError, match="2\\^24"):
-        trace_packets(big, scenes.cornell_camera(4, 4),
+        trace_packets(big, scenes.cornell_camera(4, 4, device="cpu"),
                       filter_fn=rt.jit_filter(PREDICATES["by_mesh"]))
 
 

@@ -32,7 +32,8 @@ MODULES = [
     "rtk_tpu_torch.testing.carry", "rtk_tpu_torch.utils.native_sah",
     "rtk_tpu_torch.ops.filter_capture", "rtk_tpu_torch.utils.stats",
     "rtk_tpu_torch.utils.serialize", "rtk_tpu_torch.tasks",
-    "rtk_tpu_torch.compat",
+    "rtk_tpu_torch.compat", "rtk_tpu_torch.testing.grid",
+    "rtk_tpu_torch.trace.grid", "rtk_tpu_torch.models.path",
 ]
 
 

@@ -66,7 +66,8 @@ class Case:
         self.jrays = rays
         self.rays = rtk_tpu_torch.Rays.make(
             *(np.asarray(getattr(rays, f))
-              for f in ("origin", "direction", "min_t", "max_t")))
+              for f in ("origin", "direction", "min_t", "max_t")),
+            device="cpu")
         self._brute = None
 
     @property
@@ -161,7 +162,7 @@ def test_per_ray_roots_against_pallas_packet_roots(case6):
     proots = jroots[[1, 0]]  # packet 0 in the box, packet 1 in the blob
     want = jax_trace_packets(jp, jrays, interpret=True, packet_roots=proots)
     rays = rtk_tpu_torch.Rays.make(np.asarray(jrays.origin),
-                                   np.asarray(jrays.direction))
+                                   np.asarray(jrays.direction), device="cpu")
     got = trace_packets_reference(packed, rays, packet_roots=proots)
     wh = np.asarray(want.hit)
     assert wh[:128].any() and wh[128:].any()
@@ -300,7 +301,7 @@ def two_blas():
                                                (0, 1, 0), 60, 16, 16)
     rays = rtk_tpu_torch.Rays.make(
         *(np.asarray(getattr(jrays, f))
-          for f in ("origin", "direction", "min_t", "max_t")))
+          for f in ("origin", "direction", "min_t", "max_t")), device="cpu")
     start = roots[np.arange(rays.count) % 2]
     return jmerged, tmerged, jrays, rays, start
 

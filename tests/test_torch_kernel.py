@@ -280,3 +280,101 @@ def test_stats_variant_matches_reference(cuda, mode):
                                                counts[1] + counts[2])
     _, closest = packet_trace.trace_packets(packed, rays, stats=True)
     assert (counts <= closest).all()
+
+
+def _sah_tables(device, tris):
+    """blob's step-quantized SAH tree with leaf 16, packed 8- and 16-wide
+    with a tri_mask (1, 2, 3 by triangle index mod 3)."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+    from rtk_tpu_torch.utils.native_sah import NativeOracle
+
+    tree = NativeOracle(tris.reshape(-1, 9), leaf_max=16,
+                        step_quant=True).export_tree()
+    mask = (np.arange(tris.shape[0]) % 3 + 1).astype(np.uint32)
+    return {w: pack_binary_tree(tris, *tree, leaf_size=16, branching=w,
+                                tri_mask=mask, device=device)
+            for w in (8, 16)}
+
+
+def test_w16_variant_matches_reference(cuda):
+    """The 16-wide instantiation equals its plain version bit for bit
+    (counts too) in every mode, with a filter predicate, and agrees with
+    the 8-wide tables of the same tree."""
+    tables = _sah_tables(cuda, scenes.blob(4)[0])
+    p16 = tables[16]
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 128,
+                              128, order="morton", device=cuda)
+    flt = rtk_tpu_torch.jit_filter(FILTERS["tri_t"])
+    for kw in (dict(), dict(mode="any"), dict(filter_mask=2),
+               dict(defer_uv=True), dict(sort_rays=True),
+               dict(filter_fn=flt)):
+        before = packet_trace.W16_LAUNCHES
+        got, want = _both(p16, rays, **kw)
+        assert packet_trace.W16_LAUNCHES == before + 1
+        _assert_same(got, want)
+    got, counts = packet_trace.trace_packets(p16, rays, stats=True)
+    want, want_counts = packet_trace.trace_packets_reference(p16, rays,
+                                                             stats=True)
+    _assert_same(got, want)
+    assert torch.equal(counts, want_counts)
+    w8 = packet_trace.trace_packets(tables[8], rays)
+    assert torch.equal(w8.hit, got.hit) and torch.equal(w8.t, got.t)
+
+
+def test_w16_roots_variant_matches_reference(cuda):
+    """A 16-wide forest (two trees, root rows 0 and 1) through per-ray
+    roots: kernel == plain."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+
+    tri_v, *tree, roots = chain_forest(60)
+    packed = pack_binary_tree(tri_v, *tree, roots, leaf_size=1,
+                              branching=16, device=cuda)
+    rng = np.random.default_rng(5)
+    n = 2048
+    rays = rtk_tpu_torch.Rays.make(rng.normal(size=(n, 3)) * 3.0,
+                                   rng.normal(size=(n, 3)), device=cuda)
+    per_ray = torch.as_tensor(rng.integers(0, 2, n), dtype=torch.int32,
+                              device=cuda)
+    before = packet_trace.ROOTS_LAUNCHES
+    got, want = _both(packed, rays, ray_roots=per_ray)
+    assert packet_trace.ROOTS_LAUNCHES == before + 1
+    _assert_same(got, want)
+
+
+def test_march_variant_matches_reference(cuda):
+    """The march instantiation equals its plain version bit for bit (t, u,
+    v, slot and the per-ray counts summed over cells) on random, windowed,
+    dead and camera rays, closest and any, with and without the mask
+    filter; and meets the flat trace's parity bar."""
+    from rtk_tpu_torch.testing.grid import build_grid, trace_packets_march
+
+    tris = scenes.blob(4)[0]
+    mask = (np.arange(tris.shape[0]) % 2 + 1).astype(np.uint32)
+    grid = build_grid(tris, config=rtk_tpu_torch.BuildConfig(leaf_size=8),
+                      march=True, tri_mask=mask, device=cuda)
+    rng = np.random.default_rng(8)
+    n = 4096
+    u = rng.random(n)
+    batches = [
+        rtk_tpu_torch.Rays.make(
+            rng.normal(size=(n, 3)) * 0.6, rng.normal(size=(n, 3)),
+            np.where(u < 0.3, 0.2, 0.0),
+            np.where(u < 0.1, 0.0, np.where(u < 0.3, 0.9, 3.0e38)),
+            device=cuda),
+        scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 64, 64,
+                           order="morton", device=cuda)]
+    for rays in batches:
+        for kw in (dict(), dict(mode="any"), dict(filter_mask=1)):
+            before = packet_trace.MARCH_LAUNCHES
+            got, counts = trace_packets_march(grid, rays, stats=True, **kw)
+            torch.cuda.synchronize()
+            assert packet_trace.MARCH_LAUNCHES == before + 1
+            want, want_counts = trace_packets_march(grid, rays, stats=True,
+                                                    plain=True, **kw)
+            _assert_same(got, want)
+            assert torch.equal(counts, want_counts)
+            flat = packet_trace.trace_packets(grid.flat, rays, **kw)
+            assert torch.equal(got.hit, flat.hit)
+            if kw.get("mode") != "any":
+                assert bool(((got.t - flat.t).abs()
+                             <= 1e-6 * (1 + flat.t.abs())).all())

@@ -1,0 +1,213 @@
+"""csrc/packet_trace.cu built for the host and held against its plain
+versions.  g++ compiles the CUDA source against a small header that
+stands in for CUDA's (int4 and float4, __ldg, __popc, and the launch run
+as a loop over the threads in turn), so the kernel's own code runs here on
+the CPU: every instantiation (8- and 16-wide tables, the grid march and a
+filter build) in every mode equals the plain PyTorch version bit for bit,
+counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
+This checks the kernel's logic and arithmetic; that nvcc builds it for
+sm_90a, and the card's results, are tests/test_torch_kernel.py's."""
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import rtk_tpu_torch as rt
+from rtk_tpu_torch.ops import packet_trace as pt
+from rtk_tpu_torch.testing import scenes
+from rtk_tpu_torch.testing.grid import build_grid, march_batch
+from rtk_tpu_torch.trace.packed import pack_binary_tree
+from rtk_tpu_torch.utils.native_sah import NativeOracle
+
+from test_torch_kernel import FILTERS, chain_forest
+
+torch.set_num_threads(2)
+CPU = "cpu"
+
+# What the kernel source takes from CUDA, for a host build.
+CUDA_SHIM = r"""
+#pragma once
+#include <math.h>
+#include <string.h>
+struct int4 { int x, y, z, w; };
+struct float4 { float x, y, z, w; };
+struct dim3 { unsigned x, y, z; };
+static dim3 blockIdx, threadIdx, blockDim;
+template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline float __int_as_float(int i) {
+  float f;
+  memcpy(&f, &i, 4);
+  return f;
+}
+typedef void* cudaStream_t;
+static inline int cudaGetLastError() { return 0; }
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+"""
+LAUNCH = """    packet_trace_kernel<W, MARCH>
+        <<<blocks, RTK_BLOCK, 0, (cudaStream_t)stream>>>("""
+HOST_LAUNCH = """    for (unsigned b_ = 0; b_ < (unsigned)blocks * RTK_BLOCK; ++b_)
+      if ((blockIdx.x = b_ / RTK_BLOCK, threadIdx.x = b_ % RTK_BLOCK,
+           blockDim.x = RTK_BLOCK, true))
+        packet_trace_kernel<W, MARCH>("""
+
+
+def _host_build(tmp, name, flags=()):
+    src = pt.KERNEL_SRC.read_text()
+    assert LAUNCH in src and "#include <cuda_runtime.h>" in src
+    (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
+    cpp = tmp / f"{name}.cpp"
+    cpp.write_text(src.replace("#include <cuda_runtime.h>",
+                               '#include "cuda_shim.h"')
+                   .replace(LAUNCH, HOST_LAUNCH))
+    so = tmp / f"lib{name}.so"
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",
+                    "-ffp-contract=off", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", f"-I{tmp}", f"-I{pt.CSRC}",
+                    *flags, str(cpp), "-o", str(so)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rtk_packet_trace.argtypes = [ptr] * 5 + [i32] * 8 + [ptr] * 6
+    if not flags:
+        lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
+                                         + [ptr] * 6)
+    return lib
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """The kernel library and an odd-triangle filter build, for the
+    host."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    tmp = tmp_path_factory.mktemp("kernel_host")
+    flt = rt.jit_filter(FILTERS["odd_tri"])
+    (tmp / "pred.h").write_text(flt.source)
+    return {None: _host_build(tmp, "plain"),
+            "odd_tri": _host_build(tmp, "odd_tri",
+                                   ("-DRTK_FILTER", "-include",
+                                    str(tmp / "pred.h"))),
+            "filter_fn": flt}
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
+def _run(call, n):
+    """Outputs (t, u, v, slot, counts) of one host launch over n rays."""
+    out = (torch.empty(n), torch.empty(n), torch.empty(n),
+           torch.empty(n, dtype=torch.int32),
+           torch.empty((5, n), dtype=torch.int32))
+    assert call(*map(_ptr, out), None) == 0
+    return out
+
+
+def _trace(lib, packed, rays8, mode="closest", qmask=None, defer_uv=False,
+           roots=None, ray_index=None):
+    return _run(lambda *o: lib.rtk_packet_trace(
+        _ptr(packed.nodes), _ptr(packed.tris), _ptr(rays8), _ptr(roots),
+        _ptr(ray_index), rays8.shape[1], packed.leaf_size, packed.branching,
+        int(mode == "any"), 1, int(qmask is not None), int(qmask or 0),
+        int(defer_uv), *o), rays8.shape[1])
+
+
+def _assert_bits(got, want, what):
+    for g, w, name in zip(got, want, ("t", "u", "v", "slot", "counts")):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f"{what}: {name}"
+
+
+def _rows(rays):
+    return torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
+                      rays.max_t[None]]).contiguous()
+
+
+def _batches():
+    """Morton camera rays, and incoherent rays with dead ones and t
+    windows."""
+    rng = np.random.default_rng(11)
+    n = 2000
+    u = rng.random(n)
+    return {"camera": scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0),
+                                         45, 40, 40, order="morton",
+                                         device=CPU),
+            "incoherent": rt.Rays.make(
+                rng.normal(size=(n, 3)) * 1.5, rng.normal(size=(n, 3)),
+                np.where(u < 0.3, 0.2, 0.0),
+                np.where(u < 0.1, 0.0, np.where(u < 0.3, 0.9, 3.0e38)),
+                device=CPU)}
+
+
+@pytest.mark.parametrize("width", [8, 16])
+def test_host_kernel_equals_plain_version(libs, width):
+    """SAH leaf-16 tables of blob(4) at one width: closest, any, the mask
+    filter, defer_uv and the odd-triangle filter build."""
+    tris = scenes.blob(4)[0]
+    tree = NativeOracle(tris.reshape(-1, 9), leaf_max=16,
+                        step_quant=True).export_tree()
+    mask = (np.arange(tris.shape[0]) % 3 + 1).astype(np.uint32)
+    packed = pack_binary_tree(tris, *tree, leaf_size=16, branching=width,
+                              tri_mask=mask, device=CPU)
+    kw0 = dict(leaf_size=16, stack_size=packed.stack_size, stats=True,
+               branching=width)
+    for name, rays in _batches().items():
+        rows = _rows(rays)
+        for kw in (dict(), dict(mode="any"), dict(qmask=2),
+                   dict(defer_uv=True)):
+            _assert_bits(_trace(libs[None], packed, rows, **kw),
+                         pt.packet_trace_reference(packed.nodes, packed.tris,
+                                                   rows, **kw0, **kw),
+                         f"{name} {kw}")
+        ridx = torch.arange(rows.shape[1], dtype=torch.int32).flip(0)
+        _assert_bits(_trace(libs["odd_tri"], packed, rows, ray_index=ridx),
+                     pt.packet_trace_reference(
+                         packed.nodes, packed.tris, rows, **kw0,
+                         filter_fn=libs["filter_fn"], ray_index=ridx),
+                     f"{name} filter")
+
+
+def test_host_kernel_roots_on_a_16_wide_forest(libs):
+    tri_v, *tree, roots = chain_forest(60)
+    packed = pack_binary_tree(tri_v, *tree, roots, leaf_size=1,
+                              branching=16, device=CPU)
+    rows = _rows(_batches()["incoherent"])
+    per_ray = torch.as_tensor(np.random.default_rng(2).integers(
+        0, 2, rows.shape[1]), dtype=torch.int32)
+    _assert_bits(_trace(libs[None], packed, rows, roots=per_ray),
+                 pt.packet_trace_reference(
+                     packed.nodes, packed.tris, rows, leaf_size=1,
+                     stack_size=packed.stack_size, roots=per_ray,
+                     stats=True, branching=16), "forest roots")
+
+
+def test_host_march_equals_plain_version(libs):
+    """The march instantiation on blob(4)'s grid (choose_dims' cells,
+    LBVH leaf 8, a tri_mask): closest, any and the mask filter, counts
+    summed over the cells."""
+    tris = scenes.blob(4)[0]
+    mask = (np.arange(tris.shape[0]) % 2 + 1).astype(np.uint32)
+    grid = build_grid(tris, config=rt.BuildConfig(leaf_size=8), march=True,
+                      tri_mask=mask, device=CPU)
+    cm = grid.cells_march
+    for name, rays in _batches().items():
+        mg, rows, _ = march_batch(grid, rays)
+        for kw in (dict(), dict(mode="any"), dict(qmask=1)):
+            got = _run(lambda *o: libs[None].rtk_packet_march(
+                _ptr(cm.nodes), _ptr(cm.tris), _ptr(rows), rows.shape[1],
+                cm.leaf_size, int(kw.get("mode") == "any"), 1,
+                int("qmask" in kw), kw.get("qmask", 0), *mg.dims, *mg.lo,
+                *mg.cs, *mg.hi, *o), rows.shape[1])
+            _assert_bits(got, pt.packet_march_reference(
+                cm.nodes, cm.tris, rows, leaf_size=cm.leaf_size,
+                stack_size=cm.stack_size, grid=mg, stats=True, **kw),
+                f"march {name} {kw}")

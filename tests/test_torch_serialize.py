@@ -1,8 +1,9 @@
 """Serialization of the port against rtk_tpu, byte for byte both ways: a
 blob saved by rtk_tpu loads in the port with equal arrays, and the port's
 blob of the same scene, packed scene and instanced scene equals rtk_tpu's
-bytes.  Also the header checks, the branching / has_wide metadata, the
-refusal of W=16 tables, and the card as the loaders' default device."""
+bytes.  Also the header checks, the branching / has_wide metadata, W=16
+tables, and the card as the default device of the loaders and of ray
+batches."""
 import inspect
 import io
 
@@ -20,7 +21,9 @@ from rtk_tpu_torch import instancing as tinst
 from rtk_tpu_torch import tasks
 from rtk_tpu_torch.builder import sah as tsah
 from rtk_tpu_torch.testing import scenes
+from rtk_tpu_torch.testing.grid import build_grid
 from rtk_tpu_torch.trace import packed as tpacked
+from rtk_tpu_torch.types import miss_hits
 from rtk_tpu_torch.utils import serialize as tser
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
@@ -122,7 +125,8 @@ def test_rtk_tpu_blob_loads_in_the_port(kind):
 def test_loaded_scenes_trace_the_same():
     _, t, _, tsave = _pairs("scene")
     loaded = tser.load_scene(_blob(tsave, t), device=CPU)
-    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 16, 16)
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 16, 16,
+                              device="cpu")
     a, b = rt.Tracer(t).closest(rays), rt.Tracer(loaded).closest(rays)
     for f in ("hit", "t", "u", "v", "slot"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
@@ -150,17 +154,20 @@ def test_has_wide_and_branching_survive(tmp_path):
 
 
 def test_w16_blob_is_refused_naming_k3():
-    """A blob of rtk_tpu's 16-wide tables loads in rtk_tpu and is refused
-    by the port until ROADMAP K3 is ported."""
+    """A blob of rtk_tpu's 16-wide tables was refused until ROADMAP K3 was
+    ported; it now loads in the port as 16-wide tables with rtk_tpu's
+    arrays, and the port's blob of them is rtk_tpu's bytes
+    (tests/test_torch_w16.py traces them)."""
     tris = scenes.blob(2)[0]
-    orc = NativeOracle(tris.reshape(-1, 9), leaf_max=4)
-    p16 = jpacked.pack_binary_tree(tris, *orc.export_tree(), leaf_size=4,
-                                   branching=16)
+    tree = NativeOracle(tris.reshape(-1, 9), leaf_max=4).export_tree()
+    p16 = jpacked.pack_binary_tree(tris, *tree, leaf_size=4, branching=16)
     blob = _blob(jser.save_packed_scene, p16)
     assert jser.load_packed_scene(blob).branching == 16
     for load in (tser.load_packed_scene, tser.load_any):
-        with pytest.raises(NotImplementedError, match="K3"):
-            load(blob, device=CPU)
+        got = load(blob, device=CPU)
+        assert got.branching == 16 and got.stack_size == 1 + 15 * got.depth
+        _assert_same_arrays(got, p16, tser._PACKED_FIELDS)
+        assert _blob(tser.save_packed_scene, got) == blob
 
 
 def test_header_validation():
@@ -191,3 +198,28 @@ ENTRY_POINTS = [
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+RAY_ENTRY_POINTS = [rt.Rays.make, scenes.camera_rays, scenes.cornell_camera,
+                    miss_hits, build_grid]
+
+
+@pytest.mark.parametrize("fn", RAY_ENTRY_POINTS, ids=lambda f: f.__name__)
+def test_ray_batches_default_to_the_card(fn):
+    """Ray batches and what else a caller makes from host arrays land on
+    the card unless the caller names a device; Rays.make keeps a tensor's
+    own device."""
+    default = inspect.signature(fn).parameters["device"].default
+    if fn is rt.Rays.make:
+        assert default is None
+        if torch.cuda.is_available():
+            assert rt.Rays.make(np.zeros((1, 3)),
+                                np.ones((1, 3))).device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError),
+                               match="CUDA"):
+                rt.Rays.make(np.zeros((1, 3)), np.ones((1, 3)))
+        o = torch.zeros((2, 3))
+        assert rt.Rays.make(o, o + 1).device == o.device
+    else:
+        assert default == "cuda"

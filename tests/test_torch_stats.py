@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 
 def _blob_rays(side=24):
     return scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, side,
-                              side)
+                              side, device="cpu")
 
 
 @pytest.mark.parametrize("leaf", [1, 4, 8])
@@ -60,7 +60,7 @@ def test_counts_come_back_in_the_callers_order():
     tris = rng.normal(size=(300, 3, 3)).astype(np.float32)
     packed = pack_scene(rt.build_scene(_soup_of(tris), device=CPU))
     rays = rt.Rays.make(rng.normal(size=(512, 3)) * 3.0,
-                        rng.normal(size=(512, 3)))
+                        rng.normal(size=(512, 3)), device="cpu")
     _, a = trace_packets(packed, rays, sort_rays=False, stats=True)
     _, b = trace_packets(packed, rays, sort_rays=True, stats=True)
     assert torch.equal(a, b)
@@ -108,7 +108,7 @@ def test_dead_rays_count_nothing():
     packed = pack_scene(rt.build_scene(_soup_of(scenes.cornell_box()),
                                        device=CPU))
     rays = rt.Rays.make(np.zeros((4, 3)) + 0.5, [[0, 0, -1.0]] * 4, 1.0,
-                        [0.0, 1.0, 0.5, 3.0e38])
+                        [0.0, 1.0, 0.5, 3.0e38], device="cpu")
     _, c = trace_packets(packed, rays, stats=True)
     assert (c[:, :3] == 0).all() and (c[:2, 3] > 0).all()
 
@@ -118,7 +118,8 @@ def test_measure_trace_with_steps():
     tris = scenes.blob(3)[0]
     tracer = rt.Tracer(rt.build_scene(_soup_of(tris), device=CPU),
                        engine="packet")
-    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 32, 32)
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 32, 32,
+                              device="cpu")
     st = stats.measure_trace(tracer, rays, iters=1, with_steps=True)
     assert st.rays == rays.count
     assert st.steps_per_block and st.steps_per_block > 0
@@ -182,7 +183,7 @@ def test_profiler_trace_and_annotate(tmp_path):
     tracer = rt.Tracer(rt.build_scene(_soup_of(scenes.cornell_box()),
                                       device=CPU))
     with stats.profiler_trace(str(tmp_path), annotation="block") as prof:
-        run(tracer, scenes.cornell_camera(8, 8))
+        run(tracer, scenes.cornell_camera(8, 8, device="cpu"))
     names = {e.key for e in prof.key_averages()}
     assert {"rtk.trace", "block"} <= names
     trace = json.loads((tmp_path / "trace.json").read_text())

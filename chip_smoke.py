@@ -12,7 +12,8 @@ Phases (each prints one line):
      build_scene(blob(6)) -> Tracer(scene).closest / .any on 8192^2
      morton-ordered camera rays made on the card; the hit count must be
      within 5000 of 41,019,791; then the kernel against its plain version
-     on the same tables and rays, both timed with CUDA events;
+     on the same tables and rays, both timed with CUDA events, and the
+     any-hit launch alone with its own bound;
   4. record parity of the step-quantized SAH tables at 512^2 against the
      C++ oracle (native/rtk_oracle.cpp), at the bench's thresholds;
   5. the instanced path (BASELINE config 5, bench.py:757-801): 125
@@ -964,6 +965,13 @@ def main():
     max_err = max(max_err, main_err)
     main_bound = bound(packet_trace.packet_trace_kernel(
         packed.nodes, packed.tris, comps, **kw, stats=True)[4], packed)
+    # The any-hit launch of the main path alone, with its own bound.
+    _, any_kernel_ms = timed(
+        lambda: packet_trace.packet_trace_kernel(
+            packed.nodes, packed.tris, comps, **kw, mode="any"), reps=3)
+    any_bound = bound(packet_trace.packet_trace_kernel(
+        packed.nodes, packed.tris, comps, **kw, mode="any",
+        stats=True)[4], packed)
     print("phase 3 main path:", json.dumps({
         "rays": n, "hits": n_hit, "expect": HEADLINE_EXPECT_HITS,
         "build_ms": round(build_ms, 1), "packed_depth": packed.depth,
@@ -973,6 +981,8 @@ def main():
         "kernel_ms": round(kernel_ms, 2), "plain_ms": round(plain_ms, 1),
         "kernel_launches": launches, "max_abs_err": main_err,
         "bound_ms": main_bound[0], "bound_by": main_bound[1],
+        "any_kernel_ms": round(any_kernel_ms, 2),
+        "any_bound_ms": any_bound[0], "any_bound_by": any_bound[1],
         "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
         "card": card}), flush=True)
     del hits, occ, comps, k_out, p_out, rays

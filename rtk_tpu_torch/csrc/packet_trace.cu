@@ -7,20 +7,44 @@
 // semantics; not the same schedule.  The TPU kernel advances packets of
 // 128+ rays in lockstep because the TPU pays per scalar instruction and
 // wins on wide vector tiles.  Here one thread traces one ray with its own
-// stack in local memory, rtk's own shape (rtk.c:390-539).
+// stack in local memory (L1-cached, and touched only where a node has
+// more than one hit child), rtk's own shape (rtk.c:390-539).
 //
-// What bounds it on an H100: not arithmetic but the latency of dependent
-// fetches (a node's 256-byte child block, then its children, then the
-// leaf's triangle rows, each address known only after the previous load),
-// and warp divergence (the 32 rays of a warp visit different nodes and
-// leave the loop at different times).  The tables of the blob(6) scene
-// are about 6 MB, so after the first touches they sit in the 50 MB L2.
-// What the design does about it: every fetch is a 16-byte read-only load
-// (__ldg) of a contiguous row, so a node costs 16 loads from one 256-byte
-// span; children are pushed near-to-far (ties by slot) so best_t shrinks
-// early and fewer subtrees are entered; the caller sorts rays by a Morton
-// coherence key so the rays of a warp walk nearly the same nodes and share
-// cache lines; 128-thread blocks keep many warps resident to cover latency.
+// What bounds it on an H100, as measured (tools/torch_kernel_ladder.py,
+// PERF.md section 6): the instructions it executes and the divergence of
+// a warp, not the latency of its fetches.  The tables of the blob(6) scene
+// are about 6 MB: they sit in L2 and their hot rows in L1, so a dependent
+// fetch is short, and the many resident warps of a 48-56 register kernel
+// cover it.  Every build that bought fewer round trips with registers or
+// shared memory was slower: a node's sixteen loads started ahead of its
+// masks, four triangles loaded ahead of their tests, the stack in shared
+// memory (which takes L1 from the tables), the near-to-far order kept in
+// registers.  What paid was fewer instructions a test and fewer warps
+// running a node and a leaf in turn.  The card's tensor cores and TMA
+// have nothing to offer: the loop is scalar f32 arithmetic on rows whose
+// addresses are known one fetch ahead, with no matrix product and no tile
+// to copy; its means are registers (few, so that many warps stay
+// resident), L1 (left whole), 16-byte read-only loads and the warp's
+// convergence.
+// What the design does about it:
+//   * every fetch is a 16-byte (or 8-byte) read-only load (__ldg) of a
+//     contiguous row, a node's sixteen from one 256-byte span; the caller
+//     sorts rays by a Morton coherence key so the rays of a warp walk
+//     nearly the same nodes and share cache lines; 128-thread blocks;
+//   * the min and max of the box and triangle tests are single
+//     NaN-propagating instructions (test_max/test_min), a third of a box
+//     test's instructions before;
+//   * a triangle whose edge functions differ in sign leaves before the
+//     divide and the distance;
+//   * children are ordered near to far (ties by slot) so best_t shrinks
+//     early; the nearest hit child stays in a register and only the
+//     others are pushed, so most nodes touch the stack not at all;
+//   * a lane keeps descending until it holds a leaf, and the warp tests
+//     its leaves together: lanes at a node and lanes at a leaf would make
+//     the warp run both paths in turn;
+//   * the leaf test is compiled once per shear axis and picked by the
+//     ray's kz, so vertex components are chosen at compile time instead
+//     of by three-way selects a triangle; coherent rays share kz.
 //
 // Numerics: built with -fmad=false, so no a*b+c is contracted into an FMA.
 // The shared-edge functions of two triangles are then exact negations,
@@ -43,8 +67,8 @@
 //     geometric test and is ANDed into the accept test; u and v are
 //     computed for it even under defer_uv.
 // and the two variants that change the traversal's shape, each its own
-// template instantiation (its own registers; the 8-wide build without
-// them is the same code as before they existed):
+// template instantiation (its own registers; the 8-wide build pays
+// nothing for them):
 //   * w_arity=16 (pallas_trace.py:163-174, :805-828): 16-wide node tables,
 //     16 rows a node and the leaf mask in bits 16-31 of the masks word.
 //     The near-to-far order stays the stable insertion by entry distance
@@ -74,6 +98,10 @@
 
 #define RTK_MAX_STACK 256  // entries; the wrapper refuses deeper trees
 #define RTK_BLOCK 128
+// Blocks an SM the launch bounds promise: 8 x 128 threads leave each
+// thread 64 registers.  Told so, ptxas spends 52-56 of them and
+// rematerialises less than it does with 48 and no promise.
+#define RTK_MIN_BLOCKS 8
 
 namespace {
 
@@ -111,12 +139,53 @@ struct Grid {
   float lox, loy, loz, csx, csy, csz, hix, hiy, hiz;
 };
 
-// Per-ray constants of the traversal.
+// Per-ray constants of the traversal: origin, clamped reciprocal
+// direction, min_t, and the shear (rtk.c:550-567): kz the dominant axis
+// (kx and ky follow it cyclically), the shear factors and the origin in
+// (kx, ky, kz) order.
 struct RayC {
   float ox, oy, oz, rx, ry, rz, mint;
-  int kx, ky, kz;
+  int kz;
   float sx, sy, sz, okx, oky, okz;
 };
+
+// max/min of the box and triangle tests, NaN if either operand is NaN as
+// max_nan/min_nan are, in one instruction (FMNMX.NAN) where those take a
+// compare, a NaN test and a select.  Results feed comparisons only, so the
+// sign of a zero and a NaN's payload, where the two forms may differ,
+// never reach an output.
+__device__ __forceinline__ float test_max(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return max_nan(a, b);
+#endif
+}
+__device__ __forceinline__ float test_min(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return min_nan(a, b);
+#endif
+}
+
+// A shear axis known at compile time (0, 1, 2).
+template <int N>
+struct Axis {
+  static constexpr int value = N;
+};
+
+// The third int4 of a triangle row: filter builds read its mesh and
+// triangle columns, the others stop at the mask.
+#ifdef RTK_FILTER
+typedef float4 TriTail;
+#else
+typedef float2 TriTail;
+#endif
 
 // Depth-first traversal of the W-wide tree rooted at row `root`, with the
 // best hit so far carried in and out (a march trace carries it from cell
@@ -132,115 +201,156 @@ __device__ __forceinline__ void traverse(
   const bool px = r.rx >= 0.0f, py = r.ry >= 0.0f, pz = r.rz >= 0.0f;
   int stack[RTK_MAX_STACK];
   int sp = 0;
-  stack[sp++] = root;
-  while (sp > 0) {
-    const int e = stack[--sp];
-    if (e >= 0) {
-      ++n_int;
-      // Internal node: W child rows of 8 int32, 2 int4 per row.  Row 0
-      // carries (first_child, first_leaf) in cols 6-7, row 1 the masks
-      // (internal in bits 0..W-1, leaf in bits W..2W-1: read unsigned).
-      const int4* row = nodes + (size_t)e * (2 * W);
-      const int4 m0 = __ldg(row + 1);
-      const int4 m1 = __ldg(row + 3);
-      const int fc = m0.z, fl = m0.w;
-      const unsigned mz = (unsigned)m1.z;
-      const int im = (int)(mz & kMask), lm = (int)((mz >> W) & kMask);
-      n_box += __popc(im | lm);  // every live child is box-tested
-      float key[W];
-      int ent[W];
-      int cnt = 0;
+  // The entry being visited: the nearest hit child of a node stays here
+  // and is never pushed; it counts as a pop all the same.
+  int cur = root;
+
+  // One internal node: W child rows of 8 int32, 2 int4 per row.  Row 0
+  // carries (first_child, first_leaf) in cols 6-7, row 1 the masks
+  // (internal in bits 0..W-1, leaf in bits W..2W-1: read unsigned).
+  // Pushes the hit children but the nearest, far first, and returns true
+  // with the nearest in `cur`; false if no child is hit.
+  auto node = [&]() -> bool {
+    ++n_int;
+    const int4* row = nodes + (size_t)cur * (2 * W);
+    const int4 m0 = __ldg(row + 1);
+    const int4 m1 = __ldg(row + 3);
+    const int fc = m0.z, fl = m0.w;
+    const unsigned mz = (unsigned)m1.z;
+    const int im = (int)(mz & kMask), lm = (int)((mz >> W) & kMask);
+    n_box += __popc(im | lm);  // every live child is box-tested
+    float key[W];
+    int ent[W];
+    int cnt = 0;
 #pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const int bit = 1 << w;
-        if (!((im | lm) & bit)) continue;
-        const int4 a = __ldg(row + 2 * w);
-        const int4 b = __ldg(row + 2 * w + 1);
-        const float mnx = __int_as_float(a.x), mny = __int_as_float(a.y),
-                    mnz = __int_as_float(a.z), mxx = __int_as_float(a.w),
-                    mxy = __int_as_float(b.x), mxz = __int_as_float(b.y);
-        const float nx = ((px ? mnx : mxx) - r.ox) * r.rx;
-        const float fx = ((px ? mxx : mnx) - r.ox) * r.rx;
-        const float ny = ((py ? mny : mxy) - r.oy) * r.ry;
-        const float fy = ((py ? mxy : mny) - r.oy) * r.ry;
-        const float nz = ((pz ? mnz : mxz) - r.oz) * r.rz;
-        const float fz = ((pz ? mxz : mnz) - r.oz) * r.rz;
-        const float enter = max_nan(max_nan(nx, ny), max_nan(nz, r.mint));
-        const float exit = min_nan(min_nan(fx, fy), min_nan(fz, best_t));
-        if (!(enter <= exit)) continue;
-        const int below = bit - 1;
-        const int entry = (im & bit) ? fc + __popc(im & below)
-                                     : -(fl + __popc(lm & below)) - 2;
-        // Stable insertion by entry distance: ties keep slot order.
-        int j = cnt++;
-        while (j > 0 && key[j - 1] > enter) {
-          key[j] = key[j - 1];
-          ent[j] = ent[j - 1];
-          --j;
-        }
-        key[j] = enter;
-        ent[j] = entry;
+    for (int w = 0; w < W; ++w) {
+      const int bit = 1 << w;
+      if (!((im | lm) & bit)) continue;
+      const int4 a = __ldg(row + 2 * w);
+      const int2 b = w == 0   ? make_int2(m0.x, m0.y)
+                     : w == 1 ? make_int2(m1.x, m1.y)
+                              : __ldg((const int2*)(row + 2 * w + 1));
+      const float mnx = __int_as_float(a.x), mny = __int_as_float(a.y),
+                  mnz = __int_as_float(a.z), mxx = __int_as_float(a.w),
+                  mxy = __int_as_float(b.x), mxz = __int_as_float(b.y);
+      const float nx = ((px ? mnx : mxx) - r.ox) * r.rx;
+      const float fx = ((px ? mxx : mnx) - r.ox) * r.rx;
+      const float ny = ((py ? mny : mxy) - r.oy) * r.ry;
+      const float fy = ((py ? mxy : mny) - r.oy) * r.ry;
+      const float nz = ((pz ? mnz : mxz) - r.oz) * r.rz;
+      const float fz = ((pz ? mxz : mnz) - r.oz) * r.rz;
+      const float enter = test_max(test_max(nx, ny), test_max(nz, r.mint));
+      const float exit = test_min(test_min(fx, fy), test_min(fz, best_t));
+      if (!(enter <= exit)) continue;
+      const int below = bit - 1;
+      const int entry = (im & bit) ? fc + __popc(im & below)
+                                   : -(fl + __popc(lm & below)) - 2;
+      // Stable insertion by entry distance: ties keep slot order.
+      int j = cnt++;
+      while (j > 0 && key[j - 1] > enter) {
+        key[j] = key[j - 1];
+        ent[j] = ent[j - 1];
+        --j;
       }
-      // Far first, so the nearest child is on top of the stack.
-      for (int j = cnt - 1; j >= 0; --j) stack[sp++] = ent[j];
-    } else {
-      // Leaf l: triangle rows [l*K, (l+1)*K), 16 floats each:
-      // [v0 v1 v2 | mask mesh prim | pad].
-      ++n_leaf;
-      const int base = (-e - 2) * leaf_size;
-      for (int k = 0; k < leaf_size; ++k) {
-        const float4* tr = tris + (size_t)(base + k) * 4;
-        const float4 q0 = __ldg(tr), q1 = __ldg(tr + 1), q2 = __ldg(tr + 2);
-        // Padding rows (NaN vertices) can never hit; masked-out rows
-        // are rejected before any arithmetic.
-        if (q0.x != q0.x) continue;
-        if (use_mask && ((int)q2.y & qmask) == 0) continue;
-        ++n_tri;
-        const float vx[3] = {q0.x, q0.w, q1.z};
-        const float vy[3] = {q0.y, q1.x, q1.w};
-        const float vz[3] = {q0.z, q1.y, q2.x};
-        float xs[3], ys[3], zs[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          // Translate before shearing (pallas_trace.py:953-968).
-          const float tx = sel3(r.kx, vx[j], vy[j], vz[j]) - r.okx;
-          const float ty = sel3(r.ky, vx[j], vy[j], vz[j]) - r.oky;
-          const float tz = sel3(r.kz, vx[j], vy[j], vz[j]) - r.okz;
-          xs[j] = tx + r.sx * tz;
-          ys[j] = ty + r.sy * tz;
-          zs[j] = r.sz * tz;
-        }
-        float u = xs[1] * ys[2] - ys[1] * xs[2];
-        float v = xs[2] * ys[0] - ys[2] * xs[0];
-        float w = xs[0] * ys[1] - ys[0] * xs[1];
-        // NaN edge values never take this path (NaN == 0 is false).
-        if (watertight && (u == 0.0f || v == 0.0f || w == 0.0f)) {
-          u = edge_f64(xs[1], ys[1], xs[2], ys[2]);
-          v = edge_f64(xs[2], ys[2], xs[0], ys[0]);
-          w = edge_f64(xs[0], ys[0], xs[1], ys[1]);
-        }
-        const float lo = min_nan(min_nan(u, v), w);
-        const float hi = max_nan(max_nan(u, v), w);
-        const float rcp_det = 1.0f / (u + v + w);
-        const float t = (u * zs[0] + v * zs[1] + w * zs[2]) * rcp_det;
-        // Accept inside (min_t, best): the first hit found wins a tie.
-        bool accept = !(lo < 0.0f && hi > 0.0f) && t > r.mint && t < best_t;
-#ifdef RTK_FILTER
-        // Mesh and triangle ids are exact float columns (< 2^24).
-        accept = accept && rtk_filter_pred(t, u * rcp_det, v * rcp_det,
-                                           (int)q2.z, (int)q2.w, rid);
-#endif
-        if (accept) {
-          best_t = t;
-          best_slot = base + k;
-          if (!defer_uv) {
-            best_u = u * rcp_det;
-            best_v = v * rcp_det;
-          }
-        }
-      }
-      if (mode_any && best_slot >= 0) break;
+      key[j] = enter;
+      ent[j] = entry;
     }
+    // Far first, so the next nearest child is on top of the stack.
+    for (int j = cnt - 1; j > 0; --j) stack[sp++] = ent[j];
+    if (cnt == 0) return false;
+    cur = ent[0];
+    return true;
+  };
+
+  // One triangle row against the ray, with the shear axes of `axis`.
+  auto test = [&](auto axis, const float4 q0, const float4 q1,
+                  const TriTail q2, const int slot) {
+    constexpr int KZ = decltype(axis)::value;
+    constexpr int KX = (KZ + 1) % 3, KY = (KX + 1) % 3;
+    // Padding rows (NaN vertices) can never hit; masked-out rows are
+    // rejected before any arithmetic.
+    if (q0.x != q0.x) return;
+    if (use_mask && ((int)q2.y & qmask) == 0) return;
+    ++n_tri;
+    const float vx[3] = {q0.x, q0.w, q1.z};
+    const float vy[3] = {q0.y, q1.x, q1.w};
+    const float vz[3] = {q0.z, q1.y, q2.x};
+    float xs[3], ys[3], zs[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      // Translate before shearing (pallas_trace.py:953-968).
+      const float tx = sel3(KX, vx[j], vy[j], vz[j]) - r.okx;
+      const float ty = sel3(KY, vx[j], vy[j], vz[j]) - r.oky;
+      const float tz = sel3(KZ, vx[j], vy[j], vz[j]) - r.okz;
+      xs[j] = tx + r.sx * tz;
+      ys[j] = ty + r.sy * tz;
+      zs[j] = r.sz * tz;
+    }
+    float u = xs[1] * ys[2] - ys[1] * xs[2];
+    float v = xs[2] * ys[0] - ys[2] * xs[0];
+    float w = xs[0] * ys[1] - ys[0] * xs[1];
+    // NaN edge values never take this path (NaN == 0 is false).
+    if (watertight && (u == 0.0f || v == 0.0f || w == 0.0f)) {
+      u = edge_f64(xs[1], ys[1], xs[2], ys[2]);
+      v = edge_f64(xs[2], ys[2], xs[0], ys[0]);
+      w = edge_f64(xs[0], ys[0], xs[1], ys[1]);
+    }
+    const float lo = test_min(test_min(u, v), w);
+    const float hi = test_max(test_max(u, v), w);
+    // Edge functions of both signs: a miss, before the divide (a rejected
+    // triangle's 1/det is never read).
+    if (lo < 0.0f && hi > 0.0f) return;
+    const float rcp_det = 1.0f / (u + v + w);
+    const float t = (u * zs[0] + v * zs[1] + w * zs[2]) * rcp_det;
+    // Accept inside (min_t, best): the first hit found wins a tie.
+    bool accept = t > r.mint && t < best_t;
+#ifdef RTK_FILTER
+    // Mesh and triangle ids are exact float columns (< 2^24).
+    accept = accept && rtk_filter_pred(t, u * rcp_det, v * rcp_det,
+                                       (int)q2.z, (int)q2.w, rid);
+#endif
+    if (accept) {
+      best_t = t;
+      best_slot = slot;
+      if (!defer_uv) {
+        best_u = u * rcp_det;
+        best_v = v * rcp_det;
+      }
+    }
+  };
+
+  // Leaf l: triangle rows [l*K, (l+1)*K), 16 floats each:
+  // [v0 v1 v2 | mask mesh prim | pad], tested in slot order.
+  auto leaf = [&](auto axis) {
+    ++n_leaf;
+    const int base = (-cur - 2) * leaf_size;
+    const float4* tr = tris + (size_t)base * 4;
+    for (int k = 0; k < leaf_size; ++k)
+      test(axis, __ldg(tr + k * 4), __ldg(tr + k * 4 + 1),
+           __ldg((const TriTail*)(tr + k * 4 + 2)), base + k);
+  };
+
+  for (;;) {
+    // Every lane descends through internal nodes until it holds a leaf
+    // (or has nothing left); then the warp tests its leaves together.
+    // Lanes of a warp at a node and at a leaf would run both in turn.
+    bool done = false;
+    while (cur >= 0) {
+      if (node()) continue;
+      if (sp == 0) {
+        done = true;
+        break;
+      }
+      cur = stack[--sp];
+    }
+    if (done) break;
+    // One copy of the leaf test per shear axis: the vertex components are
+    // picked at compile time, not by three-way selects a triangle.
+    if (r.kz == 0) leaf(Axis<0>{});
+    else if (r.kz == 1) leaf(Axis<1>{});
+    else leaf(Axis<2>{});
+    if ((mode_any && best_slot >= 0) || sp == 0) break;
+    cur = stack[--sp];
   }
 }
 
@@ -254,7 +364,7 @@ __device__ __forceinline__ void traverse(
 // counts: null or (5, n) per-ray steps, internal pops, leaf pops, box
 // tests, triangle tests (a march sums them over the ray's cells).
 template <int W, bool MARCH>
-__global__ void __launch_bounds__(RTK_BLOCK)
+__global__ void __launch_bounds__(RTK_BLOCK, RTK_MIN_BLOCKS)
 packet_trace_kernel(const int4* __restrict__ nodes,
                     const float4* __restrict__ tris,
                     const float* __restrict__ rays,
@@ -296,14 +406,14 @@ packet_trace_kernel(const int4* __restrict__ nodes,
     const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
     const float maxc = max_nan(ax, max_nan(ay, az));
     r.kz = ax == maxc ? 0 : (ay == maxc ? 1 : 2);
-    r.kx = r.kz == 2 ? 0 : r.kz + 1;
-    r.ky = r.kx == 2 ? 0 : r.kx + 1;
+    const int kx = r.kz == 2 ? 0 : r.kz + 1;
+    const int ky = kx == 2 ? 0 : kx + 1;
     const float dkz = sel3(r.kz, dx, dy, dz);
-    r.sx = -sel3(r.kx, dx, dy, dz) / dkz;
-    r.sy = -sel3(r.ky, dx, dy, dz) / dkz;
+    r.sx = -sel3(kx, dx, dy, dz) / dkz;
+    r.sy = -sel3(ky, dx, dy, dz) / dkz;
     r.sz = 1.0f / dkz;
-    r.okx = sel3(r.kx, ox, oy, oz);
-    r.oky = sel3(r.ky, ox, oy, oz);
+    r.okx = sel3(kx, ox, oy, oz);
+    r.oky = sel3(ky, ox, oy, oz);
     r.okz = sel3(r.kz, ox, oy, oz);
 
     if (!MARCH) {

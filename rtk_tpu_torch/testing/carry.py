@@ -32,7 +32,7 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def scene_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
                       branching: int, num_leaves: int, has_wide: bool = True,
-                      device="cpu") -> Scene:
+                      device) -> Scene:
     """Scene from a dict holding every name in SCENE_ARRAYS."""
     return Scene(**{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS},
                  num_tris=num_tris, leaf_size=leaf_size,
@@ -42,7 +42,7 @@ def scene_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
 
 def packed_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
                        branching: int = 8, roots=None,
-                       device="cpu") -> PackedScene:
+                       device) -> PackedScene:
     """PackedScene from a dict holding every name in PACKED_ARRAYS; the
     tree depth is read from the `meta` table: the deepest tree over
     `roots` (the table's entry rows; default: every row that no other row

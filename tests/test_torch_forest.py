@@ -58,7 +58,8 @@ def forest():
     arrays = {k: np.asarray(getattr(jmerged, k)) for k in carry.SCENE_ARRAYS}
     tmerged = carry.scene_from_arrays(
         arrays, num_tris=jmerged.num_tris, leaf_size=jmerged.leaf_size,
-        branching=jmerged.branching, num_leaves=jmerged.num_leaves)
+        branching=jmerged.branching, num_leaves=jmerged.num_leaves,
+        device=CPU)
     return tris, jmerged, tmerged, roots
 
 
@@ -119,7 +120,8 @@ def test_carried_forest_keeps_its_depth(forest):
     own = tpacked.pack_multiroot(tmerged, roots)
     for given in (None, np.arange(len(roots))):
         got = carry.packed_from_arrays(arrays, num_tris=jp.num_tris,
-                                       leaf_size=jp.leaf_size, roots=given)
+                                       leaf_size=jp.leaf_size, roots=given,
+                                       device=CPU)
         assert got.depth == own.depth
     with pytest.raises(ValueError, match="root"):
         tpacked.tree_depth(own.meta.numpy(), [own.num_nodes])

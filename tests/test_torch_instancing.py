@@ -155,7 +155,8 @@ def test_per_ray_roots_against_pallas_packet_roots(case6):
                                      np.asarray(case6.jis.roots))
     arrays = {k: np.asarray(getattr(jp, k)) for k in carry.PACKED_ARRAYS}
     packed = carry.packed_from_arrays(arrays, num_tris=jp.num_tris,
-                                      leaf_size=jp.leaf_size, roots=jroots)
+                                      leaf_size=jp.leaf_size, roots=jroots,
+                                      device=CPU)
     jrays = _random_rays(256, 3)
     jrays = rtk_tpu.Rays.make(np.asarray(jrays.origin) / 6,
                               np.asarray(jrays.direction))

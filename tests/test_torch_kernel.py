@@ -114,6 +114,48 @@ def chain_forest(chain):
             np.array([2 * chain + 1, 0]))
 
 
+def tie_tree(leaves, count, seed=7):
+    """Binary arrays (pack_binary_tree's arguments) of a balanced tree
+    over `leaves` leaves (a power of two) of `count` triangles each, made
+    to tie: every node has the same box, so all children of a wide node
+    lie at one entry distance and are ordered by slot alone, and leaf
+    2j+1 repeats leaf 2j's triangles, so every hit is found twice at one
+    t and the first found must win."""
+    rng = np.random.default_rng(seed)
+    half = rng.normal(size=(leaves // 2, count, 3, 3)).astype(np.float32)
+    tri_v = np.repeat(half, 2, axis=0).reshape(-1, 3, 3)
+    n_nodes = 2 * leaves - 1
+    node = np.arange(n_nodes)
+    inner = node < leaves - 1
+    left = np.where(inner, 2 * node + 1, -1)
+    right = np.where(inner, 2 * node + 2, -1)
+    first = np.where(inner, 0, (node - (leaves - 1)) * count)
+    cnt = np.where(inner, 0, count)
+    lo = np.tile(tri_v.min(axis=(0, 1)), (n_nodes, 1))
+    hi = np.tile(tri_v.max(axis=(0, 1)), (n_nodes, 1))
+    return tri_v, left, right, first, cnt, lo, hi, np.arange(len(tri_v)), 0
+
+
+# (leaf_size, triangles a leaf, table width): whole leaves at the sizes in
+# use, and short ones whose NaN padding rows fall in the leaf loop's
+# unrolled part and in its remainder.
+TIE_CASES = [(1, 1, 8), (4, 4, 8), (8, 7, 8), (16, 16, 8), (6, 5, 16),
+             (4, 3, 16)]
+
+
+def tie_rays(n, device, seed=12):
+    """Rays towards the tie_tree's triangles, a fifth with a short t
+    window and a tenth dead."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(n)
+    origin = rng.normal(size=(n, 3)) * 4.0
+    return rtk_tpu_torch.Rays.make(
+        origin, rng.normal(size=(n, 3)) * 0.7 - origin,
+        np.where(u < 0.2, 0.5, 0.0),
+        np.where(u < 0.1, 0.0, np.where(u < 0.2, 4.0, 3.0e38)),
+        device=device)
+
+
 def test_kernel_refuses_deep_forest(cuda):
     """The second tree of this forest needs more than the compiled stack;
     the first alone would fit.  The wrapper refuses before launch."""
@@ -378,3 +420,47 @@ def test_march_variant_matches_reference(cuda):
             if kw.get("mode") != "any":
                 assert bool(((got.t - flat.t).abs()
                              <= 1e-6 * (1 + flat.t.abs())).all())
+
+
+@pytest.mark.parametrize("leaf_size,count,width", TIE_CASES)
+def test_kernel_ties_and_leaf_sizes(cuda, leaf_size, count, width):
+    """Children at equal entry distance (ties by slot), coincident
+    triangles in two leaves (the first found wins) and every leaf-loop
+    shape: kernel == plain bit for bit, counts included, closest and any
+    (which leaves at the nearest child with entries still stacked), the
+    mask filter and a filter predicate."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+
+    tri_v, *tree = tie_tree(64, count)
+    mask = (np.arange(tri_v.shape[0]) % 3 + 1).astype(np.uint32)
+    packed = pack_binary_tree(tri_v, *tree, leaf_size=leaf_size,
+                              branching=width, tri_mask=mask, device=cuda)
+    rays = tie_rays(3000, cuda)
+    flt = rtk_tpu_torch.jit_filter(FILTERS["odd_tri"])
+    for kw in (dict(), dict(mode="any"), dict(filter_mask=2),
+               dict(filter_fn=flt), dict(filter_fn=flt, mode="any")):
+        got, counts = packet_trace.trace_packets(packed, rays, stats=True,
+                                                 sort_rays=False, **kw)
+        want, want_counts = packet_trace.trace_packets_reference(
+            packed, rays, stats=True, sort_rays=False, **kw)
+        _assert_same(got, want)
+        assert torch.equal(counts, want_counts), kw
+    assert got.hit.any()
+
+
+def test_kernel_deep_tree_within_the_stack(cuda):
+    """A chain whose traversal stack comes close to the compiled one."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+
+    tri_v, *tree, roots = chain_forest(240)
+    packed = pack_binary_tree(tri_v, *tree, roots, leaf_size=1, device=cuda)
+    cap = packet_trace.load_kernel().rtk_packet_trace_max_stack()
+    assert cap // 2 < packed.stack_size <= cap
+    rays = tie_rays(2000, cuda)
+    roots_t = torch.ones(rays.count, dtype=torch.int32, device=cuda)
+    got, counts = packet_trace.trace_packets(packed, rays, stats=True,
+                                             ray_roots=roots_t)
+    want, want_counts = packet_trace.trace_packets_reference(
+        packed, rays, stats=True, ray_roots=roots_t)
+    _assert_same(got, want)
+    assert torch.equal(counts, want_counts)

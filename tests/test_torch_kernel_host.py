@@ -1,10 +1,11 @@
 """csrc/packet_trace.cu built for the host and held against its plain
 versions.  g++ compiles the CUDA source against a small header that
-stands in for CUDA's (int4 and float4, __ldg, __popc, and the launch run
+stands in for CUDA's (the vector types, __ldg, __popc, and the launch run
 as a loop over the threads in turn), so the kernel's own code runs here on
-the CPU: every instantiation (8- and 16-wide tables, the grid march and a
-filter build) in every mode equals the plain PyTorch version bit for bit,
-counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
+the CPU (its single-instruction NaN min/max take their plain C++ form
+off the card): every instantiation (8- and 16-wide tables, the grid march
+and a filter build) in every mode equals the plain PyTorch version bit for
+bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
 This checks the kernel's logic and arithmetic; that nvcc builds it for
 sm_90a, and the card's results, are tests/test_torch_kernel.py's."""
 import ctypes
@@ -22,7 +23,8 @@ from rtk_tpu_torch.testing.grid import build_grid, march_batch
 from rtk_tpu_torch.trace.packed import pack_binary_tree
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
-from test_torch_kernel import FILTERS, chain_forest
+from test_torch_kernel import (FILTERS, TIE_CASES, chain_forest, tie_rays,
+                               tie_tree)
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -32,8 +34,11 @@ CUDA_SHIM = r"""
 #pragma once
 #include <math.h>
 #include <string.h>
+struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+static inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct dim3 { unsigned x, y, z; };
 static dim3 blockIdx, threadIdx, blockDim;
 template <class T> static inline T __ldg(const T* p) { return *p; }
@@ -48,7 +53,7 @@ static inline int cudaGetLastError() { return 0; }
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 """
 LAUNCH = """    packet_trace_kernel<W, MARCH>
@@ -211,3 +216,45 @@ def test_host_march_equals_plain_version(libs):
                 cm.nodes, cm.tris, rows, leaf_size=cm.leaf_size,
                 stack_size=cm.stack_size, grid=mg, stats=True, **kw),
                 f"march {name} {kw}")
+
+
+@pytest.mark.parametrize("leaf_size,count,width", TIE_CASES)
+def test_host_kernel_ties_and_leaf_sizes(libs, leaf_size, count, width):
+    """Children at equal entry distance (ties by slot), coincident
+    triangles in two leaves (the first found wins) and every leaf-loop
+    shape, closest and any (which leaves at the nearest child with entries
+    still stacked), the mask filter and the filter build."""
+    tri_v, *tree = tie_tree(64, count)
+    mask = (np.arange(tri_v.shape[0]) % 3 + 1).astype(np.uint32)
+    packed = pack_binary_tree(tri_v, *tree, leaf_size=leaf_size,
+                              branching=width, tri_mask=mask, device=CPU)
+    rows = _rows(tie_rays(600, CPU))
+    kw0 = dict(leaf_size=leaf_size, stack_size=packed.stack_size, stats=True,
+               branching=width)
+    hits = 0
+    for kw in (dict(), dict(mode="any"), dict(qmask=2)):
+        got = _trace(libs[None], packed, rows, **kw)
+        _assert_bits(got, pt.packet_trace_reference(
+            packed.nodes, packed.tris, rows, **kw0, **kw), f"ties {kw}")
+        hits += int((got[3] >= 0).sum())
+    assert hits > 0
+    for kw in (dict(), dict(mode="any")):
+        _assert_bits(_trace(libs["odd_tri"], packed, rows, **kw),
+                     pt.packet_trace_reference(
+                         packed.nodes, packed.tris, rows, **kw0, **kw,
+                         filter_fn=libs["filter_fn"]), f"ties filter {kw}")
+
+
+def test_host_kernel_deep_tree_within_the_stack(libs):
+    """A chain whose traversal stack comes close to the compiled one."""
+    tri_v, *tree, roots = chain_forest(240)
+    packed = pack_binary_tree(tri_v, *tree, roots, leaf_size=1, device=CPU)
+    cap = libs[None].rtk_packet_trace_max_stack()
+    assert cap // 2 < packed.stack_size <= cap
+    rows = _rows(tie_rays(400, CPU))
+    per_ray = torch.ones(rows.shape[1], dtype=torch.int32)
+    _assert_bits(_trace(libs[None], packed, rows, roots=per_ray),
+                 pt.packet_trace_reference(
+                     packed.nodes, packed.tris, rows, leaf_size=1,
+                     stack_size=packed.stack_size, roots=per_ray,
+                     stats=True), "deep chain")

@@ -97,7 +97,7 @@ def test_carried_tables_equal_the_port_pack():
     jp = jpacked.pack_scene(rtk_tpu.build_from_soup(tris))
     arrays = {k: np.asarray(getattr(jp, k)) for k in carry.PACKED_ARRAYS}
     got = carry.packed_from_arrays(arrays, num_tris=jp.num_tris,
-                                   leaf_size=jp.leaf_size)
+                                   leaf_size=jp.leaf_size, device=CPU)
     own = tpacked.pack_scene(rtk_tpu_torch.build_from_soup(tris, device=CPU))
     assert_tables_equal(got, jp)
     assert got.depth == own.depth

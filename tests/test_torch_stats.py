@@ -143,7 +143,8 @@ def _scenes(leaf=4):
     arrays = {k: np.asarray(getattr(jscene, k)) for k in carry.SCENE_ARRAYS}
     tscene = carry.scene_from_arrays(
         arrays, num_tris=jscene.num_tris, leaf_size=jscene.leaf_size,
-        branching=jscene.branching, num_leaves=jscene.num_leaves)
+        branching=jscene.branching, num_leaves=jscene.num_leaves,
+        device=CPU)
     return jscene, tscene
 
 

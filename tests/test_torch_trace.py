@@ -29,7 +29,7 @@ def _soup_of(tris):
 def _carry(jpacked):
     arrays = {k: np.asarray(getattr(jpacked, k)) for k in carry.PACKED_ARRAYS}
     return carry.packed_from_arrays(arrays, num_tris=jpacked.num_tris,
-                                    leaf_size=jpacked.leaf_size)
+                                    leaf_size=jpacked.leaf_size, device=CPU)
 
 
 def _rays(jrays):

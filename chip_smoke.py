@@ -46,7 +46,26 @@ Phases (each prints one line):
      traced at both widths, and the fused grid march on the atrium's LBVH
      through Tracer(engine="march") against the flat trace (closest on the
      bounce and the primaries, any-hit masks), with the march kernel
-     against its plain version on the bounce (counts on a 256^2 subset).
+     against its plain version on the bounce (counts on a 256^2 subset);
+  8. dynamic scenes: build once, then per frame refit the bounds to moved
+     vertices, regather the kernel's tables and trace (refit,
+     repack_bounds, refit_packed_binary, Tracer.refresh,
+     trace_packets_refit, trace_packets_refit_frames).  8a is BASELINE
+     config 4 as the reference's bench defines it (bench.py:683-737):
+     deforming_grid(n=96), 18,432 triangles, 256^2 morton rays, LBVH leaf 8
+     without wide nodes, three single frames and the 32-frame clip on the
+     refittable step-quantized SAH (leaf 16) and the LBVH tables.  8b is
+     the same path at deforming_grid(n=1024), 2,097,152 triangles, 2048^2
+     rays, three single frames and an 8-frame clip.  Every frame's refit
+     tables are held against a fresh build of that frame (same hit mask, t
+     within 1e-5); refit to the built soup gives back the built tables bit
+     for bit; the front-ends equal refit -> repack -> trace_packets and
+     each other bit for bit; the kernel equals its plain version on refit
+     tables; a refreshed masked Tracer equals a fresh one, a refreshed
+     march Tracer meets phase 7's bar, a 16-wide refit equals the 8-wide
+     one, and trace_packets_chunked equals trace_packets.  Reported per
+     frame: refit, repack, kernel and end-to-end ms beside a fresh build,
+     and the card's idle share over 8a's clip from torch.profiler.
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
 time the card could take, from the per-ray box and triangle tests the
@@ -110,6 +129,11 @@ ATRIUM_CAM = dict(eye=(0, 6, 9), look_at=(0, 2, 0), up=(0, 1, 0),
                   fov_deg=60)
 WIDTH_T_TOL = 1e-6  # 16- vs 8-wide: t within WIDTH_T_TOL*(1+|t|) (test_w16)
 WIDTH_MISMATCH = 1e-6  # ...and at most this share of the rays disagreeing
+# Phase 8: BASELINE config 4's camera (bench.py:689) and the bar between
+# tables refit to a frame and a fresh build of it (tests/test_packet.py:
+# 106-119): the same hit mask, |t| within REFIT_T_TOL.
+GRID_CAM = dict(eye=(0, 3, 4), look_at=(0, 0, 0), up=(0, 1, 0), fov_deg=50)
+REFIT_T_TOL = 1e-5
 
 
 def check(cond, msg):
@@ -446,6 +470,18 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     del order
     kw = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size)
     entries = {}
+    # The mask and defer_uv launches alone at this size, each with the
+    # bound of its own pops (40 bytes a ray when u and v are not written).
+    rec["alone_8192"] = {}
+    for name, extra, per_ray in (("mask", dict(qmask=1), 48),
+                                 ("defer_uv", dict(defer_uv=True), 40)):
+        _, k_ms = timed(lambda: pt.packet_trace_kernel(
+            packed.nodes, packed.tris, comps, **kw, **extra), reps=3)
+        b_ms, b_by = bound(pt.packet_trace_kernel(
+            packed.nodes, packed.tris, comps, **kw, **extra, stats=True)[4],
+            packed, per_ray)
+        rec["alone_8192"][name] = {"ms": k_ms, "bound_ms": b_ms,
+                                   "bound_by": b_by}
     for name, extra, per_ray in (
             ("packet_trace_filter", dict(filter_fn=odd, ray_index=ridx), 52),
             ("packet_trace_stats", dict(stats=True), 68)):
@@ -818,6 +854,331 @@ def phase7(rt, dev, soup6, cam512, width=8192, atrium_width=1024,
     return rec, {"packet_trace_w16": w16, "packet_trace_march": march}
 
 
+def refit_vs_fresh(got, fresh, what):
+    """Tables refit to a frame against a fresh build of it: the same hit
+    mask, t within REFIT_T_TOL (never counts: a refit box may be wider
+    than a fresh one) -> max |t err| over the hits."""
+    check(torch.equal(got.hit, fresh.hit),
+          f"{what}: {int((got.hit != fresh.hit).sum())} hit mismatches "
+          "against a fresh build")
+    d = (got.t - fresh.t).abs()[fresh.hit]
+    err = float(d.max()) if d.numel() else 0.0
+    check(err <= REFIT_T_TOL, f"{what}: t differs from a fresh build by {err}")
+    return err
+
+
+def tables_equal(a, b, what, fields=("nodes", "tris", "tri_v")):
+    for f in fields:
+        check(bits_equal(getattr(a, f), getattr(b, f)), f"{what}: {f}")
+
+
+def device_share(prof, frames):
+    """The card's busy and idle share over a profiled window: the union
+    of the device events' intervals over the span from the first one's
+    start to the last one's end, and the device events a frame."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"device_events": 0, "idle_share": None}
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = max(e for _, e in spans) - spans[0][0]
+    return {"device_events": len(spans),
+            "device_events_per_frame": len(spans) / frames,
+            "busy_ms": busy / 1e3, "window_ms": window / 1e3,
+            "idle_share": 1.0 - busy / window}
+
+
+def profile_clip(run, frames, pt):
+    """One warm run, one run on the host's clock (the time to enqueue the
+    clip, then to drain it) and one under torch.profiler -> the kernel's
+    launches a frame, the two times and device_share's record."""
+    sync = torch.cuda.synchronize
+    run()
+    sync()
+    before = pt.KERNEL_LAUNCHES
+    t0 = time.perf_counter()
+    run()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    sync()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    per_frame = (pt.KERNEL_LAUNCHES - before) / frames
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        sync()
+    return {"host_enqueue_ms": enqueue_ms, "enqueue_and_drain_ms": total_ms,
+            "kernel_launches_per_frame": per_frame,
+            **device_share(prof, frames)}
+
+
+def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
+    """Dynamic scenes at BASELINE config 4 (8a) and at 2.1M triangles
+    (8b); small and big are (grid n, image width, clip frames).  Returns
+    its record and the kernel entries of the any, mask and defer_uv
+    launches.  Counts are zeroed just before each main-path run and read
+    just after; the comparisons and timings come after."""
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.trace.packed import (pack_binary_tree, pack_scene,
+                                            refit_packed_binary,
+                                            repack_bounds)
+    from rtk_tpu_torch.utils.native_sah import NativeOracle
+
+    sync = torch.cuda.synchronize
+    cfg = rt.BuildConfig(branching=8, leaf_size=8, wide_nodes=False)
+    flags = dict(defer_uv=True)
+    counters = ("KERNEL_LAUNCHES", "ANY_LAUNCHES", "MASK_LAUNCHES",
+                "DEFER_UV_LAUNCHES")
+    launches = dict.fromkeys(counters, 0)
+    errs = {"any": 0.0, "mask": 0.0, "defer_uv": 0.0}
+
+    def soup_of(tris):
+        return (tris.reshape(-1, 3),
+                np.arange(tris.shape[0] * 3).reshape(-1, 3))
+
+    def on_card(tris):
+        return torch.as_tensor(tris, device=dev)
+
+    def fresh_tables(frame, tri_mask=None):
+        return pack_scene(rt.build_from_soup(frame, config=cfg, device=dev),
+                          tri_mask=tri_mask)
+
+    def host_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def drive(n, width, n_clip, on_device):
+        """One size's main path and checks -> (record, state)."""
+        g0 = scenes.deforming_grid(0.0, n=n)
+        t = g0.shape[0]
+        mask = np.where(np.arange(t) % 2 == 1, 1, 2).astype(np.uint32)
+        tracer, lbvh_ms = host_ms(lambda: rt.Tracer(rt.build_from_soup(
+            g0, config=cfg, device=dev), tri_mask=mask))
+        (scene, packed), pack_ms = host_ms(lambda: (tracer.scene,
+                                                    tracer.packed))
+        lbvh_ms += pack_ms
+        (sah, aux), sah_ms = host_ms(lambda: rt.build_sah_packed(
+            soup_of(g0), rt.BuildConfig(leaf_size=16), step_quant=True,
+            refittable=True, device=dev))
+        cam = scenes.camera_rays(**GRID_CAM, width=width, height=width,
+                                 order="morton", device=dev,
+                                 on_device=on_device)
+        clip = torch.stack([on_card(scenes.deforming_grid(0.05 * i, n=n))
+                            for i in range(1, n_clip + 1)])
+        singles = (1, 3, 5)  # the clip's frames at t = 0.1, 0.2, 0.3
+        tables = {"lbvh8": (packed, scene), "sahq16": (sah, aux)}
+
+        # ---- the main path: counts zeroed just before, read after ----
+        sync()
+        for c in counters:
+            setattr(pt, c, 0)
+        one = {name: [pt.trace_packets_refit(p, s, clip[i], cam,
+                                             sort_rays=False, **flags)
+                      for i in singles] for name, (p, s) in tables.items()}
+        many = {name: pt.trace_packets_refit_frames(p, s, clip, cam,
+                                                    sort_rays=True, **flags)
+                for name, (p, s) in tables.items()}
+        moved = tracer.refresh(rt.refit(scene, clip[singles[0]]))
+        h_mask = moved.closest(cam, filter_mask=1)
+        h_any = moved.any(cam)
+        sync()
+        for c in counters:
+            launches[c] += getattr(pt, c)
+        rec = {"tris": t, "rays": cam.count, "clip_frames": n_clip,
+               "lbvh_build_pack_ms": lbvh_ms, "sah_build_pack_ms": sah_ms,
+               "depth": {k: p.depth for k, (p, _) in tables.items()},
+               "hits": [int(h.hit.sum()) for h, _, _ in one["lbvh8"]]}
+        for name, hs in many.items():
+            check(len(hs) == n_clip, f"{name}: {len(hs)} clip frames")
+            for h in hs:
+                check(bool(torch.isfinite(h.t[h.hit]).all()) and h.uv_deferred,
+                      f"{name}: clip frame record")
+
+        # Refit to the built soup gives back the built tables.
+        same = rt.refit(scene, g0)
+        for f in ("bin_min", "bin_max", "leaf_min", "leaf_max", "tri_v",
+                  "node_min", "node_max", "bounds_min", "bounds_max"):
+            check(bits_equal(getattr(same, f), getattr(scene, f)),
+                  f"refit(same soup): {f}")
+        tables_equal(repack_bounds(packed, same), packed, "repack(same)")
+        tables_equal(refit_packed_binary(sah, aux, g0), sah,
+                     "refit_packed_binary(same)")
+        del same
+
+        # Every frame against a fresh build of its soup; the front-ends
+        # against each other and against the separate steps.
+        fresh_ms, max_t = [], 0.0
+        for f in range(n_clip):
+            fp, ms = host_ms(lambda: fresh_tables(clip[f]))
+            fresh_ms.append(ms)
+            fresh = pt.trace_packets(fp, cam)
+            for name, (p, s) in tables.items():
+                what = f"{name} frame {f}"
+                max_t = max(max_t, refit_vs_fresh(many[name][f], fresh, what))
+                again, _, _ = pt.trace_packets_refit(p, s, clip[f], cam,
+                                                     sort_rays=True, **flags)
+                same_hits(many[name][f], again, f"{what}: clip vs single")
+            del fp, fresh
+        for k, i in enumerate(singles):
+            for name, (p, s) in tables.items():
+                got, _, p2 = one[name][k]
+                same_hits(got, many[name][i], f"{name} single {i} vs clip")
+                if name == "lbvh8":
+                    sep = repack_bounds(p, rt.refit(s, clip[i]))
+                else:
+                    sep = refit_packed_binary(p, s, clip[i])
+                tables_equal(p2, sep, f"{name} single {i}: fused tables")
+                same_hits(got, pt.trace_packets(sep, cam, sort_rays=False,
+                                                **flags),
+                          f"{name} single {i}: fused vs separate")
+        # A refreshed masked Tracer against a fresh masked one.
+        fresh_tr = rt.Tracer(rt.build_from_soup(clip[singles[0]], config=cfg,
+                                                device=dev), tri_mask=mask)
+        max_t = max(max_t, refit_vs_fresh(
+            h_mask, fresh_tr.closest(cam, filter_mask=1), "refresh, mask 1"))
+        refit_vs_fresh(moved.closest(cam, filter_mask=2),
+                       fresh_tr.closest(cam, filter_mask=2),
+                       "refresh, mask 2")
+        check(torch.equal(h_any.hit, fresh_tr.any(cam).hit),
+              "refresh: any-hit mask")
+        check(int(h_mask.hit.sum()) > 0, "refresh: the mask filter hit nothing")
+        rec.update(fresh_build_pack_ms=fresh_ms, max_t_err_vs_fresh=max_t,
+                   mask1_hits=int(h_mask.hit.sum()))
+        del fresh_tr, one, many
+        return rec, SimpleNamespace(g0=g0, mask=mask, scene=scene,
+                                    packed=packed, sah=sah, aux=aux, cam=cam,
+                                    clip=clip, singles=singles, moved=moved,
+                                    tables=tables)
+
+    def frame_times(st, reps):
+        """Per-frame ms of each stage, steady state with CUDA events."""
+        f = st.clip[st.singles[1]]
+        rows = rows_of(st.cam)
+        out = {}
+        sc2, out["refit_ms"] = timed(lambda: rt.refit(st.scene, f), reps=reps)
+        p2, out["repack_ms"] = timed(lambda: repack_bounds(st.packed, sc2),
+                                     reps=reps)
+        _, out["kernel_ms"] = timed(lambda: pt.packet_trace_kernel(
+            p2.nodes, p2.tris, rows, leaf_size=p2.leaf_size,
+            stack_size=p2.stack_size, defer_uv=True), reps=reps)
+        _, out["frame_ms"] = timed(lambda: pt.trace_packets_refit(
+            st.packed, st.scene, f, st.cam, sort_rays=False, **flags)[0],
+            reps=reps)
+        s2, out["sah_refit_ms"] = timed(lambda: refit_packed_binary(
+            st.sah, st.aux, f), reps=reps)
+        _, out["sah_kernel_ms"] = timed(lambda: pt.packet_trace_kernel(
+            s2.nodes, s2.tris, rows, leaf_size=s2.leaf_size,
+            stack_size=s2.stack_size, defer_uv=True), reps=reps)
+        _, out["sah_frame_ms"] = timed(lambda: pt.trace_packets_refit(
+            st.sah, st.aux, f, st.cam, sort_rays=False, **flags)[0],
+            reps=reps)
+        for name, (p, s) in st.tables.items():
+            hs, ms = timed(lambda: pt.trace_packets_refit_frames(
+                p, s, st.clip, st.cam, sort_rays=True, **flags), reps=2)
+            float(hs[-1].t[:1].sum())  # a real readback of the last frame
+            out[f"clip_{name}_ms_per_frame"] = ms / st.clip.shape[0]
+        return out, p2, rows
+
+    # ---- 8a: BASELINE config 4 ----
+    rec_a, a = drive(*small, on_device=False)
+    times_a, p2, rows = frame_times(a, reps=6)
+    rec_a["steady"] = times_a
+    # The kernel against its plain version on refit tables, each variant
+    # of this path, 8 and 16 wide.
+    s2 = refit_packed_binary(a.sah, a.aux, a.clip[3])
+    tree = NativeOracle(a.g0.reshape(-1, 9), leaf_max=16,
+                        step_quant=True).export_tree()
+    w16, aux16 = pack_binary_tree(a.g0, *tree, leaf_size=16, branching=16,
+                                  return_refit_aux=True, device=dev)
+    s16 = refit_packed_binary(w16, aux16, a.clip[3])
+    mism = width_mismatch(pt.trace_packets(s16, a.cam),
+                          pt.trace_packets(s2, a.cam))
+    check(mism <= WIDTH_MISMATCH * a.cam.count,
+          f"refit 16- vs 8-wide: {mism} rays disagree")
+    rec_a["w16_refit_mismatch"] = mism
+    for name, tab in (("lbvh8", p2), ("sahq16", s2), ("sahq16_w16", s16)):
+        for var, kw in (("defer_uv", dict(defer_uv=True)),
+                        ("any", dict(mode="any")),
+                        ("mask", dict(filter_mask=1)), ("closest", {})):
+            err = compare(pt.trace_packets(tab, a.cam, **kw),
+                          pt.trace_packets_reference(tab, a.cam, **kw),
+                          f"8a {name} {var} kernel/plain")
+            check(err == 0.0, f"8a {name} {var}: kernel - plain {err}")
+            errs[var] = max(errs.get(var, 0.0), err)
+    del s2, s16, w16, aux16
+    # A refreshed march Tracer (the grid is rebuilt) at phase 7's bar.
+    wide = rt.build_from_soup(a.g0, config=rt.BuildConfig(leaf_size=8),
+                              device=dev)
+    march = rt.Tracer(wide, engine="march")
+    march.closest(a.cam)
+    check(march._grid is not None, "march tracer built no grid")
+    moved = march.refresh(rt.refit(wide, a.clip[3]))
+    check(moved._grid is None and moved._packed is not None,
+          "refresh must drop the grid and keep the tables")
+    before = pt.MARCH_LAUNCHES
+    hm = moved.closest(a.cam)
+    check(pt.MARCH_LAUNCHES == before + 1, "refreshed march never launched")
+    rec_a["march_refresh_max_t_err_ties"] = march_parity(
+        hm, rt.Tracer(moved.scene).closest(a.cam), "refreshed march")
+    del wide, march, moved, hm
+    # The card's idle share over the 32-frame clip, and the host's time to
+    # enqueue it beside the time the card takes.
+    p, s = a.tables["sahq16"]
+    rec_a["clip_profile"] = profile_clip(lambda: pt.trace_packets_refit_frames(
+        p, s, a.clip, a.cam, sort_rays=True, **flags), a.clip.shape[0], pt)
+    del p2, rows
+
+    # ---- 8b: the same path at 2.1M triangles and 2048^2 rays ----
+    a = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec_b, b = drive(*big, on_device=True)
+    times_b, p2, rows = frame_times(b, reps=5)
+    rec_b["steady"] = times_b
+    # trace_packets_chunked against trace_packets, on refit tables.
+    same_hits(pt.trace_packets_chunked(p2, b.cam, chunk=1 << 20),
+              pt.trace_packets(p2, b.cam), "chunked vs whole")
+    # Each variant of this path alone against its plain version on the
+    # refit tables at this size, with the bound of its own pops (40 bytes
+    # a ray where u and v are not written).
+    kw = dict(leaf_size=p2.leaf_size, stack_size=p2.stack_size)
+    entries = {}
+    for var, extra, per_ray in (("any", dict(mode="any"), 48),
+                                ("mask", dict(qmask=1), 48),
+                                ("defer_uv", dict(defer_uv=True), 40)):
+        k_out, k_ms = kernel_alone(pt, p2, rows, **extra)
+        p_out, p_ms = timed(lambda: pt.packet_trace_reference(
+            p2.nodes, p2.tris, rows, **kw, **extra), warm=False)
+        err = compare(as_hits(k_out), as_hits(p_out), f"8b {var} kernel/plain")
+        counts = pt.packet_trace_kernel(p2.nodes, p2.tris, rows, **kw,
+                                        **extra, stats=True)[4]
+        b_ms, b_by = bound(counts, p2, per_ray)
+        entries[f"packet_trace_{var}"] = {
+            "launches": launches[f"{var.upper()}_LAUNCHES"],
+            "max_abs_err": max(err, errs[var]), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"{rec_b['tris']} refit triangles, {b.cam.count} rays"}
+        if var == "defer_uv":
+            rec_b["per_ray_mean"] = per_ray_mean(counts)
+        del k_out, p_out, counts
+    rec_b["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    return ({"8a": rec_a, "8b": rec_b,
+             "launches": {k.split("_LAUNCHES")[0].lower(): v
+                          for k, v in launches.items()}}, entries)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -924,7 +1285,7 @@ def main():
                               order="morton", device=dev, on_device=True)
     n = rays.count
     torch.cuda.synchronize()
-    packet_trace.KERNEL_LAUNCHES = 0
+    packet_trace.KERNEL_LAUNCHES = packet_trace.ANY_LAUNCHES = 0
     start, mid, end = (torch.cuda.Event(enable_timing=True)
                        for _ in range(3))
     start.record()
@@ -934,6 +1295,7 @@ def main():
     end.record()
     torch.cuda.synchronize()
     launches = packet_trace.KERNEL_LAUNCHES
+    any_launches = packet_trace.ANY_LAUNCHES
     closest_ms = start.elapsed_time(mid)
     any_ms = mid.elapsed_time(end)
     check(launches >= 2, f"main path launched the kernel {launches} times")
@@ -948,10 +1310,13 @@ def main():
     comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
                        rays.max_t[None]])
     from rtk_tpu_torch.ops.morton import ray_coherence_key
-    order = torch.sort(ray_coherence_key(rays.origin, rays.direction),
-                       stable=True).indices
+    key, key_ms = timed(lambda: ray_coherence_key(rays.origin,
+                                                  rays.direction), reps=3)
+    order, sort_ms = timed(lambda: torch.sort(key, stable=True).indices,
+                           reps=3)
+    key_dtype = str(key.dtype)
     comps = comps[:, order].contiguous()
-    del order
+    del order, key
     kw = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size)
     k_out, kernel_ms = timed(
         lambda: packet_trace.packet_trace_kernel(packed.nodes, packed.tris,
@@ -979,7 +1344,8 @@ def main():
         "steady_closest_ms": round(steady_ms, 2),
         "closest_mrays_s": round(n / steady_ms / 1e3, 2),
         "kernel_ms": round(kernel_ms, 2), "plain_ms": round(plain_ms, 1),
-        "kernel_launches": launches, "max_abs_err": main_err,
+        "key_ms": round(key_ms, 2), "sort_ms": round(sort_ms, 2),
+        "key_dtype": key_dtype, "kernel_launches": launches, "max_abs_err": main_err,
         "bound_ms": main_bound[0], "bound_by": main_bound[1],
         "any_kernel_ms": round(any_kernel_ms, 2),
         "any_bound_ms": any_bound[0], "any_bound_by": any_bound[1],
@@ -1037,12 +1403,29 @@ def main():
         "and plain ms and bound on the 1024^2 atrium bounce, both modes' "
         "counts on a 256^2 subset of it", "card": card}), flush=True)
 
+    # ---- phase 8: dynamic scenes (refit, repack, trace) ----
+    p8, p8_kernels = phase8(rt, dev)
+    p8_kernels["packet_trace_any"]["launches"] += any_launches
+    for name, k in p8_kernels.items():
+        check(k["launches"] > 0, f"phase 8 never launched {name}")
+    print("phase 8 dynamic scenes:", json.dumps({**p8, "card": card}),
+          flush=True)
+
     src = "rtk_tpu_torch/csrc/packet_trace.cu"
     kernels = [
         {"name": "packet_trace", "replaces": "rtk_tpu/ops/pallas_trace.py:146",
          "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": main_bound[0],
          "bound_by": main_bound[1]},
+        {"name": "packet_trace_any",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:450",
+         **p8_kernels["packet_trace_any"]},
+        {"name": "packet_trace_mask",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:997",
+         **p8_kernels["packet_trace_mask"]},
+        {"name": "packet_trace_defer_uv",
+         "replaces": "rtk_tpu/ops/pallas_trace.py:1019",
+         **p8_kernels["packet_trace_defer_uv"]},
         {"name": "packet_trace_roots",
          "replaces": "rtk_tpu/ops/pallas_trace.py:347",
          "launches": p5["launches"]["roots"],

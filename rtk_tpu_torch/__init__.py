@@ -2,8 +2,8 @@
 kernel written in CUDA for Hopper (H100).
 
 The same API and hit-record contract as rtk_tpu: build a scene (LBVH on
-the device, or a host SAH topology), trace closest-hit and any-hit ray
-batches (with filter callables), trace instanced (TLAS/BLAS) scenes, save
+the device, or a host SAH topology), refit it to moved vertices, trace
+closest-hit and any-hit ray batches (with filter callables), trace instanced (TLAS/BLAS) scenes, save
 and load scenes in rtk_tpu's blob format, and drive it through rtk's task
 lifecycle and C entry points (tasks, compat).  Imports torch and numpy;
 never jax.
@@ -30,6 +30,7 @@ from rtk_tpu_torch.api import (
     load_packed_scene,
     load_scene,
     pack_instanced,
+    refit,
     save_instanced_scene,
     save_packed_scene,
     save_scene,

@@ -6,6 +6,8 @@ Mirrors rtk_tpu.api (rtk.h:119-130 in batched form):
                             trace_closest / trace_any (stack engine)
     rtk_trace_ray_filter -> the same with filter_fn= (jit_filter marks a
                             predicate for the kernel's filter variant)
+    (no rtk counterpart)  -> refit(scene, new_tri_pos): deformed vertices,
+                            same topology; Tracer.refresh(scene) rebinds
     the rtk blob         -> save_scene / load_scene and the packed and
                             instanced forms, load_any
     instancing           -> build_instanced -> pack_instanced ->
@@ -23,7 +25,7 @@ from rtk_tpu_torch.instancing import (build_instanced, pack_instanced,
                                       trace_closest_instanced,
                                       trace_closest_instanced_packets)
 from rtk_tpu_torch.mesh import MeshDesc, TriangleSoup, build_soup
-from rtk_tpu_torch.scene import Scene, build_from_soup
+from rtk_tpu_torch.scene import Scene, build_from_soup, refit
 from rtk_tpu_torch.trace.stack import trace_any, trace_closest
 from rtk_tpu_torch.tracer import Tracer, jit_filter
 from rtk_tpu_torch.types import HitCandidate, Hits, PacketHits, Rays
@@ -49,7 +51,8 @@ def build_scene(meshes, config: BuildConfig = BuildConfig(),
 __all__ = [
     "BuildConfig", "TraceConfig", "MeshDesc", "TriangleSoup", "Rays", "Hits",
     "PacketHits", "HitCandidate", "Scene", "Tracer", "jit_filter",
-    "build_scene", "build_sah_packed", "build_from_soup", "trace_closest",
+    "build_scene", "build_sah_packed", "build_from_soup", "refit",
+    "trace_closest",
     "trace_any", "save_scene", "load_scene", "save_packed_scene",
     "load_packed_scene", "save_instanced_scene", "load_instanced_scene",
     "load_any", "build_instanced", "pack_instanced",

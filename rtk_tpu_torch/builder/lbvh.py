@@ -8,8 +8,9 @@ root.  Child encoding (shared with traversal):
     <= -2: leaf, id = -(child) - 2
 
 The topology is bit-equal to rtk_tpu.builder.lbvh.karras_topology_scan,
-including its lexicographic (delta, position) tie rule.  Codes are int64
-tensors holding 30-bit values; PyTorch has no count-leading-zeros, so
+including its lexicographic (delta, position) tie rule.  Codes come in as
+int32 (30-bit Morton codes) or int64 (custom keys that use all 32 bits)
+and are widened to int64 here; PyTorch has no count-leading-zeros, so
 `clz32` derives it from the float64 exponent (exact below 2^53).
 """
 from __future__ import annotations
@@ -164,3 +165,59 @@ def refit_ranges_flat(lo, hi, leaf_min, leaf_max):
     gb = tab[base + b]
     return (torch.minimum(ga[:, :3], gb[:, :3]),
             torch.maximum(ga[:, 3:], gb[:, 3:]))
+
+
+def node_parents(left, right):
+    """Parent index of each *internal* node (-1 for the root)."""
+    n_int = left.shape[0]
+    i = torch.arange(n_int, dtype=torch.int32, device=left.device)
+    parent = torch.full((n_int + 1,), -1, dtype=torch.int32,
+                        device=left.device)  # row n_int absorbs the drops
+    for child in (left, right):
+        c = child.long()
+        parent[torch.where(c >= 0, c, n_int)] = i
+    return parent[:n_int]
+
+
+def node_depths(parent):
+    """Depth of each internal node by pointer doubling (log passes)."""
+    n_int = parent.shape[0]
+    up = parent.long()
+    depth = (up >= 0).to(torch.int32)
+    for _ in range(max(1, math.ceil(math.log2(max(n_int, 2)))) + 1):
+        upc = up.clamp(0, n_int - 1)
+        depth = depth + torch.where(up >= 0, depth[upc], 0)
+        up = torch.where(up >= 0, up[upc], -1)
+    return depth
+
+
+def refit_binary(left, right, leaf_min, leaf_max):
+    """Bottom-up AABB refit of the binary tree as a fixpoint sweep, for
+    trees without stored leaf ranges: each pass finalises every node whose
+    children are both final, so the pass count is the tree's height.  The
+    loop reads the root's flag on the host once a pass; the per-frame path
+    (refit) uses refit_ranges_flat, which reads nothing back."""
+    n_int = left.shape[0]
+    n_leaf = leaf_min.shape[0]
+    dev = leaf_min.device
+    left, right = left.long(), right.long()
+
+    def fetch(child, node_min, node_max, valid):
+        leaf = is_leaf_code(child)
+        li = leaf_id_of(child).clamp(0, n_leaf - 1)
+        ni = child.clamp(0, n_int - 1)
+        cmin = torch.where(leaf[:, None], leaf_min[li], node_min[ni])
+        cmax = torch.where(leaf[:, None], leaf_max[li], node_max[ni])
+        return cmin, cmax, leaf | valid[ni]
+
+    node_min = torch.full((n_int, 3), float("inf"), device=dev)
+    node_max = torch.full((n_int, 3), -float("inf"), device=dev)
+    valid = torch.zeros((n_int,), dtype=torch.bool, device=dev)
+    while not bool(valid[0]):  # root valid <=> whole tree valid
+        lmin, lmax, lval = fetch(left, node_min, node_max, valid)
+        rmin, rmax, rval = fetch(right, node_min, node_max, valid)
+        ok = (lval & rval)[:, None]
+        node_min = torch.where(ok, torch.minimum(lmin, rmin), node_min)
+        node_max = torch.where(ok, torch.maximum(lmax, rmax), node_max)
+        valid = valid | ok[:, 0]
+    return node_min, node_max

@@ -12,13 +12,13 @@ import numpy as np
 
 from rtk_tpu_torch.config import BuildConfig
 from rtk_tpu_torch.mesh import TriangleSoup, build_soup
-from rtk_tpu_torch.trace.packed import PackedScene, pack_binary_tree
+from rtk_tpu_torch.trace.packed import pack_binary_tree
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
 
 def build_sah_packed(meshes, config: BuildConfig = BuildConfig(),
                      tri_mask=None, step_quant: bool = False,
-                     device="cuda") -> PackedScene:
+                     refittable: bool = False, device="cuda"):
     """Build a PackedScene with host-native binned-SAH topology on `device`.
 
     Accepts the same mesh inputs as build_scene (MeshDesc, (positions,
@@ -27,6 +27,12 @@ def build_sah_packed(meshes, config: BuildConfig = BuildConfig(),
 
     step_quant: weight the SAH by leaf steps (ceil(count/leaf_size)), the
     unit the kernel tests leaves in; topology only.
+
+    refittable=True returns (packed, BinaryRefitAux) instead: the binned
+    SAH partitions triangles in place, so the tree refits on the device
+    with the LBVH's range queries (refit_packed_binary,
+    trace_packets_refit[_frames]), and a deforming scene keeps the SAH
+    topology for as long as the deformation leaves the tree good.
     """
     soup = meshes if isinstance(meshes, TriangleSoup) else build_soup(meshes)
     tri_pos = np.asarray(soup.tri_pos, np.float32)
@@ -35,7 +41,8 @@ def build_sah_packed(meshes, config: BuildConfig = BuildConfig(),
     return pack_binary_tree(
         tri_pos, *orc.export_tree(), leaf_size=config.leaf_size,
         tri_vidx=soup.tri_vidx, tri_mesh=soup.tri_mesh,
-        tri_prim=soup.tri_prim, tri_mask=tri_mask, device=device)
+        tri_prim=soup.tri_prim, tri_mask=tri_mask,
+        return_refit_aux=refittable, device=device)
 
 
 def build_sah_forest(blas_tri_pos, config: BuildConfig = BuildConfig(),

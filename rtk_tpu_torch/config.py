@@ -16,7 +16,8 @@ class BuildConfig:
     Attributes:
       leaf_size: triangles per leaf (rtk: RTK_BVH_LEAF_MIN_ITEMS=4).
       branching: wide-node arity W of Scene.node_child; 2, 4 or 8 (the
-        packed kernel tables are always 8-wide, see trace/packed.py).
+        packed kernel tables have a width of their own, 8 from a Scene
+        and 8 or 16 from pack_binary_tree, see trace/packed.py).
       morton_bits: bits per axis of the Morton code (<=10 for 30-bit keys).
       wide_nodes: also build the wide (branching-ary) SoA node arrays.
         The packet kernel derives its own tables from the binary topology.

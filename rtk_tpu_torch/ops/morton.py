@@ -1,8 +1,11 @@
 """Morton (Z-order) codes for LBVH construction and ray coherence sorting.
 
 rtk_tpu computes these in uint32; PyTorch has little unsigned arithmetic,
-so codes here are int64 tensors holding the same 30-bit values (every
-intermediate below fits in 31 bits, so no step can overflow or differ).
+so codes here are int32 tensors holding the same 30-bit values: every
+intermediate below stays under 2^31, so no step can overflow or differ,
+and a key pass or a sort moves four bytes a code as the reference's does.
+Custom build keys that use all 32 bits (build_from_soup(codes=)) are
+widened to int64 by their callers, never held here.
 """
 from __future__ import annotations
 
@@ -10,8 +13,8 @@ import torch
 
 
 def expand_bits10(v: torch.Tensor) -> torch.Tensor:
-    """Spread the low 10 bits of each value to every 3rd bit (int64)."""
-    v = v.to(torch.int64)
+    """Spread the low 10 bits of each value to every 3rd bit (int32)."""
+    v = v.to(torch.int32)
     v = (v | (v << 16)) & 0x030000FF
     v = (v | (v << 8)) & 0x0300F00F
     v = (v | (v << 4)) & 0x030C30C3
@@ -23,7 +26,7 @@ def morton3d(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
              bits: int = 10) -> torch.Tensor:
     """Morton codes of points (..., 3) quantised inside [lo, hi] bounds.
 
-    Returns int64 codes with 3*bits significant bits, equal to
+    Returns int32 codes with 3*bits significant bits, equal to
     rtk_tpu.ops.morton.morton3d's uint32 codes.
     """
     points = points.to(torch.float32)
@@ -31,7 +34,7 @@ def morton3d(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     extent = torch.clamp_min(hi - lo, 1e-30)
     q = (points - lo) / extent
     q = torch.clamp(q * scale, 0.0, scale)
-    qi = q.to(torch.int64)  # truncation, as the f32 -> u32 convert
+    qi = q.to(torch.int32)  # truncation, as the f32 -> u32 convert
     shift = 10 - bits
     ex = expand_bits10(qi << shift if shift else qi)
     return (ex[..., 0] << 2) | (ex[..., 1] << 1) | ex[..., 2]
@@ -39,7 +42,7 @@ def morton3d(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 def ray_coherence_key(origin: torch.Tensor,
                       direction: torch.Tensor) -> torch.Tensor:
-    """Spatial-coherence sort key for a ray batch (int64, 30 bits).
+    """Spatial-coherence sort key for a ray batch (int32, 30 bits).
 
     Morton code of a probe point pushed along each ray: for shared-origin
     batches (camera primaries) the probes spread over a sphere patch, so

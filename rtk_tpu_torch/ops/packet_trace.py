@@ -32,6 +32,12 @@ returns per-ray counts of popped entries, internal pops, leaf pops, child
 box tests and triangle tests beside the hits (the kernel's nullable
 `counts` output).
 
+`trace_packets_refit` and `trace_packets_refit_frames` are the dynamic
+scene's front-ends: refit the tables to moved vertices on the device
+(scene.refit + repack_bounds, or refit_packed_binary for a host-SAH
+topology), then trace; `trace_packets_chunked` bounds the working memory
+of a huge batch.  They run the same kernel.
+
 The TPU kernel's scheduling flags (dual, ordered, islab, narrow,
 leaf_loop, kz_static, tris128, hbm_tris, lesion, p_pk, pkt) pick how the
 TPU steps its packets through the same function.  trace_packets accepts
@@ -52,8 +58,10 @@ import torch
 from rtk_tpu_torch.ops.filter_capture import JitFilter
 from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
 from rtk_tpu_torch.ops.morton import ray_coherence_key
+from rtk_tpu_torch.scene import refit
 from rtk_tpu_torch.trace.packed import (MASK_COL, MESH_COL, PRIM_COL,
-                                        PackedScene)
+                                        BinaryRefitAux, PackedScene,
+                                        refit_packed_binary, repack_bounds)
 from rtk_tpu_torch.types import HitCandidate, PacketHits, Rays
 from rtk_tpu_torch.utils.build import BUILD_DIR, PKG_ROOT, build_shared
 
@@ -66,7 +74,8 @@ FILTER_MAX_TRIS = 1 << 24  # triangle ids ride f32 columns, exact below 2^24
 
 # Launches of the CUDA kernel in this process, and of its variants
 # (launches with per-ray roots, a filter predicate, per-ray counts, a
-# 16-wide table or the grid march, each also counted in KERNEL_LAUNCHES).
+# 16-wide table, the grid march, any-hit mode, a filter mask or deferred
+# u/v, each also counted in KERNEL_LAUNCHES).
 # A run resets them and reads them back to show that its main path went
 # through the kernel.
 KERNEL_LAUNCHES = 0
@@ -75,6 +84,9 @@ FILTER_LAUNCHES = 0
 STATS_LAUNCHES = 0
 W16_LAUNCHES = 0
 MARCH_LAUNCHES = 0
+ANY_LAUNCHES = 0
+MASK_LAUNCHES = 0
+DEFER_UV_LAUNCHES = 0
 WIDTHS = (8, 16)  # node-table widths the kernel is instantiated for
 
 CSRC = PKG_ROOT / "csrc"
@@ -263,7 +275,7 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     leaves that are not NaN padding and pass the mask).
     """
     global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
-    global W16_LAUNCHES
+    global W16_LAUNCHES, ANY_LAUNCHES, MASK_LAUNCHES, DEFER_UV_LAUNCHES
     lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
                                               stack_size, branching,
                                               filter_fn)
@@ -279,6 +291,9 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     FILTER_LAUNCHES += filter_fn is not None
     STATS_LAUNCHES += stats
     W16_LAUNCHES += branching == 16
+    ANY_LAUNCHES += mode == "any"
+    MASK_LAUNCHES += qmask is not None
+    DEFER_UV_LAUNCHES += bool(defer_uv)
     return out
 
 
@@ -509,6 +524,7 @@ def packet_march_kernel(nodes, tris, rays8, *, leaf_size: int,
     cell chain; counts sum over its cells.  Arguments as
     packet_trace_kernel's."""
     global KERNEL_LAUNCHES, STATS_LAUNCHES, MARCH_LAUNCHES
+    global ANY_LAUNCHES, MASK_LAUNCHES
     lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
                                               stack_size, 8)
     _check_grid(grid, nodes)
@@ -520,6 +536,8 @@ def packet_march_kernel(nodes, tris, rays8, *, leaf_size: int,
     KERNEL_LAUNCHES += 1
     STATS_LAUNCHES += stats
     MARCH_LAUNCHES += 1
+    ANY_LAUNCHES += mode == "any"
+    MASK_LAUNCHES += qmask is not None
     return out
 
 
@@ -650,9 +668,7 @@ def _ray_roots(packed: PackedScene, n: int, packet_roots, ray_roots, pkt,
     return torch.repeat_interleave(roots, unit)[:n].contiguous()
 
 
-def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
-           sort_rays, filter_mask, defer_uv, roots, filter_fn=None,
-           stats=False):
+def _check_front(packed: PackedScene, rays: Rays, mode, filter_fn=None):
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
     if rays.device != packed.device:
@@ -665,24 +681,37 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
             raise ValueError(
                 "packet-kernel filter callables need triangle ids exact "
                 "in f32 (< 2^24 triangles); use the stack engine")
-    n = rays.count
+
+
+def _ray_rows(rays: Rays, sort_rays, roots=None):
+    """The batch as the traversal takes it -> (rows, idx): the (8, N) f32
+    rows, coherence-sorted when sort_rays (None: for >= 16384 rays without
+    roots), and the caller's index of each column, or None unsorted."""
     comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
                        rays.max_t[None]]).to(torch.float32)
     if sort_rays is None:
-        sort_rays = n >= SORT_RAYS_MIN and roots is None
+        sort_rays = rays.count >= SORT_RAYS_MIN and roots is None
     if sort_rays and roots is not None:
         raise ValueError("sort_rays cannot reorder rays that carry per-"
                          "packet or per-ray roots; pass sort_rays=False")
-    idx = ray_index = None
+    idx = None
     if sort_rays:
         idx = torch.sort(ray_coherence_key(rays.origin, rays.direction),
                          stable=True).indices
         comps = comps[:, idx]
-        if filter_fn is not None:
-            # The caller's ray index survives the sort (:1475-1481).
-            ray_index = idx.to(torch.int32)
+    return comps.contiguous(), idx
+
+
+def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
+              watertight, filter_mask, defer_uv, roots=None, filter_fn=None,
+              stats=False):
+    """Run the traversal over rows from _ray_rows, restore the caller's
+    order and wrap the outputs with packed's hit-assembly tables."""
+    # The caller's ray index survives the sort (pallas_trace.py:1475-1481).
+    ray_index = (idx.to(torch.int32)
+                 if idx is not None and filter_fn is not None else None)
     qmask = None if filter_mask is None else int(filter_mask) & 0xFFFFFF
-    out = run(packed.nodes, packed.tris, comps.contiguous(),
+    out = run(packed.nodes, packed.tris, comps,
               leaf_size=packed.leaf_size, stack_size=packed.stack_size,
               mode=mode, watertight=watertight, qmask=qmask,
               defer_uv=defer_uv, roots=roots, filter_fn=filter_fn,
@@ -707,20 +736,35 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
     return (hits, out[4]) if stats else hits
 
 
+def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
+           sort_rays, filter_mask, defer_uv, roots, filter_fn=None,
+           stats=False):
+    _check_front(packed, rays, mode, filter_fn)
+    comps, idx = _ray_rows(rays, sort_rays, roots)
+    return _traverse(run, packed, rays, comps, idx, mode, watertight,
+                     filter_mask, defer_uv, roots, filter_fn, stats)
+
+
 def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
-                  watertight: bool = True, sort_rays: bool | None = None,
-                  filter_mask: int | None = None, defer_uv: bool = False,
-                  packet_roots=None, ray_roots=None, stats: bool = False,
-                  filter_fn=None, interpret: bool | None = None,
-                  dual: bool | None = None, ordered: bool | None = None,
-                  islab: bool | None = None, narrow: bool | None = None,
-                  leaf_loop: bool | None = None, kz_static: int | None = None,
-                  tris128: bool | None = None, hbm_tris: bool | None = None,
-                  lesion: str | None = None, p_pk: int | None = None,
-                  pkt: int | None = None):
+                  watertight: bool = True, interpret: bool | None = None,
+                  p_pk: int | None = None, hbm_tris: bool | None = None,
+                  packet_roots=None, dual: bool | None = None,
+                  pkt: int | None = None, narrow: bool | None = None,
+                  sort_rays: bool | None = None, ordered: bool | None = None,
+                  islab: bool | None = None, lesion: str | None = None,
+                  filter_mask: int | None = None, stats: bool = False,
+                  filter_fn=None, *, kz_static: int | None = None,
+                  tris128: bool | None = None, leaf_loop: bool | None = None,
+                  defer_uv: bool = False, ray_roots=None):
     """Trace rays through the packed tables (rtk_trace_ray contract,
     rtk.c:543-577): t, u, v and the packed triangle slot per ray, the rest
     of the record lazily through PacketHits.  A miss keeps t = max_t.
+
+    The parameters the reference has come in the reference's order
+    (pallas_trace.py:1588-1604) as far as filter_fn; the reference's
+    `march` tuple that follows has no counterpart here (the march is
+    packet_march), so everything after it is keyword-only, and so is
+    ray_roots, which only this package has.
 
     mode: "closest" (nearest hit in the open window (min_t, max_t)) or
       "any" (each ray stops at its first hit leaf).
@@ -765,3 +809,123 @@ def trace_packets_reference(packed: PackedScene, rays: Rays,
                        p_pk)
     return _front(packet_trace_reference, packed, rays, mode, watertight,
                   sort_rays, filter_mask, defer_uv, roots, filter_fn, stats)
+
+
+def trace_packets_chunked(packed: PackedScene, rays: Rays,
+                          chunk: int = 1 << 24, **kw) -> PacketHits:
+    """trace_packets with bounded working memory for huge ray batches.
+
+    trace_packets holds several N-sized intermediates beside its outputs
+    (the coherence keys, the sort order, the sorted (8, N) rows).  This
+    host loop traces `chunk`-ray slices, so the working memory stays
+    O(chunk), and concatenates the per-ray results in the caller's order;
+    each slice is sorted on its own.  The tables are the scene's, not
+    copies, and the result carries the caller's ray tensors.
+
+    The reference pads the last slice with dead rays so that every slice
+    reuses one compiled program; nothing is compiled per shape here, so
+    the last slice runs at its own length and no padding is made.
+
+    kw: trace_packets' keywords, other than stats and the root arrays
+    (they are laid out per batch, not per slice).  A filter_fn sees
+    ray_index within its slice, as the reference's does.
+    """
+    for name in ("stats", "ray_roots", "packet_roots"):
+        if kw.get(name) is not None and kw.get(name) is not False:
+            raise ValueError(f"trace_packets_chunked does not slice {name}")
+    n = rays.count
+    if n <= chunk:
+        return trace_packets(packed, rays, **kw)
+    outs = [trace_packets(packed, rays[i:i + chunk], **kw)
+            for i in range(0, n, chunk)]
+    return dataclasses.replace(
+        outs[0], origin=rays.origin, direction=rays.direction,
+        **{f: torch.cat([getattr(o, f) for o in outs])
+           for f in ("hit", "t", "u_k", "v_k", "slot")})
+
+
+def _refit_repack(scene, packed: PackedScene, tri_pos):
+    """One frame's refit and repack -> (scene', packed').  scene: the LBVH
+    Scene the tables were packed from (refit + repack_bounds) or a
+    BinaryRefitAux (a host-SAH topology, refit_packed_binary)."""
+    if isinstance(scene, BinaryRefitAux):
+        return scene, refit_packed_binary(packed, scene, tri_pos)
+    scene2 = refit(scene, tri_pos)
+    return scene2, repack_bounds(packed, scene2)
+
+
+def trace_packets_refit(packed: PackedScene, scene, new_tri_pos, rays: Rays,
+                        mode: str = "closest", watertight: bool = True,
+                        interpret: bool | None = None,
+                        p_pk: int | None = None,
+                        hbm_tris: bool | None = None,
+                        dual: bool | None = None, pkt: int | None = None,
+                        narrow: bool | None = None,
+                        sort_rays: bool | None = None,
+                        ordered: bool | None = None,
+                        islab: bool | None = None,
+                        leaf_loop: bool | None = None,
+                        defer_uv: bool = False):
+    """A dynamic scene's frame: refit the BVH to deformed vertices (same
+    topology), regather the packed tables, trace.  Everything is enqueued
+    on the scene's device; nothing is read back.
+
+    scene: the LBVH Scene that `packed` was packed from, or a
+    BinaryRefitAux (build_sah_packed(refittable=True)): the host-SAH
+    topology refits on the device with the same range queries.
+    new_tri_pos: (T, 3, 3) vertices in soup order, an array or a tensor.
+
+    Returns (hits, refit_scene, repacked_scene); refit_scene is the aux
+    itself for a BinaryRefitAux.  Equal, bit for bit, to refit ->
+    repack_bounds -> trace_packets.  The schedule flags are accepted
+    without effect, as trace_packets documents.
+    """
+    _check_front(packed, rays, mode)
+    scene2, packed2 = _refit_repack(scene, packed, new_tri_pos)
+    comps, idx = _ray_rows(rays, sort_rays)
+    hits = _traverse(packet_trace, packed2, rays, comps, idx, mode,
+                     watertight, None, defer_uv)
+    return hits, scene2, packed2
+
+
+def trace_packets_refit_frames(packed: PackedScene, scene, frames_tri_pos,
+                               rays: Rays, mode: str = "closest",
+                               watertight: bool = True,
+                               interpret: bool | None = None,
+                               p_pk: int | None = None,
+                               hbm_tris: bool | None = None,
+                               dual: bool | None = None,
+                               pkt: int | None = None,
+                               narrow: bool | None = None,
+                               sort_rays: bool | None = None,
+                               ordered: bool | None = None,
+                               islab: bool | None = None,
+                               leaf_loop: bool | None = None,
+                               defer_uv: bool = False):
+    """Animation sub-stepping: refit, repack and trace F deformation
+    frames of one topology against one ray batch.
+
+    frames_tri_pos: (F, T, 3, 3) per-frame vertices in soup order (an
+    array, a tensor, or a sequence of F frames).  Returns a list of F
+    PacketHits in frame order; the index tables are shared (the topology
+    is fixed) and tri_v is each frame's own, so lazy fields (.u/.v under
+    defer_uv, vertex_position) read the frame they belong to.
+
+    The coherence sort permutes the same batch the same way on every
+    frame, so the key and the sort run once, ahead of the loop; each
+    frame's outputs are put back in the caller's order once.  The frames
+    run as a plain loop (refit, repack, launch, next frame) with no
+    synchronisation between them, and one frame's node and triangle
+    tables are released when the next frame's are made: the reference's
+    batched preparation of all F frames' tables, which spreads its
+    dispatch cost, is not carried over.  Frame f equals
+    trace_packets_refit of that frame bit for bit.
+    """
+    _check_front(packed, rays, mode)
+    comps, idx = _ray_rows(rays, sort_rays)
+    out = []
+    for tri_pos in frames_tri_pos:
+        _, packed2 = _refit_repack(scene, packed, tri_pos)
+        out.append(_traverse(packet_trace, packed2, rays, comps, idx, mode,
+                             watertight, None, defer_uv))
+    return out

@@ -5,6 +5,8 @@ centroids, one stable sort, the Karras topology over leaf clusters, a
 range-query refit of the bounds and the wide collapse.  Every output is
 bit-equal to rtk_tpu's on the same input.  Triangles are stored in
 traversal (Morton-sorted) order so every leaf is a contiguous slice.
+`refit` moves a built Scene to deformed vertices with the topology kept:
+gathers, minima and maxima on the scene's device, nothing on the host.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from rtk_tpu_torch.builder.collapse import collapse_wide
+from rtk_tpu_torch.builder.collapse import collapse_wide, gather_slot_bounds
 from rtk_tpu_torch.builder.lbvh import (karras_topology_scan, leaf_code,
                                         refit_ranges_flat)
 from rtk_tpu_torch.config import BuildConfig
@@ -165,7 +167,7 @@ def build_from_soup(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
     codes: optional (T,) sort keys in [0, 2^32) replacing the Morton codes
     of the centroids; the topology then follows their prefix hierarchy
     (the macro-grid's cell-major keys, testing/grid.py, use bit 31, so
-    they are held in int64, never int32)."""
+    custom keys are held in int64; the default Morton codes are int32)."""
     def cvt(a, dt):
         if a is None:
             return None
@@ -194,3 +196,68 @@ def build_from_soup(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
     return Scene(num_tris=t, leaf_size=config.leaf_size,
                  branching=config.branching, num_leaves=n_leaf,
                  has_wide=config.wide_nodes or n_leaf == 1, **arrays)
+
+
+def soup_tensor(tri_pos, num_tris: int, device) -> torch.Tensor:
+    """A frame's (T, 3, 3) soup, array or tensor, as float32 on `device`;
+    raises unless it holds num_tris triangles."""
+    if not isinstance(tri_pos, torch.Tensor):
+        tri_pos = torch.from_numpy(
+            np.ascontiguousarray(tri_pos, dtype=np.float32))
+    tri_pos = tri_pos.to(device=device, dtype=torch.float32).reshape(-1, 3, 3)
+    if tri_pos.shape[0] != num_tris:
+        raise ValueError(f"{tri_pos.shape[0]} triangles for a topology of "
+                         f"{num_tris}")
+    return tri_pos
+
+
+def _leaf_bounds(tri_v: torch.Tensor, num_tris: int, leaf_size: int):
+    """Masked per-leaf AABBs over chunks of sorted triangles: a sorted row
+    is real by position (row < num_tris); padding rows enter the minimum
+    as +inf and the maximum as -inf."""
+    tp = tri_v.shape[0]
+    n_leaf = tp // leaf_size
+    valid = (torch.arange(tp, device=tri_v.device) < num_tris)[:, None, None]
+    lo = torch.where(valid, tri_v, float("inf"))
+    hi = torch.where(valid, tri_v, -float("inf"))
+    return (lo.reshape(n_leaf, leaf_size * 3, 3).amin(dim=1),
+            hi.reshape(n_leaf, leaf_size * 3, 3).amax(dim=1))
+
+
+def _refit_impl(scene: Scene, new_tri_pos: torch.Tensor) -> dict:
+    """Regather the vertices in sorted order and refit every bound, the
+    topology kept (rtk has no refit: it rebuilds)."""
+    perm = scene.perm
+    # Padding rows of perm hold -1: gather through a clamp, then zero them.
+    gathered = new_tri_pos[perm.clamp(0, scene.num_tris - 1).long()]
+    sort_v = torch.where((perm >= 0)[:, None, None], gathered, 0.0)
+    leaf_min, leaf_max = _leaf_bounds(sort_v, scene.num_tris,
+                                      scene.leaf_size)
+    node_min, node_max = scene.node_min, scene.node_max
+    if leaf_min.shape[0] == 1:
+        # The one-leaf scene: slot 0 of row 0 is the leaf, the rest empty.
+        node_min, node_max = node_min.clone(), node_max.clone()
+        node_min[0, 0] = leaf_min[0]
+        node_max[0, 0] = leaf_max[0]
+        bmin, bmax = leaf_min, leaf_max
+    else:
+        bmin, bmax = refit_ranges_flat(scene.bin_lo, scene.bin_hi, leaf_min,
+                                       leaf_max)
+        if scene.has_wide:  # else 1-row dummies, left as they are
+            node_min, node_max = gather_slot_bounds(
+                scene.node_child, bmin, bmax, leaf_min, leaf_max)
+    return dict(node_min=node_min, node_max=node_max, tri_v=sort_v,
+                bounds_min=leaf_min.amin(dim=0),
+                bounds_max=leaf_max.amax(dim=0), bin_min=bmin, bin_max=bmax,
+                leaf_min=leaf_min, leaf_max=leaf_max)
+
+
+def refit(scene: Scene, new_tri_pos) -> Scene:
+    """Refit an existing Scene to deformed geometry (same topology).
+
+    new_tri_pos: (T, 3, 3) triangle vertices in the *original soup order*
+    (the order passed to build_from_soup), an array or a tensor; the work
+    runs on the scene's device and is only enqueued there.
+    """
+    new_tri_pos = soup_tensor(new_tri_pos, scene.num_tris, scene.device)
+    return dataclasses.replace(scene, **_refit_impl(scene, new_tri_pos))

@@ -1,5 +1,5 @@
 """The parameter carry: rtk_tpu scene tables (handed over as NumPy arrays)
--> this package's Scene / PackedScene on a given device.
+-> this package's Scene / PackedScene / BinaryRefitAux on a given device.
 
 A test takes rtk_tpu's arrays with np.asarray, passes the dict here, and
 feeds both packages the very same tables.
@@ -12,12 +12,15 @@ import numpy as np
 import torch
 
 from rtk_tpu_torch.scene import Scene
-from rtk_tpu_torch.trace.packed import PackedScene, tree_depth
+from rtk_tpu_torch.trace.packed import (BinaryRefitAux, PackedScene,
+                                        tree_depth)
 
 SCENE_ARRAYS = tuple(f.name for f in dataclasses.fields(Scene)
                      if f.type == "torch.Tensor")
 PACKED_ARRAYS = tuple(f.name for f in dataclasses.fields(PackedScene)
                       if f.type == "torch.Tensor")
+
+REFIT_AUX_ARRAYS = tuple(f.name for f in dataclasses.fields(BinaryRefitAux))
 
 # Integer tables keep int32 (rtk_tpu's dtype); floats are float32.
 _DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int32,
@@ -51,3 +54,10 @@ def packed_from_arrays(arrays: dict, *, num_tris: int, leaf_size: int,
         **{k: _tensor(arrays[k], device) for k in PACKED_ARRAYS},
         num_tris=num_tris, leaf_size=leaf_size, branching=branching,
         depth=tree_depth(np.asarray(arrays["meta"]), roots, branching))
+
+
+def refit_aux_from_arrays(arrays: dict, *, device) -> BinaryRefitAux:
+    """BinaryRefitAux from a dict holding every name in REFIT_AUX_ARRAYS,
+    so a table that rtk_tpu packed can be refit here."""
+    return BinaryRefitAux(**{k: _tensor(arrays[k], device)
+                             for k in REFIT_AUX_ARRAYS})

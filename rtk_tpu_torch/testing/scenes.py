@@ -193,6 +193,18 @@ def atrium(columns=8, seed=0):
     return np.concatenate(parts, axis=0).astype(np.float32)
 
 
+def deforming_grid(time: float, n=96):
+    """Per-frame deformed grid (BASELINE config 4): a (T, 3, 3) soup of
+    2*n*n triangles in a fixed topology and order, so refit applies.  Host
+    NumPy, the same array as rtk_tpu's, bit for bit."""
+    verts, faces = grid_mesh(n, n, extent=2.0)
+    y = 0.4 * np.sin(3.0 * verts[:, 0] + 2.0 * time) * np.cos(
+        2.5 * verts[:, 2] - 1.3 * time)
+    v = verts.copy()
+    v[:, 1] = y
+    return v[faces]
+
+
 # ---------------------------------------------------------------------------
 # Cameras
 # ---------------------------------------------------------------------------

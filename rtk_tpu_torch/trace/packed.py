@@ -8,6 +8,11 @@ leaf children) contiguous, so the kernel derives every child pointer from
 (first_child, first_leaf, slot masks).  The host part (_greedy_slots,
 _pack_meta) is the same NumPy code as rtk_tpu's; the tables are gathered
 with torch on the scene's device and are bit-equal to rtk_tpu's.
+
+Packing runs once per topology, on the host.  A refit regathers bounds
+and vertices through the saved mappings on the device: repack_bounds for
+a table packed from a Scene, refit_packed_binary (with a BinaryRefitAux)
+for one packed from a host-built binary tree.
 """
 from __future__ import annotations
 
@@ -15,6 +20,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from rtk_tpu_torch.builder.lbvh import refit_ranges_flat
+from rtk_tpu_torch.scene import soup_tensor
 
 W = 8
 NODE_ROW_I32 = 8  # per child: [minx miny minz maxx maxy maxz meta0 meta1]
@@ -359,10 +367,148 @@ def pack_forest(scene, roots) -> tuple[PackedScene, np.ndarray]:
     return packed, packed_roots
 
 
+@dataclasses.dataclass
+class BinaryRefitAux:
+    """Refit mappings for a host-built binary tree (pack_binary_tree).
+
+    A binned-SAH builder partitions triangles in place, so every binary
+    node covers a contiguous run of the leaf sequence ordered by first
+    triangle, the property Karras nodes get from the Morton sort.  The
+    LBVH's range-query refit (builder/lbvh.py refit_ranges_flat) then
+    applies as it is: these tensors carry each node's leaf-rank range and
+    the fixed permutations between the three leaf numberings (rank: order
+    of first triangle; lidx: order of binary node id, which slot_src
+    uses; visit: block order of the packed triangle table).  Made once on
+    the host by pack_binary_tree(return_refit_aux=True), which checks the
+    contiguity."""
+
+    rank_lo: torch.Tensor  # (Nn,) i32 first leaf rank under binary node
+    rank_hi: torch.Tensor  # (Nn,) i32 last leaf rank (inclusive)
+    visit_of_rank: torch.Tensor  # (nl,) i32 packed visit block of rank r
+    visit_of_lidx: torch.Tensor  # (nl,) i32 packed visit block of lidx l
+
+    @property
+    def device(self) -> torch.device:
+        return self.rank_lo.device
+
+
+def refit_packed_binary(packed: PackedScene, aux: BinaryRefitAux,
+                        new_tri_pos) -> PackedScene:
+    """Refit a pack_binary_tree PackedScene to deformed vertices (same
+    topology) on its device: the SAH counterpart of refit + repack_bounds.
+
+    new_tri_pos: (T, 3, 3) vertices in ORIGINAL SOUP order (the
+    pack_binary_tree tri_perm convention), an array or a tensor.  Only
+    enqueues work: per-leaf bounds from the packed rows, the range-query
+    levels, the row gathers.
+    """
+    tri_pos = soup_tensor(new_tri_pos, packed.num_tris, packed.device)
+    # Padding rows hold -1: they gather triangle 0 through the clamp and
+    # are masked out of the bounds and the triangle table by `valid`.
+    tri_v = tri_pos[packed.tri_perm.clamp(0, packed.num_tris - 1).long()]
+    valid = packed.tri_perm >= 0
+    k = packed.leaf_size
+    nl = aux.visit_of_rank.shape[0]
+    if tri_v.shape[0] != nl * k:
+        raise ValueError(f"{tri_v.shape[0]} triangle rows for {nl} leaves "
+                         f"of {k}")
+    # Per-leaf bounds from the packed rows (visit order): each visit block
+    # is k consecutive rows; padding rows enter the reduce as +/-inf.
+    vmin = torch.where(valid[:, None, None], tri_v, float("inf"))
+    vmax = torch.where(valid[:, None, None], tri_v, -float("inf"))
+    lmin_visit = vmin.reshape(nl, k * 3, 3).amin(dim=1)
+    lmax_visit = vmax.reshape(nl, k * 3, 3).amax(dim=1)
+    if nl == 1:
+        bmin, bmax = lmin_visit, lmax_visit
+    else:
+        by_rank = aux.visit_of_rank.long()
+        bmin, bmax = refit_ranges_flat(aux.rank_lo, aux.rank_hi,
+                                       lmin_visit[by_rank],
+                                       lmax_visit[by_rank])
+    by_lidx = aux.visit_of_lidx.long()
+    nodes = _gather_rows(bmin, bmax, lmin_visit[by_lidx],
+                         lmax_visit[by_lidx], packed.slot_src, packed.meta)
+    mask_col = packed.tris[:, MASK_COL]  # the mask column rides along
+    return dataclasses.replace(
+        packed, nodes=nodes, tri_v=tri_v,
+        tris=_tri_rows(tri_v, valid, mask_col, packed.tri_mesh,
+                       packed.tri_prim))
+
+
+def _binary_refit_aux(left, right, first, count, is_leaf, leaf_nodes,
+                      roots, leaf_order, *, device) -> BinaryRefitAux:
+    """BinaryRefitAux of a host-built binary tree (host NumPy; see the
+    class).  Raises ValueError unless every internal node's children split
+    its triangle range, the in-place-partition property the range-query
+    refit needs."""
+    nl = leaf_nodes.shape[0]
+    tri_lo = np.where(is_leaf, first, 0)
+    tri_hi = np.where(is_leaf, first + count, 0)
+    # BFS levels of internal nodes (leaf roots contribute no levels).
+    rts = roots[roots >= 0]
+    levels = []
+    frontier = rts[~is_leaf[rts]]
+    while frontier.size:
+        levels.append(frontier)
+        ch = np.concatenate([left[frontier], right[frontier]])
+        frontier = ch[~is_leaf[ch]]
+    for f in reversed(levels):
+        l, r = left[f], right[f]
+        tri_lo[f] = np.minimum(tri_lo[l], tri_lo[r])
+        tri_hi[f] = np.maximum(tri_hi[l], tri_hi[r])
+    for f in levels:
+        l, r = left[f], right[f]
+        straddle = ((np.minimum(tri_lo[l], tri_lo[r]) == tri_lo[f])
+                    & (np.maximum(tri_hi[l], tri_hi[r]) == tri_hi[f])
+                    & ((tri_hi[l] == tri_lo[r]) | (tri_hi[r] == tri_lo[l])))
+        if not straddle.all():
+            raise ValueError(
+                "binary tree is not an in-place partition (children do not "
+                "split their parent's triangle range); refit aux requires "
+                "a contiguous-range builder")
+    leaf_firsts = first[leaf_nodes]
+    rank_order = np.argsort(leaf_firsts, kind="stable")  # rank -> lidx
+    sorted_firsts = leaf_firsts[rank_order]
+    rank_lo = np.searchsorted(sorted_firsts, tri_lo).astype(np.int64)
+    rank_hi = (np.searchsorted(sorted_firsts, tri_hi, side="left")
+               - 1).astype(np.int64)
+    if not ((rank_lo <= rank_hi).all() and (rank_hi < nl).all()):
+        raise ValueError(
+            "malformed binary tree: leaf-rank ranges are inconsistent "
+            "(empty leaves or out-of-range triangle spans); refit aux "
+            "cannot be derived")
+    visit_of_lidx = np.empty(nl, np.int64)
+    visit_of_lidx[leaf_order] = np.arange(nl)
+
+    def i32(a):
+        return torch.as_tensor(a.astype(np.int32), device=device)
+
+    return BinaryRefitAux(rank_lo=i32(rank_lo), rank_hi=i32(rank_hi),
+                          visit_of_rank=i32(visit_of_lidx[rank_order]),
+                          visit_of_lidx=i32(visit_of_lidx))
+
+
+def repack_bounds(packed: PackedScene, scene) -> PackedScene:
+    """Refresh a PackedScene after refit(scene, ...) (same topology, new
+    bounds and vertices), on the device.  The layout (meta, slot_src,
+    tri_perm, depth, branching) is reused, so stack_size is the same, and
+    the mask column of the old triangle table is carried over, so a
+    tri_mask survives the refit."""
+    tri_v = scene.tri_v[packed.tri_perm.long()]
+    mask_col = packed.tris[:, MASK_COL]
+    return dataclasses.replace(
+        packed, tri_v=tri_v,
+        nodes=_gather_rows(scene.bin_min, scene.bin_max, scene.leaf_min,
+                           scene.leaf_max, packed.slot_src, packed.meta),
+        tris=_tri_rows(tri_v, packed.tri_prim >= 0, mask_col,
+                       packed.tri_mesh, packed.tri_prim))
+
+
 def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
                      order, root, leaf_size: int, tri_vidx=None,
                      tri_mesh=None, tri_prim=None, tri_mask=None,
-                     branching: int = W, device="cuda") -> PackedScene:
+                     return_refit_aux: bool = False, branching: int = W,
+                     device="cuda"):
     """Pack an arbitrary host-built binary BVH for the packet kernel.
 
     Feeds any binary topology (e.g. the C++ binned SAH via
@@ -370,7 +516,10 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
     pack_scene.  left/right: child node id or -1 for leaves; first/count
     index into `order` (leaf triangle lists, <= leaf_size each); box_lo/hi:
     (Nn, 3) node bounds; root: the root node id.  tri_v: (T, 3, 3) soup;
-    tri_perm holds original soup ids (pad -1).
+    tri_perm holds original soup ids (pad -1).  return_refit_aux=True
+    returns (packed, BinaryRefitAux) so refit_packed_binary can refit the
+    tables on the device; that needs an in-place-partition topology, which
+    the native binned SAH is, and raises ValueError otherwise.
 
     root may be an array of binary root ids whose subtrees are disjoint
     and jointly cover every leaf exactly once (a forest, e.g. per-BLAS SAH
@@ -449,7 +598,7 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
     hi_t = torch.as_tensor(box_hi, device=dev)
     leaf_t = torch.as_tensor(leaf_nodes, device=dev)
     tm = tm.to(torch.int32)
-    return PackedScene(
+    packed = PackedScene(
         nodes=_gather_rows(lo_t, hi_t, lo_t[leaf_t], hi_t[leaf_t],
                            slot_src_t, meta_t),
         meta=meta_t,
@@ -466,3 +615,8 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
         depth=tree_depth(meta, np.arange(roots.shape[0]), branching),
         branching=branching,
     )
+    if not return_refit_aux:
+        return packed
+    return packed, _binary_refit_aux(left, right, first, count, is_leaf,
+                                     leaf_nodes, roots, leaf_order,
+                                     device=dev)

@@ -1,6 +1,6 @@
 """Tracer: the engine-selecting query front-end over a built Scene.
 
-Two engines implement the same hit-record contract (rtk_trace_ray,
+Three engines implement the same hit-record contract (rtk_trace_ray,
 rtk.c:543-577):
 
   * "packet": ops/packet_trace.trace_packets over the scene's kernel
@@ -9,7 +9,6 @@ rtk.c:543-577):
     Needs branching=8 scenes.
   * "stack": trace/stack.py's lockstep traversal in plain PyTorch on the
     scene's device; any branching, and any filter callable.
-
   * "march": testing/grid.py's fused grid march (the kernel's march
     instantiation on the card): the macro-grid is built once from the
     scene and its packed tables, on first use; filter_mask culls there
@@ -83,6 +82,25 @@ class Tracer:
                 self.scene, packed=self.packed, tri_mask=self.tri_mask,
                 march=True)
         return self._grid
+
+    def refresh(self, scene: Scene) -> "Tracer":
+        """Rebind to a refit Scene (same topology): the same config, mask
+        and engine; packed tables, if they were built, get their bounds
+        and vertices regathered on the device, never rebuilt.  The march
+        grid depends on the bounds, so it is dropped and built again on
+        next use."""
+        t = Tracer.__new__(Tracer)
+        t.scene = scene
+        t.config = self.config
+        t.tri_mask = self.tri_mask
+        t.engine = self.engine
+        t._packed = None
+        t._grid = None
+        if self._packed is not None:
+            from rtk_tpu_torch.trace.packed import repack_bounds
+
+            t._packed = repack_bounds(self._packed, scene)
+        return t
 
     def _trace(self, rays: Rays, mode: str, filter_fn: Optional[Callable],
                filter_mask: Optional[int]) -> AnyHits:

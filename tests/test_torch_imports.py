@@ -34,6 +34,10 @@ MODULES = [
     "rtk_tpu_torch.utils.serialize", "rtk_tpu_torch.tasks",
     "rtk_tpu_torch.compat", "rtk_tpu_torch.testing.grid",
     "rtk_tpu_torch.trace.grid", "rtk_tpu_torch.models.path",
+    # The modules of the dynamic-scene path.
+    "rtk_tpu_torch.scene", "rtk_tpu_torch.trace.packed",
+    "rtk_tpu_torch.builder.lbvh", "rtk_tpu_torch.builder.sah",
+    "rtk_tpu_torch.tracer", "rtk_tpu_torch.ops.morton",
 ]
 
 

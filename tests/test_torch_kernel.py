@@ -464,3 +464,44 @@ def test_kernel_deep_tree_within_the_stack(cuda):
         packed, rays, stats=True, ray_roots=roots_t)
     _assert_same(got, want)
     assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("kind", ["lbvh", "sah", "sah16"])
+def test_kernel_on_refit_tables(cuda, kind):
+    """The kernel against its plain version on tables refit to a moved
+    frame (repack_bounds, refit_packed_binary at both widths), a tri_mask
+    riding the refit; the refit front-ends launch it once a frame."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+    from rtk_tpu_torch.utils.native_sah import NativeOracle
+
+    g0 = scenes.deforming_grid(0.0, n=48)
+    frames = np.stack([scenes.deforming_grid(t, n=48) for t in (0.3, 0.6)])
+    mask = (np.arange(g0.shape[0]) % 3 + 1).astype(np.uint32)
+    if kind == "lbvh":
+        scene = rtk_tpu_torch.build_scene(
+            _soup_of(g0), rtk_tpu_torch.BuildConfig(leaf_size=8,
+                                                    wide_nodes=False),
+            device=cuda)
+        packed = pack_scene(scene, tri_mask=mask)
+    else:
+        tree = NativeOracle(g0.reshape(-1, 9), leaf_max=16,
+                            step_quant=True).export_tree()
+        packed, scene = pack_binary_tree(
+            g0, *tree, leaf_size=16, tri_mask=mask, return_refit_aux=True,
+            branching=16 if kind == "sah16" else 8, device=cuda)
+    rays = scenes.camera_rays((0, 3, 4), (0, 0, 0), (0, 1, 0), 50, 128, 128,
+                              order="morton", device=cuda)
+    before = packet_trace.KERNEL_LAUNCHES
+    hits, _, refit_tables = packet_trace.trace_packets_refit(
+        packed, scene, frames[0], rays, defer_uv=True)
+    clip = packet_trace.trace_packets_refit_frames(
+        packed, scene, frames, rays, defer_uv=True)
+    torch.cuda.synchronize()
+    assert packet_trace.KERNEL_LAUNCHES == before + 3
+    assert hits.hit.any() and refit_tables.device == rays.device
+    _assert_same(clip[0], hits)
+    for kw in (dict(), dict(mode="any"), dict(filter_mask=2),
+               dict(defer_uv=True), dict(sort_rays=False)):
+        _assert_same(*_both(refit_tables, rays, **kw))
+    _assert_same(hits, packet_trace.trace_packets_reference(
+        refit_tables, rays, defer_uv=True))

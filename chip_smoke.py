@@ -65,7 +65,30 @@ Phases (each prints one line):
      march Tracer meets phase 7's bar, a 16-wide refit equals the 8-wide
      one, and trace_packets_chunked equals trace_packets.  Reported per
      frame: refit, repack, kernel and end-to-end ms beside a fresh build,
-     and the card's idle share over 8a's clip from torch.profiler.
+     and the card's idle share over 8a's clip from torch.profiler;
+  9. the render path (models/path.py).  9a: render_path on BASELINE
+     config 3, the atrium (409,600 triangles as four meshes, the ceiling
+     the light; LBVH leaf 16 through Tracer), 1024^2 primaries and 4
+     bounces with compaction and the Morton re-sort, and once each without
+     the sort, without compaction, with an exact-size take (all but the
+     first again with a black floor, where the buckets shrink), with defer_uv
+     and with the march as bounce_tracer: per bounce the rays launched and
+     alive, trace and shade + sort + take ms, the kernel alone beside its
+     bound from the stats variant; per call ms, Mrays/s, host syncs,
+     device events and the card's idle share.  Checked by the furnace
+     identity (albedo 1, emission and background e: radiance / e is a
+     whole number in [1, bounces + 1] whose sum is the number of live rays
+     traced), exactly, with compaction on and off, and by the kernel
+     against its plain version on the whole batches that call launched
+     (every bounce batch for closest, bounce 2's for any).  9b:
+     render_direct (a lit pixel's shadow ray is unoccluded on the stack
+     engine, 128^2 subset) and render_ao with 8 samples, the any-hit
+     kernel against its plain version on the whole shadow batch and on the
+     first and last AO batch.  9c: BASELINE config 5's 4-bounce instanced
+     wavefront (bench.py:803-894) on phase 5's two forests with pooled
+     calibrated round caps, every bounce batch held against the plain
+     version of the rounds and against the flat world-space Tracer at
+     phase 5's bars.
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
 time the card could take, from the per-ray box and triangle tests the
@@ -134,6 +157,19 @@ WIDTH_MISMATCH = 1e-6  # ...and at most this share of the rays disagreeing
 # 106-119): the same hit mask, |t| within REFIT_T_TOL.
 GRID_CAM = dict(eye=(0, 3, 4), look_at=(0, 0, 0), up=(0, 1, 0), fov_deg=50)
 REFIT_T_TOL = 1e-5
+
+# Phase 9: the render path.  The atrium's parts in scenes.atrium()'s order
+# (floor, ceiling, 64 columns, 4 walls) as four meshes; the ceiling is the
+# light (albedo 0: a path that reaches it ends), so bounce batches shrink.
+ATRIUM_PARTS = (32768, 32768, 64 * 5120, 4 * 4096)
+ATRIUM_ALBEDO = [[0.7, 0.7, 0.7], [0.0, 0.0, 0.0], [0.6, 0.3, 0.3],
+                 [0.7, 0.7, 0.7]]
+ATRIUM_EMISSION = [[0, 0, 0], [4.0, 4.0, 4.0], [0, 0, 0], [0, 0, 0]]
+ATRIUM_DARK_ALBEDO = [[0.0, 0.0, 0.0]] + ATRIUM_ALBEDO[1:]  # a black floor
+ATRIUM_LIGHT = dict(light_pos=(0.5, 7.0, 1.0), light_color=(30.0, 30.0, 30.0))
+FURNACE_E = 0.5  # emission and background of the furnace runs
+ENGINE_SHARE = 0.999  # rays whose radiance agrees (1e-4) across engines
+WAVE_EPS = 1e-3  # bench.py:812, :828: the wavefront's offset and min_t
 
 
 def check(cond, msg):
@@ -226,9 +262,28 @@ def compare_instanced(got, want, what, t_tol):
     return (float(d.max()) if d.numel() else 0.0), int(differ.sum())
 
 
+def check_vs_flat(hits, flat_hits, what):
+    """An instanced trace against the flat world-space trace of the same
+    rays: hit mismatches on at most FLAT_HIT_MISMATCH of the rays, t
+    within FLAT_T_TOL*(1+|t|) on FLAT_T_SHARE of the common hits.
+    -> (mismatches, that share)."""
+    n = hits.hit.numel()
+    mism = int((hits.hit != flat_hits.hit).sum())
+    both = hits.hit & flat_hits.hit
+    ok_t = ((hits.t - flat_hits.t).abs()
+            <= FLAT_T_TOL * (1 + flat_hits.t.abs()))[both]
+    share = float(ok_t.float().mean()) if ok_t.numel() else 1.0
+    check(mism <= FLAT_HIT_MISMATCH * n,
+          f"{what} vs flat: {mism} hit mismatches of {n}")
+    check(share >= FLAT_T_SHARE, f"{what} vs flat: t agrees on {share}")
+    return mism, share
+
+
 def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
-    """The instanced path at BASELINE config 5; returns its record.  The
-    counts are read around the main-path traces only."""
+    """The instanced path at BASELINE config 5; returns its record and
+    what phase 9c traces again (the tables, transforms, rays and the flat
+    world-space Tracer).  The counts are read around the main-path traces
+    only."""
     from rtk_tpu_torch import instancing
     from rtk_tpu_torch.ops import packet_trace
     from rtk_tpu_torch.testing import scenes
@@ -343,21 +398,17 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
                            np.arange(world.shape[0] * 3).reshape(-1, 3)),
                           device=dev)
     del world
-    fh = rt.Tracer(flat).closest(rays)
+    flat_tracer = rt.Tracer(flat)
+    fh = flat_tracer.closest(rays)
     sync()
     flat_ms = (time.perf_counter() - t0) * 1e3
     for name, (hits, _) in main.items():
-        mism = int((hits.hit != fh.hit).sum())
-        both = hits.hit & fh.hit
-        ok_t = ((hits.t - fh.t).abs() <= FLAT_T_TOL * (1 + fh.t.abs()))[both]
-        share = float(ok_t.float().mean()) if ok_t.numel() else 1.0
-        check(mism <= FLAT_HIT_MISMATCH * n,
-              f"{name} vs flat: {mism} hit mismatches of {n}")
-        check(share >= FLAT_T_SHARE, f"{name} vs flat: t agrees on {share}")
+        mism, share = check_vs_flat(hits, fh, name)
         rec[name].update(flat_hit_mismatch=mism, flat_t_share=share)
     rec.update(flat_tris=flat.num_tris, flat_hits=int(fh.hit.sum()),
                flat_build_trace_ms=round(flat_ms, 1))
-    return rec
+    return rec, SimpleNamespace(tables=tables, tf=tf, iscene=iscene,
+                                rays=rays, flat=flat_tracer)
 
 
 def bound(counts, packed, bytes_per_ray=48):
@@ -1178,6 +1229,444 @@ def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
              "launches": {k.split("_LAUNCHES")[0].lower(): v
                           for k, v in launches.items()}}, entries)
 
+def wavefront4(rt, ps, rays, box, seed, caps=None, collect=None, log=None):
+    """bench.py:833-874 on the port: the primaries and three bounces
+    through trace_closest_instanced_packets; every bounce batch keeps the
+    full shape, live rays compacted to the front in Morton order, the dead
+    tail at max_t = 0.  box: the (lo, hi) of the sort key.  collect
+    gathers each trace's per-round live counts (they size the pooled
+    caps); log gathers (batch, hits, instance ids, trace stats, start and
+    end event).
+    -> (rays traced, last hits)."""
+    from rtk_tpu_torch.models.path import (_ray_sort_key, cosine_sample,
+                                           geometric_normal)
+
+    dev = rays.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(max_candidates=INST_CANDIDATES, leaf_loop=True, ordered=True,
+              p_pk=16)
+    if caps is not None:
+        kw["round_caps"] = caps
+    m = rays.count
+
+    def trace(rb):
+        st = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = rt.trace_closest_instanced_packets(
+            ps, rb, return_live_counts=collect is not None, stats=st, **kw)
+        ev[1].record()
+        if collect is not None:
+            collect.append(out[2].numpy())
+        if log is not None:
+            log.append((rb, out[0], out[1], st, *ev))
+        return out[0]
+
+    rays_b, total = rays, m
+    hits = trace(rays_b)
+    for _ in range(3):
+        nrm = geometric_normal(hits, rays_b.direction)
+        nd = cosine_sample(gen, nrm)
+        origin = hits.position() + WAVE_EPS * nrm
+        key = _ray_sort_key(rt.Rays(origin, nd, rays_b.min_t, rays_b.max_t),
+                            *box)
+        order = ((~hits.hit).to(torch.int32) << 28) | (key >> 4)
+        perm = torch.sort(order, stable=True).indices
+        n_alive = int(hits.hit.sum())  # one host sync a bounce
+        if n_alive == 0:
+            break
+        live = torch.arange(m, device=dev) < n_alive
+        rays_b = rt.Rays(origin[perm], nd[perm],
+                         torch.full((m,), WAVE_EPS, device=dev),
+                         torch.where(live, float(np.float32(3.4e38)), 0.0))
+        hits = trace(rays_b)
+        total += n_alive
+    float(hits.t[:1].sum())  # a real readback
+    return total, hits
+
+
+class BounceLog:
+    """Stands where the render functions take a Tracer: passes each
+    closest() and any() on and keeps the batches: per closest() the batch,
+    its live rays (a device count, read later) and CUDA events around the
+    trace; per any() the batch."""
+
+    def __init__(self, tracer, bounce_tracer=None):
+        self.tracers = (tracer, bounce_tracer or tracer)
+        self.scene = tracer.scene
+        self.batches, self.live, self.events = [], [], []
+        self.any_batches = []
+
+    def any(self, rays, **kw):
+        self.any_batches.append(rays)
+        return self.tracers[0].any(rays, **kw)
+
+    def closest(self, rays, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        hits = self.tracers[bool(self.batches)].closest(rays, **kw)
+        ev[1].record()
+        self.batches.append(rays)
+        self.live.append((rays.max_t > rays.min_t).sum())
+        self.events.append(ev)
+        return hits
+
+    def per_bounce(self, end):
+        """[{launched, live, trace_ms, shade_ms}]: shade_ms runs from the
+        end of a trace to the start of the next (shade, sample, key, sort,
+        take), or to `end` after the last."""
+        starts = [e[0] for e in self.events[1:]] + [end]
+        return [{"launched": b.count, "live": int(n),
+                 "trace_ms": e[0].elapsed_time(e[1]),
+                 "shade_sort_take_ms": e[1].elapsed_time(nxt)}
+                for b, n, e, nxt in zip(self.batches, self.live, self.events,
+                                        starts)]
+
+
+def host_syncs(run):
+    """Synchronizing calls PyTorch makes on the host while run() runs."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
+           ao_samples=8):
+    """The render path: render_path, render_direct and render_ao on the
+    atrium (9a, 9b) and the 4-bounce instanced wavefront on config 5 (9c,
+    on phase 5's tables).  Returns its three records, the launches of its
+    main-path runs by counter (counts are zeroed just before each
+    main-path run and read just after) and the largest |kernel - plain|
+    per kernel over the batches those runs launched."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.models import path
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.ops.morton import ray_coherence_key
+    from rtk_tpu_torch.testing import scenes
+
+    sync = torch.cuda.synchronize
+    counters = ("KERNEL_LAUNCHES", "ANY_LAUNCHES", "STATS_LAUNCHES",
+                "DEFER_UV_LAUNCHES", "MARCH_LAUNCHES", "ROOTS_LAUNCHES")
+    launches = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        """fn() as a main-path run -> (its result, its launches)."""
+        sync()
+        for c in counters:
+            setattr(pt, c, 0)
+        out = fn()
+        sync()
+        got = {c: getattr(pt, c) for c in counters}
+        for c in counters:
+            launches[c] += got[c]
+        return out, got
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # ---- 9a: render_path on the atrium ----
+    atr = scenes.atrium()
+    check(atr.shape[0] == sum(ATRIUM_PARTS), "atrium parts")
+    cuts = np.cumsum((0,) + ATRIUM_PARTS)
+    meshes = [(atr[a:b].reshape(-1, 3),
+               np.arange((b - a) * 3).reshape(-1, 3))
+              for a, b in zip(cuts[:-1], cuts[1:])]
+    sync()
+    t0 = time.perf_counter()
+    scene = rt.build_scene(meshes, rt.BuildConfig(leaf_size=16), device=dev)
+    tracer = rt.Tracer(scene)
+    packed = tracer.packed
+    sync()
+    build_s = time.perf_counter() - t0
+    mats = path.Materials.make(ATRIUM_ALBEDO, ATRIUM_EMISSION, device=dev)
+    cam = scenes.camera_rays(**ATRIUM_CAM, width=width, height=width,
+                             order="morton", device=dev)
+    n = cam.count
+    kw = dict(bounces=bounces, background=(0.2, 0.3, 0.4))
+
+    def run_logged(seed=1, bounce_tracer=None, tr=tracer, **over):
+        log = BounceLog(tr, bounce_tracer)
+        end = torch.cuda.Event(enable_timing=True)
+        rad = path.render_path(log, cam, mats, gen(seed), **{**kw, **over})
+        end.record()
+        sync()
+        return rad, log, end
+
+    run_logged()  # warm-up
+    (rad, log, end), got = counted(run_logged)
+    check(got["KERNEL_LAUNCHES"] == len(log.batches) == bounces + 1,
+          f"9a: {got['KERNEL_LAUNCHES']} kernel launches for "
+          f"{len(log.batches)} traces")
+    check(rad.shape == (n, 3) and bool(torch.isfinite(rad).all())
+          and bool((rad >= 0).all()) and float(rad.max()) > 0.01,
+          "9a: radiance not finite, non-negative and lit")
+    rows = log.per_bounce(end)
+    check(all(a["live"] >= b["live"] for a, b in zip(rows, rows[1:]))
+          and rows[-1]["live"] < rows[0]["live"],
+          "9a: the bounce batches do not shrink")
+    total = sum(r["live"] for r in rows)
+    # Per-ray counts of each bounce batch (the stats variant), the kernel
+    # alone on the sorted rows the front end hands it, and its bound.
+    counts, got_s = counted(lambda: [pt.trace_packets(packed, b, stats=True)[1]
+                                     for b in log.batches])
+    check(got_s["STATS_LAUNCHES"] == bounces + 1, "9a: stats launches")
+    for r, b, c in zip(rows, log.batches, counts):
+        order = torch.sort(ray_coherence_key(b.origin, b.direction),
+                           stable=True).indices
+        r["kernel_ms"] = kernel_alone(pt, packed, rows_of(b)[:, order]
+                                      .contiguous())[1]
+        r["bound_ms"], r["bound_by"] = bound(c, packed)
+        r["per_ray_mean"] = per_ray_mean(c)
+    del counts
+
+    def whole(m=mats, **over):
+        """Steady ms of one un-instrumented call (3 after a warm-up)."""
+        return timed(lambda: path.render_path(tracer, cam, m, gen(1),
+                                              **{**kw, **over}), reps=3)[1]
+
+    ms = whole()
+    rec_a = {"tris": scene.num_tris, "rays": n, "bounces": bounces,
+             "build_pack_s": build_s, "depth": packed.depth,
+             "per_bounce": rows, "total_rays": total, "ms": ms,
+             "mrays_s": total / ms / 1e3, "launches": got,
+             "mean_radiance": float(rad.mean())}
+    rec_a["host_syncs"] = host_syncs(lambda: path.render_path(
+        tracer, cam, mats, gen(1), **kw))
+    rec_a["profile"] = profile_clip(lambda: path.render_path(
+        tracer, cam, mats, gen(1), **kw), bounces + 1, pt)
+    # The same call without the sort, without compaction, and with an
+    # exact-size take in place of the power-of-two bucket.
+    for name, over in (("no_sort", dict(sort_rays=False)),
+                       ("no_compact", dict(compact=False))):
+        r2, l2, e2 = run_logged(**over)
+        check(bool(torch.isfinite(r2).all()), f"9a {name}: radiance")
+        rec_a[name] = {"ms": whole(**over), "per_bounce": l2.per_bounce(e2),
+                       "mean_radiance": float(r2.mean())}
+    rec_a["no_compact"]["host_syncs"] = host_syncs(lambda: path.render_path(
+        tracer, cam, mats, gen(1), **kw, compact=False))
+    # ... and all three again where the buckets do shrink: the floor
+    # absorbs too, so fewer than half the rays outlive each bounce.
+    dark = path.Materials.make(ATRIUM_DARK_ALBEDO, ATRIUM_EMISSION, device=dev)
+    dlog = BounceLog(tracer)
+    path.render_path(dlog, cam, dark, gen(1), **kw)
+    rec_a["shrinking"] = {
+        "launched": [b.count for b in dlog.batches],
+        "live": [int(x) for x in dlog.live],
+        "bucket_ms": whole(dark), "no_compact_ms": whole(dark, compact=False)}
+    check(dlog.batches[-1].count < n, "9a: the dark floor shrank no bucket")
+    del dlog
+    bucket = path._round_up_bucket
+    path._round_up_bucket = lambda live, minimum: live
+    try:
+        rec_a["exact_take_ms"] = whole()
+        rec_a["shrinking"]["exact_take_ms"] = whole(dark)
+    finally:
+        path._round_up_bucket = bucket
+
+    # The furnace identity: albedo 1, emission e and background e, so each
+    # live ray traced adds exactly e and stays alive exactly when it hit.
+    furnace = path.Materials.make(np.ones((4, 3)), np.full((4, 3), FURNACE_E),
+                                  device=dev)
+    rec_a["furnace"] = {}
+    for compact in (True, False):
+        flog = BounceLog(tracer)
+        q = path.render_path(flog, cam, furnace, gen(2), bounces=bounces,
+                             background=(FURNACE_E,) * 3,
+                             compact=compact) / FURNACE_E
+        traced = sum(int(x) for x in flog.live)
+        what = f"9a furnace compact={compact}"
+        check(torch.equal(q, q.round()) and int(q.min()) >= 1
+              and int(q.max()) <= bounces + 1,
+              f"{what}: radiance / e not whole in [1, {bounces + 1}]")
+        check(bool((q == q[:, :1]).all()), f"{what}: channels differ")
+        check(int(q[:, 0].sum().item()) == traced,
+              f"{what}: sum {int(q[:, 0].sum())} != {traced} rays traced")
+        rec_a["furnace"][f"compact_{compact}"] = {
+            "rays_traced": traced, "sum_radiance_over_e": int(q[:, 0].sum()),
+            "min": int(q.min()), "max": int(q.max())}
+
+    # defer_uv changes no radiance (position() and the materials need no
+    # u, v); the march as bounce_tracer against the flat engine.
+    (rad_d, _, _), got_d = counted(lambda: run_logged(tr=rt.Tracer(
+        scene, config=rt.TraceConfig(defer_uv=True))))
+    check(got_d["DEFER_UV_LAUNCHES"] == bounces + 1, "9a: defer_uv launches")
+    check(torch.equal(rad_d, rad), "9a: defer_uv changed the radiance")
+    march = rt.Tracer(scene, engine="march")
+    march.grid
+    (rad_m, _, _), got_m = counted(lambda: run_logged(bounce_tracer=march))
+    check(got_m["MARCH_LAUNCHES"] == bounces, "9a: march launches")
+    share = float(((rad_m - rad).abs() <= 1e-4).all(dim=1).float().mean())
+    check(share >= ENGINE_SHARE, f"9a: march bounces agree on {share}")
+    rec_a.update(defer_uv_equal=True, march_agree_share=share,
+                 march_ms=timed(lambda: path.render_path(
+                     tracer, cam, mats, gen(1), **kw, bounce_tracer=march),
+                     reps=3)[1])
+    del march, rad_d, rad_m
+
+    # The kernel against its plain version on the very batches the call
+    # above launched: every bounce batch for closest, bounce 2's for any.
+    errs = {"kernel": 0.0, "any": 0.0, "roots": 0.0}
+
+    def vs_plain(batch, mode, what):
+        """trace_packets on the card against trace_packets_reference on
+        one whole batch; the difference must be 0.0."""
+        got_k, k_ms = timed(lambda: pt.trace_packets(packed, batch, mode=mode),
+                            warm=False)
+        want, p_ms = timed(lambda: pt.trace_packets_reference(
+            packed, batch, mode=mode), warm=False)
+        err = compare(got_k, want, f"{what} {mode} kernel/plain")
+        check(err == 0.0, f"{what} {mode}: kernel - plain {err}")
+        key = "any" if mode == "any" else "kernel"
+        errs[key] = max(errs[key], err)
+        return {"rays": batch.count, "mode": mode, "max_abs_err": err,
+                "ms": k_ms, "plain_ms": p_ms, "hits": int(got_k.hit.sum())}
+
+    rec_a["kernel_vs_plain"] = (
+        [{"bounce": i, **vs_plain(b, "closest", f"9a bounce {i}")}
+         for i, b in enumerate(log.batches) if i > 0]
+        + [{"bounce": 2, **vs_plain(log.batches[2], "any", "9a bounce 2")}])
+
+    # ---- 9b: render_direct and render_ao on the same scene ----
+    blog = BounceLog(tracer)
+    img, got_b = counted(lambda: path.render_direct(blog, cam, mats,
+                                                    **ATRIUM_LIGHT))
+    check(got_b["KERNEL_LAUNCHES"] == 2 and got_b["ANY_LAUNCHES"] == 1,
+          f"9b direct launches {got_b}")
+    ao_kw = dict(samples=ao_samples, max_dist=3.0)  # the room is 20 wide
+    ao, got_ao = counted(lambda: path.render_ao(blog, cam, gen(3),
+                                                **ao_kw))
+    check(got_ao["KERNEL_LAUNCHES"] == ao_samples + 1
+          and got_ao["ANY_LAUNCHES"] == ao_samples,
+          f"9b ao launches {got_ao}")
+    check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.01,
+          "9b: direct image")
+    # A pixel is lit only if its shadow ray, made again here and traced
+    # through the stack engine, is unoccluded.
+    s_cam = cam[::max(1, n // direct_sub ** 2)]
+    s_img = img[::max(1, n // direct_sub ** 2)]
+    h = tracer.closest(s_cam)
+    nrm = path.geometric_normal(h, s_cam.direction)
+    pos = h.position() + 1e-4 * nrm
+    lvec = torch.tensor(ATRIUM_LIGHT["light_pos"], device=dev)[None] - pos
+    ldist = torch.linalg.vector_norm(lvec, dim=1)
+    shadow = rt.Rays(pos, lvec / ldist[:, None].clamp_min(1e-20),
+                     torch.full_like(ldist, 1e-4),
+                     torch.where(h.hit, ldist * (1.0 - 1e-3), 0.0))
+    t0 = time.perf_counter()
+    occluded = rt.trace_any(scene, shadow).hit
+    sync()
+    stack_s = time.perf_counter() - t0
+    emis = mats.emission[h.mesh_index.clamp(0, 3).long()]
+    lit = ((s_img - emis).amax(dim=1) > 0) & h.hit
+    check(int(lit.sum()) > 0 and int((h.hit & ~lit).sum()) > 0,
+          "9b: the subset has no lit or no dark pixel")
+    check(not bool((lit & occluded).any()),
+          f"9b: {int((lit & occluded).sum())} lit pixels are occluded on "
+          "the stack engine")
+    check(bool((ao >= 0).all() and (ao <= 1).all())
+          and torch.equal(ao * ao_samples, (ao * ao_samples).round())
+          and not bool(ao[~tracer.closest(cam).hit].any())
+          and 0.05 < float(ao.mean()) < 0.99, "9b: ambient occlusion")
+    # The any-hit kernel against its plain version on the batches those
+    # two calls launched: the shadow rays, the first and the last AO probe.
+    check(len(blog.any_batches) == 1 + ao_samples, "9b: any-hit batches")
+    any_vs_plain = [vs_plain(blog.any_batches[i], "any", f"9b {what}")
+                    for i, what in ((0, "shadow rays"), (1, "ao probe 0"),
+                                    (-1, f"ao probe {ao_samples - 1}"))]
+    del blog
+    d_ms = timed(lambda: path.render_direct(tracer, cam, mats, **ATRIUM_LIGHT),
+                 reps=3)[1]
+    ao_ms = timed(lambda: path.render_ao(tracer, cam, gen(3), **ao_kw),
+                  reps=3)[1]
+    rec_b = {"rays": n, "direct_ms": d_ms,
+             "direct_mrays_s": 2 * n / d_ms / 1e3,
+             "direct_launches": got_b, "direct_mean": float(img.mean()),
+             "subset_rays": s_cam.count, "subset_lit": int(lit.sum()),
+             "subset_occluded": int(occluded.sum()),
+             "subset_stack_any_s": stack_s,
+             "ao_samples": ao_samples, "ao_ms": ao_ms,
+             "ao_mrays_s": (ao_samples + 1) * n / ao_ms / 1e3,
+             "ao_mean": float(ao.mean()), "ao_launches": got_ao,
+             "any_vs_plain": any_vs_plain}
+    del img, ao, log, tracer, scene, packed
+
+    # ---- 9c: the 4-bounce instanced wavefront on config 5 ----
+    tf = inst.tf
+    box = (torch.tensor(tf[:, :, 3].min(axis=0) - 1.0, device=dev),
+           torch.tensor(tf[:, :, 3].max(axis=0) + 2.0, device=dev))
+    n_inst, rays = inst.iscene.num_instances, inst.rays
+    rec_c = {"rays": rays.count, "instances": n_inst,
+             "instanced_tris": inst.iscene.total_triangles}
+    for name in ("sahq16", "lbvh8"):
+        ps = inst.tables[name]
+        col = []
+        # The warm-up doubles as calibration (bench.py:878-883).
+        total0, h0 = wavefront4(rt, ps, rays, box, 5, collect=col)
+        caps = instancing.caps_from_counts(
+            np.max(np.stack(col), axis=0), rays.count, n_inst, p_pk=16)
+        wlog = []
+        (total, h1), got_c = counted(lambda: wavefront4(
+            rt, ps, rays, box, 5, caps=caps, log=wlog))
+        check(got_c["ROOTS_LAUNCHES"] > 0
+              and got_c["ROOTS_LAUNCHES"] == got_c["KERNEL_LAUNCHES"],
+              f"9c {name}: launches {got_c}")
+        # Caps never change an exact answer.
+        check(total == total0 and torch.equal(h1.t, h0.t)
+              and torch.equal(h1.hit, h0.hit),
+              f"9c {name}: capped run differs from the uncapped one")
+        best = float("inf")
+        for seed in (11, 12):  # bench.py:886-890
+            sync()
+            t0 = time.perf_counter()
+            wavefront4(rt, ps, rays, box, seed, caps=caps)
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        per = []
+        for rb, hits, ids, st, e0, e1 in wlog:
+            what = f"9c {name} bounce {len(per)}"
+            # The rounds (roots variant) against their plain version on
+            # this very batch, capped as the run was: every batch on the
+            # SAH forest; on the LBVH forest, where the plain version takes
+            # twice as long, the first and the last bounce.
+            plain_ms = err = None
+            if name == "sahq16" or len(per) in (1, len(wlog) - 1):
+                want, plain_ms = timed(
+                    lambda: rt.trace_closest_instanced_packets(
+                        ps, rb, max_candidates=INST_CANDIDATES,
+                        round_caps=caps, plain=True), warm=False)
+                err = compare(hits, want[0], f"{what} kernel/plain")
+                check(err == 0.0 and torch.equal(ids, want[1]),
+                      f"{what}: kernel - plain {err}, or the instance differs")
+                errs["roots"] = max(errs["roots"], err)
+                del want
+            mism, t_share = check_vs_flat(hits, inst.flat.closest(rb), what)
+            check(bool(torch.isfinite(hits.t[hits.hit]).all()),
+                  f"{what}: non-finite t")
+            slab_ms = timed(lambda: instancing._instance_candidates(
+                inst.iscene, rb, INST_CANDIDATES), reps=2)[1]
+            trace_ms = e0.elapsed_time(e1)
+            per.append({"live": int((rb.max_t > rb.min_t).sum()),
+                        "hits": int(hits.hit.sum()),
+                        "trace_ms": trace_ms, "candidate_slab_ms": slab_ms,
+                        "rounds_ms": trace_ms - slab_ms,
+                        "round_live_counts": st["live_counts"],
+                        "residual": st["residual"],
+                        "plain_ms": plain_ms, "max_abs_err": err,
+                        "flat_hit_mismatch": mism, "flat_t_share": t_share})
+        rec_c[name] = {"total_rays": total, "ms": best,
+                       "mrays_s": total / best / 1e3, "caps": caps,
+                       "launches": got_c, "per_bounce": per}
+    return ({"9a": rec_a, "9b": rec_b, "9c": rec_c},
+            {k.split("_LAUNCHES")[0].lower(): v for k, v in launches.items()},
+            errs)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1192,6 +1681,12 @@ def main():
 
     dev = torch.device("cuda")
     card = smi("name,power.limit")
+    t_start = time.perf_counter()
+
+    def stamp():
+        """{"card", "elapsed_s"}: the tail of every phase's line."""
+        return {"card": card,
+                "elapsed_s": round(time.perf_counter() - t_start, 1)}
 
     # ---- phase 1: build and environment ----
     # The kernel and one filter build per phase-6 predicate, one nvcc
@@ -1271,7 +1766,7 @@ def main():
                             "hits": int(got.hit.sum()), "bound_ms": b_ms,
                             "bound_by": b_by}
     print("phase 2 kernel==plain:", json.dumps(
-        {"max_abs_err": max_err, "traces": p2}), flush=True)
+        {"max_abs_err": max_err, "traces": p2, **stamp()}), flush=True)
 
     # ---- phase 3: the main path at full size ----
     torch.cuda.synchronize()
@@ -1350,7 +1845,7 @@ def main():
         "any_kernel_ms": round(any_kernel_ms, 2),
         "any_bound_ms": any_bound[0], "any_bound_by": any_bound[1],
         "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
-        "card": card}), flush=True)
+        **stamp()}), flush=True)
     del hits, occ, comps, k_out, p_out, rays
 
     # ---- phase 4: record parity against the C++ oracle ----
@@ -1382,15 +1877,15 @@ def main():
     del sah, hl
 
     # ---- phase 5: the instanced path at BASELINE config 5 ----
-    p5 = phase5(rt, dev)
+    p5, inst5 = phase5(rt, dev)
     check(p5["launches"]["roots"] > 0,
           "the instanced path never launched the roots variant")
-    print("phase 5 instanced:", json.dumps({**p5, "card": card}),
+    print("phase 5 instanced:", json.dumps({**p5, **stamp()}),
           flush=True)
 
     # ---- phase 6: filtered queries and per-ray statistics ----
     p6, p6_kernels = phase6(rt, dev, v6, f6, cam512)
-    print("phase 6 filter/stats:", json.dumps({**p6, "card": card}),
+    print("phase 6 filter/stats:", json.dumps({**p6, **stamp()}),
           flush=True)
 
     # ---- phase 7: 16-wide tables and the grid march at full width ----
@@ -1401,15 +1896,36 @@ def main():
         **p7, "shapes": "w16 kernel and plain ms and bound at 8192^2 "
         "(sort_rays=False rows), both modes' counts at 512^2; march kernel "
         "and plain ms and bound on the 1024^2 atrium bounce, both modes' "
-        "counts on a 256^2 subset of it", "card": card}), flush=True)
+        "counts on a 256^2 subset of it", **stamp()}), flush=True)
 
     # ---- phase 8: dynamic scenes (refit, repack, trace) ----
     p8, p8_kernels = phase8(rt, dev)
     p8_kernels["packet_trace_any"]["launches"] += any_launches
     for name, k in p8_kernels.items():
         check(k["launches"] > 0, f"phase 8 never launched {name}")
-    print("phase 8 dynamic scenes:", json.dumps({**p8, "card": card}),
+    print("phase 8 dynamic scenes:", json.dumps({**p8, **stamp()}),
           flush=True)
+
+    # ---- phase 9: the render path ----
+    p9, p9_launches, p9_errs = phase9(rt, dev, inst5)
+    del inst5
+    for part, title in (("9a", "render_path, atrium"),
+                        ("9b", "render_direct and render_ao, atrium"),
+                        ("9c", "4-bounce instanced wavefront, config 5")):
+        print(f"phase {part} {title}:", json.dumps({**p9[part], **stamp()}),
+              flush=True)
+    check(all(v > 0 for v in p9_launches.values()),
+          f"phase 9 launches {p9_launches}")
+    launches += p9_launches["kernel"]
+    max_err = max(max_err, p9_errs["kernel"])
+    p5["launches"]["roots"] += p9_launches["roots"]
+    p5["max_abs_err"] = max(p5["max_abs_err"], p9_errs["roots"])
+    p8_kernels["packet_trace_any"]["max_abs_err"] = max(
+        p8_kernels["packet_trace_any"]["max_abs_err"], p9_errs["any"])
+    for name in ("any", "defer_uv"):
+        p8_kernels[f"packet_trace_{name}"]["launches"] += p9_launches[name]
+    p6_kernels["packet_trace_stats"]["launches"] += p9_launches["stats"]
+    p7_kernels["packet_trace_march"]["launches"] += p9_launches["march"]
 
     src = "rtk_tpu_torch/csrc/packet_trace.cu"
     kernels = [

@@ -3,10 +3,11 @@ kernel written in CUDA for Hopper (H100).
 
 The same API and hit-record contract as rtk_tpu: build a scene (LBVH on
 the device, or a host SAH topology), refit it to moved vertices, trace
-closest-hit and any-hit ray batches (with filter callables), trace instanced (TLAS/BLAS) scenes, save
-and load scenes in rtk_tpu's blob format, and drive it through rtk's task
-lifecycle and C entry points (tasks, compat).  Imports torch and numpy;
-never jax.
+closest-hit and any-hit ray batches (with filter callables), trace
+instanced (TLAS/BLAS) scenes, render with them (models.path: path
+tracing, direct lighting, ambient occlusion), save and load scenes in
+rtk_tpu's blob format, and drive it through rtk's task lifecycle and C
+entry points (tasks, compat).  Imports torch and numpy; never jax.
 """
 
 from rtk_tpu_torch.api import (

@@ -10,8 +10,10 @@ Parity with the reference mesh input layer (rtk.h:54-76, rtk.c:1028-1114):
     indices (rtk_vertex.index, rtk.h:24-27).
 
 Host-side NumPy code that runs once per scene upload, before the device
-build.  Every decode takes the NumPy path; a threaded native decode for
-large raw buffers is not part of this package yet.
+build.  Raw buffers of at least NATIVE_DECODE_MIN elements decode through
+the threaded C++ host runtime (utils/native_host.py) where a C++
+toolchain is present, and through NumPy otherwise; both give the same
+bytes.
 """
 from __future__ import annotations
 
@@ -70,6 +72,17 @@ def _decode_strided(buf, count, n_comp, dtype, stride) -> np.ndarray:
     return out
 
 
+# Raw-buffer decodes from this element count on route through the threaded
+# C++ host runtime (native/rtk_host.cpp) when the toolchain is available.
+NATIVE_DECODE_MIN = 1 << 18
+
+
+def _native():
+    from rtk_tpu_torch.utils import native_host
+
+    return native_host if native_host.available() else None
+
+
 def decode_indices(mesh: MeshDesc) -> np.ndarray:
     """-> (T, 3) u32 original vertex indices."""
     t = mesh.num_triangles
@@ -87,6 +100,12 @@ def decode_indices(mesh: MeshDesc) -> np.ndarray:
     # Raw buffer: stride applies between consecutive *indices* (rtk_buffer
     # semantics, rtk.h:54-58).
     dtype = _IDX_DTYPES[mesh.index_type]
+    nh = _native() if t * 3 >= NATIVE_DECODE_MIN else None
+    if nh is not None:
+        stride = mesh.index_stride or np.dtype(dtype).itemsize
+        kind = "u16" if dtype == np.uint16 else "u32"
+        return nh.decode_indices(bytes(mesh.indices), t * 3, stride,
+                                 kind).reshape(t, 3)
     idx = _decode_strided(mesh.indices, t * 3, 1, dtype, mesh.index_stride)
     return idx.reshape(t, 3).astype(np.uint32)
 
@@ -107,8 +126,14 @@ def decode_positions(mesh: MeshDesc, indices: np.ndarray) -> np.ndarray:
         # The final record only needs its 3 components present, not a full
         # stride of padding after it (rtk_buffer semantics, rtk.h:54-58).
         count = (nbytes - natural) // stride + 1 if nbytes >= natural else 0
-        verts = _decode_strided(mesh.positions, count, 3, dtype, stride)
-        verts = verts.astype(np.float32)
+        nh = _native() if count >= NATIVE_DECODE_MIN else None
+        if nh is not None:
+            kind = "f64" if dtype == np.float64 else "f32"
+            verts = nh.decode_positions(bytes(mesh.positions), count,
+                                        stride, kind)
+        else:
+            verts = _decode_strided(mesh.positions, count, 3, dtype, stride)
+            verts = verts.astype(np.float32)
     flat = indices.reshape(-1)
     if flat.size and int(flat.max()) >= verts.shape[0]:
         raise ValueError(
@@ -116,6 +141,9 @@ def decode_positions(mesh: MeshDesc, indices: np.ndarray) -> np.ndarray:
             f"{verts.shape[0]} decoded vertices (check index_stride / "
             "index_type / position_stride against rtk_buffer semantics: "
             "stride is between consecutive elements, rtk.h:54-58)")
+    nh = _native() if flat.shape[0] >= NATIVE_DECODE_MIN else None
+    if nh is not None:
+        return nh.gather_soup(verts, flat).reshape(indices.shape[0], 3, 3)
     return verts[flat].reshape(indices.shape[0], 3, 3)
 
 

@@ -1,16 +1,54 @@
-"""Bounce-ray helpers of the wavefront path tracer (rtk_tpu.models.path).
+"""Wavefront path tracing on top of the ray-query engine
+(rtk_tpu.models.path).
 
-Ported so far: the geometric normal of a hit and cosine-weighted
-hemisphere sampling, which turn a batch of primary hits into the diffuse
-bounce batch of BASELINE config 3 (the atrium).  The render loops
-(render_path, render_direct, render_ao) and the wavefront compaction are
-still to port.
+The rendering workloads the library exists for: incoherent bounce
+batches, stream-compacted and re-sorted between bounces so the traversal
+kernel stays fed with coherent work.
+
+Structure: a host-driven wavefront loop.  Each bounce is a trace, then a
+shade / sample / sort pass in plain PyTorch on the rays' device; between
+bounces rays are compacted to the live prefix (dropping finished rays
+shrinks the next launch; ray counts are bucketed to powers of two) and
+optionally sorted by a Morton key of origin and direction octant to
+restore coherence.  Random draws come from a torch.Generator where
+rtk_tpu takes a JAX key; `_shade_sample` and `cosine_sample` also take
+the uniforms as given, so the same uniforms give the same image.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import numpy as np
 import torch
+
+from rtk_tpu_torch.ops.morton import morton3d
+from rtk_tpu_torch.tracer import Tracer
+from rtk_tpu_torch.types import Rays, _f32
+
+_LIVE_MAX_T = float(np.float32(3.4e38))  # a live bounce ray's max_t
+_MIN_THROUGHPUT = 1e-5  # a path below it in every channel ends
+
+
+@dataclasses.dataclass
+class Materials:
+    """Per-mesh lambertian materials (indexed by Hits.mesh_index)."""
+
+    albedo: torch.Tensor  # (M, 3) f32
+    emission: torch.Tensor  # (M, 3) f32
+
+    @staticmethod
+    def make(albedo, emission=None, device=None) -> "Materials":
+        """device: default the albedo tensor's device, else the card."""
+        if device is None:
+            device = (albedo.device if isinstance(albedo, torch.Tensor)
+                      else "cuda")
+        albedo = _f32(albedo, device).reshape(-1, 3)
+        if emission is None:
+            emission = torch.zeros_like(albedo)
+        else:
+            emission = _f32(emission, device).reshape(-1, 3)
+        return Materials(albedo=albedo, emission=emission)
 
 
 def geometric_normal(hits, direction: torch.Tensor) -> torch.Tensor:
@@ -52,3 +90,189 @@ def cosine_sample(generator: torch.Generator | None, normal: torch.Tensor,
     t2 = torch.stack([b, sign + ny ** 2 * a, -ny], dim=1)
     return (x[:, None] * t1 + y[:, None] * t2
             + z[:, None] * normal).to(torch.float32)
+
+
+def _ray_sort_key(rays: Rays, lo, hi) -> torch.Tensor:
+    """Coherence key: direction octant (3 bits) above a Morton code of the
+    origin, the bounce-ray reordering of the wavefront design.
+
+    int32 where rtk_tpu's is uint32: the octant sits at bits 24-26 and the
+    caller's dead flag at bit 28, so every value is a positive int32 equal
+    to the reference's."""
+    code = morton3d(rays.origin, lo, hi, bits=8)  # 24 bits
+    pos = (rays.direction >= 0).to(torch.int32)
+    octant = pos[:, 0] | (pos[:, 1] << 1) | (pos[:, 2] << 2)
+    return (octant << 24) | code
+
+
+def _round_up_bucket(n: int, minimum: int) -> int:
+    """Next power-of-two bucket.  rtk_tpu buckets to bound recompiles;
+    nothing compiles per shape here, but the bucket still fixes the batch
+    sizes a bounce launches (few distinct sizes for the caching allocator
+    to hold), and the dead rays it keeps at the back of a batch are part
+    of what compact=True returns slot for slot."""
+    return max(minimum, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
+
+
+def _shade_sample(hits, cur: Rays, throughput, index, radiance,
+                  materials: Materials, generator, bg, lo, hi, *, epsilon,
+                  sort_rays, last, u1=None, u2=None):
+    """Shade, importance-sample and build the sort permutation for one
+    bounce.  radiance is updated in place (and returned); `index` holds no
+    duplicates, so the scatter-add is deterministic.  generator, u1, u2:
+    cosine_sample's.  -> radiance if last, else (radiance, next rays,
+    throughput, perm, number alive (a 0-d tensor))."""
+    hit = hits.hit
+    mesh = hits.mesh_index.clamp(0, materials.albedo.shape[0] - 1).long()
+    zero = torch.zeros((), device=radiance.device)
+    emis = torch.where(hit[:, None], materials.emission[mesh], zero)
+    miss_rad = torch.where(hit[:, None], zero, bg[None, :])
+    radiance.index_add_(0, index, throughput * (emis + miss_rad))
+    if last:
+        return radiance
+
+    normal = geometric_normal(hits, cur.direction)
+    new_dir = cosine_sample(generator, normal, u1, u2)
+    origin = hits.position() + epsilon * normal
+    throughput = throughput * torch.where(hit[:, None],
+                                          materials.albedo[mesh], zero)
+    alive = hit & (throughput.amax(dim=1) > _MIN_THROUGHPUT)
+    nxt = Rays(
+        origin=origin, direction=new_dir,
+        min_t=torch.full((cur.count,), epsilon, dtype=torch.float32,
+                         device=origin.device),
+        max_t=torch.where(alive, _LIVE_MAX_T, 0.0))
+    # Dead rays to the back; optionally Morton-sorted within the live run.
+    order_key = (~alive).to(torch.int32)
+    if sort_rays:
+        order_key = (order_key << 28) | (_ray_sort_key(nxt, lo, hi) >> 4)
+    perm = torch.sort(order_key, stable=True).indices
+    return radiance, nxt, throughput, perm, alive.sum()
+
+
+def _compact_take(cur: Rays, throughput, index, perm, *, m):
+    sel = perm[:m]
+    return cur[sel], throughput[sel], index[sel]
+
+
+def render_path(
+    tracer: Tracer,
+    rays: Rays,
+    materials: Materials,
+    generator: torch.Generator | None = None,
+    bounces: int = 4,
+    background: tuple = (0.0, 0.0, 0.0),
+    epsilon: float = 1e-4,
+    sort_rays: bool = True,
+    compact: bool = True,
+    bounce_tracer: Tracer | None = None,
+) -> torch.Tensor:
+    """Path-trace a ray batch; returns (N, 3) linear radiance on the rays'
+    device.
+
+    Lambertian BRDF with cosine importance sampling; emission accumulated
+    at every hit; constant background radiance on miss.  Each bounce is a
+    trace, the shade / sample / sort pass and, with compact=True, a gather
+    of the live prefix into a power-of-two bucket (one host sync a bounce:
+    the live count; none with compact=False, where every bounce keeps the
+    full batch with dead rays at max_t = 0).
+
+    generator: a torch.Generator on the rays' device (None: torch's
+    default) in place of rtk_tpu's JAX key.
+    bounce_tracer: optional engine for the incoherent bounce batches
+    (e.g. Tracer(scene, engine="march")); primaries always go through
+    `tracer`.
+    """
+    n = rays.count
+    dev = rays.device
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    index = torch.arange(n, device=dev)  # slot -> original ray id
+    cur = rays
+    bg = _f32(background, dev)
+    lo = tracer.scene.bounds_min
+    hi = tracer.scene.bounds_max
+
+    for bounce in range(bounces + 1):
+        # `coherent` is the reference engine's stepping hint for bounce
+        # batches; Tracer.closest accepts and ignores it.
+        src = tracer if (bounce == 0 or bounce_tracer is None) \
+            else bounce_tracer
+        hits = src.closest(cur, coherent=(bounce == 0))
+        last = bounce == bounces
+        out = _shade_sample(hits, cur, throughput, index, radiance,
+                            materials, generator, bg, lo, hi,
+                            epsilon=epsilon, sort_rays=sort_rays, last=last)
+        if last:
+            break
+        radiance, nxt, throughput, perm, n_alive_dev = out
+
+        if compact:
+            n_alive = int(n_alive_dev)  # one host sync per bounce
+            if n_alive == 0:
+                break
+            m = min(cur.count, _round_up_bucket(n_alive, 1024))
+            cur, throughput, index = _compact_take(
+                nxt, throughput, index, perm, m=m)
+        else:
+            cur = nxt
+
+    return radiance
+
+
+def render_direct(
+    tracer: Tracer,
+    rays: Rays,
+    materials: Materials,
+    light_pos,
+    light_color,
+    generator: torch.Generator | None = None,
+    epsilon: float = 1e-4,
+) -> torch.Tensor:
+    """One-bounce direct lighting with a point light and any-hit shadow
+    rays (the "1-bounce diffuse" and "primary + shadow" configurations).
+    (N, 3).  `generator` stands where the reference takes its unused key."""
+    dev = rays.device
+    hits = tracer.closest(rays)
+    hit = hits.hit
+    mesh = hits.mesh_index.clamp(0, materials.albedo.shape[0] - 1).long()
+    normal = geometric_normal(hits, rays.direction)
+    p = hits.position() + epsilon * normal
+    lvec = _f32(light_pos, dev)[None, :] - p
+    ldist = torch.linalg.vector_norm(lvec, dim=1)
+    ldir = lvec / ldist[:, None].clamp_min(1e-20)
+    ndotl = (normal * ldir).sum(dim=1).clamp_min(0.0)
+
+    shadow = Rays(
+        origin=p, direction=ldir,
+        min_t=torch.full_like(ldist, epsilon),
+        max_t=torch.where(hit, ldist * (1.0 - 1e-3), 0.0))
+    occluded = tracer.any(shadow).hit
+    direct = (materials.albedo[mesh] * _f32(light_color, dev)[None, :]
+              * (ndotl * ~occluded / (ldist * ldist).clamp_min(1e-8))[:, None])
+    return torch.where(hit[:, None], direct + materials.emission[mesh],
+                       torch.zeros((), device=dev))
+
+
+def render_ao(
+    tracer: Tracer,
+    rays: Rays,
+    generator: torch.Generator | None = None,
+    samples: int = 8,
+    max_dist: float = 1.0,
+    epsilon: float = 1e-4,
+) -> torch.Tensor:
+    """Ambient occlusion: fraction of unoccluded cosine samples. (N,)."""
+    hits = tracer.closest(rays)
+    normal = geometric_normal(hits, rays.direction)
+    p = hits.position() + epsilon * normal
+    n = rays.count
+    occ = torch.zeros((n,), dtype=torch.float32, device=rays.device)
+    min_t = torch.full((n,), epsilon, dtype=torch.float32,
+                       device=rays.device)
+    max_t = torch.where(hits.hit, float(max_dist), 0.0)
+    for _ in range(samples):
+        probe = Rays(origin=p, direction=cosine_sample(generator, normal),
+                     min_t=min_t, max_t=max_t)
+        occ = occ + tracer.any(probe, coherent=False).hit.to(torch.float32)
+    return torch.where(hits.hit, 1.0 - occ / samples, 0.0)

@@ -40,6 +40,22 @@ def morton3d(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return (ex[..., 0] << 2) | (ex[..., 1] << 1) | ex[..., 2]
 
 
+def scene_bounds(tri_pos: torch.Tensor):
+    """(min, max) over all triangle vertices. tri_pos: (T, 3, 3)."""
+    p = tri_pos.reshape(-1, 3)
+    return p.amin(dim=0), p.amax(dim=0)
+
+
+def sort_by_morton(codes: torch.Tensor):
+    """Sort Morton codes, returning (sorted_codes, permutation (int32)).
+
+    Ties are broken by index (a stable sort), so the order is total, as
+    the Karras topology's duplicate-code handling needs (builder/lbvh.py).
+    """
+    sorted_codes, perm = torch.sort(codes, stable=True)
+    return sorted_codes, perm.to(torch.int32)
+
+
 def ray_coherence_key(origin: torch.Tensor,
                       direction: torch.Tensor) -> torch.Tensor:
     """Spatial-coherence sort key for a ray batch (int32, 30 bits).

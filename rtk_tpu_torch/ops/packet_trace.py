@@ -844,6 +844,22 @@ def trace_packets_chunked(packed: PackedScene, rays: Rays,
            for f in ("hit", "t", "u_k", "v_k", "slot")})
 
 
+def uniform_kz(rays: Rays) -> int | None:
+    """The batch's shared dominant |direction| axis, or None if mixed (one
+    readback).
+
+    The check for the reference's trace_packets(kz_static=...) contract,
+    with the kernel's tie rule: x beats y beats z at equal magnitude.  The
+    kernel here picks the axis per ray and ignores kz_static.
+    """
+    ad = rays.direction.to(torch.float32).abs()
+    maxc = ad.amax(dim=1)
+    kzr = torch.where(ad[:, 0] == maxc, 0,
+                      torch.where(ad[:, 1] == maxc, 1, 2)).cpu()
+    k0 = int(kzr[0])
+    return k0 if bool((kzr == k0).all()) else None
+
+
 def _refit_repack(scene, packed: PackedScene, tri_pos):
     """One frame's refit and repack -> (scene', packed').  scene: the LBVH
     Scene the tables were packed from (refit + repack_bounds) or a

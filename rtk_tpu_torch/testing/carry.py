@@ -1,5 +1,6 @@
-"""The parameter carry: rtk_tpu scene tables (handed over as NumPy arrays)
--> this package's Scene / PackedScene / BinaryRefitAux on a given device.
+"""The parameter carry: rtk_tpu scene tables, materials and hit records
+(handed over as NumPy arrays) -> this package's Scene / PackedScene /
+BinaryRefitAux / Materials / Hits on a given device.
 
 A test takes rtk_tpu's arrays with np.asarray, passes the dict here, and
 feeds both packages the very same tables.
@@ -11,9 +12,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from rtk_tpu_torch.models.path import Materials
 from rtk_tpu_torch.scene import Scene
 from rtk_tpu_torch.trace.packed import (BinaryRefitAux, PackedScene,
                                         tree_depth)
+from rtk_tpu_torch.types import Hits
 
 SCENE_ARRAYS = tuple(f.name for f in dataclasses.fields(Scene)
                      if f.type == "torch.Tensor")
@@ -61,3 +64,19 @@ def refit_aux_from_arrays(arrays: dict, *, device) -> BinaryRefitAux:
     so a table that rtk_tpu packed can be refit here."""
     return BinaryRefitAux(**{k: _tensor(arrays[k], device)
                              for k in REFIT_AUX_ARRAYS})
+
+
+def materials_from_arrays(albedo, emission=None, *, device) -> Materials:
+    """Materials from rtk_tpu's (M, 3) albedo and emission arrays."""
+    return Materials.make(np.array(albedo, np.float32),
+                          None if emission is None
+                          else np.array(emission, np.float32), device=device)
+
+
+def hits_from_arrays(arrays: dict, *, device) -> Hits:
+    """Hits from a dict holding every field of an rtk_tpu Hits (a
+    PacketHits' `.full()`) as NumPy arrays, so one trace's records can be
+    shaded by both packages."""
+    return Hits(**{f.name: torch.as_tensor(np.array(arrays[f.name]),
+                                           device=device)
+                   for f in dataclasses.fields(Hits)})

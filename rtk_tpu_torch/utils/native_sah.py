@@ -41,6 +41,12 @@ def _load():
                                ctypes.c_int, fp, fp, fp, ip]
     lib.rtko_free.restype = None
     lib.rtko_free.argtypes = [ctypes.c_void_p]
+    lib.rtko_build4.restype = ctypes.c_void_p
+    lib.rtko_build4.argtypes = [fp, ctypes.c_int64, ctypes.c_int]
+    lib.rtko_trace4.restype = None
+    lib.rtko_trace4.argtypes = lib.rtko_trace.argtypes
+    lib.rtko_free4.restype = None
+    lib.rtko_free4.argtypes = [ctypes.c_void_p]
     lib.rtko_node_count.restype = ctypes.c_int64
     lib.rtko_node_count.argtypes = [ctypes.c_void_p]
     lib.rtko_export.restype = None
@@ -52,6 +58,22 @@ def _load():
 
 def _ptr(a, kind):
     return a.ctypes.data_as(ctypes.POINTER(kind))
+
+
+def _trace_rays(fn, handle, origin, direction, min_t, max_t, mode):
+    """One rtko_trace / rtko_trace4 call -> (t, u, v, tri_index)."""
+    n = len(origin)
+    rays = np.empty((n, 8), np.float32)
+    rays[:, 0:3] = origin
+    rays[:, 3:6] = direction
+    rays[:, 6] = min_t
+    rays[:, 7] = max_t
+    t, u, v = (np.empty(n, np.float32) for _ in range(3))
+    idx = np.empty(n, np.int32)
+    f = ctypes.c_float
+    fn(handle, _ptr(rays, f), n, 0 if mode == "closest" else 1, _ptr(t, f),
+       _ptr(u, f), _ptr(v, f), _ptr(idx, ctypes.c_int32))
+    return t, u, v, idx
 
 
 class NativeOracle:
@@ -93,21 +115,34 @@ class NativeOracle:
 
     def trace(self, origin, direction, min_t, max_t, mode="closest"):
         """-> (t, u, v, tri_index) numpy arrays; index -1 on miss."""
-        n = len(origin)
-        rays = np.empty((n, 8), np.float32)
-        rays[:, 0:3] = origin
-        rays[:, 3:6] = direction
-        rays[:, 6] = min_t
-        rays[:, 7] = max_t
-        t, u, v = (np.empty(n, np.float32) for _ in range(3))
-        idx = np.empty(n, np.int32)
-        f = ctypes.c_float
-        self._lib.rtko_trace(self._handle, _ptr(rays, f), n,
-                             0 if mode == "closest" else 1, _ptr(t, f),
-                             _ptr(u, f), _ptr(v, f), _ptr(idx, ctypes.c_int32))
-        return t, u, v, idx
+        return _trace_rays(self._lib.rtko_trace, self._handle, origin,
+                           direction, min_t, max_t, mode)
 
     def __del__(self):
         lib = getattr(self, "_lib", None)
         if lib is not None:
             lib.rtko_free(self._handle)
+
+
+class NativeOracleSSE:
+    """Clean-room SSE BVH4 CPU tracer: the reference's own kernel is a
+    4-wide SSE BVH4 (rtk.c:181-539), so this, not the scalar BVH2 oracle
+    above, is the CPU baseline a ratio should be quoted against."""
+
+    def __init__(self, tri_pos: np.ndarray, leaf_max: int = 4):
+        lib = _load()
+        tris = np.ascontiguousarray(tri_pos, np.float32).reshape(-1, 9)
+        self._n = tris.shape[0]
+        self._handle = lib.rtko_build4(_ptr(tris, ctypes.c_float), self._n,
+                                       int(leaf_max))
+        self._lib = lib
+
+    def trace(self, origin, direction, min_t, max_t, mode="closest"):
+        """-> (t, u, v, tri_index) numpy arrays; index -1 on miss."""
+        return _trace_rays(self._lib.rtko_trace4, self._handle, origin,
+                           direction, min_t, max_t, mode)
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is not None:
+            lib.rtko_free4(self._handle)

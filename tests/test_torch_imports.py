@@ -38,12 +38,33 @@ MODULES = [
     "rtk_tpu_torch.scene", "rtk_tpu_torch.trace.packed",
     "rtk_tpu_torch.builder.lbvh", "rtk_tpu_torch.builder.sah",
     "rtk_tpu_torch.tracer", "rtk_tpu_torch.ops.morton",
+    # The render path's small modules.
+    "rtk_tpu_torch.testing.checks", "rtk_tpu_torch.oracle",
+    "rtk_tpu_torch.utils.native_host", "rtk_tpu_torch.mesh",
 ]
+
+EXAMPLES = ["torch_render_cornell", "torch_animate_deform",
+            "torch_port_from_rtk"]
 
 
 @pytest.mark.parametrize("module", [None] + MODULES)
 def test_port_imports_without_jax(module):
     extra = f"import {module}" if module else ""
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_examples_import_without_jax(example):
+    """The port-side examples load (their main() not run) with jax and
+    flax unimportable, and pull in nothing of rtk_tpu."""
+    extra = ("import importlib.util as u; "
+             f"s = u.spec_from_file_location('ex', 'examples/{example}.py'); "
+             "m = u.module_from_spec(s); s.loader.exec_module(m)")
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
         capture_output=True, text=True, timeout=120,

@@ -505,3 +505,86 @@ def test_kernel_on_refit_tables(cuda, kind):
         _assert_same(*_both(refit_tables, rays, **kw))
     _assert_same(hits, packet_trace.trace_packets_reference(
         refit_tables, rays, defer_uv=True))
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_render_path_runs_the_kernel(cuda, compact):
+    """render_path on the card launches the kernel once a bounce, and the
+    furnace identity (albedo 1, emission and background e: radiance / e
+    is the whole number of live rays traced on that path) holds
+    exactly."""
+    from rtk_tpu_torch.models import path
+
+    e, bounces = 0.5, 3
+    tracer = rtk_tpu_torch.Tracer(rtk_tpu_torch.build_scene(
+        _soup_of(scenes.blob(3)[0]), device=cuda))
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 128,
+                              128, device=cuda)
+    mats = path.Materials.make(np.ones((1, 3)), np.full((1, 3), e))
+    assert mats.albedo.device.type == "cuda"  # the card by default
+    tracer.packed
+    before = packet_trace.KERNEL_LAUNCHES
+    q = path.render_path(tracer, rays, mats,
+                         torch.Generator(device=cuda).manual_seed(0),
+                         bounces=bounces, background=(e, e, e),
+                         compact=compact) / e
+    torch.cuda.synchronize()
+    launched = packet_trace.KERNEL_LAUNCHES - before
+    # With compaction the loop ends early once no ray is alive.
+    assert (2 <= launched <= bounces + 1 if compact
+            else launched == bounces + 1)
+    assert q.device.type == "cuda" and torch.equal(q, q.round())
+    assert int(q.min()) == 1 and 2 <= int(q.max()) <= bounces + 1
+    hit = tracer.closest(rays).hit
+    assert torch.equal(q[:, 0] > 1, hit)  # a primary that hit went on
+
+
+def test_render_direct_and_ao_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """No random draw in render_direct: the card's image equals the
+    CPU's (plain version) within 1e-5 on at least 99% of the pixels (the
+    shadow rays' origins differ in the last bit between the two devices,
+    so a pixel on a shadow's edge may flip).  render_ao with the same
+    uniforms on both devices: its launches are any-hit launches and its
+    values equal the CPU's exactly on at least 99% of the pixels (a probe
+    that grazes an edge may flip one sample)."""
+    from rtk_tpu_torch.models import path
+
+    soup = _soup_of(scenes.cornell_box())
+    light = dict(light_pos=(0.5, 0.95, 0.5), light_color=(1.0, 1.0, 1.0))
+    imgs = []
+    for dev in (cuda, "cpu"):
+        tracer = rtk_tpu_torch.Tracer(rtk_tpu_torch.build_scene(soup,
+                                                                device=dev))
+        rays = scenes.cornell_camera(48, 48, device=dev)
+        mats = path.Materials.make([[0.7, 0.6, 0.5]], device=dev)
+        imgs.append(path.render_direct(tracer, rays, mats, **light).cpu())
+    assert float(imgs[0].max()) > 0.01
+    close = ((imgs[0] - imgs[1]).abs() <= 1e-5).all(dim=1)
+    assert float(close.float().mean()) >= 0.99, float(close.float().mean())
+    # Both devices draw the same uniforms, sample by sample.
+    real = path.cosine_sample
+    draws = torch.rand((8, 2, 48 * 48),
+                       generator=torch.Generator().manual_seed(1))
+    state = {}
+
+    def replay(generator, normal, u1=None, u2=None):
+        u = draws[state["sample"]].to(normal.device)
+        state["sample"] += 1
+        return real(None, normal, u[0], u[1])
+
+    monkeypatch.setattr(path, "cosine_sample", replay)
+    aos = []
+    for dev in (cuda, "cpu"):
+        tracer = rtk_tpu_torch.Tracer(rtk_tpu_torch.build_scene(soup,
+                                                                device=dev))
+        tracer.packed
+        state["sample"] = 0
+        before = packet_trace.ANY_LAUNCHES
+        aos.append(path.render_ao(
+            tracer, scenes.cornell_camera(48, 48, device=dev), None,
+            samples=8, max_dist=0.5).cpu())
+        assert packet_trace.ANY_LAUNCHES == before + 8 * (dev == cuda)
+    same = float((aos[0] == aos[1]).float().mean())
+    assert same >= 0.99, same
+    assert torch.equal(aos[0] * 8, (aos[0] * 8).round())
+    assert 0.05 < float(aos[0].mean()) < 0.99

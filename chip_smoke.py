@@ -23,8 +23,9 @@ Phases (each prints one line):
      forest; held against one flat 10.24M-triangle world-space scene
      traced by Tracer.closest, the two forests against each other, the
      kernel against its plain version (whole trace on a 256^2 subset, and
-     the round-0 traversal alone at full size), and 1 candidate against
-     12 (the exact residual);
+     the round-0 traversal alone at full size, grouped by instance as the
+     rounds launch it, its roots checked once before the timed launches),
+     and 1 candidate against 12 (the exact residual);
   6. the filtered-query and statistics path at the main path's width:
      build_scene(blob(6)) -> Tracer(scene, tri_mask) on 8192^2 rays with
      jit_filter predicates (the kernel's filter variant) held against the
@@ -279,6 +280,52 @@ def check_vs_flat(hits, flat_hits, what):
     return mism, share
 
 
+def round0(iscene, ps, rays, grouped=True, keyed=False):
+    """Round 0 of trace_closest_instanced_packets over `rays`: every ray
+    whose nearest instance entry precedes its max_t, in that instance's
+    object space, from its BLAS root.  grouped: in the rounds' order
+    (stable by instance, instancing.py's round loop), else in the batch's;
+    keyed: by instance, then by the object-space rays' coherence key.
+    -> ((8, m) rows, (m,) roots, ms of the ordering: the sort by instance,
+    or the key and its sort)."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.ops.morton import ray_coherence_key
+
+    cand, cand_t, _ = instancing._instance_candidates(iscene, rays, 1)
+    rows = torch.nonzero(cand_t[:, 0] < rays.max_t).squeeze(1)
+    inst = cand[rows, 0].long()
+    o, d = instancing._object_rays(iscene.object_from_world[inst],
+                                   rays.origin[rows], rays.direction[rows])
+    order_ms = 0.0
+    if keyed:
+        order, order_ms = timed(lambda: torch.sort(
+            inst << 31 | ray_coherence_key(o, d).long(), stable=True).indices,
+            reps=3)
+    elif grouped:
+        order, order_ms = timed(lambda: torch.sort(inst, stable=True).indices,
+                                reps=3)
+    else:
+        order = torch.arange(rows.numel(), device=rows.device)
+    rows, inst, o, d = rows[order], inst[order], o[order], d[order]
+    comps = torch.cat([o.T, d.T, rays.min_t[rows][None],
+                       rays.max_t[rows][None]]).contiguous()
+    return (comps, ps.packed_roots[iscene.instance_blas[inst]].contiguous(),
+            order_ms)
+
+
+def roots_alone(pt, packed, comps, roots, reps=3):
+    """(outputs, ms) of the roots variant's launch alone: the roots are
+    checked once first, as pack_instanced checks the rows the rounds
+    gather them from, and the timed launches make no host sync."""
+    pt._check_roots(roots, packed.nodes, comps, packed.branching)
+    return timed(lambda: pt._kernel(
+        packed.nodes, packed.tris, comps, leaf_size=packed.leaf_size,
+        stack_size=packed.stack_size, mode="closest", watertight=True,
+        qmask=None, defer_uv=False, roots=roots, filter_fn=None,
+        ray_index=None, stats=False, branching=packed.branching,
+        roots_in_range=True), reps=reps)
+
+
 def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
     """The instanced path at BASELINE config 5; returns its record and
     what phase 9c traces again (the tables, transforms, rays and the flat
@@ -359,22 +406,16 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
             p_ms, 2), subset_rays=sub.count, c1_residual=res["residual"],
             c1_max_t_err=err1, c1_inst_ties=ties1)
 
-    # The roots variant alone vs its plain version at the main path's round-0
-    # shape: every ray with a candidate, in its first candidate's object
-    # space, from that instance's BLAS root (LBVH forest).
+    # The roots variant alone vs its plain version on round 0 as the rounds
+    # launch it (LBVH forest): the launch alone, its roots checked once
+    # before the timed window.  Beside it the row's former measure, kept
+    # for comparison: the same rays in world Morton order through the
+    # wrapper, which checks the roots (a host sync) on every call.
     ps = tables["lbvh8"]
-    cand, _, _ = instancing._instance_candidates(iscene, rays, 1)
-    rows = torch.nonzero(cand[:, 0] >= 0).squeeze(1)
-    inst = cand[rows, 0].long()
-    o, d = instancing._object_rays(iscene.object_from_world[inst],
-                                   rays.origin[rows], rays.direction[rows])
-    comps = torch.cat([o.T, d.T, rays.min_t[rows][None],
-                       rays.max_t[rows][None]]).contiguous()
-    roots = ps.packed_roots[iscene.instance_blas[inst]].contiguous()
+    comps, roots, _ = round0(iscene, ps, rays)
     tk = dict(leaf_size=ps.packed.leaf_size, stack_size=ps.packed.stack_size,
               roots=roots)
-    k_out, kernel_ms = timed(lambda: packet_trace.packet_trace(
-        ps.packed.nodes, ps.packed.tris, comps, **tk), reps=3)
+    k_out, kernel_ms = roots_alone(packet_trace, ps.packed, comps, roots)
     p_out, plain_ms = timed(lambda: packet_trace.packet_trace_reference(
         ps.packed.nodes, ps.packed.tris, comps, **tk), warm=False)
     max_err = max(max_err, compare(as_hits(k_out), as_hits(p_out),
@@ -383,10 +424,17 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
     b_ms, b_by = bound(packet_trace.packet_trace_kernel(
         ps.packed.nodes, ps.packed.tris, comps, **tk, stats=True)[4],
         ps.packed, 52)
-    rec.update(round0_rays=int(rows.numel()), kernel_ms=round(kernel_ms, 3),
+    w_comps, w_roots, _ = round0(iscene, ps, rays, grouped=False)
+    _, world_ms = timed(lambda: packet_trace.packet_trace(
+        ps.packed.nodes, ps.packed.tris, w_comps, **{**tk, "roots": w_roots}),
+        reps=3)
+    rec.update(round0_rays=comps.shape[1], kernel_ms=kernel_ms,
+               kernel_ms_world_order=roots_alone(packet_trace, ps.packed,
+                                                 w_comps, w_roots)[1],
+               kernel_ms_world_order_wrapper=world_ms,
                plain_ms=round(plain_ms, 1), max_abs_err=max_err,
                bound_ms=b_ms, bound_by=b_by)
-    del cand, rows, inst, o, d, comps, roots, k_out, p_out
+    del comps, roots, w_comps, w_roots, k_out, p_out
 
     # Independent check: the same rays through one flat scene of all the
     # transformed copies, built and traced through the flat entry points.
@@ -1146,6 +1194,12 @@ def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
     rec_a, a = drive(*small, on_device=False)
     times_a, p2, rows = frame_times(a, reps=6)
     rec_a["steady"] = times_a
+    # The bound of the defer_uv launch timed above, from its own counts.
+    rec_a["defer_uv_bound_ms"], rec_a["defer_uv_bound_by"] = bound(
+        pt.packet_trace_kernel(p2.nodes, p2.tris, rows,
+                               leaf_size=p2.leaf_size,
+                               stack_size=p2.stack_size, defer_uv=True,
+                               stats=True)[4], p2, 40)
     # The kernel against its plain version on refit tables, each variant
     # of this path, 8 and 16 wide.
     s2 = refit_packed_binary(a.sah, a.aux, a.clip[3])
@@ -1421,8 +1475,11 @@ def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
     for r, b, c in zip(rows, log.batches, counts):
         order = torch.sort(ray_coherence_key(b.origin, b.direction),
                            stable=True).indices
-        r["kernel_ms"] = kernel_alone(pt, packed, rows_of(b)[:, order]
-                                      .contiguous())[1]
+        sorted_rows = rows_of(b)[:, order].contiguous()
+        r["kernel_ms"] = kernel_alone(pt, packed, sorted_rows)[1]
+        r["defer_uv_kernel_ms"] = kernel_alone(pt, packed, sorted_rows,
+                                               defer_uv=True)[1]
+        del sorted_rows
         r["bound_ms"], r["bound_by"] = bound(c, packed)
         r["per_ray_mean"] = per_ray_mean(c)
     del counts
@@ -1651,12 +1708,26 @@ def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
                   f"{what}: non-finite t")
             slab_ms = timed(lambda: instancing._instance_candidates(
                 inst.iscene, rb, INST_CANDIDATES), reps=2)[1]
+            # Round 0's launch alone in the rounds' order, with each
+            # instance's rows sorted by their object-space coherence key,
+            # and in the batch's own order: does an ordering pay for
+            # itself in the kernel?
+            r0 = {}
+            for how, kw_ in (("grouped", {}), ("keyed", {"keyed": True}),
+                             ("world", {"grouped": False})):
+                c0, q0, o_ms = round0(inst.iscene, ps, rb, **kw_)
+                r0[f"{how}_kernel_ms"] = roots_alone(pt, ps.packed, c0,
+                                                     q0)[1]
+                r0[f"{how}_order_ms"] = o_ms
+                r0["rays"] = c0.shape[1]
+                del c0, q0
             trace_ms = e0.elapsed_time(e1)
             per.append({"live": int((rb.max_t > rb.min_t).sum()),
                         "hits": int(hits.hit.sum()),
                         "trace_ms": trace_ms, "candidate_slab_ms": slab_ms,
                         "rounds_ms": trace_ms - slab_ms,
                         "round_live_counts": st["live_counts"],
+                        "round0": r0,
                         "residual": st["residual"],
                         "plain_ms": plain_ms, "max_abs_err": err,
                         "flat_hit_mismatch": mism, "flat_t_share": t_share})
@@ -1947,7 +2018,10 @@ def main():
          "launches": p5["launches"]["roots"],
          "max_abs_err": p5["max_abs_err"], "ms": p5["kernel_ms"],
          "plain_ms": p5["plain_ms"], "bound_ms": p5["bound_ms"],
-         "bound_by": p5["bound_by"]},
+         "bound_by": p5["bound_by"],
+         "shape": f"round 0 of config 5, LBVH forest: {p5['round0_rays']} "
+                  "rays grouped by instance as the rounds launch them; the "
+                  "launch alone, its roots checked once before"},
         {"name": "packet_trace_filter",
          "replaces": "rtk_tpu/ops/pallas_trace.py:1003",
          **p6_kernels["packet_trace_filter"]},

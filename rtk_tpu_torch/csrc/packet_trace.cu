@@ -20,7 +20,13 @@
 // masks, four triangles loaded ahead of their tests, the stack in shared
 // memory (which takes L1 from the tables), the near-to-far order kept in
 // registers.  What paid was fewer instructions a test and fewer warps
-// running a node and a leaf in turn.  The card's tensor cores and TMA
+// running a node and a leaf in turn.  Tables past L2 (a 2.1M-triangle
+// grid, 154 MB) and short instanced rounds change neither finding: a
+// persisting-L2 window over the node table and a leaf's rows prefetched
+// as a lane reaches it gained nothing there, and persistent warps that
+// fetch rays from a counter (Aila and Laine, HPG 2009) lost to the card's
+// own block scheduler, which keeps a block's four warps on neighbouring
+// rays and so on the same L1 lines.  The card's tensor cores and TMA
 // have nothing to offer: the loop is scalar f32 arithmetic on rows whose
 // addresses are known one fetch ahead, with no matrix product and no tile
 // to copy; its means are registers (few, so that many warps stay
@@ -44,7 +50,15 @@
 //     the warp run both paths in turn;
 //   * the leaf test is compiled once per shear axis and picked by the
 //     ray's kz, so vertex components are chosen at compile time instead
-//     of by three-way selects a triangle; coherent rays share kz.
+//     of by three-way selects a triangle; coherent rays share kz;
+//   * on 8-wide tables the child box test is compiled once per sign
+//     octant of the ray's direction, so each axis's near and far planes
+//     are chosen at compile time instead of by six selects a child.  A
+//     warp takes the octant copy only when all its active lanes share the
+//     octant (one match instruction a traversal): lanes in different
+//     octants would run their copies in turn, so a mixed warp (incoherent
+//     bounces) takes the copy that reads the signs from the ray;
+//   * __launch_bounds__(128, 10): ten blocks an SM, 48 registers.
 //
 // Numerics: built with -fmad=false, so no a*b+c is contracted into an FMA.
 // The shared-edge functions of two triangles are then exact negations,
@@ -98,10 +112,11 @@
 
 #define RTK_MAX_STACK 256  // entries; the wrapper refuses deeper trees
 #define RTK_BLOCK 128
-// Blocks an SM the launch bounds promise: 8 x 128 threads leave each
-// thread 64 registers.  Told so, ptxas spends 52-56 of them and
-// rematerialises less than it does with 48 and no promise.
-#define RTK_MIN_BLOCKS 8
+// Blocks an SM the launch bounds promise: 10 x 128 threads leave each
+// thread 51 registers.  Told so, ptxas spends 48 (a few bytes spill in
+// some instantiations), and the tenth block an SM holds pays on every
+// batch measured; with 8, ptxas spends 52-56 (PERF.md section 6).
+#define RTK_MIN_BLOCKS 10
 
 namespace {
 
@@ -179,6 +194,13 @@ struct Axis {
   static constexpr int value = N;
 };
 
+// A ray's sign octant (bit 0: x, 1: y, 2: z direction >= 0) known at
+// compile time, or -1: read from the ray.
+template <int O>
+struct Oct {
+  static constexpr int value = O;
+};
+
 // The third int4 of a triangle row: filter builds read its mesh and
 // triangle columns, the others stop at the mask.
 #ifdef RTK_FILTER
@@ -190,7 +212,7 @@ typedef float2 TriTail;
 // Depth-first traversal of the W-wide tree rooted at row `root`, with the
 // best hit so far carried in and out (a march trace carries it from cell
 // to cell; a miss leaves it as it was).  Counters add up.
-template <int W>
+template <int W, bool OCT>
 __device__ __forceinline__ void traverse(
     int root, const int4* __restrict__ nodes, const float4* __restrict__ tris,
     int leaf_size, int mode_any, int watertight, int use_mask, int qmask,
@@ -210,7 +232,13 @@ __device__ __forceinline__ void traverse(
   // (internal in bits 0..W-1, leaf in bits W..2W-1: read unsigned).
   // Pushes the hit children but the nearest, far first, and returns true
   // with the nearest in `cur`; false if no child is hit.
-  auto node = [&]() -> bool {
+  auto node = [&](auto oct) -> bool {
+    // The ray's sign octant: known at compile time in a per-octant copy
+    // (O >= 0), read from the ray otherwise.
+    constexpr int O = decltype(oct)::value;
+    const bool sx = O < 0 ? px : (O & 1) != 0;
+    const bool sy = O < 0 ? py : (O & 2) != 0;
+    const bool sz = O < 0 ? pz : (O & 4) != 0;
     ++n_int;
     const int4* row = nodes + (size_t)cur * (2 * W);
     const int4 m0 = __ldg(row + 1);
@@ -233,12 +261,12 @@ __device__ __forceinline__ void traverse(
       const float mnx = __int_as_float(a.x), mny = __int_as_float(a.y),
                   mnz = __int_as_float(a.z), mxx = __int_as_float(a.w),
                   mxy = __int_as_float(b.x), mxz = __int_as_float(b.y);
-      const float nx = ((px ? mnx : mxx) - r.ox) * r.rx;
-      const float fx = ((px ? mxx : mnx) - r.ox) * r.rx;
-      const float ny = ((py ? mny : mxy) - r.oy) * r.ry;
-      const float fy = ((py ? mxy : mny) - r.oy) * r.ry;
-      const float nz = ((pz ? mnz : mxz) - r.oz) * r.rz;
-      const float fz = ((pz ? mxz : mnz) - r.oz) * r.rz;
+      const float nx = ((sx ? mnx : mxx) - r.ox) * r.rx;
+      const float fx = ((sx ? mxx : mnx) - r.ox) * r.rx;
+      const float ny = ((sy ? mny : mxy) - r.oy) * r.ry;
+      const float fy = ((sy ? mxy : mny) - r.oy) * r.ry;
+      const float nz = ((sz ? mnz : mxz) - r.oz) * r.rz;
+      const float fz = ((sz ? mxz : mnz) - r.oz) * r.rz;
       const float enter = test_max(test_max(nx, ny), test_max(nz, r.mint));
       const float exit = test_min(test_min(fx, fy), test_min(fz, best_t));
       if (!(enter <= exit)) continue;
@@ -330,18 +358,45 @@ __device__ __forceinline__ void traverse(
            __ldg((const TriTail*)(tr + k * 4 + 2)), base + k);
   };
 
-  for (;;) {
-    // Every lane descends through internal nodes until it holds a leaf
-    // (or has nothing left); then the warp tests its leaves together.
-    // Lanes of a warp at a node and at a leaf would run both in turn.
-    bool done = false;
+  // Every lane descends through internal nodes until it holds a leaf (->
+  // false) or has nothing left (-> true); then the warp tests its leaves
+  // together.  Lanes of a warp at a node and at a leaf would run both in
+  // turn.
+  auto descend = [&](auto oct) -> bool {
     while (cur >= 0) {
-      if (node()) continue;
-      if (sp == 0) {
-        done = true;
-        break;
-      }
+      if (node(oct)) continue;
+      if (sp == 0) return true;
       cur = stack[--sp];
+    }
+    return false;
+  };
+
+  // The octant copies only where every active lane of the warp shares the
+  // ray's octant: lanes in different octants would run their copies in
+  // turn (incoherent rays), so a mixed warp takes the copy that reads the
+  // signs from the ray.
+  const int oct = (int)px | (int)py << 1 | (int)pz << 2;
+  bool same_oct = false;
+  if constexpr (OCT) {
+    const unsigned active = __activemask();
+    same_oct = __match_any_sync(active, oct) == active;
+  }
+
+  for (;;) {
+    bool done;
+    if (same_oct) {
+      switch (oct) {
+        case 0: done = descend(Oct<0>{}); break;
+        case 1: done = descend(Oct<1>{}); break;
+        case 2: done = descend(Oct<2>{}); break;
+        case 3: done = descend(Oct<3>{}); break;
+        case 4: done = descend(Oct<4>{}); break;
+        case 5: done = descend(Oct<5>{}); break;
+        case 6: done = descend(Oct<6>{}); break;
+        default: done = descend(Oct<7>{}); break;
+      }
+    } else {
+      done = descend(Oct<-1>{});
     }
     if (done) break;
     // One copy of the leaf test per shear axis: the vertex components are
@@ -381,6 +436,10 @@ packet_trace_kernel(const int4* __restrict__ nodes,
 #else
   const int rid = 0;
 #endif
+  // The octant copies of the box test pay on 8-wide tables only: 16-wide
+  // nodes and the march's per-cell trees make the copies large enough to
+  // lose more than they save (PERF.md section 6).
+  constexpr bool kOct = W == 8 && !MARCH;
   const size_t sn = (size_t)n;
   const float ox = rays[i], oy = rays[sn + i], oz = rays[2 * sn + i];
   const float dx = rays[3 * sn + i], dy = rays[4 * sn + i],
@@ -417,10 +476,10 @@ packet_trace_kernel(const int4* __restrict__ nodes,
     r.okz = sel3(r.kz, ox, oy, oz);
 
     if (!MARCH) {
-      traverse<W>(roots ? __ldg(roots + i) : 0, nodes, tris, leaf_size,
-                  mode_any, watertight, use_mask, qmask, defer_uv, rid, r,
-                  best_t, best_u, best_v, best_slot, n_int, n_leaf, n_box,
-                  n_tri);
+      traverse<W, kOct>(roots ? __ldg(roots + i) : 0, nodes, tris,
+                        leaf_size, mode_any, watertight, use_mask, qmask,
+                        defer_uv, rid, r, best_t, best_u, best_v, best_slot,
+                        n_int, n_leaf, n_box, n_tri);
     } else {
       // Grid entry: the slab test against the grid box
       // (pallas_trace.py:397-403).  A ray that misses it does no work.
@@ -459,10 +518,10 @@ packet_trace_kernel(const int4* __restrict__ nodes,
         const float tdy = grid.csy * fabsf(r.ry);
         const float tdz = grid.csz * fabsf(r.rz);
         while (true) {
-          traverse<W>((cx * grid.dy + cy) * grid.dz + cz, nodes, tris,
-                      leaf_size, mode_any, watertight, use_mask, qmask,
-                      defer_uv, rid, r, best_t, best_u, best_v, best_slot,
-                      n_int, n_leaf, n_box, n_tri);
+          traverse<W, kOct>((cx * grid.dy + cy) * grid.dz + cz, nodes,
+                            tris, leaf_size, mode_any, watertight, use_mask,
+                            qmask, defer_uv, rid, r, best_t, best_u, best_v,
+                            best_slot, n_int, n_leaf, n_box, n_tri);
           // Retire: the cell's exit bounds every later cell's entry, so a
           // hit at or before it is final (pallas_trace.py:1214-1219).
           const float exit_t = min_nan(tmx, min_nan(tmy, tmz));

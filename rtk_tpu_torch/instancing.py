@@ -12,12 +12,14 @@
   * A ray whose (C+1)-th candidate still enters before its best hit is
     unproven and re-traces over all instances (the exactness residual).
 
-trace_closest_instanced_packets traces each round through trace_packets
-with a root row per ray: the CUDA kernel's roots variant for tensors on
-the card, its plain version for CPU tensors.  A round takes only the rays
-still live for it, grouped by instance as a coherence order; the TPU's
-padding of each instance's rays to whole 128-ray packets (one root per
-packet) is not needed when every thread carries its own root.
+trace_closest_instanced_packets traces each round through trace_packets'
+rooted path with a root row per ray: the CUDA kernel's roots variant for
+tensors on the card, its plain version for CPU tensors.  pack_instanced
+checks the packed root rows once, on the host, so a round's launch makes
+no host sync to check the roots it gathers from them.  A round takes only
+the rays still live for it, grouped by instance as a coherence order; the
+TPU's padding of each instance's rays to whole 128-ray packets (one root
+per packet) is not needed when every thread carries its own root.
 """
 from __future__ import annotations
 
@@ -29,8 +31,7 @@ import numpy as np
 import torch
 
 from rtk_tpu_torch.config import TraceConfig
-from rtk_tpu_torch.ops.packet_trace import (DEFAULT_P, PKT, trace_packets,
-                                            trace_packets_reference)
+from rtk_tpu_torch.ops.packet_trace import DEFAULT_P, PKT, _trace_rooted
 from rtk_tpu_torch.scene import Scene
 from rtk_tpu_torch.trace import stack as _stack
 from rtk_tpu_torch.types import Hits, PacketHits, Rays
@@ -356,10 +357,21 @@ def pack_instanced(iscene: InstancedScene, packed=None,
                                            iscene.roots.cpu().numpy())
     elif packed_roots is None:
         raise ValueError("pack_instanced(packed=...) needs packed_roots")
+    # Checked here, once, on the host: the rounds launch the kernel from
+    # these rows without a device-side check.
+    roots = torch.as_tensor(packed_roots).cpu().numpy().astype(np.int64)
+    rows = packed.nodes.shape[0] // packed.branching
+    n_blas = iscene.roots.shape[0]
+    if roots.shape != (n_blas,):
+        raise ValueError(f"packed_roots must hold one row per BLAS "
+                         f"({n_blas}), not shape {roots.shape}")
+    if n_blas and (roots.min() < 0 or roots.max() >= rows):
+        raise ValueError(f"packed_roots span [{roots.min()}, {roots.max()}]; "
+                         f"the table has {rows} rows")
     return PackedInstancedScene(
         iscene=iscene, packed=packed,
-        packed_roots=torch.as_tensor(np.asarray(packed_roots, np.int64),
-                                     device=iscene.device).to(torch.int32),
+        packed_roots=torch.as_tensor(roots, device=iscene.device).to(
+            torch.int32),
         slot_of_sorted=_slot_of_sorted(iscene, packed, soup_ids))
 
 
@@ -439,7 +451,6 @@ def trace_closest_instanced_packets(
     interpret, leaf_loop and ordered pick the TPU kernel's schedule and
     have no effect here.
     """
-    trace = trace_packets_reference if plain else trace_packets
     iscene = pscene.iscene
     packed = pscene.packed
     if rays.device != iscene.device:
@@ -493,9 +504,11 @@ def trace_closest_instanced_packets(
         o, d = _object_rays(iscene.object_from_world[inst],
                             rays.origin[rows], rays.direction[rows])
         bt = best["t"][rows]
-        h = trace(packed, Rays(o, d, rays.min_t[rows], bt),
-                  ray_roots=pscene.packed_roots[iscene.instance_blas[inst]],
-                  sort_rays=False)
+        # Roots gathered from pack_instanced's checked rows by instance
+        # ids in range: the launch makes no host sync to check them.
+        h = _trace_rooted(packed, Rays(o, d, rays.min_t[rows], bt),
+                          pscene.packed_roots[iscene.instance_blas[inst]],
+                          plain=plain)
         better = h.hit & (h.t < bt)
         r = rows[better]
         best["t"][r] = h.t[better]

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import shutil
 import time
@@ -167,10 +168,10 @@ def _check_tables(nodes, tris, rays8, w):
         raise ValueError("tables and rays must be on one device")
 
 
-def _check_roots(roots, nodes, rays8, w):
+def _check_roots(roots, nodes, rays8, w, in_range=False):
     """Per-ray root rows: (N,) int32 on the rays' device, each a row of the
-    w-wide node table (a bad root would read outside it).  One host
-    sync."""
+    w-wide node table (a bad root would read outside it).  One host sync,
+    unless the caller knows the rows are in range (in_range)."""
     if roots is None:
         return None
     n = rays8.shape[1]
@@ -178,7 +179,7 @@ def _check_roots(roots, nodes, rays8, w):
         raise ValueError(f"roots must be an ({n},) int32 tensor")
     if roots.device != rays8.device:
         raise ValueError("roots and rays must be on one device")
-    if n:
+    if n and not in_range:
         lo, hi = (int(x) for x in torch.aminmax(roots))
         if lo < 0 or hi >= nodes.shape[0] // w:
             raise ValueError(f"root rows span [{lo}, {hi}]; the table has "
@@ -274,13 +275,26 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     slots of the popped nodes) and triangle tests (rows of the popped
     leaves that are not NaN padding and pass the mask).
     """
+    return _kernel(nodes, tris, rays8, leaf_size=leaf_size,
+                   stack_size=stack_size, mode=mode, watertight=watertight,
+                   qmask=qmask, defer_uv=defer_uv, roots=roots,
+                   filter_fn=filter_fn, ray_index=ray_index, stats=stats,
+                   branching=branching)
+
+
+def _kernel(nodes, tris, rays8, *, leaf_size, stack_size, mode, watertight,
+            qmask, defer_uv, roots, filter_fn, ray_index, stats, branching,
+            roots_in_range=False):
+    """packet_trace_kernel; roots_in_range: the roots are rows of the table
+    already (pack_instanced checked them on the host), so the launch makes
+    no host sync to check them."""
     global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
     global W16_LAUNCHES, ANY_LAUNCHES, MASK_LAUNCHES, DEFER_UV_LAUNCHES
     lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
                                               stack_size, branching,
                                               filter_fn)
     ray_index = _check_filter(filter_fn, ray_index, rays8)
-    roots = _check_roots(roots, nodes, rays8, branching)
+    roots = _check_roots(roots, nodes, rays8, branching, roots_in_range)
     out = _launch(lambda *o: lib.rtk_packet_trace(
         nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), _ptr(roots),
         _ptr(ray_index), rays8.shape[1], leaf_size, branching,
@@ -809,6 +823,20 @@ def trace_packets_reference(packed: PackedScene, rays: Rays,
                        p_pk)
     return _front(packet_trace_reference, packed, rays, mode, watertight,
                   sort_rays, filter_mask, defer_uv, roots, filter_fn, stats)
+
+
+def _trace_rooted(packed: PackedScene, rays: Rays, roots,
+                  plain: bool = False):
+    """trace_packets(packed, rays, ray_roots=roots, sort_rays=False) for
+    (N,) int32 roots on the rays' device that are rows of packed's table
+    already: instancing's rounds gather them from pack_instanced's
+    packed_roots, checked on the host when packed.  On the card the launch
+    then makes no host sync to check them.  plain: the plain version."""
+    if plain or not rays.origin.is_cuda:
+        trace = trace_packets_reference if plain else trace_packets
+        return trace(packed, rays, ray_roots=roots, sort_rays=False)
+    return _front(functools.partial(_kernel, roots_in_range=True), packed,
+                  rays, "closest", True, False, None, False, roots)
 
 
 def trace_packets_chunked(packed: PackedScene, rays: Rays,

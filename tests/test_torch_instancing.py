@@ -18,7 +18,8 @@ from rtk_tpu.trace import stack as jstack
 from rtk_tpu_torch import instancing as tinst
 from rtk_tpu_torch.builder.sah import build_sah_forest
 from rtk_tpu_torch.config import TraceConfig
-from rtk_tpu_torch.ops.packet_trace import trace_packets, trace_packets_reference
+from rtk_tpu_torch.ops.packet_trace import (packet_trace, trace_packets,
+                                            trace_packets_reference)
 from rtk_tpu_torch.testing import carry, scenes
 from rtk_tpu_torch.trace import packed as tpacked
 from rtk_tpu_torch.trace import stack as tstack
@@ -350,3 +351,27 @@ def test_front_doors():
                  "trace_closest_instanced_packets"):
         assert getattr(rtk_tpu_torch, name) is getattr(tinst, name)
         assert getattr(rtk_tpu_torch.api, name) is getattr(tinst, name)
+
+
+@pytest.mark.parametrize("bad", ["past_the_table", "negative", "one_short"])
+def test_pack_instanced_refuses_bad_packed_roots(cam12, bad):
+    """pack_instanced checks the root rows once, on the host (the rounds
+    launch from them without a check); a caller's roots stay checked by
+    trace_packets and the kernel's wrapper."""
+    pk, roots = build_sah_forest(cam12.srcs,
+                                 rtk_tpu_torch.BuildConfig(leaf_size=4),
+                                 device=CPU)
+    rows = pk.nodes.shape[0] // pk.branching
+    wrong = {"past_the_table": np.asarray(roots) * 0 + rows,
+             "negative": np.asarray(roots) - rows - 1,
+             "one_short": np.asarray(roots)[:-1]}[bad]
+    with pytest.raises(ValueError, match="packed_roots"):
+        tinst.pack_instanced(cam12.tis, packed=pk, packed_roots=wrong)
+    ok = tinst.pack_instanced(cam12.tis, packed=pk, packed_roots=roots)
+    assert ok.packed_roots.dtype == torch.int32
+    np.testing.assert_array_equal(ok.packed_roots.numpy(), roots)
+    rays8 = torch.zeros((8, 4))
+    with pytest.raises(ValueError, match="root rows"):
+        packet_trace(pk.nodes, pk.tris, rays8, leaf_size=pk.leaf_size,
+                     stack_size=pk.stack_size,
+                     roots=torch.full((4,), rows, dtype=torch.int32))

@@ -588,3 +588,90 @@ def test_render_direct_and_ao_on_the_card_equal_the_cpu(cuda, monkeypatch):
     assert same >= 0.99, same
     assert torch.equal(aos[0] * 8, (aos[0] * 8).round())
     assert 0.05 < float(aos[0].mean()) < 0.99
+
+
+def _launch_case(device):
+    """blob(4) LBVH tables and 40,000 incoherent rays, dead ones among
+    them."""
+    v, f = scenes.blob(4)[1:]
+    packed = pack_scene(rtk_tpu_torch.build_scene((v, f), device=device))
+    rng = np.random.default_rng(21)
+    n = 40000
+    rays = rtk_tpu_torch.Rays.make(
+        rng.normal(size=(n, 3)) * 1.5, rng.normal(size=(n, 3)), 0.0,
+        np.where(rng.random(n) < 0.1, 0.0, 3.0e38), device=device)
+    return packed, torch.cat([rays.origin.T, rays.direction.T,
+                              rays.min_t[None], rays.max_t[None]]).contiguous()
+
+
+def test_launches_in_a_row_and_on_two_streams(cuda):
+    """Launches back to back on one stream, and on two streams at once,
+    each trace every ray, equal to the plain version with counts (no
+    launch leaves state behind for the next)."""
+    packed, rows = _launch_case(cuda)
+    kw = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size,
+              stats=True)
+    want = packet_trace.packet_trace_reference(packed.nodes, packed.tris,
+                                               rows, **kw)
+
+    def same(got):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    one = [packet_trace.packet_trace_kernel(packed.nodes, packed.tris, rows,
+                                            **kw) for _ in range(4)]
+    torch.cuda.synchronize()
+    for got in one:
+        same(got)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    two = []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                two.append(packet_trace.packet_trace_kernel(
+                    packed.nodes, packed.tris, rows, **kw))
+    torch.cuda.synchronize()
+    for got in two:
+        same(got)
+
+
+def test_instanced_rounds_make_no_roots_check(cuda, monkeypatch):
+    """The rounds launch from pack_instanced's checked root rows: no launch
+    of theirs checks its roots on the device (a host sync), while a
+    caller's roots are still checked."""
+    from rtk_tpu_torch.instancing import (build_instanced, pack_instanced,
+                                          trace_closest_instanced_packets)
+
+    seen = []
+    check = packet_trace._check_roots
+
+    def spy(roots, nodes, rays8, w, in_range=False):
+        seen.append(in_range)
+        return check(roots, nodes, rays8, w, in_range)
+
+    monkeypatch.setattr(packet_trace, "_check_roots", spy)
+    rng = np.random.default_rng(9)
+    blas = [rtk_tpu_torch.build_scene(_soup_of(t), device=cuda)
+            for t in (scenes.blob(2)[0],
+                      scenes.box([-0.5, -0.5, -0.5], [0.5, 0.5, 0.5]))]
+    tf = np.zeros((12, 3, 4), np.float32)
+    tf[:, :, :3] = np.eye(3) * (0.5 + rng.random((12, 1, 1)))
+    tf[:, :, 3] = rng.random((12, 3)) * 8 - 4
+    pscene = pack_instanced(build_instanced(blas, rng.integers(0, 2, 12), tf))
+    rays = scenes.camera_rays((0, 2, 12), (0, 0, 0), (0, 1, 0), 45, 64, 64,
+                              device=cuda)
+    before = packet_trace.ROOTS_LAUNCHES
+    hits, _ = trace_closest_instanced_packets(pscene, rays)
+    assert packet_trace.ROOTS_LAUNCHES > before and hits.hit.any()
+    assert seen and all(seen)
+    bad = torch.full((rays.count,), pscene.packed.num_nodes,
+                     dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="root rows"):
+        packet_trace.trace_packets(pscene.packed, rays, ray_roots=bad)
+    with pytest.raises(ValueError, match="root rows"):
+        packet_trace.packet_trace_kernel(
+            pscene.packed.nodes, pscene.packed.tris,
+            torch.zeros((8, rays.count), device=cuda),
+            leaf_size=pscene.packed.leaf_size,
+            stack_size=pscene.packed.stack_size, roots=bad)

@@ -20,7 +20,7 @@ import rtk_tpu_torch as rt
 from rtk_tpu_torch.ops import packet_trace as pt
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.testing.grid import build_grid, march_batch
-from rtk_tpu_torch.trace.packed import pack_binary_tree
+from rtk_tpu_torch.trace.packed import pack_binary_tree, pack_scene
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
 from test_torch_kernel import (FILTERS, TIE_CASES, chain_forest, tie_rays,
@@ -29,7 +29,11 @@ from test_torch_kernel import (FILTERS, TIE_CASES, chain_forest, tie_rays,
 torch.set_num_threads(2)
 CPU = "cpu"
 
-# What the kernel source takes from CUDA, for a host build.
+# What the kernel source takes from CUDA, for a host build.  A thread runs
+# as a warp of its own; __match_any_sync has every third thread play a
+# lane whose warp holds rays of other sign octants, so both the octant
+# copies of the node test and the copy that reads the signs from the ray
+# are held against the plain versions.
 CUDA_SHIM = r"""
 #pragma once
 #include <math.h>
@@ -43,6 +47,10 @@ struct dim3 { unsigned x, y, z; };
 static dim3 blockIdx, threadIdx, blockDim;
 template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline unsigned __activemask() { return 1u; }
+static inline unsigned __match_any_sync(unsigned mask, int) {
+  return threadIdx.x % 3 ? mask : 0u;
+}
 static inline float __int_as_float(int i) {
   float f;
   memcpy(&f, &i, 4);
@@ -107,11 +115,15 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
+SENTINEL = 0x7FBADBAD  # a NaN pattern no traversal writes
+
+
 def _run(call, n):
-    """Outputs (t, u, v, slot, counts) of one host launch over n rays."""
-    out = (torch.empty(n), torch.empty(n), torch.empty(n),
-           torch.empty(n, dtype=torch.int32),
-           torch.empty((5, n), dtype=torch.int32))
+    """Outputs (t, u, v, slot, counts) of one host launch over n rays,
+    each output filled with SENTINEL first."""
+    out = tuple(torch.full(shape, SENTINEL, dtype=torch.int32)
+                for shape in ((n,),) * 4 + ((5, n),))
+    out = tuple(o.view(torch.float32) for o in out[:3]) + out[3:]
     assert call(*map(_ptr, out), None) == 0
     return out
 
@@ -137,11 +149,10 @@ def _rows(rays):
                       rays.max_t[None]]).contiguous()
 
 
-def _batches():
-    """Morton camera rays, and incoherent rays with dead ones and t
+def _batches(n=2000):
+    """Morton camera rays, and n incoherent rays with dead ones and t
     windows."""
     rng = np.random.default_rng(11)
-    n = 2000
     u = rng.random(n)
     return {"camera": scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0),
                                          45, 40, 40, order="morton",
@@ -258,3 +269,65 @@ def test_host_kernel_deep_tree_within_the_stack(libs):
                      packed.nodes, packed.tris, rows, leaf_size=1,
                      stack_size=packed.stack_size, roots=per_ray,
                      stats=True), "deep chain")
+
+
+def _blob_lbvh():
+    """blob(3) on LBVH leaf-4 tables, with a tri_mask."""
+    v, f = scenes.blob(3)[1:]
+    mask = (np.arange(f.shape[0]) % 3 + 1).astype(np.uint32)
+    return pack_scene(rt.build_scene((v, f), device=CPU), tri_mask=mask)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 128 * 3 + 7, 128 * 20 + 7])
+def test_host_kernel_ragged_batches(libs, n):
+    """Batch sizes that leave a ragged last warp and block: every output
+    of every ray is written (none keeps the sentinel it was filled with)
+    and equals the plain version bit for bit, counts included, in every
+    mode."""
+    packed = _blob_lbvh()
+    rows = _rows(_batches(n)["incoherent"])
+    kw0 = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size,
+               stats=True)
+    for kw in (dict(), dict(mode="any"), dict(qmask=2), dict(defer_uv=True)):
+        _assert_bits(_trace(libs[None], packed, rows, **kw),
+                     pt.packet_trace_reference(packed.nodes, packed.tris,
+                                               rows, **kw0, **kw),
+                     f"n={n} {kw}")
+
+
+def test_host_roots_in_the_rounds_order(libs):
+    """Round 0 of an instanced trace as the rounds launch it: every ray
+    with a candidate, grouped by instance (stable), in its first
+    candidate's object space, from that instance's BLAS root."""
+    from rtk_tpu_torch import instancing
+
+    rng = np.random.default_rng(9)
+    blas = [rt.build_scene((t.reshape(-1, 3),
+                            np.arange(t.shape[0] * 3).reshape(-1, 3)),
+                           device=CPU)
+            for t in (scenes.blob(2)[0],
+                      scenes.box([-0.5, -0.5, -0.5], [0.5, 0.5, 0.5]))]
+    tf = np.zeros((12, 3, 4), np.float32)
+    tf[:, :, :3] = np.eye(3) * (0.5 + rng.random((12, 1, 1)))
+    tf[:, :, 3] = rng.random((12, 3)) * 8 - 4
+    ps = rt.pack_instanced(rt.build_instanced(blas, rng.integers(0, 2, 12),
+                                              tf))
+    iscene = ps.iscene
+    rays = scenes.camera_rays((0, 2, 12), (0, 0, 0), (0, 1, 0), 45, 48, 48,
+                              order="morton", device=CPU)
+    cand, _, _ = instancing._instance_candidates(iscene, rays, 1)
+    rows = torch.nonzero(cand[:, 0] >= 0).squeeze(1)
+    inst = cand[rows, 0].long()
+    order = torch.sort(inst, stable=True).indices
+    rows, inst = rows[order], inst[order]
+    o, d = instancing._object_rays(iscene.object_from_world[inst],
+                                   rays.origin[rows], rays.direction[rows])
+    rows8 = torch.cat([o.T, d.T, rays.min_t[rows][None],
+                       rays.max_t[rows][None]]).contiguous()
+    roots = ps.packed_roots[iscene.instance_blas[inst]].contiguous()
+    got = _trace(libs[None], ps.packed, rows8, roots=roots)
+    _assert_bits(got, pt.packet_trace_reference(
+        ps.packed.nodes, ps.packed.tris, rows8, leaf_size=ps.packed.leaf_size,
+        stack_size=ps.packed.stack_size, roots=roots, stats=True),
+        "round 0 roots")
+    assert bool((got[3] >= 0).any())

@@ -73,7 +73,9 @@ Phases (each prints one line):
      bounces with compaction and the Morton re-sort, and once each without
      the sort, without compaction, with an exact-size take (all but the
      first again with a black floor, where the buckets shrink), with defer_uv
-     and with the march as bounce_tracer: per bounce the rays launched and
+     and with the march as bounce_tracer (the march kernel alone on each
+     bounce batch it was handed, beside its bound): per bounce the rays
+     launched and
      alive, trace and shade + sort + take ms, the kernel alone beside its
      bound from the stats variant; per call ms, Mrays/s, host syncs,
      device events and the card's idle share.  Checked by the furnace
@@ -85,7 +87,8 @@ Phases (each prints one line):
      render_direct (a lit pixel's shadow ray is unoccluded on the stack
      engine, 128^2 subset) and render_ao with 8 samples, the any-hit
      kernel against its plain version on the whole shadow batch and on the
-     first and last AO batch.  9c: BASELINE config 5's 4-bounce instanced
+     first and last AO batch, and alone on the shadow batch and the first
+     AO batch beside its bound.  9c: BASELINE config 5's 4-bounce instanced
      wavefront (bench.py:803-894) on phase 5's two forests with pooled
      calibrated round caps, every bounce batch held against the plain
      version of the rounds and against the flat world-space Tracer at
@@ -93,7 +96,10 @@ Phases (each prints one line):
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
 time the card could take, from the per-ray box and triangle tests the
-stats variant counts),
+stats variant counts; and gap_ms, the sum over the launches that
+`launches` counts of each one's ms less its own bound, every launch of a
+main path held and replayed alone when its run ends, launches_ms and
+launches_bound_ms being the two sums),
 the card's name and power limit, and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports no jax.
@@ -326,7 +332,8 @@ def roots_alone(pt, packed, comps, roots, reps=3):
         roots_in_range=True), reps=reps)
 
 
-def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
+def phase5(rt, dev, launch_log, subdivisions=6, side=5, width=1024,
+           stride=16):
     """The instanced path at BASELINE config 5; returns its record and
     what phase 9c traces again (the tables, transforms, rays and the flat
     world-space Tracer).  The counts are read around the main-path traces
@@ -349,12 +356,14 @@ def phase5(rt, dev, subdivisions=6, side=5, width=1024, stride=16):
     # The main path: both tables, counts zeroed just before, read after.
     sync()
     packet_trace.KERNEL_LAUNCHES = packet_trace.ROOTS_LAUNCHES = 0
+    launch_log.start(5)
     main, stats = {}, {}
     for name, ps in tables.items():
         stats[name] = {}
         main[name] = rt.trace_closest_instanced_packets(ps, rays, **kw,
                                                         stats=stats[name])
     sync()
+    launch_log.stop()
     launches = {"kernel": packet_trace.KERNEL_LAUNCHES,
                 "roots": packet_trace.ROOTS_LAUNCHES}
     rec = {"rays": n, "instances": iscene.num_instances,
@@ -476,6 +485,96 @@ def bound(counts, packed, bytes_per_ray=48):
                                  else "bytes")
 
 
+class LaunchLog:
+    """Each launch of the kernel while a main path runs, held so that it
+    can be replayed alone when the run ends: stop() launches each again
+    with stats for its bound (its own counts on its own tables and rays)
+    and once more between CUDA events for its time, so that a kernels-line
+    row's gap is the sum over its launches of (ms - bound) at each
+    launch's own shape.  The replays are not main-path launches: the
+    launch counters are put back after them.  The held inputs would raise
+    the card's peak allocation, so stop() restarts that count and peak_gib
+    reads the peak outside the logged windows."""
+
+    COUNTERS = ("KERNEL_LAUNCHES", "ROOTS_LAUNCHES", "FILTER_LAUNCHES",
+                "STATS_LAUNCHES", "W16_LAUNCHES", "MARCH_LAUNCHES",
+                "ANY_LAUNCHES", "MASK_LAUNCHES", "DEFER_UV_LAUNCHES")
+
+    def __init__(self, pt):
+        self.pt, self.phase, self.held, self.done = pt, None, [], []
+        self.last, self.peak = [], 0
+        trace, march = pt._kernel, pt.packet_march_kernel
+
+        def logged(fn, is_march):
+            def run(nodes, tris, rays8, **kw):
+                if self.phase is not None:
+                    self.held.append((self.phase, fn, is_march, nodes, tris,
+                                      rays8, kw))
+                return fn(nodes, tris, rays8, **kw)
+            return run
+
+        pt._kernel = logged(trace, False)
+        pt.packet_march_kernel = logged(march, True)
+
+    def start(self, phase):
+        """Hold every launch from here on, tagged with `phase`."""
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        self.phase = phase
+
+    def stop(self):
+        """End the window and replay what it held -> self.last, the
+        window's replays, each {"phase", "flags", "rays", "ms", "bound_ms",
+        "bound_by"}, also appended to self.done; the held tensors go."""
+        pt, self.phase = self.pt, None
+        saved = {c: getattr(pt, c) for c in self.COUNTERS}
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        self.last = []
+        for phase, fn, is_march, nodes, tris, rays8, kw in self.held:
+            flags = {"march": is_march, "any": kw.get("mode") == "any",
+                     "mask": kw.get("qmask") is not None,
+                     "defer_uv": bool(kw.get("defer_uv")),
+                     "roots": kw.get("roots") is not None,
+                     "filter": kw.get("filter_fn") is not None,
+                     "stats": bool(kw.get("stats")),
+                     "w16": kw.get("branching", 8) == 16}
+            counts = fn(nodes, tris, rays8, **{**kw, "stats": True})[4]
+            start.record()
+            fn(nodes, tris, rays8, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            b_ms, b_by = bound(counts, SimpleNamespace(nodes=nodes, tris=tris),
+                               40 if flags["defer_uv"] else 48)
+            self.last.append({"phase": phase, "flags": flags,
+                              "rays": rays8.shape[1],
+                              "ms": start.elapsed_time(end),
+                              "bound_ms": b_ms, "bound_by": b_by})
+        self.done += self.last
+        self.held = []
+        for c, v in saved.items():
+            setattr(pt, c, v)
+        torch.cuda.reset_peak_memory_stats()
+
+    def reset_peak(self):
+        self.peak = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib(self):
+        """The card's peak allocation since reset_peak() (or the start),
+        outside the logged windows, in GiB."""
+        return round(max(self.peak, torch.cuda.max_memory_allocated())
+                     / 2 ** 30, 2)
+
+    def row(self, phases, flag=None):
+        """(launches, sum of ms, sum of bound_ms, gap ms) over the replayed
+        launches of `phases` that have `flag` (None: all)."""
+        sel = [(r["ms"], r["bound_ms"]) for r in self.done
+               if r["phase"] in phases and (flag is None or r["flags"][flag])]
+        ms = sum(m for m, _ in sel)
+        b_ms = sum(b for _, b in sel)
+        return len(sel), ms, b_ms, ms - b_ms
+
+
 def bits_equal(a, b):
     """Equal bit for bit (NaN padding rows of the triangle table too)."""
     if a.dtype == torch.float32:
@@ -489,7 +588,8 @@ def same_hits(a, b, what, fields=("hit", "slot", "t", "u", "v")):
               f"{what}: {f} differs")
 
 
-def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
+def phase6(rt, dev, launch_log, v6, f6, cam512, width=8192,
+           stack_width=1024):
     """The filtered-query and statistics path; returns its record and the
     two kernel entries.  Counts are zeroed just before the main-path
     traces and read just after."""
@@ -516,6 +616,7 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     # ---- the main path: counts zeroed just before, read just after ----
     torch.cuda.synchronize()
     pt.KERNEL_LAUNCHES = pt.FILTER_LAUNCHES = pt.STATS_LAUNCHES = 0
+    launch_log.start(6)
     ev[0].record()
     h_f = tracer.closest(rays, filter_fn=odd)
     ev[1].record()
@@ -527,6 +628,7 @@ def phase6(rt, dev, v6, f6, cam512, width=8192, stack_width=1024):
     ev[4].record()
     ms_stats = measure_trace(tracer, rays, iters=1, with_steps=True)
     torch.cuda.synchronize()
+    launch_log.stop()
     launches = {"kernel": pt.KERNEL_LAUNCHES, "filter": pt.FILTER_LAUNCHES,
                 "stats": pt.STATS_LAUNCHES}
     check(launches["filter"] >= 3 and launches["stats"] >= 2,
@@ -775,7 +877,7 @@ def per_ray_mean(counts):
                      "tri_tests"), counts.double().mean(dim=1).tolist()))
 
 
-def phase7(rt, dev, soup6, cam512, width=8192, atrium_width=1024,
+def phase7(rt, dev, launch_log, soup6, cam512, width=8192, atrium_width=1024,
            subset=256):
     """16-wide tables on the headline and the atrium bounce, and the grid
     march on the atrium; returns its record and the two kernel entries.
@@ -799,8 +901,10 @@ def phase7(rt, dev, soup6, cam512, width=8192, atrium_width=1024,
     n = rays.count
     sync()
     pt.KERNEL_LAUNCHES = pt.W16_LAUNCHES = 0
+    launch_log.start(7)
     h16 = pt.trace_packets(tables[16], rays, sort_rays=False)
     sync()
+    launch_log.stop()
     w16["launches"] += pt.W16_LAUNCHES
     h8 = pt.trace_packets(tables[8], rays, sort_rays=False)
     mism = width_mismatch(h16, h8)
@@ -856,8 +960,10 @@ def phase7(rt, dev, soup6, cam512, width=8192, atrium_width=1024,
                                        0.0))
     sync()
     pt.W16_LAUNCHES = 0
+    launch_log.start(7)
     b16 = pt.trace_packets(tables[16], bounce)
     sync()
+    launch_log.stop()
     w16["launches"] += pt.W16_LAUNCHES
     b8 = pt.trace_packets(tables[8], bounce)
     mism = width_mismatch(b16, b8)
@@ -899,10 +1005,12 @@ def phase7(rt, dev, soup6, cam512, width=8192, atrium_width=1024,
     sync()
     grid_s = time.perf_counter() - t0
     pt.MARCH_LAUNCHES = 0
+    launch_log.start(7)
     hm = tracer.closest(bounce)
     am = tracer.any(bounce)
     pm = tracer.closest(cam)
     sync()
+    launch_log.stop()
     march["launches"] = pt.MARCH_LAUNCHES
     check(march["launches"] == 3, f"march launches {march['launches']}")
     parity = {"bounce": march_parity(hm, flat.closest(bounce), "bounce"),
@@ -1019,7 +1127,8 @@ def profile_clip(run, frames, pt):
             **device_share(prof, frames)}
 
 
-def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
+def phase8(rt, dev, launch_log, small=(96, 256, 32),
+           big=(1024, 2048, 8)):
     """Dynamic scenes at BASELINE config 4 (8a) and at 2.1M triangles
     (8b); small and big are (grid n, image width, clip frames).  Returns
     its record and the kernel entries of the any, mask and defer_uv
@@ -1083,6 +1192,7 @@ def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
         sync()
         for c in counters:
             setattr(pt, c, 0)
+        launch_log.start(8)
         one = {name: [pt.trace_packets_refit(p, s, clip[i], cam,
                                              sort_rays=False, **flags)
                       for i in singles] for name, (p, s) in tables.items()}
@@ -1093,6 +1203,7 @@ def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
         h_mask = moved.closest(cam, filter_mask=1)
         h_any = moved.any(cam)
         sync()
+        launch_log.stop()
         for c in counters:
             launches[c] += getattr(pt, c)
         rec = {"tris": t, "rays": cam.count, "clip_frames": n_clip,
@@ -1248,7 +1359,7 @@ def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
     # ---- 8b: the same path at 2.1M triangles and 2048^2 rays ----
     a = None
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    launch_log.reset_peak()
     rec_b, b = drive(*big, on_device=True)
     times_b, p2, rows = frame_times(b, reps=5)
     rec_b["steady"] = times_b
@@ -1278,7 +1389,7 @@ def phase8(rt, dev, small=(96, 256, 32), big=(1024, 2048, 8)):
         if var == "defer_uv":
             rec_b["per_ray_mean"] = per_ray_mean(counts)
         del k_out, p_out, counts
-    rec_b["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    rec_b["peak_gib"] = launch_log.peak_gib()
     return ({"8a": rec_a, "8b": rec_b,
              "launches": {k.split("_LAUNCHES")[0].lower(): v
                           for k, v in launches.items()}}, entries)
@@ -1392,8 +1503,8 @@ def host_syncs(run):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
-           ao_samples=8):
+def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
+           direct_sub=128, ao_samples=8):
     """The render path: render_path, render_direct and render_ao on the
     atrium (9a, 9b) and the 4-bounce instanced wavefront on config 5 (9c,
     on phase 5's tables).  Returns its three records, the launches of its
@@ -1416,8 +1527,10 @@ def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
         sync()
         for c in counters:
             setattr(pt, c, 0)
+        launch_log.start(9)
         out = fn()
         sync()
+        launch_log.stop()
         got = {c: getattr(pt, c) for c in counters}
         for c in counters:
             launches[c] += got[c]
@@ -1558,10 +1671,19 @@ def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
     check(torch.equal(rad_d, rad), "9a: defer_uv changed the radiance")
     march = rt.Tracer(scene, engine="march")
     march.grid
-    (rad_m, _, _), got_m = counted(lambda: run_logged(bounce_tracer=march))
+    (rad_m, mlog, _), got_m = counted(lambda: run_logged(
+        bounce_tracer=march))
     check(got_m["MARCH_LAUNCHES"] == bounces, "9a: march launches")
+    # The march kernel alone on each bounce batch it was handed, beside
+    # its bound: the run's launches as the log replayed them.
+    rec_a["march_kernel"] = [
+        {"bounce": i, **{k: r[k] for k in ("rays", "ms", "bound_ms",
+                                           "bound_by")}}
+        for i, r in enumerate((x for x in launch_log.last
+                               if x["flags"]["march"]), 1)]
     share = float(((rad_m - rad).abs() <= 1e-4).all(dim=1).float().mean())
     check(share >= ENGINE_SHARE, f"9a: march bounces agree on {share}")
+    del mlog
     rec_a.update(defer_uv_equal=True, march_agree_share=share,
                  march_ms=timed(lambda: path.render_path(
                      tracer, cam, mats, gen(1), **kw, bounce_tracer=march),
@@ -1595,11 +1717,19 @@ def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
     blog = BounceLog(tracer)
     img, got_b = counted(lambda: path.render_direct(blog, cam, mats,
                                                     **ATRIUM_LIGHT))
+    # The any-hit kernel alone on the shadow rays and the first AO probe,
+    # beside its bound: the runs' launches as the log replayed them.
+    any_alone = {"shadow": [r for r in launch_log.last
+                            if r["flags"]["any"]][0]}
     check(got_b["KERNEL_LAUNCHES"] == 2 and got_b["ANY_LAUNCHES"] == 1,
           f"9b direct launches {got_b}")
     ao_kw = dict(samples=ao_samples, max_dist=3.0)  # the room is 20 wide
     ao, got_ao = counted(lambda: path.render_ao(blog, cam, gen(3),
                                                 **ao_kw))
+    any_alone["ao_probe_0"] = [r for r in launch_log.last
+                               if r["flags"]["any"]][0]
+    any_alone = {k: {f: r[f] for f in ("rays", "ms", "bound_ms", "bound_by")}
+                 for k, r in any_alone.items()}
     check(got_ao["KERNEL_LAUNCHES"] == ao_samples + 1
           and got_ao["ANY_LAUNCHES"] == ao_samples,
           f"9b ao launches {got_ao}")
@@ -1652,7 +1782,7 @@ def phase9(rt, dev, inst, width=1024, bounces=4, direct_sub=128,
              "ao_samples": ao_samples, "ao_ms": ao_ms,
              "ao_mrays_s": (ao_samples + 1) * n / ao_ms / 1e3,
              "ao_mean": float(ao.mean()), "ao_launches": got_ao,
-             "any_vs_plain": any_vs_plain}
+             "any_vs_plain": any_vs_plain, "any_kernel_alone": any_alone}
     del img, ao, log, tracer, scene, packed
 
     # ---- 9c: the 4-bounce instanced wavefront on config 5 ----
@@ -1753,6 +1883,7 @@ def main():
     dev = torch.device("cuda")
     card = smi("name,power.limit")
     t_start = time.perf_counter()
+    launch_log = LaunchLog(packet_trace)
 
     def stamp():
         """{"card", "elapsed_s"}: the tail of every phase's line."""
@@ -1854,12 +1985,14 @@ def main():
     packet_trace.KERNEL_LAUNCHES = packet_trace.ANY_LAUNCHES = 0
     start, mid, end = (torch.cuda.Event(enable_timing=True)
                        for _ in range(3))
+    launch_log.start(3)
     start.record()
     hits = tracer.closest(rays)
     mid.record()
     occ = tracer.any(rays)
     end.record()
     torch.cuda.synchronize()
+    launch_log.stop()
     launches = packet_trace.KERNEL_LAUNCHES
     any_launches = packet_trace.ANY_LAUNCHES
     closest_ms = start.elapsed_time(mid)
@@ -1915,8 +2048,7 @@ def main():
         "bound_ms": main_bound[0], "bound_by": main_bound[1],
         "any_kernel_ms": round(any_kernel_ms, 2),
         "any_bound_ms": any_bound[0], "any_bound_by": any_bound[1],
-        "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
-        **stamp()}), flush=True)
+        "peak_gib": launch_log.peak_gib(), **stamp()}), flush=True)
     del hits, occ, comps, k_out, p_out, rays
 
     # ---- phase 4: record parity against the C++ oracle ----
@@ -1948,19 +2080,19 @@ def main():
     del sah, hl
 
     # ---- phase 5: the instanced path at BASELINE config 5 ----
-    p5, inst5 = phase5(rt, dev)
+    p5, inst5 = phase5(rt, dev, launch_log)
     check(p5["launches"]["roots"] > 0,
           "the instanced path never launched the roots variant")
     print("phase 5 instanced:", json.dumps({**p5, **stamp()}),
           flush=True)
 
     # ---- phase 6: filtered queries and per-ray statistics ----
-    p6, p6_kernels = phase6(rt, dev, v6, f6, cam512)
+    p6, p6_kernels = phase6(rt, dev, launch_log, v6, f6, cam512)
     print("phase 6 filter/stats:", json.dumps({**p6, **stamp()}),
           flush=True)
 
     # ---- phase 7: 16-wide tables and the grid march at full width ----
-    p7, p7_kernels = phase7(rt, dev, v6[f6], cam512)
+    p7, p7_kernels = phase7(rt, dev, launch_log, v6[f6], cam512)
     check(p7_kernels["packet_trace_w16"]["launches"] >= 2,
           "phase 7 never launched the 16-wide instantiation")
     print("phase 7 w16/march:", json.dumps({
@@ -1970,7 +2102,7 @@ def main():
         "counts on a 256^2 subset of it", **stamp()}), flush=True)
 
     # ---- phase 8: dynamic scenes (refit, repack, trace) ----
-    p8, p8_kernels = phase8(rt, dev)
+    p8, p8_kernels = phase8(rt, dev, launch_log)
     p8_kernels["packet_trace_any"]["launches"] += any_launches
     for name, k in p8_kernels.items():
         check(k["launches"] > 0, f"phase 8 never launched {name}")
@@ -1978,7 +2110,7 @@ def main():
           flush=True)
 
     # ---- phase 9: the render path ----
-    p9, p9_launches, p9_errs = phase9(rt, dev, inst5)
+    p9, p9_launches, p9_errs = phase9(rt, dev, launch_log, inst5)
     del inst5
     for part, title in (("9a", "render_path, atrium"),
                         ("9b", "render_direct and render_ao, atrium"),
@@ -2034,6 +2166,22 @@ def main():
         {"name": "packet_trace_march",
          "replaces": "rtk_tpu/ops/pallas_trace.py:387",
          **p7_kernels["packet_trace_march"]}]
+    # Each row's launches replayed alone: the sum of (ms - bound) at each
+    # launch's own shape, from the launches its `launches` counts.
+    rows_of_log = {"packet_trace": ((3, 9), None),
+                   "packet_trace_any": ((3, 8, 9), "any"),
+                   "packet_trace_mask": ((8,), "mask"),
+                   "packet_trace_defer_uv": ((8, 9), "defer_uv"),
+                   "packet_trace_roots": ((5, 9), "roots"),
+                   "packet_trace_filter": ((6,), "filter"),
+                   "packet_trace_stats": ((6, 9), "stats"),
+                   "packet_trace_w16": ((7,), "w16"),
+                   "packet_trace_march": ((7, 9), "march")}
+    for k in kernels:
+        n_l, l_ms, l_bound, gap = launch_log.row(*rows_of_log[k["name"]])
+        check(n_l == k["launches"], f"{k['name']}: {n_l} launches replayed, "
+              f"{k['launches']} counted")
+        k.update(gap_ms=gap, launches_ms=l_ms, launches_bound_ms=l_bound)
     # No PyTorch call traverses a BVH: library_ms is null for every entry.
     print(json.dumps({"kernels": [
         {"route": "cuda", "source": src, "library_ms": None, **k}

@@ -80,7 +80,14 @@
 //     mesh, triangle, caller ray index) of a candidate that passed the
 //     geometric test and is ANDed into the accept test; u and v are
 //     computed for it even under defer_uv.
-// and the two variants that change the traversal's shape, each its own
+// Any-hit (pallas_trace.py:450, :1174) is a mode of the same build: the
+// ray ends at its first hit leaf.  Its batches idle more lanes than
+// closest's (shadow and AO rays end at random depths: up to 37% of a
+// warp's instruction slots), but a lane that took up the next ray of its
+// block's run when its own ended (Aila and Laine 2009, section 4) lost
+// 53-146% to the scattered rays and the refill's own code, and an
+// instantiation of its own was no faster (PERF.md section 6).
+// And the two variants that change the traversal's shape, each its own
 // template instantiation (its own registers; the 8-wide build pays
 // nothing for them):
 //   * w_arity=16 (pallas_trace.py:163-174, :805-828): 16-wide node tables,
@@ -99,7 +106,17 @@
 //     packets adopt one pending cell at a time and keep an in-cell mask,
 //     because 128 lanes share a stack; here each ray walks its own cell
 //     chain, and only the result is shared: the nearest hit over it.
-//     Bound as the traversal is: one dependent fetch chain per cell.
+//     What bound it on the H100 was a barrier in the loop's shape, not
+//     its arithmetic: a loop that traversed one cell at a time made a
+//     warp wait, cell by cell, for its slowest lane, 2.9-3.1x the largest
+//     lane's own steps on the atrium's bounces (PERF.md section 6).  So
+//     the DDA step is the pop of an empty stack: a lane that finishes a
+//     cell steps and descends through the next cell's root in the same
+//     loop, as a TPU packet adopts its next pending cell.  Empty cells (a
+//     third of those crossed) are stepped over from a bit per cell, their
+//     childless root rows never read, and the step recomputes cs * |rcp|
+//     where the loop would hold it.  Every ray's cells, nodes and
+//     triangles, and its counts, are as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,9 +166,12 @@ __device__ __forceinline__ float edge_f64(float ax, float ay, float bx,
 // and cell size (f32 as GridScene stores them), and its high corner
 // f32(lo + cs * dims), rounded once from f64 on the host as the
 // reference's Python-float constant is (grid.py:937-941).
+// occ: a bit per cell, set where the cell's root row has a child
+// (testing/grid.py's occupancy words).
 struct Grid {
   int dx, dy, dz;
   float lox, loy, loz, csx, csy, csz, hix, hiy, hiz;
+  const unsigned* occ;
 };
 
 // Per-ray constants of the traversal: origin, clamped reciprocal
@@ -211,14 +231,18 @@ typedef float2 TriTail;
 
 // Depth-first traversal of the W-wide tree rooted at row `root`, with the
 // best hit so far carried in and out (a march trace carries it from cell
-// to cell; a miss leaves it as it was).  Counters add up.
-template <int W, bool OCT>
+// to cell; a miss leaves it as it was).  Counters add up.  When the stack
+// runs dry, next(cur) either sets cur to the root row of the ray's next
+// tree and returns true (the march's next cell: the traversal goes on in
+// the same loop, with no wait for the warp's other lanes) or returns false
+// (the ray is done).
+template <int W, bool OCT, class Next>
 __device__ __forceinline__ void traverse(
     int root, const int4* __restrict__ nodes, const float4* __restrict__ tris,
     int leaf_size, int mode_any, int watertight, int use_mask, int qmask,
     int defer_uv, int rid, const RayC& r, float& best_t, float& best_u,
     float& best_v, int& best_slot, int& n_int, int& n_leaf, int& n_box,
-    int& n_tri) {
+    int& n_tri, Next next) {
   constexpr unsigned kMask = (1u << W) - 1u;
   const bool px = r.rx >= 0.0f, py = r.ry >= 0.0f, pz = r.rz >= 0.0f;
   int stack[RTK_MAX_STACK];
@@ -365,7 +389,10 @@ __device__ __forceinline__ void traverse(
   auto descend = [&](auto oct) -> bool {
     while (cur >= 0) {
       if (node(oct)) continue;
-      if (sp == 0) return true;
+      if (sp == 0) {
+        if (next(cur)) continue;
+        return true;
+      }
       cur = stack[--sp];
     }
     return false;
@@ -404,10 +431,19 @@ __device__ __forceinline__ void traverse(
     if (r.kz == 0) leaf(Axis<0>{});
     else if (r.kz == 1) leaf(Axis<1>{});
     else leaf(Axis<2>{});
-    if ((mode_any && best_slot >= 0) || sp == 0) break;
+    if (mode_any && best_slot >= 0) break;
+    if (sp == 0) {
+      if (next(cur)) continue;
+      break;
+    }
     cur = stack[--sp];
   }
 }
+
+// The hook of a traversal that ends when its stack runs dry.
+struct NoNext {
+  __device__ __forceinline__ bool operator()(int&) const { return false; }
+};
 
 // One thread per ray.  W: the node table's width (8 or 16).  MARCH: the
 // grid march (roots unused: a cell's root row is its id).
@@ -479,7 +515,7 @@ packet_trace_kernel(const int4* __restrict__ nodes,
       traverse<W, kOct>(roots ? __ldg(roots + i) : 0, nodes, tris,
                         leaf_size, mode_any, watertight, use_mask, qmask,
                         defer_uv, rid, r, best_t, best_u, best_v, best_slot,
-                        n_int, n_leaf, n_box, n_tri);
+                        n_int, n_leaf, n_box, n_tri, NoNext{});
     } else {
       // Grid entry: the slab test against the grid box
       // (pallas_trace.py:397-403).  A ray that misses it does no work.
@@ -514,36 +550,64 @@ packet_trace_kernel(const int4* __restrict__ nodes,
         float tmx = (grid.lox + (float)(cx + sx) * grid.csx - ox) * r.rx;
         float tmy = (grid.loy + (float)(cy + sy) * grid.csy - oy) * r.ry;
         float tmz = (grid.loz + (float)(cz + sz) * grid.csz - oz) * r.rz;
-        const float tdx = grid.csx * fabsf(r.rx);
-        const float tdy = grid.csy * fabsf(r.ry);
-        const float tdz = grid.csz * fabsf(r.rz);
-        while (true) {
-          traverse<W, kOct>((cx * grid.dy + cy) * grid.dz + cz, nodes,
-                            tris, leaf_size, mode_any, watertight, use_mask,
-                            qmask, defer_uv, rid, r, best_t, best_u, best_v,
-                            best_slot, n_int, n_leaf, n_box, n_tri);
-          // Retire: the cell's exit bounds every later cell's entry, so a
-          // hit at or before it is final (pallas_trace.py:1214-1219).
+        // Retire: the cell's exit bounds every later cell's entry, so a
+        // hit at or before it is final (pallas_trace.py:1214-1219).  Else
+        // one DDA step across the nearest boundary, ties x, y, z
+        // (pallas_trace.py:1221-1235); leaving the grid ends the march.
+        // A step's t across a cell, cs * |rcp|, is formed where it is
+        // added (the same product, so the same bits): three registers
+        // fewer over the loop.
+        auto step = [&]() -> bool {
           const float exit_t = min_nan(tmx, min_nan(tmy, tmz));
-          if (best_t <= exit_t || (mode_any && best_slot >= 0)) break;
-          // One DDA step across the nearest boundary, ties x, y, z
-          // (pallas_trace.py:1221-1235); leaving the grid ends the march.
+          if (best_t <= exit_t || (mode_any && best_slot >= 0)) return false;
           const bool mx = tmx <= tmy && tmx <= tmz;
           const bool my = !mx && tmy <= tmz;
           if (mx) {
             cx += sx ? 1 : -1;
-            tmx += tdx;
-            if (cx < 0 || cx >= grid.dx) break;
-          } else if (my) {
-            cy += sy ? 1 : -1;
-            tmy += tdy;
-            if (cy < 0 || cy >= grid.dy) break;
-          } else {
-            cz += sz ? 1 : -1;
-            tmz += tdz;
-            if (cz < 0 || cz >= grid.dz) break;
+            tmx += grid.csx * fabsf(r.rx);
+            return cx >= 0 && cx < grid.dx;
           }
+          if (my) {
+            cy += sy ? 1 : -1;
+            tmy += grid.csy * fabsf(r.ry);
+            return cy >= 0 && cy < grid.dy;
+          }
+          cz += sz ? 1 : -1;
+          tmz += grid.csz * fabsf(r.rz);
+          return cz >= 0 && cz < grid.dz;
+        };
+        // An empty cell's root row is childless: its pop is counted as
+        // traverse would count it, without reading the row.
+        auto occupied = [&](int c) -> bool {
+          return (__ldg(grid.occ + (c >> 5)) >> (c & 31)) & 1u;
+        };
+        // The next occupied cell of the chain, or -1 when the ray retires.
+        auto next_cell = [&]() -> int {
+          for (;;) {
+            if (!step()) return -1;
+            const int c = (cx * grid.dy + cy) * grid.dz + cz;
+            if (occupied(c)) return c;
+            ++n_int;
+          }
+        };
+        int c0 = (cx * grid.dy + cy) * grid.dz + cz;
+        if (!occupied(c0)) {
+          ++n_int;
+          c0 = next_cell();
         }
+        // One traversal loop over the whole chain: a lane whose stack runs
+        // dry in a cell steps on and descends through the next cell's
+        // root while the warp's other lanes are still in theirs.
+        if (c0 >= 0)
+          traverse<W, kOct>(c0, nodes, tris, leaf_size, mode_any, watertight,
+                            use_mask, qmask, defer_uv, rid, r, best_t, best_u,
+                            best_v, best_slot, n_int, n_leaf, n_box, n_tri,
+                            [&](int& cur) -> bool {
+                              const int c = next_cell();
+                              if (c < 0) return false;
+                              cur = c;
+                              return true;
+                            });
       }
     }
   }
@@ -613,15 +677,18 @@ int rtk_packet_trace(const void* nodes, const void* tris, const void* rays,
 #ifndef RTK_FILTER
 // The grid march over an 8-wide table with one root row per cell (row ==
 // cell id): dims d*, low corner lo*, cell size cs*, high corner hi* =
-// f32(lo + cs * dims).  Other arguments as rtk_packet_trace's.
+// f32(lo + cs * dims); occ: (ceil(cells / 32),) u32, bit c set
+// where cell c's root row has a child.  Other arguments as
+// rtk_packet_trace's.
 int rtk_packet_march(const void* nodes, const void* tris, const void* rays,
                      int n, int leaf_size, int mode_any, int watertight,
                      int use_mask, int qmask, int dx, int dy, int dz,
                      float lox, float loy, float loz, float csx, float csy,
-                     float csz, float hix, float hiy, float hiz, void* out_t,
-                     void* out_u, void* out_v, void* out_slot, void* counts,
-                     void* stream) {
-  const Grid grid = {dx, dy, dz, lox, loy, loz, csx, csy, csz, hix, hiy, hiz};
+                     float csz, float hix, float hiy, float hiz,
+                     const void* occ, void* out_t, void* out_u, void* out_v,
+                     void* out_slot, void* counts, void* stream) {
+  const Grid grid = {dx,  dy,  dz,  lox, loy, loz, csx,
+                     csy, csz, hix, hiy, hiz, (const unsigned*)occ};
   return launch<8, true>(nodes, tris, rays, nullptr, nullptr, n, leaf_size,
                          mode_any, watertight, use_mask, qmask, 0, grid,
                          out_t, out_u, out_v, out_slot, counts, stream);

@@ -140,7 +140,7 @@ def _build(flt: JitFilter | None):
     if flt is None:  # the march is built without a filter only
         lib.rtk_packet_march.restype = i32
         lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
-                                         + [ptr] * 6)
+                                         + [ptr] * 7)
     return lib, log, time.perf_counter() - t0
 
 
@@ -500,15 +500,19 @@ class MarchGrid:
     axis, the low corner and the cell size (f32 values, as GridScene
     stores them) and the high corner lo + cs * dims, formed in f64 and
     rounded to f32 once, as the reference's Python-float constant is
-    (testing/grid.py:937-941)."""
+    (testing/grid.py:937-941).  occ: the grid's occupancy words
+    (GridScene.march_occ: (ceil(cells / 32),) int32, bit c set where cell
+    c has a tree), with which the kernel steps over empty cells without
+    reading their root rows; the plain version has no use for them."""
 
     dims: tuple
     lo: tuple
     cs: tuple
     hi: tuple
+    occ: torch.Tensor = dataclasses.field(compare=False)
 
     @staticmethod
-    def of(dims, grid_lo, cell_size) -> "MarchGrid":
+    def of(dims, grid_lo, cell_size, occ) -> "MarchGrid":
         dims = tuple(int(d) for d in dims)
         lo = np.asarray(torch.as_tensor(grid_lo).cpu(), np.float32)
         cs = np.asarray(torch.as_tensor(cell_size).cpu(), np.float32)
@@ -516,7 +520,7 @@ class MarchGrid:
               for a in range(3)]
         return MarchGrid(dims, tuple(float(x) for x in lo),
                          tuple(float(x) for x in cs),
-                         tuple(float(x) for x in hi))
+                         tuple(float(x) for x in hi), occ)
 
 
 def _check_grid(grid: MarchGrid, nodes):
@@ -526,6 +530,12 @@ def _check_grid(grid: MarchGrid, nodes):
     if cells > nodes.shape[0] // 8:
         raise ValueError(f"{cells} grid cells but the table has "
                          f"{nodes.shape[0] // 8} root rows")
+    occ = grid.occ
+    if (occ is None or occ.dtype != torch.int32
+            or tuple(occ.shape) != (-(-cells // 32),)
+            or occ.device != nodes.device):
+        raise ValueError(f"grid occupancy must be ({-(-cells // 32)},) "
+                         f"int32 words on the tables' device")
 
 
 def packet_march_kernel(nodes, tris, rays8, *, leaf_size: int,
@@ -546,7 +556,7 @@ def packet_march_kernel(nodes, tris, rays8, *, leaf_size: int,
         nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), rays8.shape[1],
         leaf_size, int(mode == "any"), int(watertight),
         int(qmask is not None), int(qmask or 0), *grid.dims, *grid.lo,
-        *grid.cs, *grid.hi, *o), rays8, stats)
+        *grid.cs, *grid.hi, grid.occ.data_ptr(), *o), rays8, stats)
     KERNEL_LAUNCHES += 1
     STATS_LAUNCHES += stats
     MARCH_LAUNCHES += 1

@@ -44,6 +44,11 @@ from rtk_tpu_torch.trace.packed import (PackedScene, pack_multiroot,
                                         pack_scene)
 from rtk_tpu_torch.types import PacketHits, Rays
 
+# Bits a component of a ray's direction inside its octant takes in the
+# march's grouping key (PERF.md section 6: finer keys lost, coarser ones
+# grouped less).
+DIR_BITS = 3
+
 
 @dataclasses.dataclass
 class GridScene:
@@ -57,6 +62,9 @@ class GridScene:
     cells_to_flat: (Tp_cells,) i32 flat-table slot per cells-table slot.
     cells_march / march_to_flat: with build_grid(march=True), the forest
       with one root row per cell (row == cell id) and its slot map.
+    march_occ: with build_grid(march=True), (ceil(cells / 32),) i32 words
+      with bit c set where cell c is occupied: the march kernel steps over
+      the other cells without reading their childless root rows.
     """
 
     cells: PackedScene
@@ -69,6 +77,7 @@ class GridScene:
     n_occ: int
     cells_march: PackedScene | None = None
     march_to_flat: torch.Tensor | None = None
+    march_occ: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -252,8 +261,12 @@ def build_grid(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
     mask_pairs = (None if tri_mask is None
                   else np.asarray(_host(tri_mask), np.int64)[pair_tri])
     cells_packed = pack_multiroot(merged, roots, tri_mask=mask_pairs)
-    cells_march = None
+    cells_march = occ_words = None
     if march:
+        occ_words = np.zeros(-(-(dx * dy * dz) // 32), np.uint32)
+        np.bitwise_or.at(occ_words, ucell >> 5,
+                         np.left_shift(np.uint32(1),
+                                       (ucell & 31).astype(np.uint32)))
         # One root per CELL (empty cells -1 -> childless rows): the march
         # reaches a cell's tree at row == cell id.
         roots_cells = np.full(dx * dy * dz, -1, np.int64)
@@ -317,6 +330,8 @@ def build_grid(tri_pos, tri_vidx=None, tri_mesh=None, tri_prim=None,
         cells_march=cells_march,
         march_to_flat=(None if cells_march is None
                        else i32(c2f_of(cells_march))),
+        march_occ=(None if occ_words is None
+                   else torch.as_tensor(occ_words.view(np.int32), device=dev)),
     )
 
 
@@ -348,14 +363,18 @@ def build_grid_from_scene(scene: Scene, packed: PackedScene | None = None,
 def march_batch(grid: GridScene, rays: Rays):
     """The march's input as trace_packets_march hands it to the kernel ->
     (MarchGrid, (8, N) ray rows, idx): rows grouped by (entry cell,
-    direction octant), so the rays of a warp walk similar cell chains,
-    with rays that miss the grid last (rtk_tpu's grouping sort,
-    testing/grid.py:862-893); row j is the caller's ray idx[j]."""
+    direction octant), as rtk_tpu's grouping sort (testing/grid.py:862-
+    893) groups them, and within a group by the direction inside the
+    octant (|dx| and |dy| over |dx| + |dy| + |dz|, in DIR_BITS bits each),
+    so the rays of a warp walk similar cell chains; rays that miss the
+    grid last; row j is the caller's ray idx[j].  The order is no output:
+    each ray's march is the same wherever it lies."""
     if grid.cells_march is None:
         raise ValueError("trace_packets_march needs build_grid(march=True)")
     if rays.device != grid.device:
         raise ValueError(f"rays on {rays.device}, grid on {grid.device}")
-    mg = MarchGrid.of(grid.dims, grid.grid_lo, grid.cell_size)
+    mg = MarchGrid.of(grid.dims, grid.grid_lo, grid.cell_size,
+                      occ=grid.march_occ)
     comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
                        rays.max_t[None]]).to(torch.float32)
     live, cell, *_ = march_entry(comps, mg)
@@ -363,8 +382,13 @@ def march_batch(grid: GridScene, rays: Rays):
     d = rays.direction
     octant = ((d[:, 0] >= 0).long() * 4 + (d[:, 1] >= 0).long() * 2
               + (d[:, 2] >= 0).long())
-    key = torch.where(live, (((cell[0] * ny + cell[1]) * nz + cell[2]) << 3)
-                      | octant, 0xFFFFFFFF)
+    a = d.abs()
+    s = a.sum(dim=1).clamp_min(1e-30)
+    q = [((a[:, k] / s) * (1 << DIR_BITS)).long().clamp(0, (1 << DIR_BITS) - 1)
+         for k in (0, 1)]
+    key = (((((cell[0] * ny + cell[1]) * nz + cell[2]) << 3) | octant)
+           << 2 * DIR_BITS) | (q[0] << DIR_BITS) | q[1]
+    key = torch.where(live, key, torch.iinfo(torch.int64).max)
     idx = torch.sort(key, stable=True).indices
     return mg, comps[:, idx].contiguous(), idx
 

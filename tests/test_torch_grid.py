@@ -245,3 +245,60 @@ def test_tracer_march_engine():
     assert isinstance(by_stack, rt.Hits)
     with pytest.raises(ValueError, match="filter_mask"):
         march.closest(rays, filter_fn=lambda c: c.t > 0.5, filter_mask=1)
+
+
+def test_march_occupancy_words(grids):
+    """GridScene.march_occ has bit c set exactly where rank[c] >= 0 (the
+    occupied cells, whose root rows have a child); march_batch hands it to
+    the kernel, whose wrapper refuses words of the wrong size or none."""
+    from rtk_tpu_torch.ops import packet_trace as pt
+
+    _, tg = grids
+    cells = int(np.prod(tg.dims))
+    words = tg.march_occ
+    assert words.dtype == torch.int32 and words.shape == (-(-cells // 32),)
+    bits = (words.long()[:, None] >> torch.arange(32)) & 1
+    occupied = bits.reshape(-1)[:cells].bool()
+    assert torch.equal(occupied, tg.rank >= 0)
+    assert not bits.reshape(-1)[cells:].any()
+    roots = tg.cells_march.nodes.view(-1, 8, 8)[:cells, 1, 6]
+    assert torch.equal(occupied, roots != 0)
+    mg, _, _ = tgrid.march_batch(tg, _rays(_rand_rays(64, 5)))
+    assert mg.occ is words
+    for occ in (torch.zeros(words.shape[0] + 1, dtype=torch.int32), None):
+        bad = pt.MarchGrid.of(mg.dims, tg.grid_lo, tg.cell_size, occ=occ)
+        with pytest.raises(ValueError, match="occupancy"):
+            pt._check_grid(bad, tg.cells_march.nodes)
+
+
+def test_march_batch_grouping():
+    """march_batch's rows: a permutation of the caller's rays, grouped by
+    (entry cell, octant) as rtk_tpu's grouping sort groups them, within a
+    group by the direction inside the octant (DIR_BITS bits a component,
+    stable), rays that miss the grid last; the order changes no output."""
+    tris = scenes.blob(3)[0]
+    g = tgrid.build_grid(tris, config=rt.BuildConfig(leaf_size=LEAF),
+                         dims=(4, 4, 4), march=True, device=CPU)
+    rays = _rays(_rand_rays(3000, 31, scale=1.5))
+    mg, rows, idx = tgrid.march_batch(g, rays)
+    n = rays.count
+    assert torch.equal(torch.sort(idx).values, torch.arange(n))
+    comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
+                       rays.max_t[None]])
+    assert torch.equal(rows, comps[:, idx])
+    live, cell, *_ = tgrid.march_entry(comps, mg)
+    d = rays.direction
+    octant = ((d[:, 0] >= 0).long() * 4 + (d[:, 1] >= 0).long() * 2
+              + (d[:, 2] >= 0).long())
+    group = ((cell[0] * 4 + cell[1]) * 4 + cell[2]) * 8 + octant
+    a = d.abs() / d.abs().sum(dim=1, keepdim=True)
+    q = (a[:, :2] * (1 << tgrid.DIR_BITS)).long().clamp(
+        0, (1 << tgrid.DIR_BITS) - 1)
+    key = [tuple(x) for x in torch.stack(
+        [~live, group.where(live, 0), q[:, 0].where(live, 0),
+         q[:, 1].where(live, 0), torch.arange(n)], dim=1)[idx].tolist()]
+    assert key == sorted(key)
+    assert bool(live[idx][:int(live.sum())].all())
+    hits = tgrid.trace_packets_march(g, rays)
+    ref = trace_packets(g.flat, rays)
+    _assert_parity(hits, ref)

@@ -422,6 +422,116 @@ def test_march_variant_matches_reference(cuda):
                              <= 1e-6 * (1 + flat.t.abs())).all())
 
 
+def chain_grid(device):
+    """Two blob(2)s at opposite corners of a box and 160 small triangles
+    strewn through it, on an 8 x 8 x 8 march grid (LBVH leaf-4 cell trees,
+    a tri_mask): the cells between the blobs are empty or hold a few
+    triangles, so a ray's chain crosses both."""
+    from rtk_tpu_torch.testing.grid import build_grid
+
+    rng = np.random.default_rng(21)
+    b = scenes.blob(2)[0] * 0.8
+    c = rng.uniform(-3.2, 3.2, size=(160, 1, 3))
+    tris = np.concatenate([b - 2.5, b + 2.5,
+                           c + rng.normal(size=(160, 3, 3)) * 0.35])
+    mask = (np.arange(tris.shape[0]) % 2 + 1).astype(np.uint32)
+    return build_grid(tris.astype(np.float32),
+                      config=rtk_tpu_torch.BuildConfig(leaf_size=4),
+                      dims=(8, 8, 8), march=True, tri_mask=mask,
+                      device=device)
+
+
+def chain_rays(n, device, seed=22):
+    """The first n of a fixed 1000-ray batch for chain_grid, by ray index
+    mod 8: from outside the low corner along the diagonal (long chains
+    through empty cells, hits mid-chain), from inside the box in random
+    directions, and from near the centre out through each of the six
+    faces; every 5th ray has min_t 0.5, every 7th max_t 2, every 9th is
+    dead (max_t 0)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(1000)
+    k = i % 8
+    o = rng.normal(size=(1000, 3)) * 0.5
+    d = rng.normal(size=(1000, 3)) * 0.3
+    o[k == 0] -= 6.0
+    d[k == 0] = 1.0 + d[k == 0] * 0.5
+    o[k == 1] = rng.uniform(-3.5, 3.5, size=(int((k == 1).sum()), 3))
+    d[k == 1] = rng.normal(size=(int((k == 1).sum()), 3))
+    for face in range(6):
+        d[k == 2 + face, face // 2] = -1.0 if face % 2 else 1.0
+    mint = np.where(i % 5 == 0, 0.5, 0.0)
+    maxt = np.where(i % 9 == 0, 0.0, np.where(i % 7 == 0, 2.0, 3.0e38))
+    return rtk_tpu_torch.Rays.make(o[:n], d[:n], mint[:n], maxt[:n],
+                                   device=device)
+
+
+def long_tail_scene(device):
+    """A cloud of 4,000 small random triangles in [-1, 1]^3 under a lid of
+    two triangles at y = 3 (LBVH leaf 4)."""
+    rng = np.random.default_rng(24)
+    cloud = (rng.uniform(-1.0, 1.0, size=(4000, 1, 3))
+             + rng.normal(size=(4000, 3, 3)) * 0.03)
+    lid = np.array([[[-1, 3, -1], [1, 3, -1], [1, 3, 1]],
+                    [[-1, 3, -1], [1, 3, 1], [-1, 3, 1]]])
+    return pack_scene(rtk_tpu_torch.build_scene(
+        _soup_of(np.concatenate([cloud, lid]).astype(np.float32)),
+        device=device))
+
+
+def long_tail_rays(n, device, seed=23):
+    """The first n of a fixed 1000-ray batch for long_tail_scene: 31 rays
+    in 32 come down onto the lid and end at one of its leaves (3.5 entries
+    popped on average); every 32nd crosses the cloud from the side,
+    through the boxes of much of the tree (41 on average)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(1000)
+    skim = i % 32 == 31
+    m = int(skim.sum())
+    o = np.stack([rng.uniform(-0.9, 0.9, 1000), np.full(1000, 4.0),
+                  rng.uniform(-0.9, 0.9, 1000)], axis=1)
+    d = np.tile([0.0, -1.0, 0.0], (1000, 1)) + rng.normal(
+        size=(1000, 3)) * 0.05
+    o[skim] = np.stack([np.full(m, -1.5), rng.uniform(-0.9, 0.9, m),
+                        rng.uniform(-0.9, 0.9, m)], axis=1)
+    d[skim] = np.stack([np.ones(m), rng.normal(size=m) * 0.1,
+                        rng.normal(size=m) * 0.1], axis=1)
+    return rtk_tpu_torch.Rays.make(o[:n], d[:n], 0.0, 3.0e38, device=device)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_march_cell_chains(cuda, n):
+    """The march kernel equals its plain version bit for bit, counts
+    included, on chains that cross many cells, empty ones among them,
+    start inside the grid or leave it through each face, retire mid-chain
+    at an any-hit, or never start (dead rays), at ragged batch sizes."""
+    from rtk_tpu_torch.testing.grid import trace_packets_march
+
+    grid = chain_grid(cuda)
+    rays = chain_rays(n, cuda)
+    for kw in (dict(), dict(mode="any"), dict(filter_mask=1)):
+        before = packet_trace.MARCH_LAUNCHES
+        got, counts = trace_packets_march(grid, rays, stats=True, **kw)
+        torch.cuda.synchronize()
+        assert packet_trace.MARCH_LAUNCHES == before + 1
+        want, want_counts = trace_packets_march(grid, rays, stats=True,
+                                                plain=True, **kw)
+        _assert_same(got, want)
+        assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_any_hit_long_tail(cuda, n):
+    """Any-hit where most rays end at their first leaf and a few walk much
+    of the tree: the kernel equals its plain version bit for bit, counts
+    included, at ragged batch sizes (unsorted, so the warps keep the
+    mix)."""
+    packed = long_tail_scene(cuda)
+    rays = long_tail_rays(n, cuda)
+    got, want = _both(packed, rays, mode="any", sort_rays=False, stats=True)
+    _assert_same(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("leaf_size,count,width", TIE_CASES)
 def test_kernel_ties_and_leaf_sizes(cuda, leaf_size, count, width):
     """Children at equal entry distance (ties by slot), coincident

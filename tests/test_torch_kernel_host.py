@@ -23,8 +23,9 @@ from rtk_tpu_torch.testing.grid import build_grid, march_batch
 from rtk_tpu_torch.trace.packed import pack_binary_tree, pack_scene
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
-from test_torch_kernel import (FILTERS, TIE_CASES, chain_forest, tie_rays,
-                               tie_tree)
+from test_torch_kernel import (FILTERS, TIE_CASES, chain_forest, chain_grid,
+                               chain_rays, long_tail_rays, long_tail_scene,
+                               tie_rays, tie_tree)
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -91,7 +92,7 @@ def _host_build(tmp, name, flags=()):
     lib.rtk_packet_trace.argtypes = [ptr] * 5 + [i32] * 8 + [ptr] * 6
     if not flags:
         lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
-                                         + [ptr] * 6)
+                                         + [ptr] * 7)
     return lib
 
 
@@ -206,27 +207,56 @@ def test_host_kernel_roots_on_a_16_wide_forest(libs):
                      stats=True, branching=16), "forest roots")
 
 
+def _march(lib, grid, rays, what):
+    """The march kernel against its plain version on march_batch's rows of
+    `rays`: closest, any and the mask filter, counts summed over the
+    cells, empty cells stepped over unread by the grid's occupancy
+    words."""
+    cm = grid.cells_march
+    mg, rows, _ = march_batch(grid, rays)
+    for kw in (dict(), dict(mode="any"), dict(qmask=1)):
+        want = pt.packet_march_reference(
+            cm.nodes, cm.tris, rows, leaf_size=cm.leaf_size,
+            stack_size=cm.stack_size, grid=mg, stats=True, **kw)
+        got = _run(lambda *o: lib.rtk_packet_march(
+            _ptr(cm.nodes), _ptr(cm.tris), _ptr(rows), rows.shape[1],
+            cm.leaf_size, int(kw.get("mode") == "any"), 1,
+            int("qmask" in kw), kw.get("qmask", 0), *mg.dims, *mg.lo,
+            *mg.cs, *mg.hi, _ptr(mg.occ), *o), rows.shape[1])
+        _assert_bits(got, want, f"{what} {kw}")
+
+
 def test_host_march_equals_plain_version(libs):
     """The march instantiation on blob(4)'s grid (choose_dims' cells,
-    LBVH leaf 8, a tri_mask): closest, any and the mask filter, counts
-    summed over the cells."""
+    LBVH leaf 8, a tri_mask)."""
     tris = scenes.blob(4)[0]
     mask = (np.arange(tris.shape[0]) % 2 + 1).astype(np.uint32)
     grid = build_grid(tris, config=rt.BuildConfig(leaf_size=8), march=True,
                       tri_mask=mask, device=CPU)
-    cm = grid.cells_march
     for name, rays in _batches().items():
-        mg, rows, _ = march_batch(grid, rays)
-        for kw in (dict(), dict(mode="any"), dict(qmask=1)):
-            got = _run(lambda *o: libs[None].rtk_packet_march(
-                _ptr(cm.nodes), _ptr(cm.tris), _ptr(rows), rows.shape[1],
-                cm.leaf_size, int(kw.get("mode") == "any"), 1,
-                int("qmask" in kw), kw.get("qmask", 0), *mg.dims, *mg.lo,
-                *mg.cs, *mg.hi, *o), rows.shape[1])
-            _assert_bits(got, pt.packet_march_reference(
-                cm.nodes, cm.tris, rows, leaf_size=cm.leaf_size,
-                stack_size=cm.stack_size, grid=mg, stats=True, **kw),
-                f"march {name} {kw}")
+        _march(libs[None], grid, rays, f"march {name}")
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_host_march_cell_chains(libs, n):
+    """Chains that cross many cells, empty ones among them, start inside
+    the grid or leave it through each face, retire mid-chain at an
+    any-hit, or never start (dead rays), at ragged batch sizes."""
+    _march(libs[None], chain_grid(CPU), chain_rays(n, CPU), f"chains n={n}")
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_host_any_hit_long_tail(libs, n):
+    """Any-hit where most rays end at their first leaves and every 32nd
+    walks much of the tree, unsorted, at ragged batch sizes."""
+    packed = long_tail_scene(CPU)
+    rows = _rows(long_tail_rays(n, CPU))
+    _assert_bits(_trace(libs[None], packed, rows, mode="any"),
+                 pt.packet_trace_reference(
+                     packed.nodes, packed.tris, rows, mode="any",
+                     leaf_size=packed.leaf_size,
+                     stack_size=packed.stack_size, stats=True),
+                 f"long tail n={n}")
 
 
 @pytest.mark.parametrize("leaf_size,count,width", TIE_CASES)

@@ -1,7 +1,7 @@
 """Time builds of rtk_tpu_torch's traversal kernel against each other on one
 CUDA card, with what the compiler made of each.
 
-    python3 tools/torch_kernel_ladder.py [--source [LABEL=]PATH]... [--variant [LABEL:]NAME=FLAGS]...
+    python3 tools/torch_kernel_ladder.py [--source [LABEL=]PATH]... [--variant [LABEL:]NAME=FLAGS]... [--pairs 20]
 
 Each --source is a copy of csrc/packet_trace.cu with the same C interface
 (default: the package's own; e.g. `parent=` a checkout of another commit
@@ -12,11 +12,13 @@ switches its changes on preprocessor macros gives a ladder of builds.  Every (so
 is built twice, plain and with the odd-triangle filter predicate, and:
 
   * ptxas -v's registers, frame and spills per instantiation are printed;
-  * `cuobjdump -sass` of each build is written to --out (default
-    rtk_tpu_torch/build/ladder/), and per kernel the instruction count, the counts
-    of LDL/STL/LDG and the loops (backward branches with their lengths)
-    are printed;
-  * the kernel alone is timed with CUDA events on three batches:
+  * `cuobjdump -sass` of each build is written to
+    rtk_tpu_torch/build/ladder/, and per kernel the instruction count, the
+    counts of LDL/STL/LDG and the loops (backward branches with their
+    lengths) go to --out/ladder.jsonl (default rtk_tpu_torch/build/
+    ladder/), which holds every record in full; the standard output gets
+    registers, spills, instruction counts and median times;
+  * the kernel alone is timed with CUDA events on these batches:
     - "headline": the main path's rows at --width^2 (default 8192):
       blob(6), LBVH leaf 4, morton camera rays in coherence-key order.
       Modes: closest, any, mask, defer_uv, stats, and the filter build
@@ -35,14 +37,45 @@ is built twice, plain and with the odd-triangle filter predicate, and:
       blob(6) (leaf 16) packed 16 wide, --width^2 morton rays unsorted;
     - "atrium": phase 7's atrium bounce (1024^2 primaries on SAH leaf-16
       tables, one cosine-sampled bounce, coherence-sorted) through the
-      8- and 16-wide tables, and through the grid march on the atrium's
-      LBVH (leaf 16) with march_batch's rows;
+      8- and 16-wide tables, through the flat LBVH (leaf 16) tables of
+      the march's scene ("lbvh", the march's yardstick), and through the
+      grid march on the atrium's LBVH (leaf 16) with march_batch's rows
+      ("march") and grouped by (entry cell, octant) alone, march_batch's
+      key before it took the direction inside the octant ("march_
+      cellkey"); the same two for phase 7's march primaries, the 1024^2
+      camera rays ("march_prim", "march_prim_cellkey"); and what each
+      grouping costs ("grouping_ms");
+    - "render": chip_smoke.py phase 9's atrium as four meshes (LBVH leaf
+      16 through Tracer): 9b's shadow rays ("shadow", render_direct's
+      any-hit batch) and its first AO probe ("ao", render_ao's first
+      any-hit batch, max_dist 3) in the order trace_packets hands them
+      to the kernel, and 9a's bounce 2 through the march ("march_b2",
+      render_path with the march as bounce_tracer; "march_b2_cellkey"
+      grouped by (entry cell, octant) alone);
     The builds run in turn, forwards then backwards, --rounds times; the
     minimum and median of the rounds are reported;
   * every output of every build (t, u, v, slot, counts) must equal the
     first build's bit for bit; the first build's per-ray counts are
     printed with their divergence (per 32-ray warp, the mean of the
     warp's largest count over the mean count);
+  * on every any-hit batch (headline, grid8b, render shadow and ao), the
+    idle-lane share: over the 32-ray warps, sum(32 x the warp's largest
+    step count - the sum of its lanes' steps) / sum(32 x its largest),
+    the instruction slots a warp spends on lanes whose ray has ended;
+  * on every march batch (atrium march, render march_b2), from the plain
+    version's rounds (round k traces each live ray's k-th cell, as
+    packet_march_reference does, replayed here with stats): the cells a
+    ray visits (mean, and a warp's largest over the mean), the empty
+    cells among them (a root row with no child: no box test), and the
+    per-cell barrier ratio: over the warps, the sum over k of the
+    largest lane's steps in its k-th cell, over the sum of the warp's
+    largest total of steps -- what a loop that waits for every lane to
+    finish a cell pays over one that does not;
+  * the grouping key end to end: Tracer(engine="march").closest on the
+    atrium bounce and primaries with march_batch's key and with (entry
+    cell, octant) alone, in --pairs pairs whose order alternates, 10
+    calls a sample: each key's median and quartiles, and the pairs the
+    shipped key won ("key_end_to_end"; the two keys' hits must be equal);
   * clocks.sm and power.draw are sampled by nvidia-smi while launches of
     the first build are queued, and the per-ray counts of the stats
     variant are printed, so the time the instruction stream needs if it
@@ -75,7 +108,165 @@ MODES = {"closest": {}, "any": {"mode_any": 1}, "mask": {"qmask": 1},
 # Timed launches of a batch per --reps: about 50 ms of kernel a round each.
 COUNTS = ("steps", "internal_pops", "leaf_pops", "box_tests", "tri_tests")
 REPS_SCALE = {"headline": 1, "grid8b": 12, "roots": 60, "w16": 1,
-              "atrium": 12}
+              "atrium": 12, "render": 12}
+
+
+def warp_view(c):
+    """(..., N) per-ray counts as (..., warps, 32): the kernel's warps are
+    32 consecutive rows; a ragged last warp is left out."""
+    n = c.shape[-1] // 32 * 32
+    return c[..., :n].reshape(*c.shape[:-1], -1, 32)
+
+
+def idle_lane_share(steps):
+    """sum over warps of (32 x largest - sum of lanes) / sum of 32 x
+    largest, from per-ray step counts in the kernel's row order."""
+    w = warp_view(steps.double())
+    busy = 32 * w.amax(dim=-1)
+    return float((busy - w.sum(dim=-1)).sum() / busy.sum().clamp_min(1))
+
+
+def rows_of(o, d, mint, maxt):
+    return torch.cat([o.T, d.T, mint[None], maxt[None]]).contiguous()
+
+
+def cell_key_batch(grid, rays):
+    """testing/grid.py's march_batch with its key before it took the
+    direction inside the octant: (entry cell, octant) alone, rays that
+    miss the grid last, stably -> (MarchGrid, rows, idx)."""
+    from rtk_tpu_torch.ops import packet_trace as pt
+
+    mg = pt.MarchGrid.of(grid.dims, grid.grid_lo, grid.cell_size,
+                         grid.march_occ)
+    rows = rows_of(rays.origin, rays.direction, rays.min_t,
+                   rays.max_t).float()
+    live, cell, *_ = pt.march_entry(rows, mg)
+    _, ny, nz = mg.dims
+    d = rows[3:6]
+    octant = ((d[0] >= 0).long() * 4 + (d[1] >= 0).long() * 2
+              + (d[2] >= 0).long())
+    key = ((((cell[0] * ny + cell[1]) * nz + cell[2]) << 3) | octant)
+    key = torch.where(live, key, torch.iinfo(torch.int64).max)
+    idx = torch.sort(key, stable=True).indices
+    return mg, rows[:, idx].contiguous(), idx
+
+
+def quartiles(v):
+    q = statistics.quantiles(v, n=4)
+    return {"median": statistics.median(v), "q1": q[0], "q3": q[2]}
+
+
+def key_end_to_end(march, batches, pairs, reps):
+    """Tracer(engine="march").closest on each of `batches` with
+    march_batch's key ("dir_key") and with cell_key_batch's ("cell_key"),
+    testing/grid.py's march_batch swapped for the call, in `pairs` pairs
+    whose order alternates; a sample is `reps` calls between CUDA events
+    after a warm one.  The two keys' hits must be equal bit for bit.
+    -> {batch: {key: quartiles of the samples, "pairs_won_by_dir_key"}}."""
+    from rtk_tpu_torch.testing import grid as tgrid
+
+    keys = {"dir_key": tgrid.march_batch, "cell_key": cell_key_batch}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = {}
+    try:
+        for name, rays in batches.items():
+            ms = {k: [] for k in keys}
+            hits = {}
+            for pair in range(pairs):
+                for k in (list(keys) if pair % 2 == 0 else list(keys)[::-1]):
+                    tgrid.march_batch = keys[k]
+                    hits[k] = march.closest(rays)
+                    torch.cuda.synchronize()
+                    start.record()
+                    for _ in range(reps):
+                        march.closest(rays)
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms[k].append(start.elapsed_time(end) / reps)
+            for f in ("hit", "slot", "t", "u", "v"):
+                if not torch.equal(getattr(hits["dir_key"], f),
+                                   getattr(hits["cell_key"], f)):
+                    raise RuntimeError(f"{name}: the keys' {f} differ")
+            out[name] = {**{k: quartiles(v) for k, v in ms.items()},
+                         "pairs_won_by_dir_key": sum(
+                             a < b for a, b in zip(ms["dir_key"],
+                                                   ms["cell_key"])),
+                         "all": ms}
+    finally:
+        tgrid.march_batch = keys["dir_key"]
+    return out
+
+
+def march_rounds(pt, cm, rows, grid):
+    """The march's plain version round by round (packet_march_reference's
+    loop: round k traces each live ray's k-th cell), closest-hit, with
+    stats -> (summed (5, N) counts, per round (the rays that traced a
+    cell, their steps in it, whether it was empty: a root row with no
+    child, so no box test))."""
+    n = rows.shape[1]
+    dev = rows.device
+    live, cell, tm, step, tdel = pt.march_entry(rows, grid)
+    best = [rows[7].clone(), torch.zeros(n, device=dev),
+            torch.zeros(n, device=dev),
+            torch.full((n,), -1, dtype=torch.int32, device=dev)]
+    counts = torch.zeros((5, n), dtype=torch.int32, device=dev)
+    dims = torch.tensor(grid.dims, device=dev)[:, None]
+    act = torch.nonzero(live).squeeze(1)
+    rounds = []
+    while act.numel():
+        c = cell[:, act]
+        sub = rows[:, act].clone()
+        sub[7] = best[0][act]
+        out = pt.packet_trace_reference(
+            cm.nodes, cm.tris, sub, leaf_size=cm.leaf_size,
+            stack_size=cm.stack_size, stats=True,
+            roots=((c[0] * grid.dims[1] + c[1]) * grid.dims[2]
+                   + c[2]).to(torch.int32))
+        upd = out[3] >= 0
+        for b, new in zip(best, out):
+            b[act] = torch.where(upd, new, b[act])
+        counts[:, act] += out[4]
+        rounds.append((act, out[4][0], out[4][3] == 0))
+        t3 = tm[:, act]
+        exit_t = torch.minimum(t3[0], torch.minimum(t3[1], t3[2]))
+        fin = best[0][act] <= exit_t
+        act, t3 = act[~fin], t3[:, ~fin]
+        mx = (t3[0] <= t3[1]) & (t3[0] <= t3[2])
+        my = ~mx & (t3[1] <= t3[2])
+        ax = torch.stack([mx, my, ~mx & ~my])
+        cell[:, act] += torch.where(ax, step[:, act], 0)
+        tm[:, act] = torch.where(ax, t3 + tdel[:, act], t3)
+        c = cell[:, act]
+        act = act[((c >= 0) & (c < dims)).all(dim=0)]
+    return counts, rounds
+
+
+def march_cells(counts, rounds):
+    """Cells a ray visits, the empty ones among them and the per-cell
+    barrier ratio, from march_rounds' output."""
+    n = counts.shape[1]
+    dev = counts.device
+    cells = torch.zeros(n, dtype=torch.float64, device=dev)
+    empty = torch.zeros(n, dtype=torch.float64, device=dev)
+    barrier = torch.zeros(n // 32, dtype=torch.float64, device=dev)
+    for act, steps, is_empty in rounds:
+        k = torch.zeros(n, dtype=torch.float64, device=dev)
+        k[act] = steps.double()
+        cells[act] += 1
+        empty[act] += is_empty.double()
+        barrier += warp_view(k).amax(dim=-1)
+    total = warp_view(counts[0].double()).amax(dim=-1)
+    seen = cells > 0
+    return {"rays_in_grid": int(seen.sum()),
+            "cells_mean": float(cells[seen].mean()),
+            "cells_warp_max_over_mean": float(
+                warp_view(cells).amax(dim=-1).mean() / cells.mean()),
+            "empty_cells_mean": float(empty[seen].mean()),
+            "empty_share": float(empty.sum() / cells.sum()),
+            "rounds": len(rounds),
+            "barrier_ratio": float(barrier.sum() / total.sum()),
+            "barrier_ratio_warp_mean": float(
+                (barrier[total > 0] / total[total > 0]).mean())}
 
 
 def sass_summary(text):
@@ -119,20 +310,24 @@ def sass_summary(text):
         if m and name:
             rows.append((int(m.group(1), 16), m.group(2), m.group(3)))
     close()
-    short = {}
-    for k, v in out.items():
-        m = re.search(r"ILi(\d+)ELb([01])E", k)
-        short[f"w{m.group(1)}" + ("_march" if m.group(2) == "1" else "")
-              if m else k] = v
-    return short
+    return {kernel_name(k): v for k, v in out.items()}
+
+
+def kernel_name(mangled):
+    """w8, w16 or w8_march from a packet_trace_kernel<W, MARCH> symbol;
+    others unchanged."""
+    m = re.search(r"ILi(\d+)ELb([01])E", mangled)
+    if not m:
+        return mangled
+    return f"w{m.group(1)}" + ("_march" if m.group(2) == "1" else "")
 
 
 def ptxas_summary(log):
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function .*?ILi(\d+)ELb([01])E", ln)
+        m = re.search(r"Compiling entry function '?(\S*ILi\d+ELb\S*)", ln)
         if m:
-            name = f"w{m.group(1)}" + ("_march" if m.group(2) == "1" else "")
+            name = kernel_name(m.group(1))
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(
                 ln.split("ptxas info    : ")[-1].strip())
@@ -146,6 +341,7 @@ def main():
     ap.add_argument("--width", type=int, default=8192)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--pairs", type=int, default=20)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -162,11 +358,12 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
     log = open(out_dir / "ladder.jsonl", "w")
 
-    def emit(rec):
-        """One JSON line to the standard output and to --out/ladder.jsonl
-        (a long run's first lines outlive a truncated console)."""
+    def emit(rec, short=None):
+        """One JSON line to --out/ladder.jsonl and, or `short` in its
+        place, to the standard output (a long run's first lines outlive a
+        truncated console)."""
         line = json.dumps(rec)
-        print(line, flush=True)
+        print(line if short is None else json.dumps(short), flush=True)
         log.write(line + "\n")
         log.flush()
 
@@ -211,22 +408,26 @@ def main():
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         built = list(pool.map(run_build, jobs))
-    builds, recs = [], {}
+    builds, recs, takes_occ = [], {}, {}
     for (label, src, flags, kind, *_), (so, build_log, secs) in zip(jobs,
                                                                     built):
         sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
                               check=True, capture_output=True,
                               text=True).stdout
         tag = label.replace("/", "_").replace(":", "_")
-        (out_dir / f"{tag}.{kind}.sass").write_text(sass)
+        (BUILD_DIR / "ladder").mkdir(parents=True, exist_ok=True)
+        (BUILD_DIR / "ladder" / f"{tag}.{kind}.sass").write_text(sass)
         lib = ctypes.CDLL(str(so))
         lib.rtk_packet_trace.restype = i32
         lib.rtk_packet_trace.argtypes = [ptr] * 5 + [i32] * 8 + [ptr] * 6
         if kind == "plain":
+            # Sources since the march took the grid's occupancy words
+            # have one more pointer after the grid's floats.
+            takes_occ[id(lib)] = "const void* occ" in src.read_text()
             lib.rtk_packet_march.restype = i32
-            lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9
-                                             + [ctypes.c_float] * 9
-                                             + [ptr] * 6)
+            lib.rtk_packet_march.argtypes = (
+                [ptr] * 3 + [i32] * 9 + [ctypes.c_float] * 9
+                + [ptr] * (7 if takes_occ[id(lib)] else 6))
         rec = recs.setdefault(label, {"build": label, "source": str(src),
                                       "flags": flags})
         rec[kind] = {"s": round(secs, 2), "ptxas": ptxas_summary(build_log),
@@ -235,16 +436,16 @@ def main():
             builds.append((label, {}))
         dict(builds)[label][kind] = lib
     for rec in recs.values():
-        emit(rec)
+        emit(rec, {"build": rec["build"], "flags": rec["flags"], **{
+            kind: {"ptxas": rec[kind]["ptxas"], "instructions": {
+                k: v["instructions"] for k, v in rec[kind]["sass"].items()}}
+            for kind in ("plain", "filter")}})
 
     # ---- the batches: tables, rows and cases ----
     import chip_smoke as cs
     from rtk_tpu_torch import instancing
     from rtk_tpu_torch.scene import refit
     from rtk_tpu_torch.trace.packed import repack_bounds
-
-    def rows_of(o, d, mint, maxt):
-        return torch.cat([o.T, d.T, mint[None], maxt[None]]).contiguous()
 
     # headline
     v6, f6 = scenes.blob(6)[1:]
@@ -265,6 +466,8 @@ def main():
                   {"ray_index": ridx}))
     cases.append(("headline", "filter_stats", "filter", packed, rows,
                   {"ray_index": ridx, "stats": True}))
+    cases.append(("headline", "any_stats", "plain", packed, rows,
+                  {"mode_any": 1, "stats": True}))
 
     # grid8b
     cfg = rt.BuildConfig(branching=8, leaf_size=8, wide_nodes=False)
@@ -279,8 +482,10 @@ def main():
                               order="morton", device=dev, on_device=True)
     rows8 = rows_of(cam8.origin, cam8.direction, cam8.min_t, cam8.max_t)
     del cam8
-    for m in ("defer_uv", "closest", "stats"):
+    for m in ("defer_uv", "closest", "stats", "any"):
         cases.append(("grid8b", m, "plain", p8, rows8, MODES[m]))
+    cases.append(("grid8b", "any_stats", "plain", p8, rows8,
+                  {"mode_any": 1, "stats": True}))
 
     # roots: config 5's round 0
     _, _, iscene, tables = cs.config5(rt, dev)
@@ -343,12 +548,74 @@ def main():
                       brows, {"stats": True}))
     march = rt.Tracer(rt.build_from_soup(atr, config=rt.BuildConfig(
         leaf_size=16), device=dev), engine="march")
-    mg, mrows, _ = march_batch(march.grid, bounce)
+    cases.append(("atrium", "lbvh", "plain", march.packed, brows, {}))
     cm = march.grid.cells_march
-    cases.append(("atrium", "march", "plain", cm, mrows, {"grid": mg}))
-    cases.append(("atrium", "march_stats", "plain", cm, mrows,
-                  {"grid": mg, "stats": True}))
+    marches = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for name, rays in (("march", bounce), ("march_prim", cam)):
+        for key, batch_of in (("", march_batch),
+                              ("_cellkey", cell_key_batch)):
+            mg, mrows, _ = batch_of(march.grid, rays)
+            cases.append(("atrium", name + key, "plain", cm, mrows,
+                          {"grid": mg}))
+            cases.append(("atrium", name + key + "_stats", "plain", cm,
+                          mrows, {"grid": mg, "stats": True}))
+            if rays is bounce:
+                marches.append((f"atrium/{name}{key}", cm, mrows, mg))
+            # What grouping costs: the key, sort and gather.
+            batch_of(march.grid, rays)
+            start.record()
+            for _ in range(5):
+                batch_of(march.grid, rays)
+            end.record()
+            torch.cuda.synchronize()
+            emit({"grouping_ms": f"atrium/{name}{key}",
+                  "ms": start.elapsed_time(end) / 5})
+    emit({"key_end_to_end": key_end_to_end(
+        march, {"bounce": bounce, "primaries": cam}, args.pairs, 10),
+        "card": card})
     del tables, prim, nrm, bounce, order, march, cam
+
+    # render: phase 9's atrium as four meshes; 9b's shadow rays and first
+    # AO probe, and 9a's bounce 2 through the march
+    from rtk_tpu_torch.models import path
+
+    cuts = np.cumsum((0,) + cs.ATRIUM_PARTS)
+    rscene = rt.build_scene(
+        [(atr[a:b].reshape(-1, 3), np.arange((b - a) * 3).reshape(-1, 3))
+         for a, b in zip(cuts[:-1], cuts[1:])], rt.BuildConfig(leaf_size=16),
+        device=dev)
+    rtracer = rt.Tracer(rscene)
+    rmarch = rt.Tracer(rscene, engine="march")
+    mats = path.Materials.make(cs.ATRIUM_ALBEDO, cs.ATRIUM_EMISSION,
+                               device=dev)
+    cam = scenes.camera_rays(**cs.ATRIUM_CAM, width=1024, height=1024,
+                             order="morton", device=dev)
+    blog = cs.BounceLog(rtracer)
+    path.render_direct(blog, cam, mats, **cs.ATRIUM_LIGHT)
+    path.render_ao(blog, cam, torch.Generator(device=dev).manual_seed(3),
+                   samples=8, max_dist=3.0)
+    for name, batch in (("shadow", blog.any_batches[0]),
+                        ("ao", blog.any_batches[1])):
+        r9, _ = pt._ray_rows(batch, None)
+        cases.append(("render", name, "plain", rtracer.packed, r9,
+                      {"mode_any": 1}))
+        cases.append(("render", name + "_stats", "plain", rtracer.packed,
+                      r9, {"mode_any": 1, "stats": True}))
+    mlog = cs.BounceLog(rtracer, rmarch)
+    path.render_path(mlog, cam, mats,
+                     torch.Generator(device=dev).manual_seed(1), bounces=4,
+                     background=(0.2, 0.3, 0.4))
+    mg9, mrows9, _ = march_batch(rmarch.grid, mlog.batches[2])
+    cm9 = rmarch.grid.cells_march
+    cases.append(("render", "march_b2", "plain", cm9, mrows9, {"grid": mg9}))
+    cases.append(("render", "march_b2_stats", "plain", cm9, mrows9,
+                  {"grid": mg9, "stats": True}))
+    cases.append(("render", "march_b2_cellkey", "plain", cm9,
+                  cell_key_batch(rmarch.grid, mlog.batches[2])[1],
+                  {"grid": mg9}))
+    marches.append(("render/march_b2", cm9, mrows9, mg9))
+    del blog, mlog, cam, rscene, rtracer, rmarch, atr
     emit({"batches": {b: {"rays": r.shape[1], "node_rows": pk.nodes.shape[0],
                           "tri_rows": pk.tris.shape[0],
                           "table_mb": (pk.nodes.numel() + pk.tris.numel())
@@ -372,10 +639,11 @@ def main():
                 o[4].data_ptr() if stats else None, stream)
         common = (int(qmask is not None), int(qmask or 0))
         if grid is not None:
+            occ = ((grid.occ.data_ptr(),) if takes_occ[id(lib)] else ())
             err = lib.rtk_packet_march(
                 pk.nodes.data_ptr(), pk.tris.data_ptr(), rws.data_ptr(), n,
                 pk.leaf_size, mode_any, 1, *common, *grid.dims, *grid.lo,
-                *grid.cs, *grid.hi, *tail)
+                *grid.cs, *grid.hi, *occ, *tail)
         else:
             err = lib.rtk_packet_trace(
                 pk.nodes.data_ptr(), pk.tris.data_ptr(), rws.data_ptr(),
@@ -401,13 +669,15 @@ def main():
                 want[key] = got
                 if kw.get("stats"):
                     c = o[4].double()
-                    warp = c[:, :c.shape[1] // 32 * 32].reshape(5, -1, 32)
+                    warp = warp_view(c)
+                    idle = ({"idle_lane_share": idle_lane_share(c[0])}
+                            if kw.get("mode_any") else {})
                     emit({"per_ray_mean": f"{batch}/{case}", **dict(zip(
                         COUNTS, c.mean(dim=1).tolist())),
                         "max": dict(zip(COUNTS, c.amax(dim=1).tolist())),
                         "warp_max_over_mean": dict(zip(COUNTS, (
                             warp.amax(dim=2).mean(dim=1)
-                            / c.mean(dim=1)).tolist()))})
+                            / c.mean(dim=1)).tolist())), **idle})
             for g, w in zip(got, want[key]):
                 if not torch.equal(g, w):
                     raise RuntimeError(f"{label}/{batch}/{case} differs from "
@@ -415,6 +685,20 @@ def main():
     del want
     emit({"bit_equal": [b for b, _ in builds],
           "cases": [f"{b}/{c}" for b, c, *_ in cases]})
+
+    # ---- the march batches' cells, from the plain version's rounds ----
+    for name, cm, mrows, mg in marches:
+        t0 = time.perf_counter()
+        counts, rounds = march_rounds(pt, cm, mrows, mg)
+        want = launch(builds[0][1]["plain"], cm, mrows, grid=mg,
+                      stats=True)[4]
+        if not torch.equal(counts, want):
+            raise RuntimeError(f"{name}: the rounds' counts differ from "
+                               "the kernel's")
+        emit({"march_cells": name, **march_cells(counts, rounds),
+              "s": time.perf_counter() - t0})
+        del counts, rounds
+    del marches
 
     # ---- clocks under load ----
     for _ in range(12):
@@ -444,10 +728,12 @@ def main():
                 torch.cuda.synchronize()
                 ms[label, batch, case].append(start.elapsed_time(end) / reps)
     for label, _ in builds:
-        emit({"build": label, "card": card, "ms": {
+        rec = {"build": label, "card": card, "ms": {
             f"{bt}/{c}": {"min": min(v), "median": statistics.median(v),
                           "all": v}
-            for (b, bt, c), v in ms.items() if b == label}})
+            for (b, bt, c), v in ms.items() if b == label}}
+        emit(rec, {"build": label, "median_ms": {
+            k: round(v["median"], 4) for k, v in rec["ms"].items()}})
 
 
 if __name__ == "__main__":

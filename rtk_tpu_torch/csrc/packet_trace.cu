@@ -51,11 +51,11 @@
 //   * the leaf test is compiled once per shear axis and picked by the
 //     ray's kz, so vertex components are chosen at compile time instead
 //     of by three-way selects a triangle; coherent rays share kz;
-//   * on 8-wide tables the child box test is compiled once per sign
-//     octant of the ray's direction, so each axis's near and far planes
-//     are chosen at compile time instead of by six selects a child.  A
-//     warp takes the octant copy only when all its active lanes share the
-//     octant (one match instruction a traversal): lanes in different
+//   * on flat tables (8 and 16 wide) the child box test is compiled once
+//     per sign octant of the ray's direction, so each axis's near and far
+//     planes are chosen at compile time instead of by six selects a child.
+//     A warp takes the octant copy only when all its active lanes share
+//     the octant (one match instruction a traversal): lanes in different
 //     octants would run their copies in turn, so a mixed warp (incoherent
 //     bounces) takes the copy that reads the signs from the ray;
 //   * __launch_bounds__(128, 10): ten blocks an SM, 48 registers.
@@ -87,6 +87,18 @@
 // block's run when its own ended (Aila and Laine 2009, section 4) lost
 // 53-146% to the scattered rays and the refill's own code, and an
 // instantiation of its own was no faster (PERF.md section 6).
+// The mask (pallas_trace.py:997) is a mode too: the leaf test rejects a
+// row whose mask bits miss the caller's before any arithmetic (the
+// compiler loads the mask word with the first vertices and the rest after
+// the test).  The mask rejects about half the leaf loop's rows on the
+// measured tables, yet its time a pop is within 2.5% of a closest trace's
+// on the same rays: what a row costs is its loads and the loop, not the
+// arithmetic, and the mask's extra time is its longer traversal (more
+// pops), which its counts fix.  Measured no faster: the mask word tested
+// before the vertices, and a loop over the rows that pass, gathered first
+// as a bit set (in the shared instantiation or one of its own; the mask
+// words loaded one by one or four at a time), whose gathering cost what
+// the skipped rows saved.
 // And the two variants that change the traversal's shape, each its own
 // template instantiation (its own registers; the 8-wide build pays
 // nothing for them):
@@ -95,7 +107,19 @@
 //     The near-to-far order stays the stable insertion by entry distance
 //     (ties by slot), the one-thread form of the TPU's 63-comparator
 //     Batcher network; a 16-wide node pushes up to 16 entries, so the
-//     stack holds trees up to 17 levels deep.
+//     stack holds trees up to 17 levels deep.  What bounds it is what
+//     bounds the 8-wide kernel, instructions a child box test, at 13-15
+//     box tests a pop (7 at 8 wide).  Sixteen unrolled tests that each
+//     carry an insertion into arrays in local memory make octant copies
+//     too large to pay, so the tests only note a hit child's bit and
+//     entry distance, and the hit children are inserted after them in
+//     slot order (a node with one hit child, the common case, skips
+//     that): an octant copy's code is then about the size of an 8-wide
+//     one's, and the copies pay as they do at 8 wide.  Measured slower
+//     (PERF.md section 6): a loop over two groups of eight children kept
+//     rolled, with and without octant copies; the nearest hit child kept
+//     in registers and the others inserted straight onto the stack; 8
+//     blocks an SM for this width.
 //   * march (pallas_trace.py:387-427, :1190-1292): the fused macro-grid
 //     march over a table with one root row per grid cell (root row ==
 //     cell id, testing/grid.py).  Each ray enters the grid by a slab test
@@ -274,6 +298,28 @@ __device__ __forceinline__ void traverse(
     float key[W];
     int ent[W];
     int cnt = 0;
+    // Stable insertion by entry distance: ties keep slot order.
+    auto insert = [&](const float enter, const int entry) {
+      int j = cnt++;
+      while (j > 0 && key[j - 1] > enter) {
+        key[j] = key[j - 1];
+        ent[j] = ent[j - 1];
+        --j;
+      }
+      key[j] = enter;
+      ent[j] = entry;
+    };
+    auto entry_of = [&](const int bit) -> int {
+      const int below = bit - 1;
+      return (im & bit) ? fc + __popc(im & below)
+                        : -(fl + __popc(lm & below)) - 2;
+    };
+    // 16 wide: the box tests note each hit child's bit and entry distance,
+    // and the hit children are ordered after them, so that the unrolled
+    // tests hold no insertion code (sixteen copies of it in each octant
+    // copy make the octant copies lose).
+    unsigned hm = 0u;
+    float kv[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) {
       const int bit = 1 << w;
@@ -294,18 +340,26 @@ __device__ __forceinline__ void traverse(
       const float enter = test_max(test_max(nx, ny), test_max(nz, r.mint));
       const float exit = test_min(test_min(fx, fy), test_min(fz, best_t));
       if (!(enter <= exit)) continue;
-      const int below = bit - 1;
-      const int entry = (im & bit) ? fc + __popc(im & below)
-                                   : -(fl + __popc(lm & below)) - 2;
-      // Stable insertion by entry distance: ties keep slot order.
-      int j = cnt++;
-      while (j > 0 && key[j - 1] > enter) {
-        key[j] = key[j - 1];
-        ent[j] = ent[j - 1];
-        --j;
+      if constexpr (W == 16) {
+        hm |= (unsigned)bit;
+        kv[w] = enter;
+      } else {
+        insert(enter, entry_of(bit));
       }
-      key[j] = enter;
-      ent[j] = entry;
+    }
+    if constexpr (W == 16) {
+      if (hm == 0u) return false;
+      // One hit child (most nodes): nothing to order.
+      if ((hm & (hm - 1u)) == 0u) {
+        cur = entry_of((int)hm);
+        return true;
+      }
+      // In slot order, so ties keep it.
+      do {
+        const int w = __ffs((int)hm) - 1;
+        hm &= hm - 1u;
+        insert(kv[w], entry_of(1 << w));
+      } while (hm);
     }
     // Far first, so the next nearest child is on top of the stack.
     for (int j = cnt - 1; j > 0; --j) stack[sp++] = ent[j];
@@ -472,10 +526,11 @@ packet_trace_kernel(const int4* __restrict__ nodes,
 #else
   const int rid = 0;
 #endif
-  // The octant copies of the box test pay on 8-wide tables only: 16-wide
-  // nodes and the march's per-cell trees make the copies large enough to
-  // lose more than they save (PERF.md section 6).
-  constexpr bool kOct = W == 8 && !MARCH;
+  // The octant copies of the box test pay on flat tables of both widths,
+  // at 16 wide because its box tests hold no insertion code (with it, the
+  // copies lost 35-41%).  The march's per-cell trees make the copies lose
+  // more than they save (PERF.md section 6).
+  constexpr bool kOct = !MARCH;
   const size_t sn = (size_t)n;
   const float ox = rays[i], oy = rays[sn + i], oz = rays[2 * sn + i];
   const float dx = rays[3 * sn + i], dy = rays[4 * sn + i],

@@ -156,6 +156,110 @@ def tie_rays(n, device, seed=12):
         device=device)
 
 
+def grouped_tree(groups, boxes=None):
+    """Binary arrays (pack_binary_tree's arguments) of a balanced tree
+    whose leaf i holds groups[i], a (c, 3, 3) array of triangles; a node's
+    box bounds its triangles, or is boxes[i] = (lo, hi) for leaf i."""
+    counts = [len(g) for g in groups]
+    offset = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    cols = left, right, first, cnt, lo, hi = [], [], [], [], [], []
+
+    def make(a, b):
+        i = len(left)
+        for c in cols:
+            c.append(None)
+        if b - a == 1:
+            left[i] = right[i] = -1
+            first[i], cnt[i] = offset[a], counts[a]
+            pts = groups[a].reshape(-1, 3)
+            lo[i], hi[i] = (pts.min(0), pts.max(0)) if boxes is None \
+                else boxes[a]
+        else:
+            m = (a + b + 1) // 2
+            left[i], right[i] = make(a, m), make(m, b)
+            first[i] = cnt[i] = 0
+            lo[i] = np.minimum(lo[left[i]], lo[right[i]])
+            hi[i] = np.maximum(hi[left[i]], hi[right[i]])
+        return i
+
+    make(0, len(groups))
+    tri_v = np.concatenate(groups).astype(np.float32)
+    return (tri_v, np.array(left), np.array(right), np.array(first),
+            np.array(cnt), np.array(lo, np.float32), np.array(hi, np.float32),
+            np.arange(len(tri_v)), 0)
+
+
+# Masks of the mask cases: single bits, two bits, the top bit of the 24
+# and all 24.
+MASK_QMASKS = (1, 2, 3, 0x800000, 0xFFFFFF)
+
+
+def mask_tree(leaf_size, seed=5):
+    """(binary arrays, tri_mask) of twelve leaves of up to leaf_size
+    triangles, made for the mask filter: a leaf whose every row no mask
+    passes (bits 0); leaves whose first row passes mask 1 and whose last
+    real row fails it, short ones followed by NaN padding up to the next
+    leaf's first row; single- and multi-bit masks between.  Triangle 0
+    passes every mask, so the padding rows, which take its bits, pass the
+    mask too and are rejected as padding."""
+    rng = np.random.default_rng(seed)
+    k = leaf_size
+    counts = [k, k, max(k - 2, 1), k, 1, max(k // 2, 1), k, max(k - 1, 1),
+              k, max(k - 3, 1), k, min(2, k)]
+    bits = np.array([0, 1, 2, 3, 4, 0x800000, 0xFFFFFF])
+    groups, masks = [], []
+    for i, c in enumerate(counts):
+        groups.append(rng.normal(size=(c, 3, 3)) * 0.4
+                      + rng.normal(size=3) * 1.5)
+        m = bits[rng.integers(0, len(bits), c)]
+        if i == 1:
+            m[:] = 0
+        else:
+            m[-1] = rng.choice([2, 4])
+            m[0] = rng.choice([1, 3, 0xFFFFFF])
+        masks.append(m)
+    masks[0][0] = 0xFFFFFF
+    return grouped_tree(groups), np.concatenate(masks).astype(np.uint32)
+
+
+def _root_slot_boxes(nodes):
+    """The (lo, hi) boxes of a 16-wide table's root row by slot."""
+    b = nodes[:16, :6].cpu().contiguous().view(torch.float32).numpy()
+    return b[:, :3], b[:, 3:]
+
+
+def wide_tie_tree(n, seed=6):
+    """Binary arrays of n <= 16 leaves of three triangles whose 16-wide
+    collapse is one root of n leaf children, the children in slots 7 and
+    8 given one box: they lie at one entry distance from every ray, a tie
+    across the halves of the node's sixteen slots.  The first seed from
+    `seed` on whose collapse keeps the two in those slots."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+
+    def root_boxes(groups, boxes):
+        lo, hi = _root_slot_boxes(pack_binary_tree(
+            *grouped_tree(groups, boxes), leaf_size=4, branching=16,
+            device="cpu").nodes)
+        return lo, hi
+
+    for s in range(seed, seed + 100):
+        rng = np.random.default_rng(s)
+        groups = [rng.normal(size=(3, 3, 3)) * 0.3 + rng.normal(size=3) * 1.5
+                  for _ in range(n)]
+        boxes = [(g.reshape(-1, 3).min(0).astype(np.float32),
+                  g.reshape(-1, 3).max(0).astype(np.float32))
+                 for g in groups]
+        lo, _ = root_boxes(groups, boxes)
+        a, b = (next(i for i, (l, _) in enumerate(boxes)
+                     if np.array_equal(l, lo[j])) for j in (7, 8))
+        boxes[a] = boxes[b] = (np.minimum(boxes[a][0], boxes[b][0]),
+                               np.maximum(boxes[a][1], boxes[b][1]))
+        lo, hi = root_boxes(groups, boxes)
+        if np.array_equal(lo[7], lo[8]) and np.array_equal(hi[7], hi[8]):
+            return grouped_tree(groups, boxes)
+    raise AssertionError(f"no seed ties slots 7 and 8 of {n} children")
+
+
 def test_kernel_refuses_deep_forest(cuda):
     """The second tree of this forest needs more than the compiled stack;
     the first alone would fit.  The wrapper refuses before launch."""
@@ -574,6 +678,61 @@ def test_kernel_deep_tree_within_the_stack(cuda):
         packed, rays, stats=True, ray_roots=roots_t)
     _assert_same(got, want)
     assert torch.equal(counts, want_counts)
+
+
+def _trace_bits(packed, rays, **kw):
+    """The kernel and its plain version on `rays`, unsorted, with stats:
+    every output and count equal bit for bit."""
+    got, counts = packet_trace.trace_packets(packed, rays, stats=True,
+                                             sort_rays=False, **kw)
+    want, want_counts = packet_trace.trace_packets_reference(
+        packed, rays, stats=True, sort_rays=False, **kw)
+    _assert_same(got, want)
+    assert torch.equal(counts, want_counts), kw
+    return got
+
+
+@pytest.mark.parametrize("leaf_size", [1, 4, 8, 16, 40])
+def test_kernel_mask_leaves(cuda, leaf_size):
+    """The mask filter on mask_tree's leaves (a leaf no mask passes, NaN
+    padding that passes the mask between masked and unmasked rows, a leaf
+    longer than 32 rows) under single- and multi-bit masks, 8 and 16
+    wide, closest and any."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+
+    tree, mask = mask_tree(leaf_size)
+    rays = tie_rays(3000, cuda)
+    hits = 0
+    for width in (8, 16):
+        packed = pack_binary_tree(*tree, leaf_size=leaf_size,
+                                  branching=width, tri_mask=mask,
+                                  device=cuda)
+        for qmask in MASK_QMASKS:
+            for mode in ("closest", "any"):
+                before = packet_trace.MASK_LAUNCHES
+                got = _trace_bits(packed, rays, mode=mode, filter_mask=qmask)
+                assert packet_trace.MASK_LAUNCHES == before + 1
+                hits += int(got.hit.sum())
+    assert hits > 0
+
+
+@pytest.mark.parametrize("n", [9, 12, 15, 16])
+def test_w16_wide_nodes_with_ties(cuda, n):
+    """16-wide roots of 9 to 16 live children whose slots 7 and 8 lie at
+    one entry distance (ties kept in slot order across the halves of the
+    node), closest, any and under a mask."""
+    from rtk_tpu_torch.trace.packed import pack_binary_tree
+
+    tri_v, *tree = wide_tie_tree(n)
+    mask = (np.arange(tri_v.shape[0]) % 3 + 1).astype(np.uint32)
+    packed = pack_binary_tree(tri_v, *tree, leaf_size=4, branching=16,
+                              tri_mask=mask, device=cuda)
+    rays = tie_rays(3000, cuda)
+    for kw in (dict(), dict(mode="any"), dict(filter_mask=2)):
+        before = packet_trace.W16_LAUNCHES
+        got = _trace_bits(packed, rays, **kw)
+        assert packet_trace.W16_LAUNCHES == before + 1
+    assert got.hit.any()
 
 
 @pytest.mark.parametrize("kind", ["lbvh", "sah", "sah16"])

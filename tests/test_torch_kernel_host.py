@@ -23,9 +23,10 @@ from rtk_tpu_torch.testing.grid import build_grid, march_batch
 from rtk_tpu_torch.trace.packed import pack_binary_tree, pack_scene
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
-from test_torch_kernel import (FILTERS, TIE_CASES, chain_forest, chain_grid,
+from test_torch_kernel import (FILTERS, MASK_QMASKS, TIE_CASES,
+                               _root_slot_boxes, chain_forest, chain_grid,
                                chain_rays, long_tail_rays, long_tail_scene,
-                               tie_rays, tie_tree)
+                               mask_tree, tie_rays, tie_tree, wide_tie_tree)
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -48,6 +49,7 @@ struct dim3 { unsigned x, y, z; };
 static dim3 blockIdx, threadIdx, blockDim;
 template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline int __ffs(int x) { return __builtin_ffs(x); }
 static inline unsigned __activemask() { return 1u; }
 static inline unsigned __match_any_sync(unsigned mask, int) {
   return threadIdx.x % 3 ? mask : 0u;
@@ -360,4 +362,80 @@ def test_host_roots_in_the_rounds_order(libs):
         ps.packed.nodes, ps.packed.tris, rows8, leaf_size=ps.packed.leaf_size,
         stack_size=ps.packed.stack_size, roots=roots, stats=True),
         "round 0 roots")
+    assert bool((got[3] >= 0).any())
+
+
+def _padding_between(packed, qmask):
+    """Rows of NaN padding that pass qmask, after a real row of their leaf
+    that fails it and before a next leaf whose first row passes it."""
+    tris, k = packed.tris, packed.leaf_size
+    pad = torch.isnan(tris[:, 0])
+    ok = (tris[:, pt.MASK_COL].to(torch.int32) & qmask) != 0
+    found = 0
+    for leaf in range(tris.shape[0] // k - 1):
+        rows = range(leaf * k, (leaf + 1) * k)
+        real = [r for r in rows if not pad[r]]
+        nxt = (leaf + 1) * k
+        if (real and len(real) < k and not ok[real[-1]]
+                and ok[real[-1] + 1] and not pad[nxt] and ok[nxt]):
+            found += 1
+    return found
+
+
+@pytest.mark.parametrize("leaf_size", [1, 4, 8, 16, 40])
+def test_host_kernel_mask_leaves(libs, leaf_size):
+    """The mask filter, kernel == plain bit for bit, counts included, on
+    mask_tree's leaves: a leaf whose every row the mask rejects, NaN
+    padding rows that pass the mask between a leaf's masked rows and the
+    next leaf's unmasked ones, leaves of 1 to 40 rows (past 32: a leaf
+    loop in two parts), under single- and multi-bit masks (1, 2, 3,
+    0x800000, 0xFFFFFF), 8 and 16 wide, closest and any."""
+    tree, mask = mask_tree(leaf_size)
+    rows = _rows(tie_rays(600, CPU))
+    hits = 0
+    for width in (8, 16):
+        packed = pack_binary_tree(*tree, leaf_size=leaf_size,
+                                  branching=width, tri_mask=mask, device=CPU)
+        tris = packed.tris
+        bits = tris[:, pt.MASK_COL].to(torch.int32)
+        leaves = bits[:tris.shape[0] // leaf_size * leaf_size].view(
+            -1, leaf_size)
+        assert bool(((leaves & 0xFFFFFF) == 0).all(dim=1).any())
+        if leaf_size >= 4:
+            assert _padding_between(packed, 1) > 0
+        kw0 = dict(leaf_size=leaf_size, stack_size=packed.stack_size,
+                   stats=True, branching=width)
+        for qmask in MASK_QMASKS:
+            for mode in ("closest", "any"):
+                got = _trace(libs[None], packed, rows, mode=mode, qmask=qmask)
+                _assert_bits(got, pt.packet_trace_reference(
+                    packed.nodes, packed.tris, rows, **kw0, mode=mode,
+                    qmask=qmask), f"w{width} qmask {qmask:#x} {mode}")
+                hits += int((got[3] >= 0).sum())
+    assert hits > 0
+
+
+@pytest.mark.parametrize("n", [9, 10, 11, 12, 13, 14, 15, 16])
+def test_host_w16_wide_nodes_with_ties(libs, n):
+    """16-wide roots of n live children (9 to 16) whose slots 7 and 8 lie
+    at one entry distance from every ray, so the near-to-far order keeps
+    slot order across the halves of the node: closest, any, the mask
+    filter and defer_uv equal the plain version bit for bit, counts
+    included."""
+    tri_v, *tree = wide_tie_tree(n)
+    mask = (np.arange(tri_v.shape[0]) % 3 + 1).astype(np.uint32)
+    packed = pack_binary_tree(tri_v, *tree, leaf_size=4, branching=16,
+                              tri_mask=mask, device=CPU)
+    masks = int(packed.nodes[1, 6]) & 0xFFFFFFFF
+    assert bin(masks).count("1") == n
+    lo, hi = _root_slot_boxes(packed.nodes)
+    assert np.array_equal(lo[7], lo[8]) and np.array_equal(hi[7], hi[8])
+    rows = _rows(tie_rays(600, CPU))
+    kw0 = dict(leaf_size=4, stack_size=packed.stack_size, stats=True,
+               branching=16)
+    for kw in (dict(), dict(mode="any"), dict(qmask=2),
+               dict(defer_uv=True)):
+        got = _trace(libs[None], packed, rows, **kw)
+        _assert_bits(got, pt.packet_trace_reference(
+            packed.nodes, packed.tris, rows, **kw0, **kw), f"n={n} {kw}")
     assert bool((got[3] >= 0).any())

@@ -13,11 +13,13 @@ is built twice, plain and with the odd-triangle filter predicate, and:
 
   * ptxas -v's registers, frame and spills per instantiation are printed;
   * `cuobjdump -sass` of each build is written to
-    rtk_tpu_torch/build/ladder/, and per kernel the instruction count, the
-    counts of LDL/STL/LDG and the loops (backward branches with their
+    rtk_tpu_torch/build/ladder/, and per kernel the instruction count, a
+    digest of the listing (two builds with one digest run the same code),
+    the counts of LDL/STL/LDG and the loops (backward branches with their
     lengths) go to --out/ladder.jsonl (default rtk_tpu_torch/build/
     ladder/), which holds every record in full; the standard output gets
-    registers, spills, instruction counts and median times;
+    registers, spills, instruction and LDL/STL counts, digests and median
+    times;
   * the kernel alone is timed with CUDA events on these batches:
     - "headline": the main path's rows at --width^2 (default 8192):
       blob(6), LBVH leaf 4, morton camera rays in coherence-key order.
@@ -25,8 +27,13 @@ is built twice, plain and with the odd-triangle filter predicate, and:
       with ray_index;
     - "grid8b": chip_smoke.py phase 8b's rows: deforming_grid(n=1024)
       (2,097,152 triangles) on LBVH leaf-8 tables refit to t = 0.2, 2048^2
-      morton camera rays unsorted; defer_uv (the rows phase 8b times) and
-      closest;
+      morton camera rays unsorted; defer_uv (the rows phase 8b times),
+      closest, any and mask (the odd/even tri_mask, qmask 1: phase 8b's
+      mask row), so that the mask is timed beside the same trace
+      without it;
+    - "grid8b_sah": the same rays on the grid at t = 0.2 through one SAH
+      tree (NativeOracle, leaf_max 8) packed 8 and 16 wide ("w8",
+      "w16"): 16-wide tables past L2;
     - "roots": BASELINE config 5's round 0 (chip_smoke.py phase 5, LBVH
       forest): every ray with a candidate in its first candidate's object
       space from that instance's BLAS root, grouped by instance as
@@ -58,6 +65,10 @@ is built twice, plain and with the odd-triangle filter predicate, and:
     first build's bit for bit; the first build's per-ray counts are
     printed with their divergence (per 32-ray warp, the mean of the
     warp's largest count over the mean count);
+  * on every stats case, box tests per internal pop (n_box / n_int); on
+    every mask batch (headline, grid8b), the masked-row share: 1 - sum
+    n_tri / sum (n_leaf x leaf_size), the leaf loop's slots spent on rows
+    never tested (rows the mask rejects and NaN padding);
   * on every any-hit batch (headline, grid8b, render shadow and ao), the
     idle-lane share: over the 32-ray warps, sum(32 x the warp's largest
     step count - the sum of its lanes' steps) / sum(32 x its largest),
@@ -86,6 +97,7 @@ One JSON object per line; needs a CUDA card and nvcc; imports no jax.
 """
 import argparse
 import ctypes
+import hashlib
 from concurrent.futures import ThreadPoolExecutor
 import json
 import pathlib
@@ -107,8 +119,8 @@ MODES = {"closest": {}, "any": {"mode_any": 1}, "mask": {"qmask": 1},
          "defer_uv": {"defer_uv": 1}, "stats": {"stats": True}}
 # Timed launches of a batch per --reps: about 50 ms of kernel a round each.
 COUNTS = ("steps", "internal_pops", "leaf_pops", "box_tests", "tri_tests")
-REPS_SCALE = {"headline": 1, "grid8b": 12, "roots": 60, "w16": 1,
-              "atrium": 12, "render": 12}
+REPS_SCALE = {"headline": 1, "grid8b": 12, "grid8b_sah": 12, "roots": 60,
+              "w16": 1, "atrium": 12, "render": 12}
 
 
 def warp_view(c):
@@ -270,9 +282,10 @@ def march_cells(counts, rounds):
 
 
 def sass_summary(text):
-    """Per kernel of a cuobjdump -sass listing: instructions, local and
-    global memory instructions, the opcode histogram's head, and every
-    loop as (first address, last address, instructions)."""
+    """Per kernel of a cuobjdump -sass listing: instructions, a digest of
+    the listing (equal digests: the same code), local and global memory
+    instructions, the opcode histogram's head, and every loop as (first
+    address, last address, instructions)."""
     out, name, rows = {}, None, []
 
     def close():
@@ -294,6 +307,8 @@ def sass_summary(text):
                                   i - addr_index[target] + 1))
         out[name] = {
             "instructions": len(ops),
+            "digest": hashlib.sha1("\n".join(
+                f"{op}{rest}" for _, op, rest in rows).encode()).hexdigest(),
             **{k: sum(o.startswith(k) for o in ops)
                for k in ("LDL", "STL", "LDG", "LDS", "STS", "BRA", "MUFU")},
             "top": dict(sorted(hist.items(), key=lambda kv: -kv[1])[:14]),
@@ -437,15 +452,18 @@ def main():
         dict(builds)[label][kind] = lib
     for rec in recs.values():
         emit(rec, {"build": rec["build"], "flags": rec["flags"], **{
-            kind: {"ptxas": rec[kind]["ptxas"], "instructions": {
-                k: v["instructions"] for k, v in rec[kind]["sass"].items()}}
+            kind: {"ptxas": rec[kind]["ptxas"], "sass": {
+                k: {c: v[c] for c in ("instructions", "LDL", "STL")}
+                | {"digest": v["digest"][:12]}
+                for k, v in rec[kind]["sass"].items()}}
             for kind in ("plain", "filter")}})
 
     # ---- the batches: tables, rows and cases ----
     import chip_smoke as cs
     from rtk_tpu_torch import instancing
     from rtk_tpu_torch.scene import refit
-    from rtk_tpu_torch.trace.packed import repack_bounds
+    from rtk_tpu_torch.trace.packed import pack_binary_tree, repack_bounds
+    from rtk_tpu_torch.utils.native_sah import NativeOracle
 
     # headline
     v6, f6 = scenes.blob(6)[1:]
@@ -468,6 +486,8 @@ def main():
                   {"ray_index": ridx, "stats": True}))
     cases.append(("headline", "any_stats", "plain", packed, rows,
                   {"mode_any": 1, "stats": True}))
+    cases.append(("headline", "mask_stats", "plain", packed, rows,
+                  {"qmask": 1, "stats": True}))
 
     # grid8b
     cfg = rt.BuildConfig(branching=8, leaf_size=8, wide_nodes=False)
@@ -475,17 +495,29 @@ def main():
     scene8 = rt.build_from_soup(g0, config=cfg, device=dev)
     p8 = rt.Tracer(scene8, tri_mask=np.where(
         np.arange(g0.shape[0]) % 2 == 1, 1, 2).astype(np.uint32)).packed
-    p8 = repack_bounds(p8, refit(scene8, torch.as_tensor(
-        scenes.deforming_grid(0.2, n=1024), device=dev)))
+    g2 = scenes.deforming_grid(0.2, n=1024)
+    p8 = repack_bounds(p8, refit(scene8, torch.as_tensor(g2, device=dev)))
     del scene8, g0
     cam8 = scenes.camera_rays(**cs.GRID_CAM, width=2048, height=2048,
                               order="morton", device=dev, on_device=True)
     rows8 = rows_of(cam8.origin, cam8.direction, cam8.min_t, cam8.max_t)
     del cam8
-    for m in ("defer_uv", "closest", "stats", "any"):
+    for m in ("defer_uv", "closest", "stats", "any", "mask"):
         cases.append(("grid8b", m, "plain", p8, rows8, MODES[m]))
     cases.append(("grid8b", "any_stats", "plain", p8, rows8,
                   {"mode_any": 1, "stats": True}))
+    cases.append(("grid8b", "mask_stats", "plain", p8, rows8,
+                  {"qmask": 1, "stats": True}))
+
+    # grid8b_sah: the same rows through one SAH tree at both widths
+    tree = NativeOracle(g2.reshape(-1, 9), leaf_max=8).export_tree()
+    for w in (8, 16):
+        pw = pack_binary_tree(g2, *tree, leaf_size=8, branching=w,
+                              device=dev)
+        cases.append(("grid8b_sah", f"w{w}", "plain", pw, rows8, {}))
+        cases.append(("grid8b_sah", f"w{w}_stats", "plain", pw, rows8,
+                      {"stats": True}))
+    del tree, g2
 
     # roots: config 5's round 0
     _, _, iscene, tables = cs.config5(rt, dev)
@@ -616,11 +648,11 @@ def main():
                   {"grid": mg9}))
     marches.append(("render/march_b2", cm9, mrows9, mg9))
     del blog, mlog, cam, rscene, rtracer, rmarch, atr
-    emit({"batches": {b: {"rays": r.shape[1], "node_rows": pk.nodes.shape[0],
-                          "tri_rows": pk.tris.shape[0],
-                          "table_mb": (pk.nodes.numel() + pk.tris.numel())
-                          * 4 / 1e6}
-                      for b, _, _, pk, r, _ in cases},
+    emit({"batches": {f"{b}/w{pk.branching}": {
+        "rays": r.shape[1], "node_rows": pk.nodes.shape[0],
+        "tri_rows": pk.tris.shape[0], "leaf_size": pk.leaf_size,
+        "table_mb": (pk.nodes.numel() + pk.tris.numel()) * 4 / 1e6}
+        for b, _, _, pk, r, _ in cases},
           "l2_bytes": torch.cuda.get_device_properties(0).L2_cache_size})
 
     outs = {}
@@ -670,14 +702,19 @@ def main():
                 if kw.get("stats"):
                     c = o[4].double()
                     warp = warp_view(c)
-                    idle = ({"idle_lane_share": idle_lane_share(c[0])}
-                            if kw.get("mode_any") else {})
+                    s = c.sum(dim=1)
+                    extra = {"box_per_internal": float(s[3] / s[1])}
+                    if kw.get("mode_any"):
+                        extra["idle_lane_share"] = idle_lane_share(c[0])
+                    if kw.get("qmask") is not None:
+                        extra["masked_row_share"] = float(
+                            1 - s[4] / (s[2] * pk.leaf_size))
                     emit({"per_ray_mean": f"{batch}/{case}", **dict(zip(
                         COUNTS, c.mean(dim=1).tolist())),
                         "max": dict(zip(COUNTS, c.amax(dim=1).tolist())),
                         "warp_max_over_mean": dict(zip(COUNTS, (
                             warp.amax(dim=2).mean(dim=1)
-                            / c.mean(dim=1)).tolist())), **idle})
+                            / c.mean(dim=1)).tolist())), **extra})
             for g, w in zip(got, want[key]):
                 if not torch.equal(g, w):
                     raise RuntimeError(f"{label}/{batch}/{case} differs from "

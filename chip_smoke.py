@@ -92,7 +92,21 @@ Phases (each prints one line):
      wavefront (bench.py:803-894) on phase 5's two forests with pooled
      calibrated round caps, every bounce batch held against the plain
      version of the rounds and against the flat world-space Tracer at
-     phase 5's bars.
+     phase 5's bars;
+ 10. the Tracer's remaining engines on the atrium (BASELINE config 3, LBVH
+     leaf 16 through build_scene, 1024^2 primaries and phase 7's cosine
+     bounce): Tracer(engine="grid") closest on the bounce and the
+     primaries and any on the bounce, once with calibrate_caps' caps and
+     once under an odd/even tri_mask with filter_mask; engine="binned"
+     closest and any; trace_packets_kz_binned; render_path with the grid
+     as bounce_tracer; and engine="stackless" on 256^2 subsets.  Each is
+     held against the flat trace at tests/test_grid.py's bar (kz-binned
+     bit for bit, the render at 9a's), the grid rounds against their
+     plain version (256^2 closest, 128^2 any and masked, counts
+     included), and one launch whose roots include leaf entries against
+     the plain version.  It prints each engine's steady ms beside the
+     flat trace's, the grid's per-round counts, its replayed round
+     launches and the host syncs of one grid and one binned call.
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
 time the card could take, from the per-ray box and triangle tests the
@@ -323,7 +337,8 @@ def roots_alone(pt, packed, comps, roots, reps=3):
     """(outputs, ms) of the roots variant's launch alone: the roots are
     checked once first, as pack_instanced checks the rows the rounds
     gather them from, and the timed launches make no host sync."""
-    pt._check_roots(roots, packed.nodes, comps, packed.branching)
+    pt._check_roots(roots, packed.nodes, comps, packed.branching,
+                    packed.tris.shape[0] // packed.leaf_size)
     return timed(lambda: pt._kernel(
         packed.nodes, packed.tris, comps, leaf_size=packed.leaf_size,
         stack_size=packed.stack_size, mode="closest", watertight=True,
@@ -827,16 +842,16 @@ def width_mismatch(a, b):
     return int(bad.sum())
 
 
-def march_parity(got, ref, what):
+def march_parity(got, ref, what, field="slot"):
     """tests/test_grid.py::_assert_parity: equal hit masks, t within
-    1e-6*(1+|t|), another triangle only at an exact-t tie -> (max |t
-    err|, ties)."""
+    1e-6*(1+|t|), another triangle (`field` differs) only at an exact-t tie
+    -> (max |t err|, ties)."""
     check(torch.equal(got.hit, ref.hit),
           f"{what}: {int((got.hit != ref.hit).sum())} hit mismatches")
     d = (got.t - ref.t).abs()
     check(bool((d <= 1e-6 * (1 + ref.t.abs())).all()),
           f"{what}: t differs by {float(d.max())}")
-    differ = got.slot != ref.slot
+    differ = getattr(got, field) != getattr(ref, field)
     check(torch.equal(got.t[differ], ref.t[differ]),
           f"{what}: another triangle off a t tie")
     return float(d.max()), int(differ.sum())
@@ -877,13 +892,27 @@ def per_ray_mean(counts):
                      "tri_tests"), counts.double().mean(dim=1).tolist()))
 
 
+def cosine_bounce(rt, prim, cam, seed=0):
+    """One cosine-sampled diffuse bounce off the primaries' hits
+    (bench.py:623-633): origins pushed 1e-3 along the geometric normal,
+    min_t 1e-3, dead where the primary missed."""
+    from rtk_tpu_torch.models.path import cosine_sample, geometric_normal
+
+    nrm = geometric_normal(prim, cam.direction)
+    gen = torch.Generator(device=cam.device).manual_seed(seed)
+    return rt.Rays(origin=prim.position() + 1e-3 * nrm,
+                   direction=cosine_sample(gen, nrm),
+                   min_t=torch.full((cam.count,), 1e-3, device=cam.device),
+                   max_t=torch.where(prim.hit, float(np.float32(3.4e38)),
+                                     0.0))
+
+
 def phase7(rt, dev, launch_log, soup6, cam512, width=8192, atrium_width=1024,
            subset=256):
     """16-wide tables on the headline and the atrium bounce, and the grid
     march on the atrium; returns its record and the two kernel entries.
     Counts are zeroed just before each main-path trace and read just
     after; the comparisons with plain versions come after."""
-    from rtk_tpu_torch.models.path import cosine_sample, geometric_normal
     from rtk_tpu_torch.ops import packet_trace as pt
     from rtk_tpu_torch.ops.morton import ray_coherence_key
     from rtk_tpu_torch.testing import scenes
@@ -951,13 +980,7 @@ def phase7(rt, dev, launch_log, soup6, cam512, width=8192, atrium_width=1024,
     cam = scenes.camera_rays(**ATRIUM_CAM, width=atrium_width,
                              height=atrium_width, order="morton", device=dev)
     prim = pt.trace_packets(tables[8], cam)
-    nrm = geometric_normal(prim, cam.direction)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    bounce = rt.Rays(origin=prim.position() + 1e-3 * nrm,
-                     direction=cosine_sample(gen, nrm),
-                     min_t=torch.full((cam.count,), 1e-3, device=dev),
-                     max_t=torch.where(prim.hit, float(np.float32(3.4e38)),
-                                       0.0))
+    bounce = cosine_bounce(rt, prim, cam)
     sync()
     pt.W16_LAUNCHES = 0
     launch_log.start(7)
@@ -1869,6 +1892,214 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
             errs)
 
 
+def phase10(rt, dev, launch_log, width=1024, subset=256):
+    """The Tracer's remaining engines on the atrium (BASELINE config 3,
+    LBVH leaf 16 through build_scene, phase 7's 1024^2 primaries and
+    cosine bounce): the grid rounds engine, binned, kz-binned and
+    stackless, each against the flat trace, and render_path with the grid
+    as bounce_tracer.  Returns its record, the launches of its main-path
+    run by counter (zeroed just before it, read just after) and the
+    largest |kernel - plain| per kernel over its comparisons."""
+    from rtk_tpu_torch.models import path
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.testing.binned import subtree_bins
+    from rtk_tpu_torch.testing.grid import calibrate_caps, trace_packets_grid
+
+    sync = torch.cuda.synchronize
+    counters = ("KERNEL_LAUNCHES", "ROOTS_LAUNCHES", "ANY_LAUNCHES",
+                "MASK_LAUNCHES")
+    atr = scenes.atrium()
+    soup = (atr.reshape(-1, 3), np.arange(atr.shape[0] * 3).reshape(-1, 3))
+    odd = np.where(np.arange(atr.shape[0]) % 2 == 1, 1, 2).astype(np.uint32)
+    builds = {}
+    sync()
+    t0 = time.perf_counter()
+    scene = rt.build_scene(soup, rt.BuildConfig(leaf_size=16), device=dev)
+    flat = rt.Tracer(scene)
+    packed = flat.packed
+    sync()
+    builds["scene_pack_s"] = time.perf_counter() - t0
+    eng = {e: rt.Tracer(scene, engine=e)
+           for e in ("grid", "binned", "stackless")}
+    masked = {e: rt.Tracer(scene, engine=e, tri_mask=odd)
+              for e in ("packet", "grid")}
+    for name, build in (("grid_s", lambda: eng["grid"].grid),
+                        ("masked_grid_s", lambda: masked["grid"].grid),
+                        ("stackless_s", lambda: eng["stackless"].stackless)):
+        t0 = time.perf_counter()
+        build()
+        sync()
+        builds[name] = time.perf_counter() - t0
+    grid = eng["grid"].grid
+    cam = scenes.camera_rays(**ATRIUM_CAM, width=width, height=width,
+                             order="morton", device=dev)
+    n = cam.count
+    bounce = cosine_bounce(rt, flat.closest(cam), cam)
+    caps = calibrate_caps(grid, bounce)
+    mats = path.Materials.make([[0.7, 0.7, 0.7]], device=dev)
+    rkw = dict(bounces=4, background=(0.2, 0.3, 0.4))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(1)
+
+    calls = {
+        "grid_bounce": lambda: eng["grid"].closest(bounce),
+        "grid_primary": lambda: eng["grid"].closest(cam),
+        "grid_any": lambda: eng["grid"].any(bounce),
+        "grid_caps": lambda: trace_packets_grid(grid, bounce, caps=caps),
+        "grid_mask": lambda: masked["grid"].closest(bounce, filter_mask=1),
+        "binned_bounce": lambda: eng["binned"].closest(bounce),
+        "binned_any": lambda: eng["binned"].any(bounce),
+        "kz_binned": lambda: pt.trace_packets_kz_binned(packed, bounce),
+        "render_grid": lambda: path.render_path(
+            flat, cam, mats, gen(), bounce_tracer=eng["grid"], **rkw)}
+    sync()
+    for c in counters:
+        setattr(pt, c, 0)
+    launch_log.start(10)
+    out = {k: f() for k, f in calls.items()}
+    sync()
+    launch_log.stop()
+    launches = {c.split("_LAUNCHES")[0].lower(): getattr(pt, c)
+                for c in counters}
+    check(all(v > 0 for v in launches.values()),
+          f"phase 10 launches {launches}")
+    # Each grid call launches its rounds (10) and its residual; the
+    # render's four bounce traces are grid calls.
+    n_bins = min(8, subtree_bins(packed, 2)[0].shape[0])
+    check(launches["roots"] == 10 * 9 + 2 * n_bins,
+          f"phase 10: {launches['roots']} roots launches")
+    grid_rounds = [{k: r[k] for k in ("rays", "ms", "bound_ms")}
+                   for r in launch_log.last[:11]]
+
+    # ---- each engine against the flat trace ----
+    ref = {"bounce": flat.closest(bounce), "primary": flat.closest(cam),
+           "any": flat.any(bounce),
+           "mask": masked["packet"].closest(bounce, filter_mask=1)}
+    parity = {}
+    for name, want in (("grid_bounce", "bounce"), ("grid_primary",
+                                                   "primary"),
+                       ("grid_caps", "bounce"), ("grid_mask", "mask"),
+                       ("binned_bounce", "bounce")):
+        parity[name] = march_parity(out[name], ref[want], f"10 {name}")
+    for name in ("grid_any", "binned_any"):
+        check(torch.equal(out[name].hit, ref["any"].hit),
+              f"10 {name}: any-hit mask")
+    gm = out["grid_mask"]
+    check(bool((gm.triangle_index[gm.hit] % 2 == 1).all()),
+          "10 grid_mask: a triangle the mask rejects")
+    same_hits(out["kz_binned"], pt.trace_packets(packed, bounce),
+              "10 kz-binned vs trace_packets")
+    rad_flat = path.render_path(flat, cam, mats, gen(), **rkw)
+    share = float(((out["render_grid"] - rad_flat).abs() <= 1e-4)
+                  .all(dim=1).float().mean())
+    check(share >= ENGINE_SHARE, f"10 render: grid bounces agree on {share}")
+    del out
+
+    # ---- the stackless engine on 256^2 subsets ----
+    step = n // subset ** 2
+    subs = {"bounce": bounce[::step], "primary": cam[::step]}
+    stackless = {}
+    for name, sub in subs.items():
+        got, ms = timed(lambda: eng["stackless"].closest(sub), warm=False)
+        fl = flat.closest(sub)
+        stackless[name] = {
+            "rays": sub.count, "ms": ms,
+            "flat_ms": timed(lambda: flat.closest(sub), reps=3)[1],
+            "max_t_err_ties": march_parity(got, fl, f"10 stackless {name}",
+                                           "triangle_index")}
+
+    # ---- the kernel against its plain version ----
+    errs = {"roots": 0.0, "any": 0.0, "mask": 0.0, "kernel": 0.0}
+    vs_plain = {}
+    for name, g, sub, kw in (
+            ("closest", grid, subs["bounce"], {}),
+            ("any", grid, subs["bounce"], {"mode": "any"}),
+            ("mask", masked["grid"].grid, subs["bounce"],
+             {"filter_mask": 1})):
+        (got, (kc, kl)), k_ms = timed(lambda: trace_packets_grid(
+            g, sub, debug_counts=True, **kw), warm=False)
+        (want, (pc, pl)), p_ms = timed(lambda: trace_packets_grid(
+            g, sub, debug_counts=True, plain=True, **kw), warm=False)
+        err = compare(got, want, f"10 grid {name} kernel/plain")
+        check(err == 0.0 and torch.equal(kc, pc) and int(kl) == int(pl),
+              f"10 grid {name}: kernel - plain {err}, or the counts differ")
+        same_hits(got, want, f"10 grid {name} kernel/plain")
+        # The rounds are roots launches, the residual the mode's variant.
+        for k in ("roots", "kernel" if name == "closest" else name):
+            errs[k] = max(errs[k], err)
+        vs_plain[f"grid_{name}"] = {"rays": sub.count, "ms": k_ms,
+                                    "plain_ms": p_ms, "max_abs_err": err}
+    # One launch whose roots include leaf entries (-2 - leaf: a third of
+    # the rays that hit, at the leaf of their flat hit) beside the depth-2
+    # bins' node rows, kernel against plain, bit for bit.
+    sub = subs["bounce"]
+    fl = flat.closest(sub)
+    bins = torch.as_tensor(subtree_bins(packed, 2)[0], device=dev)
+    i = torch.arange(sub.count, device=dev)
+    roots = torch.where((i % 3 == 0) & fl.hit,
+                        -2 - fl.slot // packed.leaf_size,
+                        bins[i % bins.shape[0]]).to(torch.int32)
+    got = pt.trace_packets(packed, sub, ray_roots=roots, sort_rays=False)
+    want = pt.trace_packets_reference(packed, sub, ray_roots=roots,
+                                      sort_rays=False)
+    err = compare(got, want, "10 leaf roots kernel/plain")
+    same_hits(got, want, "10 leaf roots kernel/plain")
+    leafy = roots <= -2
+    check(bool(got.hit[leafy].any()), "10 leaf roots: no leaf-rooted hit")
+    errs["roots"] = max(errs["roots"], err)
+    vs_plain["leaf_roots"] = {"rays": sub.count, "leaf_rooted": int(
+        leafy.sum()), "leaf_rooted_hits": int(got.hit[leafy].sum()),
+        "max_abs_err": err}
+
+    # ---- steady ms, the grid's counts and its host syncs ----
+    ms = {k: timed(f, reps=3)[1] for k, f in calls.items()}
+    ms.update(flat_bounce=timed(lambda: flat.closest(bounce), reps=3)[1],
+              flat_primary=timed(lambda: flat.closest(cam), reps=3)[1],
+              flat_any=timed(lambda: flat.any(bounce), reps=3)[1],
+              flat_mask=timed(lambda: masked["packet"].closest(
+                  bounce, filter_mask=1), reps=3)[1],
+              render_flat=timed(lambda: path.render_path(
+                  flat, cam, mats, gen(), **rkw), reps=3)[1])
+    # Where a grid call's time goes: the card's busy share over one call
+    # (device events a launch of its ten rounds and residual) and the
+    # device kernels that take the most of it.
+    profile = {name: profile_clip(calls[name], k, pt)
+               for name, k in (("grid_bounce", 11),
+                               ("binned_bounce", n_bins + 1))}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        calls["grid_bounce"]()
+        sync()
+    kernels = sorted(
+        ((e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda r: -r[1])
+    profile["grid_bounce"]["top_device_kernels_ms"] = [
+        [name[:60], ms, count] for name, ms, count in kernels[:8]]
+    _, (cnts, live) = trace_packets_grid(grid, bounce, debug_counts=True)
+    _, (ccnts, clive) = trace_packets_grid(grid, bounce, caps=caps,
+                                           debug_counts=True)
+    rec = {"tris": scene.num_tris, "rays": n, **builds,
+           "dims": grid.dims, "occupied_cells": grid.n_occ,
+           "cells_rows": grid.cells.num_nodes, "bins": n_bins,
+           "live_bounce_rays": int((bounce.max_t > bounce.min_t).sum()),
+           "launches": launches, "ms": ms,
+           "grid_rounds": {"counts": cnts.tolist(), "residual_live":
+                           int(live), "caps": caps, "caps_counts":
+                           ccnts.tolist(), "caps_residual_live": int(clive),
+                           "replayed_launches": grid_rounds},
+           "profile": profile,
+           "grid_host_syncs": host_syncs(calls["grid_bounce"]),
+           "binned_host_syncs": host_syncs(calls["binned_bounce"]),
+           "parity_max_t_err_ties": parity, "render_agree_share": share,
+           "stackless": stackless, "kernel_vs_plain": vs_plain}
+    return rec, launches, errs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -2130,6 +2361,19 @@ def main():
     p6_kernels["packet_trace_stats"]["launches"] += p9_launches["stats"]
     p7_kernels["packet_trace_march"]["launches"] += p9_launches["march"]
 
+    # ---- phase 10: the Tracer's remaining engines ----
+    p10, p10_launches, p10_errs = phase10(rt, dev, launch_log)
+    print("phase 10 remaining engines:", json.dumps({**p10, **stamp()}),
+          flush=True)
+    launches += p10_launches["kernel"]
+    max_err = max(max_err, p10_errs["kernel"])
+    p5["launches"]["roots"] += p10_launches["roots"]
+    p5["max_abs_err"] = max(p5["max_abs_err"], p10_errs["roots"])
+    for name in ("any", "mask"):
+        k = p8_kernels[f"packet_trace_{name}"]
+        k["launches"] += p10_launches[name]
+        k["max_abs_err"] = max(k["max_abs_err"], p10_errs[name])
+
     src = "rtk_tpu_torch/csrc/packet_trace.cu"
     kernels = [
         {"name": "packet_trace", "replaces": "rtk_tpu/ops/pallas_trace.py:146",
@@ -2168,11 +2412,11 @@ def main():
          **p7_kernels["packet_trace_march"]}]
     # Each row's launches replayed alone: the sum of (ms - bound) at each
     # launch's own shape, from the launches its `launches` counts.
-    rows_of_log = {"packet_trace": ((3, 9), None),
-                   "packet_trace_any": ((3, 8, 9), "any"),
-                   "packet_trace_mask": ((8,), "mask"),
+    rows_of_log = {"packet_trace": ((3, 9, 10), None),
+                   "packet_trace_any": ((3, 8, 9, 10), "any"),
+                   "packet_trace_mask": ((8, 10), "mask"),
                    "packet_trace_defer_uv": ((8, 9), "defer_uv"),
-                   "packet_trace_roots": ((5, 9), "roots"),
+                   "packet_trace_roots": ((5, 9, 10), "roots"),
                    "packet_trace_filter": ((6,), "filter"),
                    "packet_trace_stats": ((6, 9), "stats"),
                    "packet_trace_w16": ((7,), "w16"),

@@ -253,7 +253,9 @@ typedef float4 TriTail;
 typedef float2 TriTail;
 #endif
 
-// Depth-first traversal of the W-wide tree rooted at row `root`, with the
+// Depth-first traversal of the W-wide tree rooted at entry `root` (a node
+// row, or a leaf in the stack's encoding -2 - l, which descend passes
+// straight to the leaf test: a shallow cut's subtree bins), with the
 // best hit so far carried in and out (a march trace carries it from cell
 // to cell; a miss leaves it as it was).  Counters add up.  When the stack
 // runs dry, next(cur) either sets cur to the root row of the ray's next
@@ -501,9 +503,10 @@ struct NoNext {
 
 // One thread per ray.  W: the node table's width (8 or 16).  MARCH: the
 // grid march (roots unused: a cell's root row is its id).
-// roots: null (every ray starts at row 0) or (n,) per-ray entry rows of a
-// multi-root table (pallas_trace.py:347-360 takes one per 128-ray packet;
-// a thread per ray makes the per-ray root the natural form).
+// roots: null (every ray starts at row 0) or (n,) per-ray entries of a
+// multi-root table, node rows or leaves -2 - l (pallas_trace.py:347-360
+// takes one per 128-ray packet and pushes it as it is; a thread per ray
+// makes the per-ray root the natural form).
 // ray_index: read by filter builds only; null (the caller's index is i) or
 // (n,) caller indices of coherence-sorted rays (pallas_trace.py:1475-1481).
 // counts: null or (5, n) per-ray steps, internal pops, leaf pops, box
@@ -705,7 +708,8 @@ int rtk_packet_trace_max_stack() { return RTK_MAX_STACK; }
 
 // rays: (8, n) f32 [ox oy oz dx dy dz min_t max_t]; nodes (Nd*w, 8) i32
 // with w = 8 or 16, and tris (Tp, 16) f32, both 16-byte aligned; roots:
-// null or (n,) i32 rows in [0, Nd); ray_index: null or (n,) i32 caller
+// null or (n,) i32 entries, rows in [0, Nd) or leaves -2 - l with l in
+// [0, Tp / leaf_size); ray_index: null or (n,) i32 caller
 // indices (filter builds); counts: null or (5, n) i32.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success, -1 for a width
 // the library does not hold); does not synchronise.

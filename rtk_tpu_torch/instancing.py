@@ -182,19 +182,21 @@ def build_instanced(blas: Sequence[Scene], instance_blas,
     )
 
 
-def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int):
-    """Nearest-C instance candidates per ray by AABB entry distance: a
-    dense (rays x instances) slab test over ray chunks, C passes of masked
-    argmin (the first instance on ties).
+def _instance_candidates_impl(lo, hi, rays: Rays, c: int):
+    """Nearest-C boxes per ray by AABB entry distance: a dense (rays x
+    boxes) slab test over ray chunks, C passes of masked argmin (the first
+    box on ties).  lo, hi: (B, 3) box corners on the rays' device (the
+    instances' world boxes here, the subtree bins' in testing/binned.py,
+    as the reference shares _instance_candidates_impl).
 
     Returns (cand_idx (N, C) i32 [-1 = none], cand_t (N, C) f32 [inf =
     none], overflow (N,) f32: the (C+1)-th entry distance, the exactness
     bound of the cap)."""
     n = rays.count
-    n_inst = iscene.num_instances
+    n_inst = lo.shape[0]
     c = min(c, n_inst)
-    chunk = max(1024, (1 << 24) // n_inst)  # bounds the (chunk, I) slab
-    lo, hi = iscene.inst_lo[None], iscene.inst_hi[None]
+    chunk = max(1024, (1 << 24) // n_inst)  # bounds the (chunk, B) slab
+    lo, hi = lo[None], hi[None]
     outs = []
     for s in range(0, max(n, 1), chunk):
         o = rays.origin[s:s + chunk, None]
@@ -223,6 +225,11 @@ def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int):
         outs.append((torch.stack(idxs, 1).to(torch.int32),
                      torch.stack(ts, 1), score.min(dim=1).values))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int):
+    """_instance_candidates_impl over the instances' world boxes."""
+    return _instance_candidates_impl(iscene.inst_lo, iscene.inst_hi, rays, c)
 
 
 def _object_rays(object_from_world, origin, direction):

@@ -20,10 +20,12 @@ each ray's cell chain in one launch; its plain version runs rounds of the
 roots traversal over the live rays, one cell a round, with the kernel's
 DDA arithmetic.
 
-Multi-root tables (forests of BLAS trees, the instanced path) take a root
-row per ray: `ray_roots`, or the reference's `packet_roots`, one per
-128-ray packet.  The kernel reads each ray's root where the single-root
-trace starts at row 0.
+Multi-root tables (forests of BLAS trees, the instanced path, the grid's
+cells) take a root per ray: `ray_roots`, or the reference's
+`packet_roots`, one per 128-ray packet.  The kernel reads each ray's root
+where the single-root trace starts at row 0.  A root is an entry in the
+kernel's stack encoding: a node row, or -2 - l to start at leaf l (the
+binned engine's subtree cut can surface a leaf).
 
 `filter_fn` takes a predicate captured by ops/filter_capture.jit_filter:
 the kernel's filter variant is a separate nvcc build per predicate, and
@@ -42,7 +44,11 @@ The TPU kernel's scheduling flags (dual, ordered, islab, narrow,
 leaf_loop, kz_static, tris128, hbm_tris, lesion, p_pk, pkt) pick how the
 TPU steps its packets through the same function.  trace_packets accepts
 them and they have no effect here, except that pkt and p_pk set the
-packet geometry that packet_roots is laid out in.
+packet geometry that packet_roots is laid out in; the combinations the
+reference refuses raise ValueError here too (_check_flags).
+`trace_packets_kz_binned` is the reference's dispatcher by dominant
+direction axis; the kernel picks the shear axis per ray, so it is one
+trace_packets call.
 """
 from __future__ import annotations
 
@@ -168,10 +174,29 @@ def _check_tables(nodes, tris, rays8, w):
         raise ValueError("tables and rays must be on one device")
 
 
-def _check_roots(roots, nodes, rays8, w, in_range=False):
-    """Per-ray root rows: (N,) int32 on the rays' device, each a row of the
-    w-wide node table (a bad root would read outside it).  One host sync,
-    unless the caller knows the rows are in range (in_range)."""
+def check_root_entries(roots, rows: int, leaves: int):
+    """Refuse root entries outside a table of `rows` node rows and `leaves`
+    leaves (one host sync on a device tensor).  An entry is in the
+    kernel's stack encoding: a node row in [0, rows), or -2 - l for leaf l
+    in [0, leaves), which starts the traversal at that leaf (a shallow cut
+    surfaces leaves as roots: testing/binned.py)."""
+    roots = torch.as_tensor(roots)
+    if not roots.numel():
+        return
+    bad = (roots >= rows) | ((roots < 0) & ((roots > -2)
+                                             | (roots < -1 - leaves)))
+    if bool(bad.any()):
+        lo, hi = (int(x) for x in torch.aminmax(roots))
+        raise ValueError(f"root rows span [{lo}, {hi}]; the table has "
+                         f"{rows} rows and {leaves} leaves (entries -2 - "
+                         "leaf)")
+
+
+def _check_roots(roots, nodes, rays8, w, leaves, in_range=False):
+    """Per-ray root entries: (N,) int32 on the rays' device, each a row of
+    the w-wide node table or a leaf (-2 - leaf; a bad root would read
+    outside the tables).  One host sync, unless the caller knows the
+    entries are in range (in_range)."""
     if roots is None:
         return None
     n = rays8.shape[1]
@@ -179,11 +204,8 @@ def _check_roots(roots, nodes, rays8, w, in_range=False):
         raise ValueError(f"roots must be an ({n},) int32 tensor")
     if roots.device != rays8.device:
         raise ValueError("roots and rays must be on one device")
-    if n and not in_range:
-        lo, hi = (int(x) for x in torch.aminmax(roots))
-        if lo < 0 or hi >= nodes.shape[0] // w:
-            raise ValueError(f"root rows span [{lo}, {hi}]; the table has "
-                             f"{nodes.shape[0] // w} rows")
+    if not in_range:
+        check_root_entries(roots, nodes.shape[0] // w, leaves)
     return roots.contiguous()
 
 
@@ -268,7 +290,8 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
     instantiation).  stack_size: entries the deepest tree can need
     (PackedScene.stack_size); raises before launch if the compiled stack
     is smaller.  roots: None (every ray starts at row 0) or (N,) int32
-    root rows.  filter_fn: None or a jit_filter predicate (its own kernel
+    root entries: node rows, or -2 - l to start at leaf l (the kernel's
+    stack encoding).  filter_fn: None or a jit_filter predicate (its own kernel
     build); ray_index: None (the caller's index is the column) or (N,)
     int32 caller indices the predicate sees.  stats: per-ray counts of
     popped entries, internal pops, leaf pops, child box tests (live child
@@ -285,16 +308,18 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
 def _kernel(nodes, tris, rays8, *, leaf_size, stack_size, mode, watertight,
             qmask, defer_uv, roots, filter_fn, ray_index, stats, branching,
             roots_in_range=False):
-    """packet_trace_kernel; roots_in_range: the roots are rows of the table
-    already (pack_instanced checked them on the host), so the launch makes
-    no host sync to check them."""
+    """packet_trace_kernel; roots_in_range: the roots are entries of the
+    tables already (checked on the host when their source was made, or
+    clamped into range on the device), so the launch makes no host sync to
+    check them."""
     global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
     global W16_LAUNCHES, ANY_LAUNCHES, MASK_LAUNCHES, DEFER_UV_LAUNCHES
     lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
                                               stack_size, branching,
                                               filter_fn)
     ray_index = _check_filter(filter_fn, ray_index, rays8)
-    roots = _check_roots(roots, nodes, rays8, branching, roots_in_range)
+    roots = _check_roots(roots, nodes, rays8, branching,
+                         tris.shape[0] // leaf_size, roots_in_range)
     out = _launch(lambda *o: lib.rtk_packet_trace(
         nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), _ptr(roots),
         _ptr(ray_index), rays8.shape[1], leaf_size, branching,
@@ -464,7 +489,8 @@ def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
     bound the (rays, stack_size) stack tensor.
     """
     _check_tables(nodes, tris, rays8, branching)
-    roots = _check_roots(roots, nodes, rays8, branching)
+    roots = _check_roots(roots, nodes, rays8, branching,
+                         tris.shape[0] // leaf_size)
     ray_index = _check_filter(filter_fn, ray_index, rays8)
     if filter_fn is not None and ray_index is None:
         ray_index = torch.arange(rays8.shape[1], dtype=torch.int32,
@@ -692,6 +718,33 @@ def _ray_roots(packed: PackedScene, n: int, packet_roots, ray_roots, pkt,
     return torch.repeat_interleave(roots, unit)[:n].contiguous()
 
 
+def _check_flags(packed: PackedScene, pkt=None, narrow=None, kz_static=None,
+                 tris128=None, leaf_loop=None, hbm_tris=None):
+    """The reference's checks on the TPU schedule flags
+    (pallas_trace.py:1579-1585, :1651-1693), with its ValueErrors: the
+    flags have no effect here, but a combination the reference refuses is
+    refused too.  narrow=None is the reference's default, True; pkt=None
+    lets the reference pick a valid width."""
+    narrow = True if narrow is None else narrow
+    aligned = packed.leaf_size % 8 == 0
+    if pkt is not None and int(pkt) % 128 != 0:
+        raise ValueError("pkt must be a multiple of 128 (VPU lane width)")
+    if kz_static is not None:
+        if kz_static not in (0, 1, 2):
+            raise ValueError("kz_static must be 0, 1 or 2 (axis index)")
+        if not narrow:
+            raise ValueError("kz_static needs the narrow leaf path")
+    if leaf_loop and not (aligned and narrow):
+        raise ValueError("leaf_loop needs lane-aligned leaves "
+                         "(leaf_size % 8 == 0) and the narrow leaf path")
+    if tris128 and not (aligned and narrow):
+        raise ValueError("tris128 needs lane-aligned leaves "
+                         "(leaf_size % 8 == 0) and the narrow leaf path")
+    if hbm_tris and not aligned:
+        raise ValueError("HBM-resident triangles require leaf_size % 8 == 0 "
+                         "(lane-aligned leaf rows)")
+
+
 def _check_front(packed: PackedScene, rays: Rays, mode, filter_fn=None):
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -812,8 +865,14 @@ def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
 
     interpret, dual, ordered, islab, narrow, leaf_loop, kz_static, tris128,
     hbm_tris, lesion, p_pk and pkt select the TPU kernel's schedule; they
-    are accepted and have no effect beyond the packet_roots layout.
+    are accepted and have no effect beyond the packet_roots layout, but
+    the combinations the reference refuses raise ValueError (pkt not a
+    multiple of 128, kz_static outside 0-2 or without the narrow path,
+    leaf_loop or tris128 on leaves not a multiple of 8 or without it,
+    hbm_tris on such leaves).
     """
+    _check_flags(packed, pkt=pkt, narrow=narrow, kz_static=kz_static,
+                 tris128=tris128, leaf_loop=leaf_loop, hbm_tris=hbm_tris)
     roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
                        p_pk)
     return _front(packet_trace, packed, rays, mode, watertight, sort_rays,
@@ -836,17 +895,42 @@ def trace_packets_reference(packed: PackedScene, rays: Rays,
 
 
 def _trace_rooted(packed: PackedScene, rays: Rays, roots,
-                  plain: bool = False):
-    """trace_packets(packed, rays, ray_roots=roots, sort_rays=False) for
-    (N,) int32 roots on the rays' device that are rows of packed's table
-    already: instancing's rounds gather them from pack_instanced's
-    packed_roots, checked on the host when packed.  On the card the launch
-    then makes no host sync to check them.  plain: the plain version."""
-    if plain or not rays.origin.is_cuda:
-        trace = trace_packets_reference if plain else trace_packets
-        return trace(packed, rays, ray_roots=roots, sort_rays=False)
-    return _front(functools.partial(_kernel, roots_in_range=True), packed,
-                  rays, "closest", True, False, None, False, roots)
+                  plain: bool = False, mode: str = "closest",
+                  watertight: bool = True, filter_mask: int | None = None,
+                  pkt: int | None = None):
+    """trace_packets(packed, rays, mode, watertight, ray_roots=roots,
+    sort_rays=False, filter_mask=..., pkt=...) for (N,) int32 roots on
+    the rays' device that are entries of packed's tables already:
+    instancing's rounds gather them from pack_instanced's packed_roots and
+    the binned rounds from the bins' roots, both checked on the host when
+    made; the grid rounds clamp cell ranks into the cells' root rows.  On
+    the card the launch then makes no host sync to check them.  plain: the
+    plain version (which checks them)."""
+    _check_flags(packed, pkt=pkt)
+    if plain:
+        run = packet_trace_reference
+    elif rays.origin.is_cuda:
+        run = functools.partial(_kernel, roots_in_range=True)
+    else:
+        run = packet_trace
+    return _front(run, packed, rays, mode, watertight, False, filter_mask,
+                  False, roots)
+
+
+def trace_packets_kz_binned(packed: PackedScene, rays: Rays, pkt: int = 256,
+                            p_pk: int = 16, **kw) -> PacketHits:
+    """The reference's dispatcher for incoherent batches
+    (pallas_trace.py:1780-1827), which sorts the rays by dominant
+    |direction| axis and traces each axis-pure sub-batch with its axis as
+    kz_static, because on the TPU kz_static fixes the leaf phase's shear
+    axis at compile time.  The kernel here picks the axis per ray in every
+    launch, so one trace_packets call gives the same records with no sort,
+    no host sync and no scatter.  kz_static is passed all the same, so
+    that the reference's checks on it apply (narrow=False raises); pkt,
+    p_pk and the other keywords are passed on and checked there.
+    """
+    return trace_packets(packed, rays, kz_static=0, pkt=pkt, p_pk=p_pk,
+                         **kw)
 
 
 def trace_packets_chunked(packed: PackedScene, rays: Rays,
@@ -932,8 +1016,13 @@ def trace_packets_refit(packed: PackedScene, scene, new_tri_pos, rays: Rays,
     Returns (hits, refit_scene, repacked_scene); refit_scene is the aux
     itself for a BinaryRefitAux.  Equal, bit for bit, to refit ->
     repack_bounds -> trace_packets.  The schedule flags are accepted
-    without effect, as trace_packets documents.
+    without effect, as trace_packets documents; leaf_loop and hbm_tris
+    are checked as there (the reference checks leaf_loop,
+    pallas_trace.py:1983, and fails on hbm_tris with unaligned leaves),
+    pkt is not (the reference takes any width here).
     """
+    _check_flags(packed, narrow=narrow, leaf_loop=leaf_loop,
+                 hbm_tris=hbm_tris)
     _check_front(packed, rays, mode)
     scene2, packed2 = _refit_repack(scene, packed, new_tri_pos)
     comps, idx = _ray_rows(rays, sort_rays)
@@ -973,8 +1062,11 @@ def trace_packets_refit_frames(packed: PackedScene, scene, frames_tri_pos,
     tables are released when the next frame's are made: the reference's
     batched preparation of all F frames' tables, which spreads its
     dispatch cost, is not carried over.  Frame f equals
-    trace_packets_refit of that frame bit for bit.
+    trace_packets_refit of that frame bit for bit.  The flags are checked
+    as trace_packets_refit checks them.
     """
+    _check_flags(packed, narrow=narrow, leaf_loop=leaf_loop,
+                 hbm_tris=hbm_tris)
     _check_front(packed, rays, mode)
     comps, idx = _ray_rows(rays, sort_rays)
     out = []

@@ -1,6 +1,7 @@
-"""The parameter carry: rtk_tpu scene tables, materials and hit records
-(handed over as NumPy arrays) -> this package's Scene / PackedScene /
-BinaryRefitAux / Materials / Hits on a given device.
+"""The parameter carry: rtk_tpu scene tables, grids, stackless entity
+tables, materials and hit records (handed over as NumPy arrays) -> this
+package's Scene / PackedScene / BinaryRefitAux / GridScene /
+StacklessScene / Materials / Hits on a given device.
 
 A test takes rtk_tpu's arrays with np.asarray, passes the dict here, and
 feeds both packages the very same tables.
@@ -14,6 +15,8 @@ import torch
 
 from rtk_tpu_torch.models.path import Materials
 from rtk_tpu_torch.scene import Scene
+from rtk_tpu_torch.testing.grid import GridScene
+from rtk_tpu_torch.trace.stackless import StacklessScene
 from rtk_tpu_torch.trace.packed import (BinaryRefitAux, PackedScene,
                                         tree_depth)
 from rtk_tpu_torch.types import Hits
@@ -24,6 +27,10 @@ PACKED_ARRAYS = tuple(f.name for f in dataclasses.fields(PackedScene)
                       if f.type == "torch.Tensor")
 
 REFIT_AUX_ARRAYS = tuple(f.name for f in dataclasses.fields(BinaryRefitAux))
+# A rounds-engine GridScene's own arrays (its two tables are PackedScenes).
+GRID_ARRAYS = ("rank", "cells_to_flat", "grid_lo", "cell_size")
+STACKLESS_ARRAYS = tuple(f.name for f in dataclasses.fields(StacklessScene)
+                         if f.type == "torch.Tensor")
 
 # Integer tables keep int32 (rtk_tpu's dtype); floats are float32.
 _DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int32,
@@ -64,6 +71,26 @@ def refit_aux_from_arrays(arrays: dict, *, device) -> BinaryRefitAux:
     so a table that rtk_tpu packed can be refit here."""
     return BinaryRefitAux(**{k: _tensor(arrays[k], device)
                              for k in REFIT_AUX_ARRAYS})
+
+
+def grid_from_arrays(arrays: dict, *, cells: PackedScene, flat: PackedScene,
+                     dims, n_occ: int, device) -> GridScene:
+    """A rounds-engine GridScene from a dict holding every name in
+    GRID_ARRAYS and its two tables carried already (packed_from_arrays of
+    rtk_tpu's grid.cells and grid.flat), so the rounds can be held
+    against rtk_tpu's on the very same grid."""
+    return GridScene(cells=cells, flat=flat,
+                     **{k: _tensor(arrays[k], device) for k in GRID_ARRAYS},
+                     dims=tuple(int(x) for x in dims), n_occ=int(n_occ))
+
+
+def stackless_from_arrays(arrays: dict, *, num_tris: int,
+                          device) -> StacklessScene:
+    """StacklessScene from a dict holding every name in
+    STACKLESS_ARRAYS (rtk_tpu's entity table and triangle arrays)."""
+    return StacklessScene(
+        **{k: _tensor(arrays[k], device) for k in STACKLESS_ARRAYS},
+        num_tris=num_tris)
 
 
 def materials_from_arrays(albedo, emission=None, *, device) -> Materials:

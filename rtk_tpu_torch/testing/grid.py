@@ -17,10 +17,15 @@ precedes the current cell's exit.
     .py): every ray walks its own cell chain, traversing each cell's tree
     with its best hit carried, until the hit precedes the cell's exit.
     Hits come back in the flat table's slots.
+  rounds (trace_packets_grid, Tracer(engine="grid")): per round, leap
+    over empty cells, group the live rays by cell, launch the kernel's
+    roots variant once with each ray's cell root, retire finished rays and
+    step the rest one cell; a full-tree residual keeps the result exact
+    under the round budget.  Every round has a fixed row count, so the
+    rounds make no host sync.
 
 Every host table build_grid makes is the same NumPy code as rtk_tpu's, and
-its outputs are bit-equal to rtk_tpu's.  The rounds engine
-(trace_packets_grid, calibrate_caps) is still to port.
+its outputs are bit-equal to rtk_tpu's.
 
 Reference semantics preserved: nearest hit, open (min_t, max_t) window,
 strict < tie (rtk.c:543-577); a triangle binned in several cells re-tests
@@ -36,9 +41,13 @@ import torch
 
 from rtk_tpu_torch.builder.lbvh import leaf_code
 from rtk_tpu_torch.config import BuildConfig
-from rtk_tpu_torch.ops.packet_trace import (MarchGrid, march_entry,
+from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
+from rtk_tpu_torch.ops.packet_trace import (_BIG, MarchGrid, _crcp,
+                                            _trace_rooted, march_entry,
                                             packet_march,
-                                            packet_march_reference)
+                                            packet_march_reference,
+                                            trace_packets,
+                                            trace_packets_reference)
 from rtk_tpu_torch.scene import Scene, build_from_soup
 from rtk_tpu_torch.trace.packed import (PackedScene, pack_multiroot,
                                         pack_scene)
@@ -437,3 +446,326 @@ def trace_packets_march(grid: GridScene, rays: Rays, mode: str = "closest",
         tri_vidx=grid.flat.tri_vidx, tri_mesh=grid.flat.tri_mesh,
         tri_prim=grid.flat.tri_prim)
     return (hits, unsort(out[4])) if stats else hits
+
+
+# ---------------------------------------------------------------------------
+# The rounds engine: one rooted kernel launch per DDA step of the live rays
+# ---------------------------------------------------------------------------
+
+def _dda_axes(grid: GridScene, o, d):
+    """Per-axis ray constants of the DDA: (lo, cs, clamped reciprocal, step
+    +-1, t across one cell) for x, y, z, in the reference's f32 arithmetic
+    (rtk_tpu/testing/grid.py:340-343, :398-402)."""
+    lo, cs = grid.grid_lo, grid.cell_size  # read on the device: no sync
+    rcp = [_crcp(d[:, a]) for a in range(3)]
+    step = [torch.where(d[:, a] >= 0, 1, -1) for a in range(3)]
+    tdel = [cs[a] * rcp[a].abs() for a in range(3)]
+    return lo, cs, rcp, step, tdel
+
+
+def _boundary_t(lo, cs, o, d, rcp, ia, a):
+    """t at which the ray crosses the boundary ahead of cell index ia on
+    axis a: (lo + (ia + (d >= 0)) * cs - o) * rcp."""
+    nb = lo[a] + (ia + (d[:, a] >= 0).to(ia.dtype)).to(torch.float32) * cs[a]
+    return (nb - o[:, a]) * rcp[a]
+
+
+def _grid_far(grid: GridScene, lo, o, rcp):
+    """The t at which each ray leaves the grid box (the near/far slab test
+    of the DDA init, far side)."""
+    hi = [lo[a] + grid.cell_size[a] * float(grid.dims[a]) for a in range(3)]
+    near = torch.full_like(rcp[0], -_BIG)
+    far = torch.full_like(rcp[0], _BIG)
+    for a in range(3):
+        t0 = (lo[a] - o[:, a]) * rcp[a]
+        t1 = (hi[a] - o[:, a]) * rcp[a]
+        near = torch.maximum(near, torch.minimum(t0, t1))
+        far = torch.minimum(far, torch.maximum(t0, t1))
+    return near, far
+
+
+def _advance(grid: GridScene, ijk, tm, mask, step, tdel):
+    """One DDA step where mask, across the nearest boundary (ties x, y, z)
+    -> (ijk, tm, the rays the step took out of the grid)."""
+    mx = (tm[0] <= tm[1]) & (tm[0] <= tm[2])
+    my = ~mx & (tm[1] <= tm[2])
+    mz = ~mx & ~my
+    new_ijk, new_tm = [], []
+    out = torch.zeros_like(mask)
+    for a, m in enumerate((mx, my, mz)):
+        i2 = ijk[a] + torch.where(m, step[a], 0)
+        out = out | (i2 < 0) | (i2 >= grid.dims[a])
+        new_ijk.append(torch.where(mask, i2, ijk[a]))
+        new_tm.append(torch.where(mask, tm[a] + torch.where(m, tdel[a], 0.0),
+                                  tm[a]))
+    return new_ijk, new_tm, mask & out
+
+
+def _cell_of(grid: GridScene, ijk):
+    _, dy, dz = grid.dims
+    return (ijk[0] * dy + ijk[1]) * dz + ijk[2]
+
+
+def _ijk_of(grid: GridScene, cell):
+    _, dy, dz = grid.dims
+    safe = cell.clamp_min(0)
+    return [safe // (dy * dz), (safe // dz) % dy, safe % dz]
+
+
+def _pack_cell(grid: GridScene, ijk, done, abort):
+    """>= 0 marching; -1 finished for good; -2 aborted (the final
+    full-tree residual covers it)."""
+    return torch.where(abort, -2, torch.where(done, -1, _cell_of(grid, ijk)))
+
+
+def _grid_round(grid: GridScene, st, *, unit, skips, mode, watertight,
+                filter_mask, plain):
+    """One round over the state rows `st` (dict of equal-length tensors):
+    empty-space leaps, grouping by cell rank, one rooted launch, retire and
+    advance (rtk_tpu/testing/grid.py:384-630).  Fixed shapes throughout:
+    no host sync.  -> (new state, (3,) int32 [rows the launch traced live,
+    rows still marching after, rows aborted])."""
+    dx, dy, dz = grid.dims
+    n_cells = dx * dy * dz
+    n_occ = grid.n_occ
+    o, d = st["o"], st["d"]
+    cell = st["cell"]
+    abort = cell == -2
+    done = cell == -1
+    marching = cell >= 0
+    ijk = _ijk_of(grid, cell)
+    lo, cs, rcp, step, tdel = _dda_axes(grid, o, d)
+    tm = [_boundary_t(lo, cs, o, d, rcp, ijk[a], a) for a in range(3)]
+
+    # Empty-space leaps: the rank table holds minus the chebyshev distance
+    # to the nearest occupied cell for an empty cell, so one lookup serves
+    # occupancy and the length of the leap.
+    tmin3 = torch.minimum(tdel[0], torch.minimum(tdel[1], tdel[2]))
+    _, far = _grid_far(grid, lo, o, rcp)
+    best_t = st["best_t"]
+    safe = cell.clamp_min(0)
+    for _ in range(skips):
+        rank = grid.rank[safe.clamp_max(n_cells - 1)]
+        exit_t = torch.minimum(tm[0], torch.minimum(tm[1], tm[2]))
+        emp = marching & (rank < 0)
+        fin = emp & (exit_t >= best_t)  # marched past any useful t
+        done = done | fin
+        marching = marching & ~fin
+        emp = emp & ~fin
+        dlp = (-rank).to(torch.float32)
+        # d == 1: the adjacent cell may be occupied; take the exact DDA
+        # step (a re-sampled position could overshoot a clipped corner).
+        near = emp & (dlp < 1.5)
+        ijk, tm, leftg = _advance(grid, ijk, tm, near, step, tdel)
+        done = done | leftg
+        marching = marching & ~leftg
+        emp = emp & ~leftg
+        # d >= 2: every cell within chebyshev d - 1 is empty, so landing
+        # (d - 2) cell widths past the exit (plus a nudge) stays in empty
+        # space, and re-sampling the position there skips no geometry.
+        leap = emp & ~near
+        t_new = (exit_t + torch.clamp_min(dlp - 2.0, 0.0) * tmin3
+                 + 1e-4 * tmin3)
+        leftg = leap & (t_new >= far)
+        done = done | leftg
+        marching = marching & ~leftg
+        leap = leap & ~leftg
+        oob = torch.zeros_like(emp)
+        new_ijk, new_tm = [], []
+        for a in range(3):
+            pa = o[:, a] + d[:, a] * t_new
+            ia = torch.floor((pa - lo[a]) / cs[a]).to(torch.int64)
+            oob = oob | (ia < 0) | (ia >= grid.dims[a])
+            ia = ia.clamp(0, grid.dims[a] - 1)
+            new_ijk.append(ia)
+            new_tm.append(_boundary_t(lo, cs, o, d, rcp, ia, a))
+        leftg = leap & oob
+        done = done | leftg
+        marching = marching & ~leftg
+        leap = leap & ~leftg
+        ijk = [torch.where(leap, new_ijk[a], ijk[a]) for a in range(3)]
+        tm = [torch.where(leap, new_tm[a], tm[a]) for a in range(3)]
+        safe = _cell_of(grid, ijk).clamp(0, n_cells - 1)
+
+    rank = grid.rank[safe]
+    # Still in an empty cell after the skip budget: parked for the
+    # residual rather than stalled.
+    stuck = marching & (rank < 0)
+    abort = abort | stuck
+    marching = marching & ~stuck
+    key = torch.where(marching, rank, n_occ)
+
+    # Group by cell rank (a stable sort; every ray carries its own root,
+    # so no cell is padded to whole packets) and launch once.
+    st = dict(st, cell=_pack_cell(grid, ijk, done, abort))
+    order = torch.sort(key, stable=True).indices
+    st = {k: v[order] for k, v in st.items()}
+    key = key[order]
+    o, d, best_t = st["o"], st["d"], st["best_t"]
+    cell = st["cell"]
+    abort = cell == -2
+    done = cell == -1
+    marching = cell >= 0
+    h = _trace_rooted(
+        grid.cells,
+        Rays(o, d, st["mint"], torch.where(marching, best_t, 0.0)),
+        key.clamp_max(n_occ - 1).to(torch.int32), plain=plain, mode=mode,
+        watertight=watertight, filter_mask=filter_mask, pkt=unit)
+    live_rows = marching.sum()
+    improved = h.slot >= 0
+    best_t = torch.where(improved, h.t, best_t)
+    best_s = torch.where(improved, h.slot, st["best_s"])
+
+    # Retire (the best hit precedes the cell's exit; any-hit: any hit) or
+    # take one DDA step; leaving the grid finishes the ray.
+    ijk = _ijk_of(grid, cell)
+    lo, cs, rcp, step, tdel = _dda_axes(grid, o, d)
+    tm = [_boundary_t(lo, cs, o, d, rcp, ijk[a], a) for a in range(3)]
+    exit_t = torch.minimum(tm[0], torch.minimum(tm[1], tm[2]))
+    fin = marching & (best_t <= exit_t)
+    if mode == "any":
+        fin = fin | (marching & (best_s >= 0))
+    done = done | fin
+    marching = marching & ~fin
+    ijk, tm, left = _advance(grid, ijk, tm, marching, step, tdel)
+    done = done | left
+    marching = marching & ~left
+    st.update(best_t=best_t, best_s=best_s,
+              cell=_pack_cell(grid, ijk, done, abort))
+    row = torch.stack([live_rows, marching.sum(), abort.sum()]).to(
+        torch.int32)
+    return st, row
+
+
+def calibrate_caps(grid: GridScene, sample: Rays, rounds: int = 8,
+                   skips: int = 3, unit: int = 128, slack: float = 1.15,
+                   **kw) -> tuple:
+    """A shrinking per-round row capacity schedule from one profiled trace
+    of a representative batch (rtk_tpu/testing/grid.py:747-767, the same
+    formula): round r + 1 needs about marching_r * slack rows (plus the
+    reference's n_occ * unit of packet padding, kept so that the same
+    counts give the same tuple).  Rays a too-small cap strands go to the
+    exactness residual, never lost: a stale calibration costs speed, not
+    accuracy.  One host sync reads the counts."""
+    _, (cnts, _) = trace_packets_grid(grid, sample, rounds=rounds,
+                                      skips=skips, unit=unit,
+                                      debug_counts=True, **kw)
+    marching = cnts[:, 1].tolist()
+    pad = grid.n_occ * unit
+    return tuple([2 ** 31 - 1]
+                 + [int(m * slack) + pad for m in marching[:-1]])
+
+
+def trace_packets_grid(grid: GridScene, rays: Rays, mode: str = "closest",
+                       watertight: bool = True, interpret: bool = False,
+                       rounds: int = 10, skips: int = 3, unit: int = 128,
+                       caps=None, filter_mask: int | None = None,
+                       debug_counts: bool = False, lesion: str = "",
+                       sort_mode: str = "multi", plain: bool = False):
+    """Trace a ray batch by marching the macro-grid in rounds -> PacketHits
+    in the flat table's slots (and, with debug_counts, ((rounds, 3) int32
+    [rows traced live, rows marching after, rows aborted], the residual's
+    live count), both device tensors).
+
+    The rounds engine of rtk_tpu/testing/grid.py:335-704.  Each ray enters
+    the grid (the DDA init); each round leaps over empty cells through the
+    rank table, groups the live rays by cell rank, launches the kernel's
+    roots variant once with each ray's cell root, keeps improvements,
+    retires rays whose best hit precedes their cell's exit and steps the
+    rest one cell.  Rays still marching after `rounds` rounds, or parked
+    by the skip budget or a cap, finish on the full tree (the exactness
+    residual), and each winner's u, v come from one re-test of its
+    triangle (ops/intersect.py), as in the reference.  Same hit-record
+    contract as trace_packets.
+
+    Every round has a fixed row count, so no round makes a host sync; the
+    TPU's padding of each cell to whole packets (and the aborts of rays
+    whose packet root is another cell's) has no counterpart, since every
+    thread carries its own root.  caps: per-round row capacities (as
+    calibrate_caps gives them; the last one repeats): round r traces the
+    first caps[r] rows of the grouped state, and rays beyond it stay live
+    for the residual.  The reference rounds each cap up to whole blocks of
+    8 * unit rows, which a thread per ray does not need.  unit is the
+    packet width the reference passes its launches (pkt, checked as
+    there).  interpret,
+    lesion and sort_mode pick the TPU program's schedule and probes and
+    have no effect.  plain=True runs the rounds and the residual through
+    the kernel's plain version on any device.
+    """
+    if mode not in ("closest", "any"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if rays.device != grid.device:
+        raise ValueError(f"rays on {rays.device}, grid on {grid.device}")
+    n = rays.count
+    dev = rays.device
+    if caps is None:
+        caps = (n,) * rounds
+    else:
+        caps = tuple(min(int(c), n) for c in caps)
+        caps = (caps + (caps[-1],) * (rounds - len(caps)))[:rounds]
+    o = rays.origin.to(torch.float32)
+    d = rays.direction.to(torch.float32)
+    mint = rays.min_t.to(torch.float32)
+    maxt = rays.max_t.to(torch.float32)
+
+    # DDA init: grid entry, first cell (rtk_tpu/testing/grid.py:353-373).
+    lo, cs, rcp, _, _ = _dda_axes(grid, o, d)
+    near, far = _grid_far(grid, lo, o, rcp)
+    s0 = torch.clamp_min(near, 0.0)
+    done = (near > far) | (far < 0.0) | (maxt <= mint)
+    ijk = [torch.floor((o[:, a] + d[:, a] * s0 - lo[a]) / cs[a]).to(
+        torch.int64).clamp(0, grid.dims[a] - 1) for a in range(3)]
+    st = {"idx": torch.arange(n, device=dev), "o": o, "d": d, "mint": mint,
+          "best_t": maxt, "best_s": torch.full((n,), -1, dtype=torch.int32,
+                                               device=dev),
+          "cell": _pack_cell(grid, ijk, done, torch.zeros_like(done))}
+    rows = []
+    for cap in caps:
+        head = {k: v[:cap] for k, v in st.items()}
+        head, row = _grid_round(grid, head, unit=unit, skips=skips,
+                                mode=mode, watertight=watertight,
+                                filter_mask=filter_mask, plain=plain)
+        st = head if cap >= n else {k: torch.cat([head[k], v[cap:]])
+                                    for k, v in st.items()}
+        rows.append(row)
+
+    # Records in the flat table's slots, then the exactness residual:
+    # still-marching and aborted rays re-trace the full tree, their best
+    # so far as the window's end.
+    best_s = st["best_s"]
+    best_s = torch.where(best_s >= 0,
+                         grid.cells_to_flat[best_s.clamp_min(0).long()], -1)
+    live = st["cell"] != -1
+    trace = trace_packets_reference if plain else trace_packets
+    hr = trace(grid.flat, Rays(st["o"], st["d"], st["mint"],
+                               torch.where(live, st["best_t"], 0.0)),
+               mode=mode, watertight=watertight, sort_rays=True,
+               filter_mask=filter_mask)
+    ri = hr.slot >= 0
+    best_t = torch.where(ri, hr.t, st["best_t"])
+    best_s = torch.where(ri, hr.slot, best_s)
+    idx = st["idx"]
+    t = torch.empty_like(best_t)
+    slot = torch.empty_like(best_s)
+    t[idx] = best_t
+    slot[idx] = best_s
+
+    # u, v of each winner from one re-test of its triangle, in the
+    # kernel's shear-space arithmetic (rtk_tpu/testing/grid.py:686-698).
+    hit = slot >= 0
+    tri = grid.flat.tri_v[slot.clamp_min(0).long()]
+    _, ru, rv, _ = intersect_triangles(
+        o, ray_shear(d), tri[:, None], mint, torch.full_like(mint, _BIG),
+        watertight=watertight)
+    zero = torch.zeros((), device=dev)
+    hits = PacketHits(
+        hit=hit, t=t, u_k=torch.where(hit, ru[:, 0], zero),
+        v_k=torch.where(hit, rv[:, 0], zero), slot=slot, origin=rays.origin,
+        direction=rays.direction, tri_v=grid.flat.tri_v,
+        tri_vidx=grid.flat.tri_vidx, tri_mesh=grid.flat.tri_mesh,
+        tri_prim=grid.flat.tri_prim)
+    if debug_counts:
+        cnts = (torch.stack(rows) if rows
+                else torch.zeros((1, 3), dtype=torch.int32, device=dev))
+        return hits, (cnts, live.sum().to(torch.int32))
+    return hits

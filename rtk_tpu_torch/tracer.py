@@ -1,6 +1,6 @@
 """Tracer: the engine-selecting query front-end over a built Scene.
 
-Three engines implement the same hit-record contract (rtk_trace_ray,
+Six engines implement the same hit-record contract (rtk_trace_ray,
 rtk.c:543-577):
 
   * "packet": ops/packet_trace.trace_packets over the scene's kernel
@@ -9,16 +9,23 @@ rtk.c:543-577):
     Needs branching=8 scenes.
   * "stack": trace/stack.py's lockstep traversal in plain PyTorch on the
     scene's device; any branching, and any filter callable.
+  * "stackless": trace/stackless.py's skip-link walk over a DFS-preorder
+    entity table (built once, on first use), plain PyTorch as rtk_tpu's is
+    plain XLA.
+  * "binned": testing/binned.py's rounds over subtree bins of the packed
+    tables, through the kernel's roots variant, and a full-tree residual.
+  * "grid": testing/grid.py's rounds engine over a macro-grid (built once
+    from the scene and its packed tables, on first use), through the
+    kernel's roots variant, and a full-tree residual.
   * "march": testing/grid.py's fused grid march (the kernel's march
-    instantiation on the card): the macro-grid is built once from the
-    scene and its packed tables, on first use; filter_mask culls there
-    too.  A filter callable routes to the stack engine.
+    instantiation on the card) over a grid with one root row per cell.
 
-"auto" is "packet" for branching-8 scenes and "stack" otherwise.  A filter
-callable marked with jit_filter runs inside the kernel's filter variant;
-an unmarked one routes to the stack engine, which calls it on real
-tensors (rtk_tpu/tracer.py:111-199).  rtk_tpu's other engines are not
-ported yet; asking for one raises and names its ROADMAP item.
+filter_mask runs on the packet-kernel engines (packet, binned, grid,
+march); the grid's per-cell tables carry the mask too.  "auto" is
+"packet" for branching-8 scenes and "stack" otherwise.  A filter callable
+marked with jit_filter runs inside the kernel's filter variant on the
+packet engine; any other filter callable routes to the stack engine,
+which calls it on real tensors (rtk_tpu/tracer.py:111-199).
 """
 from __future__ import annotations
 
@@ -31,9 +38,6 @@ from rtk_tpu_torch.types import Hits, PacketHits, Rays
 
 AnyHits = Union[Hits, PacketHits]
 
-# rtk_tpu engines that wait for a later port, with their ROADMAP items.
-_LATER_ENGINES = {"stackless": "A12", "binned": "A12", "grid": "A12"}
-
 __all__ = ["Tracer", "jit_filter"]
 
 
@@ -43,12 +47,8 @@ class Tracer:
         """tri_mask: optional (num_tris,) per-triangle filter bits (soup
         order, 24 bits).  Queries passing filter_mask=m then test only
         triangles with (tri_mask & m) != 0 (packet engine)."""
-        if engine in _LATER_ENGINES:
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet (ROADMAP "
-                f"{_LATER_ENGINES[engine]}); use engine='packet', 'stack' "
-                "or 'march'")
-        if engine not in ("auto", "packet", "stack", "march"):
+        if engine not in ("auto", "packet", "stack", "stackless", "binned",
+                          "grid", "march"):
             raise ValueError(f"unknown engine {engine!r}")
         eligible = scene.branching == 8
         if engine == "packet" and not eligible:
@@ -60,6 +60,7 @@ class Tracer:
                        else ("packet" if eligible else "stack"))
         self._packed = None
         self._grid = None
+        self._stackless = None
 
     @property
     def packed(self):
@@ -71,24 +72,38 @@ class Tracer:
 
     @property
     def grid(self):
-        """The march engine's macro-grid (testing/grid.py GridScene), built
-        from the scene and its packed tables on first use."""
-        if self._grid is None:
+        """The grid and march engines' macro-grid (testing/grid.py
+        GridScene), built from the scene and its packed tables on first
+        use: with the march's one-root-per-cell forest for the march
+        engine, without it otherwise (the rounds engine does not read it,
+        and reuses a grid that has it)."""
+        march = self.engine == "march"
+        if self._grid is None or (march and self._grid.cells_march is None):
             from rtk_tpu_torch.testing.grid import build_grid_from_scene
 
             # self.packed carries the tri_mask column; the per-cell tables
             # get it packed in too.
             self._grid = build_grid_from_scene(
                 self.scene, packed=self.packed, tri_mask=self.tri_mask,
-                march=True)
+                march=march)
         return self._grid
+
+    @property
+    def stackless(self):
+        """The stackless engine's entity table (trace/stackless.py), built
+        from the scene on first use."""
+        if self._stackless is None:
+            from rtk_tpu_torch.trace.stackless import build_stackless
+
+            self._stackless = build_stackless(self.scene)
+        return self._stackless
 
     def refresh(self, scene: Scene) -> "Tracer":
         """Rebind to a refit Scene (same topology): the same config, mask
         and engine; packed tables, if they were built, get their bounds
-        and vertices regathered on the device, never rebuilt.  The march
-        grid depends on the bounds, so it is dropped and built again on
-        next use."""
+        and vertices regathered on the device, never rebuilt.  The grid
+        and the stackless table depend on the bounds, so they are dropped
+        and built again on next use."""
         t = Tracer.__new__(Tracer)
         t.scene = scene
         t.config = self.config
@@ -96,6 +111,7 @@ class Tracer:
         t.engine = self.engine
         t._packed = None
         t._grid = None
+        t._stackless = None
         if self._packed is not None:
             from rtk_tpu_torch.trace.packed import repack_bounds
 
@@ -113,16 +129,36 @@ class Tracer:
                                  filter_mask=filter_mask,
                                  filter_fn=filter_fn,
                                  defer_uv=self.config.defer_uv)
-        if self.engine == "march" and filter_fn is None:
-            from rtk_tpu_torch.testing.grid import trace_packets_march
+        if filter_fn is None:
+            wt = self.config.watertight
+            if self.engine == "march":
+                from rtk_tpu_torch.testing.grid import trace_packets_march
 
-            return trace_packets_march(self.grid, rays, mode=mode,
-                                       watertight=self.config.watertight,
-                                       filter_mask=filter_mask)
+                return trace_packets_march(self.grid, rays, mode=mode,
+                                           watertight=wt,
+                                           filter_mask=filter_mask)
+            if self.engine == "grid":
+                from rtk_tpu_torch.testing.grid import trace_packets_grid
+
+                return trace_packets_grid(self.grid, rays, mode=mode,
+                                          watertight=wt,
+                                          filter_mask=filter_mask)
+            if self.engine == "binned":
+                from rtk_tpu_torch.testing.binned import trace_packets_binned
+
+                return trace_packets_binned(self.packed, rays, mode=mode,
+                                            watertight=wt,
+                                            filter_mask=filter_mask)
         if filter_mask is not None:
             raise ValueError(
-                "filter_mask runs on the packet and march engines only; use "
-                "filter_fn on the stack engine")
+                "filter_mask runs on the packet-kernel engines only "
+                "(packet/binned/grid/march); use filter_fn on the stack "
+                "engine")
+        if self.engine == "stackless" and filter_fn is None:
+            from rtk_tpu_torch.trace.stackless import trace_stackless
+
+            return trace_stackless(self.stackless, rays, mode=mode,
+                                   watertight=self.config.watertight)
         from rtk_tpu_torch.trace import stack
 
         fn = stack.trace_closest if mode == "closest" else stack.trace_any

@@ -1,8 +1,12 @@
-"""The macro-grid march in the port against rtk_tpu: build_from_soup with
-custom sort keys, the atrium soup, build_grid(march=True) bit for bit, the
-bounce helpers on shared uniforms, the march's plain version against
-rtk_tpu's fused march kernel (interpret mode) and against the port's flat
-trace (tests/test_grid.py:286-351's cases), and Tracer(engine="march")."""
+"""The macro-grid engines in the port against rtk_tpu: build_from_soup
+with custom sort keys, the atrium soup, build_grid(march=True) bit for
+bit, the bounce helpers on shared uniforms, the march's plain version
+against rtk_tpu's fused march kernel (interpret mode) and against the
+port's flat trace (tests/test_grid.py:286-351's cases),
+Tracer(engine="march"), and the rounds engine (trace_packets_grid,
+calibrate_caps, Tracer(engine="grid"), tests/test_grid.py:66-285's cases)
+on rtk_tpu's grid carried into the port, against rtk_tpu's rounds and
+the port's flat trace."""
 import types
 
 import jax
@@ -18,6 +22,7 @@ from rtk_tpu.testing import scenes as jax_scenes
 import rtk_tpu_torch as rt
 from rtk_tpu_torch.models import path as tpath
 from rtk_tpu_torch.ops.packet_trace import trace_packets
+from rtk_tpu_torch.testing import carry
 from rtk_tpu_torch.testing import grid as tgrid
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.trace import grid as tgrid_shim
@@ -302,3 +307,213 @@ def test_march_batch_grouping():
     hits = tgrid.trace_packets_march(g, rays)
     ref = trace_packets(g.flat, rays)
     _assert_parity(hits, ref)
+
+
+# ---- the rounds engine (tests/test_grid.py:66-285) ----
+
+@pytest.fixture(scope="module")
+def rgrids():
+    """tests/test_grid.py's _grid(): blob(3), leaf 8, the default dims.
+    rtk_tpu's build, the port's own, and rtk_tpu's carried into the port
+    (the rounds held against rtk_tpu's on the very same grid)."""
+    tris = scenes.blob(3)[0]
+    jg = jgrid.build_grid(tris, config=rtk_tpu.BuildConfig(leaf_size=LEAF))
+    tg = tgrid.build_grid(tris, config=rt.BuildConfig(leaf_size=LEAF),
+                          device=CPU)
+
+    def packed(p):
+        return carry.packed_from_arrays(
+            {k: np.asarray(getattr(p, k)) for k in carry.PACKED_ARRAYS},
+            num_tris=p.num_tris, leaf_size=p.leaf_size, device=CPU)
+
+    cg = carry.grid_from_arrays(
+        {k: np.asarray(getattr(jg, k)) for k in carry.GRID_ARRAYS},
+        cells=packed(jg.cells), flat=packed(jg.flat), dims=jg.dims,
+        n_occ=jg.n_occ, device=CPU)
+    return jg, tg, cg
+
+
+def _assert_self_consistent(got):
+    """tests/test_grid.py::_assert_records_self_consistent: the reported
+    triangle is hit at the reported t, u, v."""
+    from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
+
+    hit = got.hit
+    if not hit.any():
+        return
+    o, d = got.origin[hit], got.direction[hit]
+    inf = torch.full((o.shape[0],), float("inf"))
+    t, u, v, valid = intersect_triangles(o, ray_shear(d),
+                                         got.vertex_position[hit][:, None],
+                                         -inf, inf)
+    np.testing.assert_allclose(t[:, 0].numpy(), got.t[hit].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(u[:, 0].numpy(), got.u[hit].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(v[:, 0].numpy(), got.v[hit].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert bool(valid.all())
+
+
+# name -> (rays, trace_packets_grid keywords, held against rtk_tpu's
+# rounds: records and debug counts).  Caps of at least the batch leave
+# every row in every round (a thread per ray needs no packet padding), so
+# "caps_tight" cuts rows where rtk_tpu's "caps_small" cuts its padding.
+ROUNDS = {
+    "random": (lambda: _rand_rays(512, 3, scale=0.5), {}, True),
+    "any": (lambda: _rand_rays(256, 5, scale=0.4), {"mode": "any"}, True),
+    "rounds_1": (lambda: _rand_rays(256, 7, scale=0.5),
+                 {"rounds": 1, "skips": 1}, True),
+    "caps_small": (lambda: _rand_rays(512, 9, scale=0.5),
+                   {"rounds": 4, "caps": (1024,)}, False),
+    "caps_tight": (lambda: _rand_rays(512, 9, scale=0.5),
+                   {"rounds": 4, "caps": (10 ** 9, 160, 48)}, False),
+    "caps_shrinking": (lambda: _rand_rays(512, 11, scale=0.5),
+                       {"rounds": 6, "caps": (10 ** 9, 10 ** 9, 4096, 2048)},
+                       True),
+    "gather_sort": (lambda: _rand_rays(512, 17, scale=0.5),
+                    {"sort_mode": "gather"}, False),
+    "outside_and_dead": (CASES["outside_and_dead"], {}, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUNDS))
+def test_grid_rounds(rgrids, case):
+    """trace_packets_grid on rtk_tpu's grid (carried) against the port's
+    flat trace at test_grid.py's parity bar (hit records self-consistent),
+    and, where marked, against rtk_tpu's rounds at test_packet.py's bar
+    with equal per-round counts; on the port's own grid, the same records
+    bit for bit."""
+    jg, tg, cg = rgrids
+    make, kw, vs_jax = ROUNDS[case]
+    jrays = make()
+    rays = _rays(jrays)
+    mode = kw.get("mode", "closest")
+    got, (cnts, live) = tgrid.trace_packets_grid(cg, rays,
+                                                 debug_counts=True, **kw)
+    flat = trace_packets(cg.flat, rays, mode=mode)
+    if mode == "any":
+        assert torch.equal(got.hit, flat.hit)
+    else:
+        _assert_parity(got, flat)
+        _assert_self_consistent(got)
+        assert bool((got.triangle_index[got.hit] >= 0).all())
+    assert cnts.shape == (kw.get("rounds", 10), 3)
+    assert cnts.dtype == torch.int32 and live.dtype == torch.int32
+    if vs_jax:
+        want, (jcnts, jlive) = jgrid.trace_packets_grid(
+            jg, jrays, interpret=True, debug_counts=True, **kw)
+        if mode == "any":
+            np.testing.assert_array_equal(got.hit.numpy(),
+                                          np.asarray(want.hit))
+        else:
+            _check(got, want,
+                   same_frac=0.0 if case == "outside_and_dead" else 0.9)
+        np.testing.assert_array_equal(cnts.numpy(), np.asarray(jcnts))
+        assert int(live) == int(jlive)
+    if case == "caps_tight":
+        assert int(live) > 0 and int(cnts[1, 0]) <= 160
+    if case == "gather_sort":
+        ref = tgrid.trace_packets_grid(cg, rays)
+        for f in ("hit", "t", "u", "v", "slot"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    if case == "random":
+        own = tgrid.trace_packets_grid(tg, rays)
+        for f in ("hit", "t", "u", "v", "slot"):
+            assert torch.equal(getattr(own, f), getattr(got, f)), f
+
+
+def test_grid_calibrated_caps(rgrids):
+    """calibrate_caps gives rtk_tpu's tuple on the same grid and rays (the
+    same counts, the same formula), and the engine runs it exactly."""
+    jg, _, cg = rgrids
+    jrays = _rand_rays(512, 13, scale=0.5)
+    rays = _rays(jrays)
+    caps = tgrid.calibrate_caps(cg, rays, rounds=4, skips=2)
+    assert caps == jgrid.calibrate_caps(jg, jrays, rounds=4, skips=2,
+                                        interpret=True)
+    assert len(caps) == 4 and caps[0] == 2 ** 31 - 1
+    got = tgrid.trace_packets_grid(cg, rays, rounds=4, skips=2, caps=caps)
+    _assert_parity(got, trace_packets(cg.flat, rays))
+    assert tgrid_shim.calibrate_caps is tgrid.calibrate_caps
+    assert tgrid_shim.trace_packets_grid is tgrid.trace_packets_grid
+
+
+def test_grid_explicit_dims_and_bounce_batch():
+    """blob(4) on a (6, 5, 4) grid: a cosine bounce off the primaries'
+    hits, against the flat trace."""
+    tris = scenes.blob(4)[0]
+    g = tgrid.build_grid(tris, config=rt.BuildConfig(leaf_size=LEAF),
+                         dims=(6, 5, 4), device=CPU)
+    cam = scenes.camera_rays((0, 3, 4), (0, 0, 0), (0, 1, 0), 50, 16, 16,
+                             order="morton", device=CPU)
+    prim = trace_packets(g.flat, cam)
+    nrm = tpath.geometric_normal(prim, cam.direction)
+    bounce = rt.Rays(origin=prim.position() + 1e-3 * nrm,
+                     direction=tpath.cosine_sample(
+                         torch.Generator().manual_seed(0), nrm),
+                     min_t=torch.full((cam.count,), 1e-3),
+                     max_t=torch.where(prim.hit, float(np.float32(3.4e38)),
+                                       0.0))
+    assert prim.hit.any()
+    got = tgrid.trace_packets_grid(g, bounce)
+    _assert_parity(got, trace_packets(g.flat, bounce))
+    _assert_self_consistent(got)
+
+
+def test_grid_multimesh_records():
+    """Two meshes: mesh_index and triangle_index survive the grid's record
+    unification (build_grid_from_scene with the scene's packed tables)."""
+    ta = scenes.blob(2)[0]
+    tb = scenes.blob(2)[0] + np.float32([1.5, 0, 0])
+    meshes = [(t.reshape(-1, 3), np.arange(t.shape[0] * 3).reshape(-1, 3))
+              for t in (ta, tb)]
+    scene = rt.build_scene(meshes, rt.BuildConfig(leaf_size=LEAF),
+                           device=CPU)
+    packed = rt.Tracer(scene).packed
+    g = tgrid.build_grid_from_scene(scene, packed=packed)
+    rng = np.random.default_rng(31)
+    rays = rt.Rays.make(rng.normal(size=(512, 3)) * 0.6 + [0.75, 0, 0],
+                        rng.normal(size=(512, 3)), device=CPU)
+    ref = trace_packets(packed, rays)
+    got = tgrid.trace_packets_grid(g, rays)
+    _assert_parity(got, ref)
+    same = got.hit & (got.slot == ref.slot)
+    assert torch.equal(got.mesh_index[same], ref.mesh_index[same])
+    assert torch.equal(got.triangle_index[same], ref.triangle_index[same])
+    assert set(got.mesh_index[same].tolist()) == {0, 1}
+
+
+def test_tracer_grid_engine():
+    """Tracer(engine="grid") builds its grid lazily without the march's
+    forest, reuses a grid that has it, meets the flat engine's bar in both
+    modes, and refresh drops the grid."""
+    tris = scenes.blob(3)[0]
+    scene = rt.build_from_soup(tris, config=rt.BuildConfig(leaf_size=LEAF),
+                               device=CPU)
+    tr = rt.Tracer(scene, engine="grid")
+    rays = _rays(_rand_rays(256, 23, scale=0.5))
+    _assert_parity(tr.closest(rays), trace_packets(tr.packed, rays))
+    assert tr.grid.cells_march is None
+    assert torch.equal(tr.any(rays).hit,
+                       trace_packets(tr.packed, rays, mode="any").hit)
+    assert tr.refresh(scene)._grid is None
+    march = rt.Tracer(scene, engine="march")
+    tr._grid = march.grid
+    assert tr.grid is march.grid
+    _assert_parity(tr.closest(rays), trace_packets(tr.packed, rays))
+
+
+@pytest.mark.parametrize("engine", ["packet", "binned", "grid", "march"])
+def test_filter_mask_culls_across_engines(engine):
+    """tri_mask culling holds through every packet-kernel engine, their
+    rounds and their residuals (tests/test_grid.py:232-270)."""
+    tris = scenes.blob(3)[0]
+    scene = rt.build_from_soup(tris, config=rt.BuildConfig(leaf_size=LEAF),
+                               device=CPU)
+    tr = rt.Tracer(scene, engine=engine, tri_mask=_odd_even(tris.shape[0]))
+    rays = _rays(_rand_rays(256, 31, scale=0.5))
+    got = tr.closest(rays, filter_mask=1)
+    assert got.hit.any()
+    assert bool((got.triangle_index[got.hit] % 2 == 1).all())
+    _assert_parity(got, trace_packets(tr.packed, rays, filter_mask=1))

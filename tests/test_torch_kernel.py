@@ -293,6 +293,56 @@ def _two_blas_forests(device):
     return [(forest, forest_roots), (multi, np.arange(3))]
 
 
+def leaf_root_case(device, seed=8):
+    """Roots that start rays at leaves: blob(2) (LBVH leaf 4, a mask of 1
+    on odd triangles and 2 on even) with each ray's root drawn from the
+    rows and leaf entries (-2 - leaf) of the table, and 1000 incoherent
+    rays aimed at the blob, some dead -> (packed, rays, roots)."""
+    tris = scenes.blob(2)[0]
+    mask = np.where(np.arange(tris.shape[0]) % 2 == 1, 1, 2).astype(
+        np.uint32)
+    packed = pack_scene(rtk_tpu_torch.build_scene(
+        _soup_of(tris), rtk_tpu_torch.BuildConfig(leaf_size=4),
+        device=device), tri_mask=mask)
+    rng = np.random.default_rng(seed)
+    n = 1000
+    n_leaves = packed.tris.shape[0] // packed.leaf_size
+    entries = np.concatenate([np.arange(packed.num_nodes),
+                              -2 - np.arange(n_leaves)])
+    roots = torch.as_tensor(rng.choice(entries, n), dtype=torch.int32,
+                            device=device)
+    rays = rtk_tpu_torch.Rays.make(
+        rng.normal(size=(n, 3)) * 1.5, rng.normal(size=(n, 3)) * 0.2
+        - rng.normal(size=(n, 3)) * 1.5, 0.0,
+        np.where(rng.random(n) < 0.1, 0.0, 3.0e38), device=device)
+    return packed, rays, roots
+
+
+@pytest.mark.parametrize("kw", [{}, {"mode": "any"}, {"filter_mask": 1}],
+                         ids=["closest", "any", "mask"])
+def test_leaf_roots_match_reference(cuda, kw):
+    """A root of -2 - leaf starts the traversal at that leaf: the kernel
+    equals its plain version bit for bit, counts included, through the
+    checking front end and the rounds' unchecked launch."""
+    packed, rays, roots = leaf_root_case(cuda)
+    got, want = _both(packed, rays, ray_roots=roots, stats=True, **kw)
+    _assert_same(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    leafy = roots <= -2
+    live = leafy & (rays.max_t > rays.min_t)
+    assert got[0].hit[leafy].any()
+    assert bool((got[1][2][live] == 1).all() and (got[1][1][leafy] == 0).all())
+    unchecked = packet_trace._trace_rooted(packed, rays, roots, **kw)
+    _assert_same(unchecked, want[0])
+    bad = roots.clone()
+    bad[0] = -1
+    with pytest.raises(ValueError, match="root rows"):
+        packet_trace.trace_packets(packed, rays, ray_roots=bad)
+    bad[0] = -2 - packed.tris.shape[0] // packed.leaf_size
+    with pytest.raises(ValueError, match="root rows"):
+        packet_trace.trace_packets(packed, rays, ray_roots=bad)
+
+
 def test_roots_variant_matches_reference(cuda):
     """Per-packet and per-ray roots, dead rays and an empty root row: the
     kernel's roots variant equals its plain version bit for bit."""
@@ -915,9 +965,9 @@ def test_instanced_rounds_make_no_roots_check(cuda, monkeypatch):
     seen = []
     check = packet_trace._check_roots
 
-    def spy(roots, nodes, rays8, w, in_range=False):
+    def spy(roots, nodes, rays8, w, leaves, in_range=False):
         seen.append(in_range)
-        return check(roots, nodes, rays8, w, in_range)
+        return check(roots, nodes, rays8, w, leaves, in_range)
 
     monkeypatch.setattr(packet_trace, "_check_roots", spy)
     rng = np.random.default_rng(9)

@@ -25,8 +25,9 @@ from rtk_tpu_torch.utils.native_sah import NativeOracle
 
 from test_torch_kernel import (FILTERS, MASK_QMASKS, TIE_CASES,
                                _root_slot_boxes, chain_forest, chain_grid,
-                               chain_rays, long_tail_rays, long_tail_scene,
-                               mask_tree, tie_rays, tie_tree, wide_tie_tree)
+                               chain_rays, leaf_root_case, long_tail_rays,
+                               long_tail_scene, mask_tree, tie_rays, tie_tree,
+                               wide_tie_tree)
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -207,6 +208,24 @@ def test_host_kernel_roots_on_a_16_wide_forest(libs):
                      packed.nodes, packed.tris, rows, leaf_size=1,
                      stack_size=packed.stack_size, roots=per_ray,
                      stats=True, branching=16), "forest roots")
+
+
+@pytest.mark.parametrize("kw", [{}, {"mode": "any"}, {"qmask": 1}],
+                         ids=["closest", "any", "mask"])
+def test_host_kernel_leaf_roots(libs, kw):
+    """Roots that are leaf entries (-2 - leaf) beside node rows: the kernel
+    starts those rays at the leaf, as its plain version does, bit for bit
+    with counts (one leaf pop and nothing else for a leaf root)."""
+    packed, rays, roots = leaf_root_case(CPU)
+    rows = _rows(rays)
+    got = _trace(libs[None], packed, rows, roots=roots, **kw)
+    want = pt.packet_trace_reference(
+        packed.nodes, packed.tris, rows, leaf_size=packed.leaf_size,
+        stack_size=packed.stack_size, roots=roots, stats=True, **kw)
+    _assert_bits(got, want, f"leaf roots {kw}")
+    leafy = roots <= -2
+    assert bool((want[4][:2, leafy] <= 1).all()) and want[3][leafy].ge(
+        0).any()
 
 
 def _march(lib, grid, rays, what):

@@ -317,7 +317,8 @@ def test_furnace_identity(compact, sort_rays):
         assert traced[1] <= 1024
 
 
-@pytest.mark.parametrize("engine", ["stack", "march"])
+@pytest.mark.parametrize("engine",
+                         ["stack", "march", "grid", "binned", "stackless"])
 def test_render_path_bounce_tracer_matches(engine):
     """bounce_tracer (a second engine for the bounce batches) must not
     change radiance: the same scene, exact engines, the same random

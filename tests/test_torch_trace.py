@@ -264,18 +264,18 @@ def test_sah_packed_against_native_oracle():
 
 @pytest.mark.parametrize("engine", ["stackless", "binned", "grid", "march"])
 def test_unported_engines_raise(engine):
-    """Engines still to port raise, naming their ROADMAP item.  "march" is
-    ported now (tests/test_torch_grid.py holds it against rtk_tpu): it
-    traces the closed box, every ray a hit."""
+    """The four engines this test once found unported (it kept its name):
+    each traces the closed box with every ray a hit, and meets
+    tests/test_packet.py's bar against rtk_tpu's same engine on the same
+    scene and rays (the engines' own tests hold each one further)."""
     scene = rtk_tpu_torch.build_scene(_soup_of(scenes.cornell_box()),
                                       device=CPU)
-    if engine == "march":
-        tracer = rtk_tpu_torch.Tracer(scene, engine=engine)
-        hits = tracer.closest(scenes.cornell_camera(8, 8, device=CPU))
-        assert tracer.engine == "march" and bool(hits.hit.all())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtk_tpu_torch.Tracer(scene, engine=engine)
+    jscene = rtk_tpu.build_scene(_soup_of(scenes.cornell_box()))
+    jrays = jax_scenes.cornell_camera(8, 8)
+    tracer = rtk_tpu_torch.Tracer(scene, engine=engine)
+    hits = tracer.closest(_rays(jrays))
+    assert tracer.engine == engine and bool(hits.hit.all())
+    _check(hits, rtk_tpu.Tracer(jscene, engine=engine).closest(jrays))
 
 
 def test_stack_engine_and_filter_callables():

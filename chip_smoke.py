@@ -107,6 +107,34 @@ Phases (each prints one line):
      the plain version.  It prints each engine's steady ms beside the
      flat trace's, the grid's per-round counts, its replayed round
      launches and the host syncs of one grid and one binned call.
+ 11. sharding (parallel/shard.py) on meshes whose entries all name the
+     one card (what every shard's launches and the combine cost, not
+     scaling): ray sharding of the headline (build_scene(blob(6)), 8192^2
+     morton rays) on default_mesh() and on 4 entries, bit for bit against
+     trace_packets; trace_closest_sharded and a ray_index filter on a
+     256^2 subset, bit for bit against trace_closest (the filter sees the
+     caller's index); the atrium (409,600 tris, BuildConfig(8, 8)) in 4
+     parts and on the hybrid 2 x 2 mesh, 1024^2 primaries and phase 7's
+     cosine bounce, closest against one scene of the same config (equal
+     hit masks, t within 1e-6*(1+|t|), another triangle only at an
+     exact-t tie) and any-hit records equal to those of the part that
+     produced them; config 5 (phase 5's LBVH forest and rays) through
+     trace_instanced_sharded and the atrium bounce through
+     trace_grid_sharded, each on 2 entries, against the unsharded calls
+     (phase 5's and tests/test_grid.py's bars).  It prints each call's
+     ms beside the unsharded call's, the builds, the residual sizes and
+     the device events of one call;
+ 12. serving from AOT artifacts (utils/aot.py): the headline's program
+     (phase 11's tables, 8192^2, closest) and config 4's refit program
+     (8a's grid, 256^2, 8 frames of its clip) exported with the kernel
+     library embedded; a fresh server process with no nvcc on its PATH
+     and CUDA_HOME an empty directory loads the scene blobs and the
+     artifacts, traces and writes its outputs, which must equal this
+     process's direct calls bit for bit, with no kernel build in the
+     server (its launches are not in this process's counts).  It prints
+     the export ms, the artifacts' bytes, the server's time from spawn
+     to its first result, and the loaded artifacts' steady ms beside the
+     direct calls'.
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
 time the card could take, from the per-ray box and triangle tests the
@@ -118,11 +146,14 @@ the card's name and power limit, and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports no jax.
 """
+import dataclasses
 import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -2100,6 +2131,391 @@ def phase10(rt, dev, launch_log, width=1024, subset=256):
     return rec, launches, errs
 
 
+def bits_same(a, b, what, fields=("hit", "slot", "t", "u", "v")):
+    """The fields of two hit records equal bit for bit."""
+    for f in fields:
+        check(bits_equal(getattr(a, f), getattr(b, f)),
+              f"{what}: {f} differs")
+
+
+def scene_parity(got, want, what):
+    """A scene-sharded closest trace against one scene's: equal hit masks,
+    t within 1e-6*(1+|t|), another triangle only at an exact-t tie (the
+    parts' trees meet the tie in another order) -> (max |t err|, ties)."""
+    return march_parity(got, want, what, "triangle_index")
+
+
+def any_records(sscene, rays, got, whole_any, what):
+    """Scene-sharded any-hit: the hit mask of one scene's any-hit trace,
+    and every record the whole record of the part that produced it (the
+    lowest part that hits), bit for bit; a miss keeps max_t and slot -1.
+    The parts' own traces are comparisons, outside the main path."""
+    from rtk_tpu_torch.ops.packet_trace import trace_packets
+
+    check(torch.equal(got.hit, whole_any.hit), f"{what}: hit mask")
+    rank = torch.where(got.hit, got.slot // sscene.part_tris,
+                       sscene.num_parts)
+    for r, part in enumerate(sscene.parts):
+        want = trace_packets(part, rays, mode="any")
+        check(not bool((want.hit & (rank > r)).any()),
+              f"{what}: a lower part hits")
+        mine = rank == r
+        local = got.slot - r * sscene.part_tris
+        for f, a in (("t", got.t), ("u", got.u), ("v", got.v),
+                     ("slot", local)):
+            check(bits_equal(a[mine], getattr(want, f)[mine]),
+                  f"{what}: part {r}'s {f}")
+    miss = ~got.hit
+    check(bool((got.slot[miss] == -1).all())
+          and torch.equal(got.t[miss], rays.max_t[miss]),
+          f"{what}: a miss's record")
+    return int(got.hit.sum())
+
+
+def device_events(run):
+    """device_share's record over one call of run() under
+    torch.profiler (after a warm call)."""
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    return device_share(prof, 1)
+
+
+def phase11(rt, dev, launch_log, inst, width=8192, subset=256,
+            atrium_width=1024):
+    """Sharding (parallel/shard.py) at full width on meshes whose entries
+    name the one card: (a) ray sharding of the headline (blob(6), LBVH
+    leaf 4, 8192^2 Morton rays) on default_mesh() and on 4 entries, the
+    stack engine and a ray_index filter on a 256^2 subset; (b) the atrium
+    (BASELINE config 3) in 4 parts and on the hybrid 2 x 2 mesh, 1024^2
+    primaries and phase 7's cosine bounce, against one scene of the same
+    config; (c) config 5's instanced trace (phase 5's LBVH forest and
+    rays) and the atrium bounce through the grid rounds engine, each on 2
+    entries.  Returns its record, the launches of its run by counter
+    (zeroed just before, read just after) and the headline's tables."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.parallel import shard
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.testing.grid import trace_packets_grid
+    from rtk_tpu_torch.trace.packed import pack_scene
+
+    sync = torch.cuda.synchronize
+    counters = ("KERNEL_LAUNCHES", "ROOTS_LAUNCHES", "ANY_LAUNCHES")
+    mesh1, mesh2, mesh4 = (shard.default_mesh(), shard.Mesh([dev] * 2),
+                           shard.Mesh([dev] * 4))
+    hybrid = shard.hybrid_mesh(2, [dev] * 4)
+    builds = {}
+
+    def build(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        builds[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    # (a) the headline's tables and rays, and a strided subset.
+    v6, f6 = scenes.blob(6)[1:]
+    scene6 = build("blob6_ms", lambda: rt.build_scene((v6, f6), device=dev))
+    packed6 = build("blob6_pack_ms", lambda: rt.Tracer(scene6).packed)
+    rays = scenes.camera_rays(**CAM, width=width, height=width,
+                              order="morton", device=dev, on_device=True)
+    sub = rays[::rays.count // subset ** 2]
+    half = sub.count // 2
+
+    def first_half(c):
+        return c.ray_index < half
+
+    # (b) the atrium whole (one scene), in 4 parts and in 2 x 2.
+    atr = scenes.atrium()
+    soup = (atr.reshape(-1, 3), np.arange(atr.shape[0] * 3).reshape(-1, 3))
+    cfg = rt.BuildConfig(branching=8, leaf_size=8)
+    whole = build("atrium_whole_ms", lambda: pack_scene(
+        rt.build_from_soup(atr, config=cfg, device=dev)))
+    ss4 = build("atrium_4_parts_ms",
+                lambda: shard.build_scene_sharded(soup, mesh4, cfg))
+    ss2 = build("atrium_2x2_ms",
+                lambda: shard.build_scene_sharded(soup, hybrid, cfg))
+    cam = scenes.camera_rays(**ATRIUM_CAM, width=atrium_width,
+                             height=atrium_width, order="morton", device=dev)
+    bounce = cosine_bounce(rt, pt.trace_packets(whole, cam), cam)
+    # (c) phase 5's forest and rays; the atrium's grid (phase 10's).
+    scene16 = build("atrium_leaf16_ms", lambda: rt.build_scene(
+        soup, rt.BuildConfig(leaf_size=16), device=dev))
+    grid = build("atrium_grid_ms",
+                 lambda: rt.Tracer(scene16, engine="grid").grid)
+    ikw = dict(max_candidates=INST_CANDIDATES)
+    calls = {
+        "ray_default": lambda: shard.trace_packets_sharded(packed6, rays,
+                                                           mesh1),
+        "ray_4": lambda: shard.trace_packets_sharded(packed6, rays, mesh4),
+        "ray_direct": lambda: pt.trace_packets(packed6, rays),
+        "stack_4": lambda: shard.trace_closest_sharded(scene6, sub, mesh4),
+        "stack_direct": lambda: rt.trace_closest(scene6, sub),
+        "filter_4": lambda: shard.trace_closest_sharded(
+            scene6, sub, mesh4, filter_fn=first_half),
+        "filter_direct": lambda: rt.trace_closest(scene6, sub,
+                                                  filter_fn=first_half),
+        "scene_primary": lambda: shard.trace_closest_scene_sharded(
+            ss4, cam, mesh4),
+        "scene_bounce": lambda: shard.trace_closest_scene_sharded(
+            ss4, bounce, mesh4),
+        "scene_any": lambda: shard.trace_any_scene_sharded(ss4, bounce,
+                                                           mesh4),
+        "hybrid_bounce": lambda: shard.trace_closest_scene_sharded(
+            ss2, bounce, hybrid),
+        "hybrid_any": lambda: shard.trace_any_scene_sharded(ss2, bounce,
+                                                            hybrid),
+        "whole_primary": lambda: pt.trace_packets(whole, cam),
+        "whole_bounce": lambda: pt.trace_packets(whole, bounce),
+        "whole_any": lambda: pt.trace_packets(whole, bounce, mode="any"),
+        "instanced_2": lambda: shard.trace_instanced_sharded(
+            inst.ps, inst.rays, mesh2, **ikw),
+        "instanced_direct": lambda: rt.trace_closest_instanced_packets(
+            inst.ps, inst.rays, **ikw),
+        "grid_2": lambda: shard.trace_grid_sharded(grid, bounce, mesh2),
+        "grid_direct": lambda: trace_packets_grid(grid, bounce)}
+
+    # The exactness residual's size, sharded (once over every shard's
+    # unproven rays) and unsharded.
+    residual, res = [], instancing._residual
+    sync()
+    for c in counters:
+        setattr(pt, c, 0)
+    launch_log.start(11)
+    instancing._residual = lambda *a: residual.append(res(*a)) or residual[-1]
+    try:
+        out = {k: f() for k, f in calls.items()}
+    finally:
+        instancing._residual = res
+    sync()
+    launch_log.stop()
+    launches = {c.split("_LAUNCHES")[0].lower(): getattr(pt, c)
+                for c in counters}
+    check(all(v > 0 for v in launches.values()),
+          f"phase 11 launches {launches}")
+
+    # (a) each ray's trace is independent of its batch: bit for bit.
+    for name in ("ray_default", "ray_4"):
+        bits_same(out[name], out["ray_direct"], f"11 {name}")
+    n_hit = int(out["ray_direct"].hit.sum())
+    check(abs(n_hit - HEADLINE_EXPECT_HITS) <= HEADLINE_HIT_TOL,
+          f"11 headline hit count {n_hit}")
+    hfields = [f.name for f in dataclasses.fields(rt.Hits)]
+    for name in ("stack", "filter"):
+        bits_same(out[f"{name}_4"], out[f"{name}_direct"], f"11 {name}",
+                  hfields)
+    fh = out["filter_4"].hit
+    check(bool(fh[:half].any()) and not bool(fh[half:].any()),
+          "11 filter: a hit past the caller's first half")
+    # (b) against one scene; any-hit records against their parts.
+    parity = {
+        "scene_primary": scene_parity(out["scene_primary"],
+                                      out["whole_primary"], "11 primary"),
+        "scene_bounce": scene_parity(out["scene_bounce"],
+                                     out["whole_bounce"], "11 bounce"),
+        "hybrid_bounce": scene_parity(out["hybrid_bounce"],
+                                      out["whole_bounce"], "11 hybrid")}
+    any_hits = {
+        "scene_any": any_records(ss4, bounce, out["scene_any"],
+                                 out["whole_any"], "11 any"),
+        "hybrid_any": any_records(ss2, bounce, out["hybrid_any"],
+                                  out["whole_any"], "11 hybrid any")}
+    # (c) phase 5's bars, and the grid at tests/test_grid.py's.
+    parity["instanced"] = compare_instanced(
+        out["instanced_2"], out["instanced_direct"], "11 instanced",
+        FOREST_T_TOL)
+    parity["grid"] = march_parity(out["grid_2"], out["grid_direct"],
+                                  "11 grid")
+    bit_equal = {}
+    for name, a, b in (("instanced", out["instanced_2"][0],
+                        out["instanced_direct"][0]),
+                       ("grid", out["grid_2"], out["grid_direct"])):
+        bit_equal[name] = all(bits_equal(getattr(a, f), getattr(b, f))
+                              for f in ("hit", "slot", "t", "u", "v"))
+    del out
+
+    # ms per call (CUDA events, after a warm call) and device events.
+    slow = ("stack_4", "stack_direct", "filter_4", "filter_direct")
+    ms = {k: timed(f, reps=1 if k in slow else 3, warm=k not in slow)[1]
+          for k, f in calls.items()}
+    events = {k: device_events(calls[k]) for k in (
+        "ray_4", "ray_direct", "scene_bounce", "hybrid_bounce",
+        "whole_bounce", "instanced_2", "instanced_direct", "grid_2",
+        "grid_direct")}
+    return {"rays": rays.count, "subset": sub.count, "headline_hits": n_hit,
+            "atrium_tris": int(atr.shape[0]), "atrium_rays": cam.count,
+            "parts": ss4.num_parts, "part_tris": ss4.part_tris,
+            "hybrid": hybrid.shape, "builds_ms": builds,
+            "launches": launches, "residual_sharded_direct": residual,
+            "max_t_err_ties": parity, "any_hits": any_hits,
+            "bit_equal": bit_equal, "ms": ms,
+            "device_events": events}, launches, packed6
+
+
+# The serving process of phase 12: a fresh interpreter with no nvcc on its
+# PATH and CUDA_HOME an empty directory.  It loads the scene blobs and the
+# artifacts, traces, and writes its outputs for the parent to compare.
+AOT_SERVER = r"""
+import json, os, shutil, sys, time
+t_start = time.time()
+import torch
+from rtk_tpu_torch.ops import packet_trace
+from rtk_tpu_torch.testing import scenes
+from rtk_tpu_torch.utils.aot import load_packet_trace, load_refit_trace
+from rtk_tpu_torch.utils.serialize import load_packed_scene
+d, args = sys.argv[1], json.loads(sys.argv[2])
+assert shutil.which("nvcc") is None, "nvcc on the server's PATH"
+assert not os.path.exists(os.path.join(os.environ["CUDA_HOME"], "bin"))
+dev = torch.device(args["device"])
+t_import = time.time()
+packed = load_packed_scene(os.path.join(d, "scene.rtk"), device=dev)
+with open(os.path.join(d, "trace.aot"), "rb") as f:
+    trace = load_packet_trace(f.read())
+t_load = time.time()
+rays = scenes.camera_rays(**args["cam"], width=args["width"],
+                          height=args["width"], order="morton", device=dev,
+                          on_device=True)
+hits = trace(packed, rays)
+if dev.type == "cuda":
+    torch.cuda.synchronize()
+t_first = time.time()
+fields = ("hit", "slot", "t", "u", "v")
+torch.save({f: getattr(hits, f).cpu() for f in fields},
+           os.path.join(d, "headline.pt"))
+del hits, rays
+grid = load_packed_scene(os.path.join(d, "grid.rtk"), device=dev)
+with open(os.path.join(d, "refit.aot"), "rb") as f:
+    refit = load_refit_trace(f.read())
+cam = scenes.camera_rays(**args["grid_cam"], width=args["grid_width"],
+                         height=args["grid_width"], order="morton",
+                         device=dev)
+frames = []
+for i in range(1, args["frames"] + 1):
+    h = refit(grid, torch.as_tensor(
+        scenes.deforming_grid(0.05 * i, n=args["grid_n"]), device=dev), cam)
+    frames.append({f: getattr(h, f).cpu() for f in fields + ("tri_v",)})
+torch.save(frames, os.path.join(d, "frames.pt"))
+print(json.dumps({"t_start": t_start, "import_s": t_import - t_start,
+                  "load_s": t_load - t_import,
+                  "first_trace_s": t_first - t_load, "t_first": t_first,
+                  "builds": sorted(map(str, packet_trace.BUILD_SECONDS)),
+                  "libs": sorted(map(str, packet_trace._libs)),
+                  "launches": packet_trace.KERNEL_LAUNCHES}))
+"""
+
+
+def phase12(rt, dev, launch_log, packed6, width=8192, grid_n=96,
+            grid_width=256, frames=8):
+    """AOT serving (utils/aot.py): export the headline's program (phase
+    11's blob(6) tables, LBVH leaf 4, 8192^2, closest) and config 4's refit program (8a's
+    deforming grid, LBVH leaf 8 without wide nodes, 256^2, 8 frames of
+    its clip); run a fresh server process without nvcc that loads them,
+    traces and writes its outputs, which must equal the direct calls of
+    this process bit for bit, with no kernel build in the server.  Its
+    launches are not in this process's counts.  Returns its record and
+    the launches of the direct calls by counter."""
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.trace.packed import pack_scene
+    from rtk_tpu_torch.utils import aot
+    from rtk_tpu_torch.utils.serialize import save_packed_scene
+
+    sync = torch.cuda.synchronize
+    rays = scenes.camera_rays(**CAM, width=width, height=width,
+                              order="morton", device=dev, on_device=True)
+    g0 = scenes.deforming_grid(0.0, n=grid_n)
+    gscene = rt.build_from_soup(g0, config=rt.BuildConfig(
+        branching=8, leaf_size=8, wide_nodes=False), device=dev)
+    gpacked = pack_scene(gscene)
+    cam = scenes.camera_rays(**GRID_CAM, width=grid_width, height=grid_width,
+                             order="morton", device=dev)
+    clip = [torch.as_tensor(scenes.deforming_grid(0.05 * i, n=grid_n),
+                            device=dev) for i in range(1, frames + 1)]
+    rec = {"rays": rays.count, "grid_tris": gscene.num_tris,
+           "grid_rays": cam.count, "frames": frames}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        blob = aot.export_packet_trace(packed6, rays.count)
+        rec["export_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rblob = aot.export_refit_trace(gpacked, gscene, cam.count)
+        rec["refit_export_ms"] = (time.perf_counter() - t0) * 1e3
+        rec.update(artifact_bytes=len(blob), refit_artifact_bytes=len(rblob))
+        for name, data in (("trace.aot", blob), ("refit.aot", rblob)):
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(data)
+        save_packed_scene(packed6, os.path.join(d, "scene.rtk"))
+        save_packed_scene(gpacked, os.path.join(d, "grid.rtk"))
+
+        # The direct calls (the main path that the server replaces).
+        sync()
+        pt.KERNEL_LAUNCHES = 0
+        launch_log.start(12)
+        want = pt.trace_packets(packed6, rays)
+        want_frames = [pt.trace_packets_refit(gpacked, gscene, c, cam)[0]
+                       for c in clip]
+        sync()
+        launch_log.stop()
+        launches = {"kernel": pt.KERNEL_LAUNCHES}
+
+        # The server: no nvcc anywhere it looks.
+        cuda_home = os.path.join(d, "no_cuda")
+        os.mkdir(cuda_home)
+        path = os.pathsep.join(
+            p for p in os.environ.get("PATH", "").split(os.pathsep)
+            if not os.path.isfile(os.path.join(p, "nvcc")))
+        args = {"cam": CAM, "width": width, "grid_cam": GRID_CAM,
+                "grid_width": grid_width, "grid_n": grid_n, "frames": frames,
+                "device": str(dev)}
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t_spawn = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", AOT_SERVER, d, json.dumps(args)],
+            cwd=repo, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PATH": path, "CUDA_HOME": cuda_home,
+                 "PYTHONPATH": repo})
+        check(proc.returncode == 0,
+              f"12 server failed:\n{proc.stdout}{proc.stderr[-4000:]}")
+        srv = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(not srv["builds"] and not srv["libs"],
+              f"12 server built or loaded a kernel itself: {srv}")
+        got = torch.load(os.path.join(d, "headline.pt"))
+        for f, a in got.items():
+            check(bits_equal(a.to(dev), getattr(want, f)),
+                  f"12 server headline: {f} differs")
+        got = torch.load(os.path.join(d, "frames.pt"))
+        for i, (g, w) in enumerate(zip(got, want_frames, strict=True)):
+            for f, a in g.items():
+                check(bits_equal(a.to(dev), getattr(w, f)),
+                      f"12 server frame {i}: {f} differs")
+    rec.update(server={
+        "spawn_to_first_result_s": srv["t_first"] - t_spawn,
+        "interpreter_start_s": srv["t_start"] - t_spawn,
+        **{k: srv[k] for k in ("import_s", "load_s", "first_trace_s",
+                               "launches", "builds")}},
+        headline_hits=int(want.hit.sum()))
+
+    # Steady state in this process: the loaded artifacts beside the
+    # direct calls (CUDA events, after a warm call).
+    lt, lr = aot.load_packet_trace(blob), aot.load_refit_trace(rblob)
+    bits_same(lt(packed6, rays), want, "12 LoadedTrace")
+    rec["ms"] = {
+        "loaded_trace": timed(lambda: lt(packed6, rays), reps=3)[1],
+        "trace_packets": timed(lambda: pt.trace_packets(packed6, rays),
+                               reps=3)[1],
+        "loaded_refit_frame": timed(lambda: lr(gpacked, clip[0], cam),
+                                    reps=3)[1],
+        "trace_packets_refit_frame": timed(lambda: pt.trace_packets_refit(
+            gpacked, gscene, clip[0], cam), reps=3)[1]}
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -2342,6 +2758,8 @@ def main():
 
     # ---- phase 9: the render path ----
     p9, p9_launches, p9_errs = phase9(rt, dev, launch_log, inst5)
+    # Phase 11 shards phase 5's LBVH forest and rays.
+    inst11 = SimpleNamespace(ps=inst5.tables["lbvh8"], rays=inst5.rays)
     del inst5
     for part, title in (("9a", "render_path, atrium"),
                         ("9b", "render_direct and render_ao, atrium"),
@@ -2373,6 +2791,21 @@ def main():
         k = p8_kernels[f"packet_trace_{name}"]
         k["launches"] += p10_launches[name]
         k["max_abs_err"] = max(k["max_abs_err"], p10_errs[name])
+
+    # ---- phase 11: ray, scene and hybrid sharding ----
+    p11, p11_launches, packed6 = phase11(rt, dev, launch_log, inst11)
+    del inst11
+    print("phase 11 sharding:", json.dumps({**p11, **stamp()}), flush=True)
+    launches += p11_launches["kernel"]
+    p5["launches"]["roots"] += p11_launches["roots"]
+    p8_kernels["packet_trace_any"]["launches"] += p11_launches["any"]
+
+    # ---- phase 12: serving from AOT artifacts with no nvcc ----
+    p12, p12_launches = phase12(rt, dev, launch_log, packed6)
+    del packed6
+    print("phase 12 aot serving:", json.dumps({**p12, **stamp()}),
+          flush=True)
+    launches += p12_launches["kernel"]
 
     src = "rtk_tpu_torch/csrc/packet_trace.cu"
     kernels = [
@@ -2412,11 +2845,11 @@ def main():
          **p7_kernels["packet_trace_march"]}]
     # Each row's launches replayed alone: the sum of (ms - bound) at each
     # launch's own shape, from the launches its `launches` counts.
-    rows_of_log = {"packet_trace": ((3, 9, 10), None),
-                   "packet_trace_any": ((3, 8, 9, 10), "any"),
+    rows_of_log = {"packet_trace": ((3, 9, 10, 11, 12), None),
+                   "packet_trace_any": ((3, 8, 9, 10, 11), "any"),
                    "packet_trace_mask": ((8, 10), "mask"),
                    "packet_trace_defer_uv": ((8, 9), "defer_uv"),
-                   "packet_trace_roots": ((5, 9, 10), "roots"),
+                   "packet_trace_roots": ((5, 9, 10, 11), "roots"),
                    "packet_trace_filter": ((6,), "filter"),
                    "packet_trace_stats": ((6, 9), "stats"),
                    "packet_trace_w16": ((7,), "w16"),

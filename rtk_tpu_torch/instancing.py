@@ -428,36 +428,29 @@ def _residual_exhaustive(pscene: PackedInstancedScene, rays: Rays, best):
         best["inst"][r] = inst[better].to(torch.int32)
 
 
-def trace_closest_instanced_packets(
-        pscene: PackedInstancedScene, rays: Rays, max_candidates: int = 8,
-        interpret: bool = False, exact: bool = True, leaf_loop: bool = False,
-        ordered: bool = False, p_pk: int = DEFAULT_P, round_caps=None,
-        return_live_counts: bool = False, unit: int | None = None,
-        plain: bool = False, stats: dict | None = None):
-    """Closest hit over an instanced scene through the packet traversal.
+def _residual(pscene: PackedInstancedScene, rays: Rays, best,
+              unproven) -> int:
+    """The exactness residual: re-trace the unproven rays over all
+    instances and update `best` in place -> how many rays it re-traced."""
+    idx = torch.nonzero(unproven).squeeze(1)
+    if idx.numel():
+        sub = {k: v[idx] for k, v in best.items()}
+        _residual_exhaustive(pscene, rays[idx], sub)
+        for k, v in best.items():
+            v[idx] = sub[k]
+    return idx.numel()
 
-    Per candidate round s: the rays whose s-th candidate enters before
-    their best hit (cand_t[:, s] < best_t), grouped by instance, move to
-    that instance's object space and trace the packed forest from its
-    BLAS root (trace_packets with ray_roots); improvements scatter back.
 
-    Returns (PacketHits, instance_index (N,) i32), plus the per-round live
-    counts (C,) with return_live_counts.  Hit vertex positions are in the
-    OBJECT space of the hit instance; position() and t are world-space.
-
-    exact: rays the C-candidate cap cannot prove, and live rows a round
-      cap cut, re-trace over all instances (_residual_exhaustive).
-    round_caps: None, "auto" (from the candidate-rank populations) or C
-      row capacities in the reference's grouped layout (unit-ray packets
-      per instance, p_pk packets per block): live rows past a round's cap
-      go to the residual.  With exact=True no cap changes the result.
-    plain: run every round through the kernel's plain version
-      (trace_packets_reference) on any device.
-    stats: optional dict, filled with "live_counts", "caps" and
-      "residual" (the number of rays re-traced exhaustively).
-    interpret, leaf_loop and ordered pick the TPU kernel's schedule and
-    have no effect here.
-    """
+def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
+                      max_candidates: int, p_pk: int, round_caps, unit,
+                      plain: bool):
+    """trace_closest_instanced_packets up to its exactness residual: the
+    candidate pass and the grouped rounds -> (best, unproven, live_counts,
+    round_caps).  best: {"t", "u", "v", "slot", "inst"} per ray;
+    unproven: (N,) bool, the rays the residual must re-trace (their
+    (C+1)-th instance entry is still closer than their best hit, or a
+    round cap cut them).  parallel/shard.py runs this on each ray shard
+    and the residual once over the gathered unproven rays."""
     iscene = pscene.iscene
     packed = pscene.packed
     if rays.device != iscene.device:
@@ -524,17 +517,45 @@ def trace_closest_instanced_packets(
         best["slot"][r] = h.slot[better]
         best["inst"][r] = inst[better].to(torch.int32)
 
-    n_res = 0
-    if exact:
-        # A ray whose (C+1)-th instance entry is still closer than its best
-        # hit is unproven, and so is one a round cap cut.
-        idx = torch.nonzero((overflow < best["t"]) | over_cap).squeeze(1)
-        n_res = idx.numel()
-        if n_res:
-            sub = {k: v[idx] for k, v in best.items()}
-            _residual_exhaustive(pscene, rays[idx], sub)
-            for k, v in best.items():
-                v[idx] = sub[k]
+    # A ray whose (C+1)-th instance entry is still closer than its best hit
+    # is unproven, and so is one a round cap cut.
+    return best, (overflow < best["t"]) | over_cap, live_counts, round_caps
+
+
+def trace_closest_instanced_packets(
+        pscene: PackedInstancedScene, rays: Rays, max_candidates: int = 8,
+        interpret: bool = False, exact: bool = True, leaf_loop: bool = False,
+        ordered: bool = False, p_pk: int = DEFAULT_P, round_caps=None,
+        return_live_counts: bool = False, unit: int | None = None,
+        plain: bool = False, stats: dict | None = None):
+    """Closest hit over an instanced scene through the packet traversal.
+
+    Per candidate round s: the rays whose s-th candidate enters before
+    their best hit (cand_t[:, s] < best_t), grouped by instance, move to
+    that instance's object space and trace the packed forest from its
+    BLAS root (trace_packets with ray_roots); improvements scatter back.
+
+    Returns (PacketHits, instance_index (N,) i32), plus the per-round live
+    counts (C,) with return_live_counts.  Hit vertex positions are in the
+    OBJECT space of the hit instance; position() and t are world-space.
+
+    exact: rays the C-candidate cap cannot prove, and live rows a round
+      cap cut, re-trace over all instances (_residual_exhaustive).
+    round_caps: None, "auto" (from the candidate-rank populations) or C
+      row capacities in the reference's grouped layout (unit-ray packets
+      per instance, p_pk packets per block): live rows past a round's cap
+      go to the residual.  With exact=True no cap changes the result.
+    plain: run every round through the kernel's plain version
+      (trace_packets_reference) on any device.
+    stats: optional dict, filled with "live_counts", "caps" and
+      "residual" (the number of rays re-traced exhaustively).
+    interpret, leaf_loop and ordered pick the TPU kernel's schedule and
+    have no effect here.
+    """
+    packed = pscene.packed
+    best, unproven, live_counts, round_caps = _instanced_rounds(
+        pscene, rays, max_candidates, p_pk, round_caps, unit, plain)
+    n_res = _residual(pscene, rays, best, unproven) if exact else 0
     if stats is not None:
         stats.update(live_counts=live_counts, caps=round_caps,
                      residual=n_res)

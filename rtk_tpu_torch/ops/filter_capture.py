@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import operator
 
 import numpy as np
 import torch
@@ -356,3 +357,75 @@ def jit_filter(fn) -> JitFilter:
                 else type(out).__name__)
         _refuse(f"a predicate that returns {what}, not a bool mask")
     return JitFilter(fn, out, emit_predicate(out))
+
+
+# ------------------------------------------------------- stored predicates
+
+_TORCH_OPS = {
+    "+": operator.add, "-": operator.sub, "*": operator.mul,
+    "/": operator.truediv, "//": operator.floordiv, "%": operator.mod,
+    "<": operator.lt, "<=": operator.le, ">": operator.gt,
+    ">=": operator.ge, "==": operator.eq, "!=": operator.ne,
+    "&": operator.and_, "|": operator.or_, "^": operator.xor,
+    "~": operator.invert, "neg": operator.neg, "abs": abs,
+    "where": torch.where,
+}
+_TORCH_DTYPES = {"bool": torch.bool, "int": torch.int32,
+                 "float": torch.float32}
+
+
+def predicate_nodes(root: Expr) -> list:
+    """A captured predicate as JSON-ready data: its nodes in an order where
+    each comes after its arguments, each [op, dtype, value, [argument
+    positions]], the root last.  A node the predicate uses twice is stored
+    once, so predicate_from_nodes emits the same C++ text (and key)."""
+    nodes, pos = [], {}
+
+    def visit(node):
+        if id(node) not in pos:
+            args = [visit(a) for a in node.args]
+            nodes.append([node.op, node.dtype, node.value, args])
+            pos[id(node)] = len(nodes) - 1
+        return pos[id(node)]
+
+    visit(root)
+    return nodes
+
+
+def _evaluate(root: Expr, cand) -> torch.Tensor:
+    """The predicate on a HitCandidate of tensors, with torch's own
+    operators (the captured casts made explicit)."""
+    memo = {}
+
+    def ev(node):
+        if id(node) not in memo:
+            if node.op == "field":
+                out = getattr(cand, node.value)
+            elif node.op == "const":
+                out = node.value
+            elif node.op == "cast":
+                out = ev(node.args[0]).to(_TORCH_DTYPES[node.dtype])
+            else:
+                out = _TORCH_OPS[node.op](*map(ev, node.args))
+            memo[id(node)] = out
+        return memo[id(node)]
+
+    return ev(root)
+
+
+def predicate_from_nodes(nodes) -> JitFilter:
+    """The JitFilter of predicate_nodes' output: the kernel's filter build
+    compiles its C++ text, and calling it evaluates the predicate on
+    tensors (the plain version's filter) without the original callable."""
+    built = []
+    for op, dtype, value, args in nodes:
+        if op not in ("field", "const", "cast") and op not in _TORCH_OPS:
+            raise ValueError(f"unknown predicate operation {op!r}")
+        if dtype not in _TORCH_DTYPES:
+            raise ValueError(f"unknown predicate dtype {dtype!r}")
+        if op == "field" and value not in dict(FIELDS):
+            raise ValueError(f"unknown candidate field {value!r}")
+        built.append(Expr(op, dtype, tuple(built[a] for a in args), value))
+    root = built[-1]
+    return JitFilter(lambda cand: _evaluate(root, cand), root,
+                     emit_predicate(root))

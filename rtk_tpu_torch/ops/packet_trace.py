@@ -119,35 +119,49 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _build(flt: JitFilter | None):
-    """Build one kernel library (at first use, keyed on the hash of its
-    sources) -> (ctypes library, compiler output, seconds)."""
-    t0 = time.perf_counter()
+def kernel_library(flt: JitFilter | None = None):
+    """Build the kernel library for `flt` (None: the build without a
+    filter) if it is not built yet, keyed on the hash of its sources ->
+    (path of the .so, compiler output; empty when it was built already).
+    Needs nvcc, not a card."""
     if flt is None:
-        so, log = build_shared("packet_trace", [KERNEL_SRC],
-                               [_nvcc(), *NVCC_FLAGS])
-    else:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        header = BUILD_DIR / f"filter-{flt.key}.h"
-        if not header.exists() or header.read_text() != flt.source:
-            tmp = header.with_name(f"{header.name}.tmp{os.getpid()}")
-            tmp.write_text(flt.source)
-            os.replace(tmp, header)
-        so, log = build_shared(
-            "packet_trace_filter", [KERNEL_SRC],
-            [_nvcc(), *NVCC_FLAGS, "-DRTK_FILTER", f"-I{CSRC}",
-             "-include", str(header)], deps=[FILTER_OPS, header])
-    lib = ctypes.CDLL(str(so))
+        return build_shared("packet_trace", [KERNEL_SRC],
+                            [_nvcc(), *NVCC_FLAGS])
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    header = BUILD_DIR / f"filter-{flt.key}.h"
+    if not header.exists() or header.read_text() != flt.source:
+        tmp = header.with_name(f"{header.name}.tmp{os.getpid()}")
+        tmp.write_text(flt.source)
+        os.replace(tmp, header)
+    return build_shared(
+        "packet_trace_filter", [KERNEL_SRC],
+        [_nvcc(), *NVCC_FLAGS, "-DRTK_FILTER", f"-I{CSRC}",
+         "-include", str(header)], deps=[FILTER_OPS, header])
+
+
+def bind_library(path, march: bool):
+    """Load a kernel library with ctypes and declare its entry points;
+    march: the library is a build without a filter, which also holds the
+    march instantiation."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rtk_packet_trace.restype = i32
     lib.rtk_packet_trace.argtypes = [ptr] * 5 + [i32] * 8 + [ptr] * 6
     lib.rtk_packet_trace_max_stack.restype = i32
     lib.rtk_packet_trace_max_stack.argtypes = []
-    if flt is None:  # the march is built without a filter only
+    if march:
         lib.rtk_packet_march.restype = i32
         lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
                                          + [ptr] * 7)
-    return lib, log, time.perf_counter() - t0
+    return lib
+
+
+def _build(flt: JitFilter | None):
+    """Build and load one kernel library -> (ctypes library, compiler
+    output, seconds)."""
+    t0 = time.perf_counter()
+    so, log = kernel_library(flt)
+    return bind_library(so, flt is None), log, time.perf_counter() - t0
 
 
 def load_kernel(filter_fn: JitFilter | None = None):
@@ -231,16 +245,19 @@ def _check_filter(filter_fn, ray_index, rays8):
     return ray_index.contiguous()
 
 
-def _kernel_prelude(nodes, tris, rays8, stack_size, w, filter_fn=None):
+def _kernel_prelude(nodes, tris, rays8, stack_size, w, filter_fn=None,
+                    lib=None):
     """Checks shared by the kernel's launches -> (lib, nodes, tris,
-    rays8), contiguous, and the library built for filter_fn."""
+    rays8), contiguous, and the library built for filter_fn (or `lib`, a
+    library loaded already: utils/aot.py's embedded build)."""
     _check_tables(nodes, tris, rays8, w)
     if not rays8.is_cuda:
         raise ValueError("packet_trace_kernel takes CUDA tensors")
     nodes, tris, rays8 = (a.contiguous() for a in (nodes, tris, rays8))
     if any(a.data_ptr() % 16 for a in (nodes, tris)):
         raise ValueError("kernel tables must be 16-byte aligned")
-    lib = load_kernel(filter_fn)
+    if lib is None:
+        lib = load_kernel(filter_fn)
     cap = lib.rtk_packet_trace_max_stack()
     if stack_size > cap:
         raise ValueError(f"tree needs a {stack_size}-entry traversal stack; "
@@ -307,16 +324,17 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
 
 def _kernel(nodes, tris, rays8, *, leaf_size, stack_size, mode, watertight,
             qmask, defer_uv, roots, filter_fn, ray_index, stats, branching,
-            roots_in_range=False):
+            roots_in_range=False, lib=None):
     """packet_trace_kernel; roots_in_range: the roots are entries of the
     tables already (checked on the host when their source was made, or
     clamped into range on the device), so the launch makes no host sync to
-    check them."""
+    check them.  lib: launch from this loaded library (an AOT artifact's,
+    utils/aot.py) instead of the one built from the sources."""
     global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
     global W16_LAUNCHES, ANY_LAUNCHES, MASK_LAUNCHES, DEFER_UV_LAUNCHES
     lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
                                               stack_size, branching,
-                                              filter_fn)
+                                              filter_fn, lib)
     ray_index = _check_filter(filter_fn, ray_index, rays8)
     roots = _check_roots(roots, nodes, rays8, branching,
                          tris.shape[0] // leaf_size, roots_in_range)
@@ -1023,11 +1041,19 @@ def trace_packets_refit(packed: PackedScene, scene, new_tri_pos, rays: Rays,
     """
     _check_flags(packed, narrow=narrow, leaf_loop=leaf_loop,
                  hbm_tris=hbm_tris)
+    return _refit_trace(packet_trace, packed, scene, new_tri_pos, rays, mode,
+                        watertight, sort_rays, defer_uv)
+
+
+def _refit_trace(run, packed: PackedScene, scene, new_tri_pos, rays: Rays,
+                 mode, watertight, sort_rays, defer_uv):
+    """trace_packets_refit after its flag checks, the traversal by `run`
+    (utils/aot.py's artifacts pass the kernel of their own library)."""
     _check_front(packed, rays, mode)
     scene2, packed2 = _refit_repack(scene, packed, new_tri_pos)
     comps, idx = _ray_rows(rays, sort_rays)
-    hits = _traverse(packet_trace, packed2, rays, comps, idx, mode,
-                     watertight, None, defer_uv)
+    hits = _traverse(run, packed2, rays, comps, idx, mode, watertight, None,
+                     defer_uv)
     return hits, scene2, packed2
 
 

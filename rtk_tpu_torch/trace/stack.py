@@ -68,13 +68,14 @@ __all__ = ["HitCandidate", "trace_closest", "trace_any", "wide_depth"]
 
 def _trace_loop(scene, rays: Rays, *, mode: str, config: TraceConfig,
                 filter_fn=None, start_node=None, init_hit_t=None,
-                return_slot=False):
+                return_slot=False, ray_offset: int = 0):
     """Trace `rays` through `scene` from `start_node` (per ray; default:
     wide node 0) -> Hits, or (Hits, sorted-scene slot) with return_slot.
 
     mode: "closest" or "any" (a ray stops at its first accepted hit).
     filter_fn: None or HitCandidate -> bool mask, ANDed into each leaf's
-      accept test (ray_index: the row of `rays`).
+      accept test (ray_index: ray_offset + the row of `rays`, so a shard
+      of a batch, parallel/shard.py, sees the caller's index).
     init_hit_t: per-ray starting closest t (default: rays.max_t).
     """
     if not scene.has_wide:
@@ -96,7 +97,7 @@ def _trace_loop(scene, rays: Rays, *, mode: str, config: TraceConfig,
     shear = ray_shear(rays.direction)
     rcp = rcp_direction(rays.direction)
     rows = torch.arange(n, device=dev)
-    rows32 = rows.to(torch.int32)
+    rows32 = rows.to(torch.int32) + ray_offset
     lane = torch.arange(k, device=dev)
 
     cur = (torch.zeros((n,), dtype=torch.int64, device=dev)

@@ -41,10 +41,12 @@ MODULES = [
     # The render path's small modules.
     "rtk_tpu_torch.testing.checks", "rtk_tpu_torch.oracle",
     "rtk_tpu_torch.utils.native_host", "rtk_tpu_torch.mesh",
+    # Sharding and serving artifacts.
+    "rtk_tpu_torch.parallel.shard", "rtk_tpu_torch.utils.aot",
 ]
 
 EXAMPLES = ["torch_render_cornell", "torch_animate_deform",
-            "torch_port_from_rtk"]
+            "torch_port_from_rtk", "torch_shard_multichip", "torch_serve_aot"]
 
 
 @pytest.mark.parametrize("module", [None] + MODULES)

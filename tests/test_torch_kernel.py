@@ -994,3 +994,31 @@ def test_instanced_rounds_make_no_roots_check(cuda, monkeypatch):
             torch.zeros((8, rays.count), device=cuda),
             leaf_size=pscene.packed.leaf_size,
             stack_size=pscene.packed.stack_size, roots=bad)
+
+
+def test_aot_cuda_export_embeds_the_kernel(cuda):
+    """The counterpart of the reference's TPU cross-lowering test: a
+    "cuda" artifact, exported from tables on the CPU, embeds the nvcc
+    build; loaded, it runs that library on the card (no build for it) and
+    equals the direct call bit for bit, filter build included; it refuses
+    rays on the CPU."""
+    from rtk_tpu_torch.utils import aot
+
+    tris = scenes.cornell_box()
+    cfg = rtk_tpu_torch.BuildConfig(leaf_size=8)
+    host = pack_scene(rtk_tpu_torch.build_from_soup(tris, config=cfg,
+                                                    device="cpu"))
+    odd = rtk_tpu_torch.jit_filter(lambda c: c.triangle_index % 2 == 1)
+    packed = pack_scene(rtk_tpu_torch.build_from_soup(tris, config=cfg,
+                                                      device=cuda))
+    rays = scenes.cornell_camera(32, 32, device=cuda)
+    for kw in ({"dual": True}, {"filter_fn": odd, "defer_uv": True}):
+        lt = aot.load_packet_trace(aot.export_packet_trace(
+            host, rays.count, platforms=["cuda"], **kw))
+        assert lt.n_rays == 1024 and lt.platforms == ("cuda",)
+        before = packet_trace.KERNEL_LAUNCHES
+        got = lt(packed, rays)
+        assert packet_trace.KERNEL_LAUNCHES == before + 1
+        _assert_same(got, packet_trace.trace_packets(packed, rays, **kw))
+        with pytest.raises(ValueError, match="exported for"):
+            lt(host, scenes.cornell_camera(32, 32, device="cpu"))

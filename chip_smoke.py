@@ -135,6 +135,19 @@ Phases (each prints one line):
      the export ms, the artifacts' bytes, the server's time from spawn
      to its first result, and the loaded artifacts' steady ms beside the
      direct calls'.
+ 13. the cost model (utils/costmodel.py) against a cut sweep of the main
+     path: build_scene(blob(6)) -> Tracer.closest on Morton primaries at
+     64^2, 128^2, 256^2, 1024^2 and 4096^2, each size measured as
+     tools/torch_costmodel_fit.py measures it (the host wall ms of one
+     synchronised call, the host's ms to issue it, the card's busy ms,
+     steps_per_block), beside StepModel().trace_ms from the measured
+     steps_per_block, its relative error and dispatch_bound's answer.
+     dispatch_bound must be True at 64^2 and False at 4096^2, and agree
+     there with the measured regime (the card's busy ms against this
+     run's fixed cost of a call, read as the fit reads DISPATCH_MS); the
+     prediction must be within COST_TOL at 1024^2 and 4096^2; auto_pkt a
+     multiple of 128; the 64^2 records and steps_per_block equal the plain
+     version's.
 Then the kernel summary as one JSON line (per kernel: launches on its
 path, max |kernel - plain|, kernel and plain ms, and the bound: the least
 time the card could take, from the per-ray box and triangle tests the
@@ -222,6 +235,13 @@ ATRIUM_LIGHT = dict(light_pos=(0.5, 7.0, 1.0), light_color=(30.0, 30.0, 30.0))
 FURNACE_E = 0.5  # emission and background of the furnace runs
 ENGINE_SHARE = 0.999  # rays whose radiance agrees (1e-4) across engines
 WAVE_EPS = 1e-3  # bench.py:812, :828: the wavefront's offset and min_t
+# Phase 13: the cost model's cut sweep of the main path (blob(6), Morton
+# primaries); 128^2 (SORT_RAYS_MIN rays, the smallest batch that takes the
+# sorted front end) gives this run's fixed cost of a call.  COST_TOL bounds
+# |predicted - measured| / measured at COST_CHECK_SIDES (PERF.md §6).
+COST_SIDES = (64, 128, 256, 1024, 4096)
+COST_CHECK_SIDES = (1024, 4096)
+COST_TOL = 0.25
 
 
 def check(cond, msg):
@@ -2516,6 +2536,94 @@ def phase12(rt, dev, launch_log, packed6, width=8192, grid_n=96,
     return rec, launches
 
 
+def phase13(rt, dev, launch_log, v6, f6, sides=COST_SIDES):
+    """The cost model (utils/costmodel.py) against a cut sweep of the main
+    path: build_scene(blob(6)) -> Tracer.closest on Morton primaries at
+    each side^2.  The main path is one closest call and one stats trace
+    (unsorted rays: the counts steps_per_block reads) per size; then
+    tools/torch_costmodel_fit.py's measure() times each size outside it.
+    Checks: dispatch_bound is True at the smallest size and False at the
+    largest, and agrees there with what was measured (the card's busy ms
+    of the call against this run's fixed cost of a call, the wall less
+    the card's busy ms at SORT_RAYS_MIN rays, as the fit reads
+    DISPATCH_MS); StepModel().trace_ms from the measured
+    steps_per_block is within COST_TOL of the measured wall at
+    COST_CHECK_SIDES; auto_pkt is a multiple of 128; the smallest size's
+    records and steps_per_block equal the plain version's.  Returns its
+    record, the launches by counter and the closest records' max
+    |kernel - plain| at the smallest size."""
+    import importlib.util
+
+    from rtk_tpu_torch.ops import packet_trace as pt
+    from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.utils import costmodel as cm
+    from rtk_tpu_torch.utils.stats import steps_per_block
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_costmodel_fit", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools",
+            "torch_costmodel_fit.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    tracer = rt.Tracer(rt.build_scene((v6, f6), device=dev))
+    rays = {s: scenes.camera_rays(**CAM, width=s, height=s, order="morton",
+                                  device=dev, on_device=True) for s in sides}
+    torch.cuda.synchronize()
+    pt.KERNEL_LAUNCHES = pt.STATS_LAUNCHES = 0
+    launch_log.start(13)
+    hits, spb = {}, {}
+    for s, r in rays.items():
+        hits[s] = tracer.closest(r)
+        spb[s] = steps_per_block(pt.trace_packets(
+            tracer.packed, r, sort_rays=False, stats=True)[1][0])
+    torch.cuda.synchronize()
+    launch_log.stop()
+    launches = {"kernel": pt.KERNEL_LAUNCHES, "stats": pt.STATS_LAUNCHES}
+    for s, h in hits.items():
+        check(int(h.hit.sum()) > 0 and bool(torch.isfinite(h.t[h.hit]).all()),
+              f"13 {s}^2: no hit or a non-finite hit t")
+    small, big = min(sides), max(sides)
+    err = compare(hits[small], pt.trace_packets_reference(
+        tracer.packed, rays[small]), f"13 {small}^2 kernel/plain")
+    _, counts = pt.trace_packets_reference(tracer.packed, rays[small],
+                                           sort_rays=False, stats=True)
+    check(steps_per_block(counts[0]) == spb[small],
+          f"13 {small}^2: steps_per_block differs from the plain version's")
+
+    meas = {s: tool.measure(tracer, r) for s, r in rays.items()}
+    fixed_ms = tool.fixed_ms(meas, pt.SORT_RAYS_MIN)
+    model = cm.StepModel()
+    rec = {"fixed_ms": fixed_ms, "sizes": {}}
+    for s, m in meas.items():
+        n = s * s
+        pkt = cm.auto_pkt(n)
+        check(pkt % 128 == 0, f"13 auto_pkt({n}) = {pkt}")
+        pred = model.trace_ms(n, pkt, spb[s])
+        rec["sizes"][s] = {
+            **m, "steps_per_block": spb[s], "auto_pkt": pkt,
+            "predicted_ms": pred,
+            "rel_err": (pred - m["wall_ms"]) / m["wall_ms"],
+            "dispatch_bound": cm.dispatch_bound(n),
+            "measured_bound": m["device_ms"] < fixed_ms}
+    got = rec["sizes"]
+    check(got[small]["dispatch_bound"] and not got[big]["dispatch_bound"],
+          f"13 dispatch_bound: {small}^2 {got[small]['dispatch_bound']}, "
+          f"{big}^2 {got[big]['dispatch_bound']}")
+    for s in (small, big):
+        check(got[s]["dispatch_bound"] == got[s]["measured_bound"],
+              f"13 {s}^2: dispatch_bound {got[s]['dispatch_bound']}, device "
+              f"{got[s]['device_ms']:.4f} ms against a fixed cost of "
+              f"{fixed_ms:.4f} ms")
+    for s in COST_CHECK_SIDES:
+        check(abs(got[s]["rel_err"]) <= COST_TOL,
+              f"13 {s}^2: predicted {got[s]['predicted_ms']:.4f} ms, measured "
+              f"{got[s]['wall_ms']:.4f} ({got[s]['rel_err']:+.3f})")
+    rec["model"] = {"A_US": cm.A_US, "B_US": cm.B_US, "C_US": cm.C_US,
+                    "DISPATCH_MS": cm.DISPATCH_MS, "tol": COST_TOL}
+    return rec, launches, err
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -2807,6 +2915,13 @@ def main():
           flush=True)
     launches += p12_launches["kernel"]
 
+    # ---- phase 13: the cost model against a cut sweep ----
+    p13, p13_launches, p13_err = phase13(rt, dev, launch_log, v6, f6)
+    print("phase 13 costmodel:", json.dumps({**p13, **stamp()}), flush=True)
+    launches += p13_launches["kernel"]
+    max_err = max(max_err, p13_err)
+    p6_kernels["packet_trace_stats"]["launches"] += p13_launches["stats"]
+
     src = "rtk_tpu_torch/csrc/packet_trace.cu"
     kernels = [
         {"name": "packet_trace", "replaces": "rtk_tpu/ops/pallas_trace.py:146",
@@ -2845,13 +2960,13 @@ def main():
          **p7_kernels["packet_trace_march"]}]
     # Each row's launches replayed alone: the sum of (ms - bound) at each
     # launch's own shape, from the launches its `launches` counts.
-    rows_of_log = {"packet_trace": ((3, 9, 10, 11, 12), None),
+    rows_of_log = {"packet_trace": ((3, 9, 10, 11, 12, 13), None),
                    "packet_trace_any": ((3, 8, 9, 10, 11), "any"),
                    "packet_trace_mask": ((8, 10), "mask"),
                    "packet_trace_defer_uv": ((8, 9), "defer_uv"),
                    "packet_trace_roots": ((5, 9, 10, 11), "roots"),
                    "packet_trace_filter": ((6,), "filter"),
-                   "packet_trace_stats": ((6, 9), "stats"),
+                   "packet_trace_stats": ((6, 9, 13), "stats"),
                    "packet_trace_w16": ((7,), "w16"),
                    "packet_trace_march": ((7, 9), "march")}
     for k in kernels:

@@ -43,6 +43,8 @@ MODULES = [
     "rtk_tpu_torch.utils.native_host", "rtk_tpu_torch.mesh",
     # Sharding and serving artifacts.
     "rtk_tpu_torch.parallel.shard", "rtk_tpu_torch.utils.aot",
+    # The batch-sizing cost model.
+    "rtk_tpu_torch.utils.costmodel",
 ]
 
 EXAMPLES = ["torch_render_cornell", "torch_animate_deform",

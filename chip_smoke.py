@@ -140,6 +140,7 @@ Phases (each prints one line):
      64^2, 128^2, 256^2, 1024^2 and 4096^2, each size measured as
      tools/torch_costmodel_fit.py measures it (the host wall ms of one
      synchronised call, the host's ms to issue it, the card's busy ms,
+     here in padded profiler windows (see padded_profile),
      steps_per_block), beside StepModel().trace_ms from the measured
      steps_per_block, its relative error and dispatch_bound's answer.
      dispatch_bound must be True at 64^2 and False at 4096^2, and agree
@@ -148,18 +149,40 @@ Phases (each prints one line):
      prediction must be within COST_TOL at 1024^2 and 4096^2; auto_pkt a
      multiple of 128; the 64^2 records and steps_per_block equal the plain
      version's.
-Then the kernel summary as one JSON line (per kernel: launches on its
-path, max |kernel - plain|, kernel and plain ms, and the bound: the least
-time the card could take, from the per-ray box and triangle tests the
-stats variant counts; and gap_ms, the sum over the launches that
-`launches` counts of each one's ms less its own bound, every launch of a
-main path held and replayed alone when its run ends, launches_ms and
-launches_bound_ms being the two sums),
-the card's name and power limit, and, last, {"ok": true, "device": {...}}.
+ 14. the profiling entry points, tools/torch_profile_trace.py and
+     tools/torch_profile_refit.py (the counterparts of the JAX round's
+     tools/profile_trace.py and tools/profile_refit.py).  14a: the
+     dispatch probe (csrc/dispatch_probe.cu, o = x + 1, built in phase 1)
+     on an (8, 128) f32 tensor of +-0, +-inf, NaNs, subnormals and values
+     near 2^24 made from a seed, bit-equal to one eager x + 1.0 on the
+     card, PROBE_LAUNCHES equal to the calls made; per launch of the
+     probe and of the eager op, the host's us at the pipelined issue rate
+     (the floor), the card's us back to back (CUDA events, queued behind
+     a spin on the card) and one synchronised call's us (latency), beside
+     phase 13's fixed cost and 1024^2 error.  14b: the trace tool's
+     stages on blob(6) (BuildConfig(8, 8)) at 1024^2, (b) the kernel alone
+     on rows stacked once, (c) trace_packets unsorted, (d) sorted (sorted
+     == unsorted and (b) == (c) bit for bit), and Tracer.closest at 64^2
+     and 128^2 (phase 13's fixed-cost points).  14c: the refit tool's
+     stages on config 4 (refit, repack, trace, the fused frame, one tiny
+     op, a 1024^2 trace; the fused frame's tables and records == the
+     stages').  Every stage: ms at the issue rate, Mrays/s, the wall of
+     one synchronised call (outside the profiler), the card's busy ms and
+     device events of one call, wall less busy, and events x each floor.
+Then the kernel summary as one JSON line (per traversal variant:
+launches on its path, max |kernel - plain|, kernel and plain ms, and the
+bound: the least time the card could take, from the per-ray box and
+triangle tests the stats variant counts; and gap_ms, the sum over the
+launches that `launches` counts of each one's ms less its own bound,
+every launch of a main path held and replayed alone when its run ends,
+launches_ms and launches_bound_ms being the two sums; and a row for the
+dispatch probe, its bound the bytes it reads and writes), the card's
+name and power limit, and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports no jax.
 """
 import dataclasses
+import importlib
 import io
 import json
 import os
@@ -242,6 +265,23 @@ WAVE_EPS = 1e-3  # bench.py:812, :828: the wavefront's offset and min_t
 COST_SIDES = (64, 128, 256, 1024, 4096)
 COST_CHECK_SIDES = (1024, 4096)
 COST_TOL = 0.25
+# Phase 14: the profiling entry points.  The probe's input seed; the
+# floors' back-to-back calls (tools' timeit: FLOOR_ITERS x FLOOR_BATCHES);
+# launches a card-time window, queued behind a spin of SPIN_CYCLES on the
+# card (about 20 ms at 1.98 GHz, far longer than the host takes to issue
+# them); synchronised calls a wall median.
+PROBE_SEED = 14
+FLOOR_ITERS, FLOOR_BATCHES = 200, 5
+CARD_REPS = 200
+SPIN_CYCLES = 40_000_000
+WALL_CALLS = 11
+# torch.profiler windows of one call each; host_split keeps the one with
+# the most device events (a window can drop events, never add some).
+# Each opens with PAD_SPINS spins on the card (padded_profile).
+PROFILE_WINDOWS = 3
+PAD_SPINS = 32
+SPIN_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel (ATen's Sleep.cu)
+FIXED_SIDES = (64, 128)  # the cost model's fixed-cost points (phase 13)
 
 
 def check(cond, msg):
@@ -1156,10 +1196,12 @@ def tables_equal(a, b, what, fields=("nodes", "tris", "tri_v")):
 def device_share(prof, frames):
     """The card's busy and idle share over a profiled window: the union
     of the device events' intervals over the span from the first one's
-    start to the last one's end, and the device events a frame."""
+    start to the last one's end, and the device events a frame.  The
+    spins that open a padded_profile window are left out."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and SPIN_KERNEL not in e.name)
     if not spans:
         return {"device_events": 0, "idle_share": None}
     busy, (cur_s, cur_e) = 0.0, spans[0]
@@ -1179,8 +1221,8 @@ def device_share(prof, frames):
 
 def profile_clip(run, frames, pt):
     """One warm run, one run on the host's clock (the time to enqueue the
-    clip, then to drain it) and one under torch.profiler -> the kernel's
-    launches a frame, the two times and device_share's record."""
+    clip, then to drain it) and one in a padded_profile window -> the
+    kernel's launches a frame, the two times and the window's record."""
     sync = torch.cuda.synchronize
     run()
     sync()
@@ -1191,14 +1233,9 @@ def profile_clip(run, frames, pt):
     sync()
     total_ms = (time.perf_counter() - t0) * 1e3
     per_frame = (pt.KERNEL_LAUNCHES - before) / frames
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        sync()
     return {"host_enqueue_ms": enqueue_ms, "enqueue_and_drain_ms": total_ms,
             "kernel_launches_per_frame": per_frame,
-            **device_share(prof, frames)}
+            **padded_profile(run, frames)[1]}
 
 
 def phase8(rt, dev, launch_log, small=(96, 256, 32),
@@ -2119,15 +2156,12 @@ def phase10(rt, dev, launch_log, width=1024, subset=256):
     profile = {name: profile_clip(calls[name], k, pt)
                for name, k in (("grid_bounce", 11),
                                ("binned_bounce", n_bins + 1))}
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        calls["grid_bounce"]()
-        sync()
+    prof, _ = padded_profile(calls["grid_bounce"])
     kernels = sorted(
         ((e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
          for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and SPIN_KERNEL not in e.key),
         key=lambda r: -r[1])
     profile["grid_bounce"]["top_device_kernels_ms"] = [
         [name[:60], ms, count] for name, ms, count in kernels[:8]]
@@ -2190,19 +2224,6 @@ def any_records(sscene, rays, got, whole_any, what):
           and torch.equal(got.t[miss], rays.max_t[miss]),
           f"{what}: a miss's record")
     return int(got.hit.sum())
-
-
-def device_events(run):
-    """device_share's record over one call of run() under
-    torch.profiler (after a warm call)."""
-    run()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        torch.cuda.synchronize()
-    return device_share(prof, 1)
 
 
 def phase11(rt, dev, launch_log, inst, width=8192, subset=256,
@@ -2360,11 +2381,12 @@ def phase11(rt, dev, launch_log, inst, width=8192, subset=256,
                               for f in ("hit", "slot", "t", "u", "v"))
     del out
 
-    # ms per call (CUDA events, after a warm call) and device events.
+    # ms per call (CUDA events, after a warm call) and the device events
+    # of one more call.
     slow = ("stack_4", "stack_direct", "filter_4", "filter_direct")
     ms = {k: timed(f, reps=1 if k in slow else 3, warm=k not in slow)[1]
           for k, f in calls.items()}
-    events = {k: device_events(calls[k]) for k in (
+    events = {k: padded_profile(calls[k])[1] for k in (
         "ray_4", "ray_direct", "scene_bounce", "hybrid_bounce",
         "whole_bounce", "instanced_2", "instanced_direct", "grid_2",
         "grid_direct")}
@@ -2536,6 +2558,15 @@ def phase12(rt, dev, launch_log, packed6, width=8192, grid_n=96,
     return rec, launches
 
 
+def load_tool(name):
+    """tools/{name}.py of this checkout, imported (the folder appended to
+    sys.path, where the tools find each other)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.append(tools)
+    return importlib.import_module(name)
+
+
 def phase13(rt, dev, launch_log, v6, f6, sides=COST_SIDES):
     """The cost model (utils/costmodel.py) against a cut sweep of the main
     path: build_scene(blob(6)) -> Tracer.closest on Morton primaries at
@@ -2552,19 +2583,15 @@ def phase13(rt, dev, launch_log, v6, f6, sides=COST_SIDES):
     records and steps_per_block equal the plain version's.  Returns its
     record, the launches by counter and the closest records' max
     |kernel - plain| at the smallest size."""
-    import importlib.util
-
     from rtk_tpu_torch.ops import packet_trace as pt
     from rtk_tpu_torch.testing import scenes
     from rtk_tpu_torch.utils import costmodel as cm
     from rtk_tpu_torch.utils.stats import steps_per_block
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_costmodel_fit", os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "tools",
-            "torch_costmodel_fit.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_tool("torch_costmodel_fit")
+    # Its measure() reads the card's busy ms in unpadded windows, which
+    # lose records this late in the smoke; give it padded ones.
+    tool.device_ms = padded_busy_ms
 
     tracer = rt.Tracer(rt.build_scene((v6, f6), device=dev))
     rays = {s: scenes.camera_rays(**CAM, width=s, height=s, order="morton",
@@ -2624,6 +2651,212 @@ def phase13(rt, dev, launch_log, v6, f6, sides=COST_SIDES):
     return rec, launches, err
 
 
+def card_us(fn, reps=CARD_REPS):
+    """The card's us a call of fn at its own pace: `reps` back-to-back
+    calls queued behind a spin on the card (torch.cuda._sleep), CUDA
+    events around them, so the host's issue time is hidden.  Fails if the
+    host took longer to issue them than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    e1.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    e2.record()
+    torch.cuda.synchronize()
+    spin_ms = e0.elapsed_time(e1)
+    check(issue_ms < spin_ms, f"card_us: the host took {issue_ms:.3f} ms to "
+          f"issue {reps} calls, the spin lasted {spin_ms:.3f}")
+    return e1.elapsed_time(e2) / reps * 1e3
+
+
+def padded_profile(run, frames=1):
+    """torch.profiler over one call of run() in a window that opens with
+    PAD_SPINS short spins on the card (torch.cuda._sleep), finished before
+    run() starts: every profiler window of the smoke.  Late in a long
+    process, and more after it has started another that uses the card,
+    the profiler loses the first device records of a window, up to all
+    of a short call's; the spins take that loss.  -> (profile,
+    device_share's record over `frames` frames with spins_lost, the spins
+    the profiler lost; at PAD_SPINS the loss may have reached run()'s)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PAD_SPINS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    kept = sum(SPIN_KERNEL in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return prof, {**device_share(prof, frames), "spins_lost": PAD_SPINS - kept}
+
+
+def padded_windows(run):
+    """The records of PROFILE_WINDOWS padded_profile windows of one call
+    each, those where a spin was recorded; fails if no window kept one."""
+    recs = [r for _, r in (padded_profile(run)
+                           for _ in range(PROFILE_WINDOWS))
+            if r["spins_lost"] < PAD_SPINS]
+    check(recs, f"the profiler lost every spin of {PROFILE_WINDOWS} windows")
+    return recs
+
+
+def padded_busy_ms(run):
+    """The card's busy ms in one call of run(): the largest over
+    padded_windows (tools/torch_costmodel_fit.py's device_ms, in windows
+    that open with spins)."""
+    busy = max(r.get("busy_ms", 0.0) for r in padded_windows(run))
+    check(busy > 0, "torch.profiler recorded no device event")
+    return busy
+
+
+def sync_wall_ms(run):
+    """The host's ms of one call of run() and a synchronize (latency, not
+    the issue rate): the median of WALL_CALLS, outside the profiler."""
+    walls = []
+    for _ in range(WALL_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def host_split(run, floors_us):
+    """One call of run() split between the card and the host: wall_ms
+    (sync_wall_ms), the card's busy ms, device events and idle share of
+    one call (padded_windows: of PROFILE_WINDOWS windows the one with the
+    most events; its spins_lost), wall_less_busy_ms, and the device events
+    times each per-launch floor of floors_us ({name: us}, phase 14a) as
+    events_x_{name}_ms.  Calls run() 1 + WALL_CALLS + PROFILE_WINDOWS
+    times."""
+    run()
+    wall = sync_wall_ms(run)
+    ev = max(padded_windows(run), key=lambda r: r["device_events"])
+    check(ev["device_events"] > 0, "host_split: no device event recorded")
+    return {"wall_ms": wall, "busy_ms": ev["busy_ms"],
+            "device_events": ev["device_events"],
+            "idle_share": ev["idle_share"], "spins_lost": ev["spins_lost"],
+            "wall_less_busy_ms": wall - ev["busy_ms"],
+            **{f"events_x_{k}_ms": ev["device_events"] * us / 1e3
+               for k, us in floors_us.items()}}
+
+
+def phase14(rt, dev, ptrace, prefit, v6, f6):
+    """The profiling entry points (tools/torch_profile_trace.py, phase 1's
+    build of its probe, and tools/torch_profile_refit.py).
+    14a: the probe on PROBE_SEED's special values, bit-equal to its plain
+    version on the card, PROBE_LAUNCHES equal to the calls made; per
+    launch, for the probe and for one eager x + 1.0: the host's us (the
+    tool's timeit, the pipelined issue rate: the floor), the card's us
+    (card_us) and one synchronised call's us (sync_wall_ms: latency).
+    14b: torch_profile_trace.py's stages (b) to (d) at 1024^2 (stage (a) is
+    14a), sorted and unsorted records equal, the raw kernel's equal to the
+    unsorted trace's; then Tracer.closest on blob(6) (phase 13's setup) at
+    FIXED_SIDES.  14c: torch_profile_refit.py's stages on config 4, the
+    fused frame's records and tables equal to the stages' one after
+    another.  Every stage of 14b and 14c: the tool's timeit ms and
+    host_split with 14a's two floors.  Returns (14a, 14b, 14c), the
+    probe's launches and its kernels-line row."""
+    from rtk_tpu_torch.testing import scenes
+
+    # 14a: the probe, counted from here.
+    x = torch.as_tensor(ptrace.probe_input(PROBE_SEED), device=dev)
+    ptrace.PROBE_LAUNCHES = 0
+    out = ptrace.dispatch_probe(x)
+    want = ptrace.dispatch_probe_reference(x)
+    torch.cuda.synchronize()
+    check(bits_equal(out, want), "14a: the probe differs from x + 1.0")
+    fns = {"probe": lambda: ptrace.dispatch_probe(x),
+           "eager": lambda: ptrace.dispatch_probe_reference(x)}
+    floors = {k: ptrace.timeit(f, FLOOR_ITERS, FLOOR_BATCHES) * 1e6
+              for k, f in fns.items()}
+    cards = {k: card_us(f) for k, f in fns.items()}
+    syncs = {k: sync_wall_ms(f) * 1e3 for k, f in fns.items()}
+    calls = (1 + (1 + FLOOR_ITERS * FLOOR_BATCHES) + (1 + CARD_REPS)
+             + WALL_CALLS)
+    launches = ptrace.PROBE_LAUNCHES
+    check(launches == calls, f"14a: PROBE_LAUNCHES {launches}, {calls} calls")
+    nbytes = 2 * x.numel() * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = x.numel() / PEAK_F32_INSTR * 1e3
+    rec_a = {"build_s": ptrace.BUILD_SECONDS, "shape": list(x.shape),
+             "bits_equal": True, "launches": launches, "calls": calls,
+             "host_floor_us": floors, "card_us": cards,
+             "sync_call_us": syncs, "bound_us": max(t_bytes, t_ops) * 1e3,
+             "regimes": "host_floor_us: back-to-back calls, the host's "
+                        "issue rate; card_us: back-to-back on the card "
+                        "behind a spin; sync_call_us: one call and a "
+                        "synchronize"}
+    row = {"name": "dispatch_probe", "route": "cuda",
+           "source": "rtk_tpu_torch/csrc/dispatch_probe.cu",
+           "replaces": "tools/profile_trace.py:60", "launches": launches,
+           "max_abs_err": 0.0, "ms": cards["probe"] / 1e3,
+           "plain_ms": cards["eager"] / 1e3,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": cards["eager"] / 1e3,
+           "shape": "(8, 128) f32 of 14a's seeded special values; ms: "
+                    "back-to-back launches on the card (CUDA events, "
+                    "queued behind a spin); plain_ms and library_ms are "
+                    "the same call, one eager x + 1.0, which is both the "
+                    "plain version and the PyTorch call"}
+
+    # 14b: the trace path's stages.
+    packed = ptrace.build_packed(dev)
+    rays = ptrace.camera(dev)
+    stages = ptrace.trace_stages(packed, rays)
+    raw, unsorted, srt = (stages[k]() for k in (
+        "raw_kernel", "trace_unsorted", "trace_sorted"))
+    check(int(unsorted.hit.sum()) > 0, "14b: no hit")
+    bits_same(srt, unsorted, "14b sorted/unsorted")
+    hit = raw[3] >= 0
+    bits_same(SimpleNamespace(hit=hit, slot=raw[3], t=raw[0],
+                              u=torch.where(hit, raw[1], 0.0),
+                              v=torch.where(hit, raw[2], 0.0)),
+              unsorted, "14b raw kernel/unsorted trace")
+    rec_b = {"rays": rays.count, "hits": int(unsorted.hit.sum()),
+             "stage_a": "14a", "stages": {}}
+    for name, fn in stages.items():
+        ms = ptrace.timeit(fn) * 1e3
+        rec_b["stages"][name] = {"ms": ms,
+                                 "mrays_s": rays.count / ms / 1e3,
+                                 **host_split(fn, floors)}
+    tracer = rt.Tracer(rt.build_scene((v6, f6), device=dev))
+    for s in FIXED_SIDES:
+        r = scenes.camera_rays(**CAM, width=s, height=s, order="morton",
+                               device=dev, on_device=True)
+        rec_b["stages"][f"closest_{s}"] = host_split(
+            lambda: tracer.closest(r), floors)
+    del packed, rays, stages, raw, unsorted, srt, tracer
+
+    # 14c: config 4's frame.
+    fns_c, rays_c = prefit.stages(dev)
+    hits, scene_f, packed_f = fns_c["fused"]()
+    scene_s = fns_c["refit"]()
+    packed_s = fns_c["repack"]()
+    tables_equal(scene_f, scene_s, "14c fused/refit",
+                 ("node_min", "node_max", "bin_min", "bin_max", "leaf_min",
+                  "leaf_max", "tri_v", "bounds_min", "bounds_max"))
+    tables_equal(packed_f, packed_s, "14c fused/repack")
+    bits_same(hits, fns_c["trace"](), "14c fused/trace")
+    rec_c = {"rays": rays_c["trace"], "hits": int(hits.hit.sum()),
+             "stages": {}}
+    for name, fn in fns_c.items():
+        ms = prefit.timeit(fn, iters=prefit.ITERS.get(name, 10)) * 1e3
+        rec_c["stages"][name] = {
+            "ms": ms, **({"mrays_s": rays_c[name] / ms / 1e3}
+                         if name in rays_c else {}),
+            **host_split(fn, floors)}
+    return rec_a, rec_b, rec_c, launches, row
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -2650,9 +2883,14 @@ def main():
     # each, all started together.
     filters = {name: rt.jit_filter(f) for name, f in (
         ("odd_tri", ODD_TRI), ("even_ray", EVEN_RAY), ("tri_t", TRI_T))}
+    # The profiling tool that holds the dispatch probe's binding (phase 14);
+    # its library is built beside them.
+    ptrace = load_tool("torch_profile_trace")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        probe_build = pool.submit(ptrace.probe_library)
         list(pool.map(packet_trace.load_kernel, (None, *filters.values())))
+        probe_build.result()
     build_s = time.perf_counter() - t0
     nvcc = subprocess.run([packet_trace._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
@@ -2677,6 +2915,7 @@ def main():
     for name, flt in filters.items():
         builds[name] = {"s": packet_trace.BUILD_SECONDS[flt.key],
                         "ptxas": ptxas(flt.key)}
+    builds["dispatch_probe"] = {"s": ptrace.BUILD_SECONDS}
     print("phase 1 build:", json.dumps({
         "nvcc": [ln for ln in nvcc.splitlines() if "release" in ln][0],
         "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2922,6 +3161,22 @@ def main():
     max_err = max(max_err, p13_err)
     p6_kernels["packet_trace_stats"]["launches"] += p13_launches["stats"]
 
+    # ---- phase 14: the profiling entry points ----
+    p14a, p14b, p14c, p14_launches, probe_row = phase14(
+        rt, dev, ptrace, load_tool("torch_profile_refit"), v6, f6)
+    check(p14_launches > 0, "phase 14 never launched the dispatch probe")
+    big = p13["sizes"][1024]
+    p14a["beside_phase13"] = {
+        "host_floor_us": p14a["host_floor_us"],
+        "p13_fixed_ms": p13["fixed_ms"],
+        "p13_wall_ms_1024": big["wall_ms"], "p13_rel_err_1024": big["rel_err"]}
+    for part, title, rec in (
+            ("14a", "dispatch probe and launch floors", p14a),
+            ("14b", "profile_trace stages, blob(6) 1024^2", p14b),
+            ("14c", "profile_refit stages, config 4", p14c)):
+        print(f"phase {part} {title}:", json.dumps({**rec, **stamp()}),
+              flush=True)
+
     src = "rtk_tpu_torch/csrc/packet_trace.cu"
     kernels = [
         {"name": "packet_trace", "replaces": "rtk_tpu/ops/pallas_trace.py:146",
@@ -2974,10 +3229,11 @@ def main():
         check(n_l == k["launches"], f"{k['name']}: {n_l} launches replayed, "
               f"{k['launches']} counted")
         k.update(gap_ms=gap, launches_ms=l_ms, launches_bound_ms=l_bound)
-    # No PyTorch call traverses a BVH: library_ms is null for every entry.
+    # No PyTorch call traverses a BVH: library_ms is null for every
+    # traversal entry.
     print(json.dumps({"kernels": [
         {"route": "cuda", "source": src, "library_ms": None, **k}
-        for k in kernels]}))
+        for k in kernels] + [probe_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,6 +50,9 @@ MODULES = [
 EXAMPLES = ["torch_render_cornell", "torch_animate_deform",
             "torch_port_from_rtk", "torch_shard_multichip", "torch_serve_aot"]
 
+# The port's profiling tools (their main() not run).
+TOOLS = ["torch_profile_trace", "torch_profile_refit"]
+
 
 @pytest.mark.parametrize("module", [None] + MODULES)
 def test_port_imports_without_jax(module):
@@ -68,6 +71,21 @@ def test_examples_import_without_jax(example):
     flax unimportable, and pull in nothing of rtk_tpu."""
     extra = ("import importlib.util as u; "
              f"s = u.spec_from_file_location('ex', 'examples/{example}.py'); "
+             "m = u.module_from_spec(s); s.loader.exec_module(m)")
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tools_import_without_jax(tool):
+    """The port's profiling tools load (their main() not run) with jax and
+    flax unimportable, and pull in nothing of rtk_tpu."""
+    extra = ("import importlib.util as u; "
+             f"s = u.spec_from_file_location('t', 'tools/{tool}.py'); "
              "m = u.module_from_spec(s); s.loader.exec_module(m)")
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,

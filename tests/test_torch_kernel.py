@@ -1,6 +1,10 @@
-"""The CUDA packet-traversal kernel against its plain PyTorch version on the
+"""The CUDA packet-traversal kernel, and the dispatch probe of
+tools/torch_profile_trace.py, against their plain PyTorch versions on the
 card.  Needs a CUDA device and nvcc: each test skips without a card.  On
 the H100: `python -m pytest tests/test_torch_kernel.py -m cuda -q`."""
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +13,14 @@ import rtk_tpu_torch
 from rtk_tpu_torch.ops import packet_trace
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.trace.packed import pack_scene
+
+# The port's profiling tools, imported from their folder (the probe's
+# binding lives in one).
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tools")
+if TOOLS not in sys.path:
+    sys.path.append(TOOLS)
+import torch_profile_trace as ptrace  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1022,3 +1034,25 @@ def test_aot_cuda_export_embeds_the_kernel(cuda):
         _assert_same(got, packet_trace.trace_packets(packed, rays, **kw))
         with pytest.raises(ValueError, match="exported for"):
             lt(host, scenes.cornell_camera(32, 32, device="cpu"))
+
+
+def test_dispatch_probe_kernel(cuda):
+    """tools/torch_profile_trace.py's dispatch probe on the card: built
+    with the package's flags, bit-equal to its plain version on the card
+    (x + 1.0) and value-equal to it on the CPU (the card's NaN may differ
+    in its payload), on the seeded special values and a ragged size; each
+    launch advances PROBE_LAUNCHES by one."""
+    host = np.concatenate([ptrace.probe_input(s).reshape(-1)
+                           for s in range(3)])
+    for x in (host[:1024].reshape(ptrace.PROBE_SHAPE), host[:2567]):
+        xt = torch.as_tensor(x, device=cuda)
+        before = ptrace.PROBE_LAUNCHES
+        got = ptrace.dispatch_probe(xt)
+        torch.cuda.synchronize()
+        assert ptrace.PROBE_LAUNCHES == before + 1
+        assert got.shape == xt.shape and got.is_cuda
+        assert torch.equal(got.view(torch.int32),
+                           ptrace.dispatch_probe_reference(xt)
+                           .view(torch.int32))
+        np.testing.assert_array_equal(got.cpu().numpy(), x + np.float32(1))
+    assert ptrace.BUILD_SECONDS is not None

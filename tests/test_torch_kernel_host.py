@@ -6,9 +6,12 @@ the CPU (its single-instruction NaN min/max take their plain C++ form
 off the card): every instantiation (8- and 16-wide tables, the grid march
 and a filter build) in every mode equals the plain PyTorch version bit for
 bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
-This checks the kernel's logic and arithmetic; that nvcc builds it for
-sm_90a, and the card's results, are tests/test_torch_kernel.py's."""
+csrc/dispatch_probe.cu is built the same way and held bit for bit
+against its plain version.  This checks the kernels' logic and
+arithmetic; that nvcc builds them for sm_90a, and the card's results, are
+tests/test_torch_kernel.py's."""
 import ctypes
+import pathlib
 import shutil
 import subprocess
 
@@ -26,8 +29,8 @@ from rtk_tpu_torch.utils.native_sah import NativeOracle
 from test_torch_kernel import (FILTERS, MASK_QMASKS, TIE_CASES,
                                _root_slot_boxes, chain_forest, chain_grid,
                                chain_rays, leaf_root_case, long_tail_rays,
-                               long_tail_scene, mask_tree, tie_rays, tie_tree,
-                               wide_tie_tree)
+                               long_tail_scene, mask_tree, ptrace, tie_rays,
+                               tie_tree, wide_tie_tree)
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -458,3 +461,45 @@ def test_host_w16_wide_nodes_with_ties(libs, n):
         _assert_bits(got, pt.packet_trace_reference(
             packed.nodes, packed.tris, rows, **kw0, **kw), f"n={n} {kw}")
     assert bool((got[3] >= 0).any())
+
+
+PROBE_LAUNCH = """    dispatch_probe_kernel<<<blocks, PROBE_BLOCK, 0, (cudaStream_t)stream>>>(
+"""
+PROBE_HOST_LAUNCH = """    for (unsigned b_ = 0; b_ < (unsigned)blocks * PROBE_BLOCK; ++b_)
+      if ((blockIdx.x = b_ / PROBE_BLOCK, threadIdx.x = b_ % PROBE_BLOCK,
+           blockDim.x = PROBE_BLOCK, true))
+        dispatch_probe_kernel(
+"""
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 1024, 128 * 20 + 7])
+def test_host_dispatch_probe(tmp_path, n):
+    """csrc/dispatch_probe.cu built for the host behind CUDA_SHIM (its
+    launch run as a loop over the threads) equals the probe's plain
+    version, x + 1.0, bit for bit on tools/torch_profile_trace.py's
+    seeded special values (ragged sizes cut from them), and leaves the
+    output past n untouched."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    src = pathlib.Path(ptrace.PROBE_SRC).read_text()
+    assert PROBE_LAUNCH in src and "#include <cuda_runtime.h>" in src
+    (tmp_path / "cuda_shim.h").write_text(CUDA_SHIM)
+    cpp = tmp_path / "probe.cpp"
+    cpp.write_text(src.replace("#include <cuda_runtime.h>",
+                               '#include "cuda_shim.h"')
+                   .replace(PROBE_LAUNCH, PROBE_HOST_LAUNCH))
+    so = tmp_path / "libprobe.so"
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",
+                    "-ffp-contract=off", "-shared", "-fPIC",
+                    f"-I{tmp_path}", str(cpp), "-o", str(so)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.rtk_dispatch_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_void_p]
+    x = torch.from_numpy(np.concatenate(
+        [ptrace.probe_input(s).reshape(-1) for s in range(3)]))[:n]
+    out = torch.full((n + 5,), SENTINEL, dtype=torch.int32)
+    assert lib.rtk_dispatch_probe(x.data_ptr(), out.data_ptr(), n, None) == 0
+    assert torch.equal(out[:n], ptrace.dispatch_probe_reference(x)
+                       .view(torch.int32))
+    assert bool((out[n:] == SENTINEL).all())

@@ -66,7 +66,23 @@ def ray_coherence_key(origin: torch.Tensor,
     batches) origin locality dominates and direction refines it.  Rays
     adjacent in this order visit nearly the same BVH nodes, so a warp of
     them diverges less and shares more of its node fetches.
+
+    On CUDA tensors the key comes from the port's own kernels
+    (ops/packet_trace.coherence_key_kernel, csrc/coherence_key.cu), which
+    raise if they cannot run; elsewhere from the plain version,
+    ray_coherence_key_reference.  The two give the same bits.
     """
+    if origin.is_cuda or direction.is_cuda:
+        from rtk_tpu_torch.ops.packet_trace import coherence_key_kernel
+        return coherence_key_kernel(origin, direction)
+    return ray_coherence_key_reference(origin, direction)
+
+
+def ray_coherence_key_reference(origin: torch.Tensor,
+                                direction: torch.Tensor) -> torch.Tensor:
+    """ray_coherence_key's plain version: eager tensor operations on any
+    device, in rtk_tpu.ops.morton.ray_coherence_key's order (on the CPU
+    its keys equal the reference's)."""
     o = origin.to(torch.float32)
     d = direction.to(torch.float32)
     dn = d / torch.clamp_min(torch.linalg.vector_norm(d, dim=1, keepdim=True),

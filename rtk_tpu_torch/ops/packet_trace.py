@@ -14,6 +14,13 @@ build or launch failure raises, it never falls back.  Tables are 8 or 16
 wide (PackedScene.branching); each width is its own instantiation of the
 kernel.
 
+The sorted front end's own steps run as the port's kernels too, built
+into the same library: the coherence key (`coherence_key_kernel`,
+csrc/coherence_key.cu) and the unsort of the outputs (`unsort_kernel`,
+csrc/unsort.cu); on CPU tensors their plain versions run.  The plain
+front end, `trace_packets_reference`, keeps the plain versions on any
+device.
+
 `packet_march` is the grid march over a table with one root row per
 macro-grid cell (testing/grid.py): the kernel's march instantiation walks
 each ray's cell chain in one launch; its plain version runs rounds of the
@@ -64,7 +71,7 @@ import torch
 
 from rtk_tpu_torch.ops.filter_capture import JitFilter
 from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
-from rtk_tpu_torch.ops.morton import ray_coherence_key
+from rtk_tpu_torch.ops.morton import ray_coherence_key_reference
 from rtk_tpu_torch.scene import refit
 from rtk_tpu_torch.trace.packed import (MASK_COL, MESH_COL, PRIM_COL,
                                         BinaryRefitAux, PackedScene,
@@ -84,8 +91,12 @@ FILTER_MAX_TRIS = 1 << 24  # triangle ids ride f32 columns, exact below 2^24
 # 16-wide table, the grid march, any-hit mode, a filter mask or deferred
 # u/v, each also counted in KERNEL_LAUNCHES).
 # A run resets them and reads them back to show that its main path went
-# through the kernel.
+# through the kernel.  KEY_LAUNCHES counts calls of the coherence key's
+# kernels (coherence_key_kernel: a memset and three launches each),
+# UNSORT_LAUNCHES launches of the unsort (unsort_kernel).
 KERNEL_LAUNCHES = 0
+KEY_LAUNCHES = 0
+UNSORT_LAUNCHES = 0
 ROOTS_LAUNCHES = 0
 FILTER_LAUNCHES = 0
 STATS_LAUNCHES = 0
@@ -98,6 +109,9 @@ WIDTHS = (8, 16)  # node-table widths the kernel is instantiated for
 
 CSRC = PKG_ROOT / "csrc"
 KERNEL_SRC = CSRC / "packet_trace.cu"
+# The sorted front end's kernels, built into the traversal's library.
+KEY_SRC = CSRC / "coherence_key.cu"
+UNSORT_SRC = CSRC / "unsort.cu"
 FILTER_OPS = CSRC / "filter_ops.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -123,9 +137,12 @@ def kernel_library(flt: JitFilter | None = None):
     """Build the kernel library for `flt` (None: the build without a
     filter) if it is not built yet, keyed on the hash of its sources ->
     (path of the .so, compiler output; empty when it was built already).
+    Every build holds the traversal, the coherence key and the unsort, so
+    that a caller with one loaded library (utils/aot.py's artifacts) has
+    the whole sorted front end.
     Needs nvcc, not a card."""
     if flt is None:
-        return build_shared("packet_trace", [KERNEL_SRC],
+        return build_shared("packet_trace", [KERNEL_SRC, KEY_SRC, UNSORT_SRC],
                             [_nvcc(), *NVCC_FLAGS])
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     header = BUILD_DIR / f"filter-{flt.key}.h"
@@ -134,7 +151,7 @@ def kernel_library(flt: JitFilter | None = None):
         tmp.write_text(flt.source)
         os.replace(tmp, header)
     return build_shared(
-        "packet_trace_filter", [KERNEL_SRC],
+        "packet_trace_filter", [KERNEL_SRC, KEY_SRC, UNSORT_SRC],
         [_nvcc(), *NVCC_FLAGS, "-DRTK_FILTER", f"-I{CSRC}",
          "-include", str(header)], deps=[FILTER_OPS, header])
 
@@ -149,6 +166,12 @@ def bind_library(path, march: bool):
     lib.rtk_packet_trace.argtypes = [ptr] * 5 + [i32] * 8 + [ptr] * 6
     lib.rtk_packet_trace_max_stack.restype = i32
     lib.rtk_packet_trace_max_stack.argtypes = []
+    i64 = ctypes.c_longlong
+    lib.rtk_coherence_key.restype = i32
+    lib.rtk_coherence_key.argtypes = ([ptr] + [i64] * 2 + [ptr] + [i64] * 3
+                                      + [ptr] * 3)
+    lib.rtk_unsort.restype = i32
+    lib.rtk_unsort.argtypes = [ptr, i64] + [ptr] * 11
     if march:
         lib.rtk_packet_march.restype = i32
         lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
@@ -352,6 +375,97 @@ def _kernel(nodes, tris, rays8, *, leaf_size, stack_size, mode, watertight,
     MASK_LAUNCHES += qmask is not None
     DEFER_UV_LAUNCHES += bool(defer_uv)
     return out
+
+
+def coherence_key_kernel(origin: torch.Tensor, direction: torch.Tensor,
+                         lib=None) -> torch.Tensor:
+    """ray_coherence_key on the card: the (N,) int32 keys of (N, 3)
+    origins and directions on one CUDA device, from the library's
+    rtk_coherence_key (csrc/coherence_key.cu: a memset and three launches
+    on the current stream, no host sync), equal bit for bit to
+    ops/morton.py's plain version on a CPU copy.  Any strides (a camera's
+    expanded origin is read in place).  lib: a loaded library to launch
+    from (an AOT artifact's, utils/aot.py) instead of the one built from
+    the sources.  Raises if the tensors are not on the card or the build
+    or the launch fails."""
+    global KEY_LAUNCHES
+    o, d = origin.to(torch.float32), direction.to(torch.float32)
+    if o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError("origin and direction must be (N, 3) tensors")
+    if not (o.is_cuda and d.device == o.device):
+        raise ValueError("coherence_key_kernel takes CUDA tensors on one "
+                         "device")
+    key = torch.empty((o.shape[0],), dtype=torch.int32, device=o.device)
+    if not key.numel():
+        return key
+    if lib is None:
+        lib = load_kernel()
+    bounds = torch.empty((12,), dtype=torch.int32, device=o.device)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = _key_call(lib, o, d, bounds, key, stream)
+    if err != 0:
+        raise RuntimeError(f"coherence key launch failed: CUDA error {err}")
+    KEY_LAUNCHES += 1
+    return key
+
+
+def _key_call(lib, o, d, bounds, key, stream):
+    """rtk_coherence_key on f32 (N, 3) views o and d (element strides),
+    12 int32 of scratch and the (N,) int32 output -> its error code."""
+    return lib.rtk_coherence_key(o.data_ptr(), *o.stride(), d.data_ptr(),
+                                 *d.stride(), o.shape[0], bounds.data_ptr(),
+                                 key.data_ptr(), stream)
+
+
+def unsort_kernel(out, idx, lib=None):
+    """The traversal's outputs (t, u, v, slot[, counts]) in the sorted
+    order back in the caller's order, on the card: one launch of the
+    library's rtk_unsort (csrc/unsort.cu), equal to unsort_reference.
+    idx: (N,) int64, the caller's index of each sorted ray (a
+    permutation).  lib: as coherence_key_kernel's.  Raises if the tensors
+    are not on the card or the launch fails."""
+    global UNSORT_LAUNCHES
+    t = out[0]
+    n = t.shape[0]
+    if not (idx.is_cuda and all(a.device == idx.device for a in out)):
+        raise ValueError("unsort_kernel takes CUDA tensors on one device")
+    if idx.dtype != torch.int64 or tuple(idx.shape) != (n,):
+        raise ValueError(f"idx must be an ({n},) int64 tensor")
+    idx = idx.contiguous()
+    out = tuple(a.contiguous() for a in out)
+    res = tuple(torch.empty_like(a) for a in out)
+    if n:
+        if lib is None:
+            lib = load_kernel()
+        with torch.cuda.device(t.device):
+            stream = torch.cuda.current_stream(t.device).cuda_stream
+            err = _unsort_call(lib, idx, out, res, stream)
+        if err != 0:
+            raise RuntimeError(f"unsort launch failed: CUDA error {err}")
+        UNSORT_LAUNCHES += 1
+    return res
+
+
+def _unsort_call(lib, idx, out, res, stream):
+    """rtk_unsort of contiguous outputs `out` into `res` -> its error
+    code."""
+    counts = out[4] if len(out) > 4 else None
+    return lib.rtk_unsort(idx.data_ptr(), idx.shape[0],
+                          *(a.data_ptr() for a in out[:4]), _ptr(counts),
+                          *(a.data_ptr() for a in res[:4]),
+                          _ptr(res[4] if len(res) > 4 else None), stream)
+
+
+def unsort_reference(out, idx):
+    """unsort_kernel's plain version: an empty_like and an index-put an
+    output, on any device."""
+    def unsort(a):
+        res = torch.empty_like(a)
+        res[..., idx] = a
+        return res
+
+    return tuple(map(unsort, out))
 
 
 def _crcp(d):
@@ -778,10 +892,21 @@ def _check_front(packed: PackedScene, rays: Rays, mode, filter_fn=None):
                 "in f32 (< 2^24 triangles); use the stack engine")
 
 
-def _ray_rows(rays: Rays, sort_rays, roots=None):
+def _front_steps(plain: bool, lib, cuda: bool):
+    """(key, unsort) of a front end: on CUDA tensors the kernels of `lib`
+    (None: the library built from the sources), else, or when plain, the
+    plain versions."""
+    if plain or not cuda:
+        return ray_coherence_key_reference, unsort_reference
+    return (functools.partial(coherence_key_kernel, lib=lib),
+            functools.partial(unsort_kernel, lib=lib))
+
+
+def _ray_rows(rays: Rays, sort_rays, roots=None, plain=False, lib=None):
     """The batch as the traversal takes it -> (rows, idx): the (8, N) f32
     rows, coherence-sorted when sort_rays (None: for >= 16384 rays without
-    roots), and the caller's index of each column, or None unsorted."""
+    roots), and the caller's index of each column, or None unsorted.
+    plain, lib: which key (_front_steps)."""
     comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
                        rays.max_t[None]]).to(torch.float32)
     if sort_rays is None:
@@ -791,7 +916,8 @@ def _ray_rows(rays: Rays, sort_rays, roots=None):
                          "packet or per-ray roots; pass sort_rays=False")
     idx = None
     if sort_rays:
-        idx = torch.sort(ray_coherence_key(rays.origin, rays.direction),
+        key = _front_steps(plain, lib, rays.origin.is_cuda)[0]
+        idx = torch.sort(key(rays.origin, rays.direction),
                          stable=True).indices
         comps = comps[:, idx]
     return comps.contiguous(), idx
@@ -799,9 +925,10 @@ def _ray_rows(rays: Rays, sort_rays, roots=None):
 
 def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
               watertight, filter_mask, defer_uv, roots=None, filter_fn=None,
-              stats=False):
+              stats=False, plain=False, lib=None):
     """Run the traversal over rows from _ray_rows, restore the caller's
-    order and wrap the outputs with packed's hit-assembly tables."""
+    order (the unsort of _front_steps(plain, lib)) and wrap the outputs
+    with packed's hit-assembly tables."""
     # The caller's ray index survives the sort (pallas_trace.py:1475-1481).
     ray_index = (idx.to(torch.int32)
                  if idx is not None and filter_fn is not None else None)
@@ -812,13 +939,8 @@ def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
               defer_uv=defer_uv, roots=roots, filter_fn=filter_fn,
               ray_index=ray_index, stats=stats, branching=packed.branching)
     if idx is not None:
-        # Back to the caller's order: one scatter per output.
-        def unsort(a):
-            out_ = torch.empty_like(a)
-            out_[..., idx] = a
-            return out_
-
-        out = tuple(map(unsort, out))
+        # Back to the caller's order.
+        out = _front_steps(plain, lib, comps.is_cuda)[1](out, idx)
     t, u, v, slot = out[:4]
     hit = slot >= 0
     zero = torch.zeros((), device=t.device)
@@ -833,11 +955,15 @@ def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
 
 def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
            sort_rays, filter_mask, defer_uv, roots, filter_fn=None,
-           stats=False):
+           stats=False, plain=False, lib=None):
+    """The checks, the rows, the traversal by `run` and the unsort of
+    every trace_packets-shaped front end; plain, lib: which key and
+    unsort (_front_steps)."""
     _check_front(packed, rays, mode, filter_fn)
-    comps, idx = _ray_rows(rays, sort_rays, roots)
+    comps, idx = _ray_rows(rays, sort_rays, roots, plain, lib)
     return _traverse(run, packed, rays, comps, idx, mode, watertight,
-                     filter_mask, defer_uv, roots, filter_fn, stats)
+                     filter_mask, defer_uv, roots, filter_fn, stats, plain,
+                     lib)
 
 
 def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
@@ -905,11 +1031,13 @@ def trace_packets_reference(packed: PackedScene, rays: Rays,
                             ray_roots=None, pkt: int | None = None,
                             p_pk: int | None = None, stats: bool = False,
                             filter_fn=None):
-    """trace_packets through the plain PyTorch traversal on any device."""
+    """trace_packets through the plain PyTorch traversal, coherence key
+    and unsort, on any device."""
     roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
                        p_pk)
     return _front(packet_trace_reference, packed, rays, mode, watertight,
-                  sort_rays, filter_mask, defer_uv, roots, filter_fn, stats)
+                  sort_rays, filter_mask, defer_uv, roots, filter_fn, stats,
+                  plain=True)
 
 
 def _trace_rooted(packed: PackedScene, rays: Rays, roots,
@@ -1046,14 +1174,15 @@ def trace_packets_refit(packed: PackedScene, scene, new_tri_pos, rays: Rays,
 
 
 def _refit_trace(run, packed: PackedScene, scene, new_tri_pos, rays: Rays,
-                 mode, watertight, sort_rays, defer_uv):
+                 mode, watertight, sort_rays, defer_uv, lib=None):
     """trace_packets_refit after its flag checks, the traversal by `run`
-    (utils/aot.py's artifacts pass the kernel of their own library)."""
+    and the key and unsort from `lib` (utils/aot.py's artifacts pass their
+    own library)."""
     _check_front(packed, rays, mode)
     scene2, packed2 = _refit_repack(scene, packed, new_tri_pos)
-    comps, idx = _ray_rows(rays, sort_rays)
+    comps, idx = _ray_rows(rays, sort_rays, lib=lib)
     hits = _traverse(run, packed2, rays, comps, idx, mode, watertight, None,
-                     defer_uv)
+                     defer_uv, lib=lib)
     return hits, scene2, packed2
 
 

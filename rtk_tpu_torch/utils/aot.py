@@ -6,9 +6,10 @@ Python tracing; utils/serialize.py round-trips the data.  Here the program
 is this module's pinned front end and the CUDA kernel library, and what
 takes time at start-up is nvcc.  So the artifact carries the library
 itself: the .so that ops/packet_trace.kernel_library built for the trace's
-keywords (a jit_filter's own build when it has one).  A server writes it
-under the package's build directory by its hash, loads it with ctypes and
-calls it; it never calls nvcc.
+keywords (a jit_filter's own build when it has one), which holds the
+traversal and the sorted front end's coherence key and unsort.  A
+server writes it under the package's build directory by its hash, loads
+it with ctypes and calls it; it never calls nvcc.
 
 The flat signatures are the reference's:
 
@@ -202,7 +203,8 @@ def _check_card(dev: torch.device):
 
 class _Artifact:
     """What both loaders share: the spec, the pinned signature, and the
-    traversal (the embedded library's kernel, or the plain version)."""
+    traversal and the front end's key and unsort (the embedded library's
+    kernels, or the plain versions)."""
 
     def __init__(self, blob: bytes, kind: int, what: str):
         got, arrays, meta = ser._load_container(bytes(blob))
@@ -248,7 +250,10 @@ class _Artifact:
 
     def _check_args(self, args):
         """The call's arrays against the pinned signature (what jax.export
-        checks for the reference) -> the traversal for their device."""
+        checks for the reference) -> the traversal for their device and
+        the library the front end's key and unsort come from (on the card
+        the embedded one; None on the CPU, which runs the plain
+        versions)."""
         for i, (a, shape, dt) in enumerate(zip(
                 args, self.in_shapes, self._spec["in_dtypes"])):
             a = torch.as_tensor(a)
@@ -261,14 +266,14 @@ class _Artifact:
             raise ValueError(f"the artifact was exported for "
                              f"{list(self.platforms)}, not {dev.type}")
         if dev.type == "cpu":
-            return pt.packet_trace_reference
+            return pt.packet_trace_reference, None
         _check_card(dev)
         lib = self._lib
 
         def run(nodes, tris, rays8, **kw):
             return pt._kernel(nodes, tris, rays8, lib=lib, **kw)
 
-        return run
+        return run, lib
 
 
 class LoadedTrace(_Artifact):
@@ -282,8 +287,9 @@ class LoadedTrace(_Artifact):
         super().__init__(blob, KIND_TRACE, "a packet-trace artifact")
 
     def __call__(self, packed: PackedScene, rays: Rays) -> PacketHits:
-        run = self._check_args((packed.nodes, packed.tris, rays.origin,
-                                rays.direction, rays.min_t, rays.max_t))
+        run, lib = self._check_args((packed.nodes, packed.tris,
+                                     rays.origin, rays.direction,
+                                     rays.min_t, rays.max_t))
         if (packed.leaf_size, packed.branching) != (
                 self._spec["leaf_size"], self._spec["branching"]):
             raise ValueError(
@@ -294,7 +300,7 @@ class LoadedTrace(_Artifact):
         return pt._front(run, packed, rays, self.mode,
                          kw.get("watertight", True), kw.get("sort_rays"),
                          kw.get("filter_mask"), kw.get("defer_uv", False),
-                         None, self._filter)
+                         None, self._filter, lib=lib)
 
 
 def load_packet_trace(blob: bytes) -> LoadedTrace:
@@ -330,14 +336,15 @@ class LoadedRefitTrace(_Artifact):
 
     def __call__(self, packed: PackedScene, tri_pos, rays: Rays
                  ) -> PacketHits:
-        run = self._check_args((tri_pos, rays.origin, rays.direction,
-                                rays.min_t, rays.max_t))
+        run, lib = self._check_args((tri_pos, rays.origin,
+                                     rays.direction, rays.min_t,
+                                     rays.max_t))
         scene, baked = self._topology(rays.device)
         kw = self.trace_kw
         hits, _, _ = pt._refit_trace(run, baked, scene, tri_pos, rays,
                                      self.mode, kw.get("watertight", True),
                                      kw.get("sort_rays"),
-                                     kw.get("defer_uv", False))
+                                     kw.get("defer_uv", False), lib)
         return dataclasses.replace(hits, tri_vidx=packed.tri_vidx,
                                    tri_mesh=packed.tri_mesh,
                                    tri_prim=packed.tri_prim)

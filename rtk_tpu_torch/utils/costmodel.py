@@ -20,11 +20,17 @@ per-block steps and is not comparable with them.  B is the cost of one
 ray-step of the whole call (coherence key, sort, gather, kernel,
 unsort).  With P held at 8, as in the fit, A * P + C is one per-packet-
 step term: the fit reports it as C, and A is 0 (the card has no
-per-packet scalar chain).  DISPATCH_MS is the fixed cost of one call.
+per-packet scalar chain).  DISPATCH_MS is the fixed cost of one call:
+the formula's intercept over the sizes that fill the card, the host's
+share of a call with the card's own cost that does not grow with the
+rays (the traversal's depth-bound latency, the sort's passes).
 
-On the fit's sizes the model gives the median walls back within 6%;
-below 1024^2 the card is not full and the call is bound by the host, and
-a process's wall at 1024^2 moves by up to a fifth with the host's speed
+On the fit's sizes the model gives the median walls back within 3%.
+Below 1024^2 the card is not full: a sorted call's wall is its 0.3-0.5
+ms busy time and 0.2-0.4 ms of the host's, and the model over-predicts
+128^2 by about a quarter.  At 1024^2 the call is bound by the card in
+most processes (wall = busy + 0.1 ms); a process whose host is slowed
+while it runs, by other work on the machine, can take half as long again
 (PERF.md section 6).
 
 dispatch_bound() says whether a batch is too small for the card: its
@@ -45,20 +51,22 @@ from rtk_tpu_torch.ops.packet_trace import PKT
 # power.limit), blob(6) (81,920 tris, build_scene: LBVH leaf 4), Morton
 # primaries through Tracer.closest at 1024^2, 2048^2, 4096^2 and 8192^2
 # (the sizes that fill the card): each size's host wall ms of one
-# synchronised call (median of 31 calls, then of 5 processes) less
-# DISPATCH_MS, least squares in relative error at P = 8, PKT = 128 and
-# 512, by tools/torch_costmodel_fit.py.  The fit's C was 2.3e-18: 0.
+# synchronised call (median of 31 calls, then of 5 processes), least
+# squares in relative error at P = 8, PKT = 128 and 512, together with
+# DISPATCH_MS, by tools/torch_costmodel_fit.py.  The fit's C was 2.8e-18:
+# 0.
 A_US = 0.0
-B_US = 3.273e-5
+B_US = 2.2275e-5
 C_US = 0.0
 
-# The part of one Tracer.closest call that the card's work does not
-# cover: the host wall ms less the card's busy ms at 128^2 (16,384 rays,
-# the smallest batch the front end coherence-sorts); same card, sweep and
-# script.  A batch below 16,384 rays skips the sort and costs less (0.29
-# ms at 64^2, of which the card is busy 0.21), so trace_ms over-predicts
-# such batches; dispatch_bound's answer for them is the same.
-DISPATCH_MS = 0.8241
+# The fixed cost of one Tracer.closest call: the same fit's intercept
+# (same card, sweep and script).  The host's share alone, the wall less
+# the card's busy ms at 128^2 (16,384 rays, the smallest batch the front
+# end coherence-sorts), was 0.2563 ms in that fit.  A batch below 16,384
+# rays skips the sort and costs less (0.30 ms at 64^2, of which the card
+# is busy 0.21), so trace_ms over-predicts such batches; dispatch_bound's
+# answer for them is the same.
+DISPATCH_MS = 0.3986
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,10 +3,14 @@ records bit for bit (rtk_tpu's LoadedTrace at trace tolerance), serves
 every scene of its pinned shapes, refuses other shapes and foreign blobs,
 and loads in a process that cannot import jax.  A "cuda" artifact embeds
 the kernel library, which needs nvcc: that test is in
-tests/test_torch_kernel.py, which runs on the card."""
+tests/test_torch_kernel.py, which runs on the card.  Here a host build of
+that library (tests/test_torch_kernel_host.py) stands in for nvcc's, to
+show that the artifact binds the sorted front end's entry points (the
+coherence key, the unsort) from the library it embeds."""
 import dataclasses
 import io
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -29,6 +33,7 @@ from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.trace.packed import pack_scene
 from rtk_tpu_torch.utils import aot, serialize
 
+from test_torch_kernel_host import KEY_CASES, host_key, host_library
 from test_torch_trace import CPU, _check, _rays
 
 torch.set_num_threads(2)
@@ -248,3 +253,37 @@ def test_example_serve_aot(capfd):
     out = capfd.readouterr().out
     assert "kernel builds in this process: 0" in out, out
     assert "[serve] steady state" in out
+
+
+def test_aot_cuda_artifact_binds_the_key_from_its_library(tmp_path,
+                                                          monkeypatch):
+    """An artifact exported for "cuda" embeds the one library that holds
+    the traversal, the coherence key and the unsort, and the loader binds
+    them from it: here the library is the host build (g++ behind the CUDA
+    stand-in header) put where nvcc's would be, and the loaded artifact's
+    key entry point gives ops/morton.py's plain keys on CPU arrays.  The
+    loader writes the library under tmp_path, not the package."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    from rtk_tpu_torch.ops import morton
+    from rtk_tpu_torch.ops import packet_trace as pt
+
+    so = host_library(tmp_path, "aot_host")
+    monkeypatch.setattr(pt, "kernel_library", lambda flt=None: (so, ""))
+    monkeypatch.setattr(aot, "BUILD_DIR", tmp_path / "served")
+    packed = _packed()
+    rays = scenes.cornell_camera(32, 32, device=CPU)
+    blob = aot.export_packet_trace(packed, rays.count,
+                                   platforms=["cpu", "cuda"])
+    lt = aot.load_packet_trace(blob)
+    assert lt.platforms == ("cpu", "cuda") and lt._lib is not None
+    served = list((tmp_path / "served").iterdir())
+    assert [f.read_bytes() for f in served] == [so.read_bytes()]
+    assert lt._lib.rtk_coherence_key.argtypes is not None
+    assert lt._lib.rtk_unsort.argtypes is not None
+    for name in ("scattered", "same_origin"):
+        o, d = KEY_CASES[name]
+        assert torch.equal(host_key(lt._lib, o, d),
+                           morton.ray_coherence_key_reference(o, d)), name
+    # On CPU arrays the artifact runs the plain versions.
+    _same(lt(packed, rays), trace_packets(packed, rays))

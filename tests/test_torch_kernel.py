@@ -1,4 +1,5 @@
-"""The CUDA packet-traversal kernel, and the dispatch probe of
+"""The CUDA packet-traversal kernel, the sorted front end's kernels (the
+coherence key and the unsort) and the dispatch probe of
 tools/torch_profile_trace.py, against their plain PyTorch versions on the
 card.  Needs a CUDA device and nvcc: each test skips without a card.  On
 the H100: `python -m pytest tests/test_torch_kernel.py -m cuda -q`."""
@@ -1056,3 +1057,84 @@ def test_dispatch_probe_kernel(cuda):
                            .view(torch.int32))
         np.testing.assert_array_equal(got.cpu().numpy(), x + np.float32(1))
     assert ptrace.BUILD_SECONDS is not None
+
+
+def _key_batches():
+    """Ray batches for the coherence key, made with numpy from a seed ->
+    {name: (origin, direction)} on the CPU."""
+    rng = np.random.default_rng(16)
+    cam = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 64, 64,
+                             order="morton", device="cpu")
+    d = rng.normal(size=(300_000, 3)).astype(np.float32)
+    o = (rng.normal(size=(300_000, 3)) * 3.0).astype(np.float32)
+    d[::7] = 0.0  # zero directions: the norm's floor
+    one = np.array([[0.5, -2.0, 3.0]], np.float32)
+    return {"camera": (cam.origin, cam.direction),
+            "scattered": (torch.from_numpy(o[:20000]),
+                          torch.from_numpy(d[:20000])),
+            # past the bounds kernels' grid (1024 blocks of 256 threads)
+            "large": (torch.from_numpy(o), torch.from_numpy(d)),
+            "same_origin": (torch.from_numpy(one).expand(5000, 3),
+                            torch.from_numpy(d[:5000])),
+            "same_ray": (torch.from_numpy(one).expand(40, 3),
+                         torch.from_numpy(d[1:2]).expand(40, 3)),
+            "single": (torch.from_numpy(one), torch.from_numpy(d[1:2]))}
+
+
+def test_coherence_key_kernel(cuda):
+    """ray_coherence_key on the card runs csrc/coherence_key.cu (one
+    KEY_LAUNCHES a call) and equals the plain version on a CPU copy bit
+    for bit: a camera (expanded origin), scattered origins, a batch past
+    the bounds kernels' grid, the scale's and the extent's floors, one
+    ray.  An empty batch launches nothing."""
+    from rtk_tpu_torch.ops import morton
+
+    for name, (o, d) in _key_batches().items():
+        want = morton.ray_coherence_key_reference(o, d)
+        before = packet_trace.KEY_LAUNCHES
+        got = morton.ray_coherence_key(o.to(cuda), d.to(cuda))
+        torch.cuda.synchronize()
+        assert packet_trace.KEY_LAUNCHES == before + 1, name
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.cpu(), want), (
+            f"{name}: {int((got.cpu() != want).sum())} keys differ")
+    empty = torch.zeros((0, 3), device=cuda)
+    before = packet_trace.KEY_LAUNCHES
+    assert morton.ray_coherence_key(empty, empty).shape == (0,)
+    assert packet_trace.KEY_LAUNCHES == before
+
+
+def test_sorted_trace_takes_the_key_from_the_library(cuda):
+    """A sorted batch (sort_rays=True) through trace_packets and through a
+    "cuda" AOT artifact launches the key's kernels and the unsort once
+    each (the artifact from its embedded library) and equals the plain
+    front end, which sorts by the plain key and unsorts by index-puts;
+    with stats=True the unsort carries the counts too."""
+    from rtk_tpu_torch.utils import aot
+
+    tris = scenes.cornell_box()
+    cfg = rtk_tpu_torch.BuildConfig(leaf_size=8)
+    host = pack_scene(rtk_tpu_torch.build_from_soup(tris, config=cfg,
+                                                    device="cpu"))
+    packed = pack_scene(rtk_tpu_torch.build_from_soup(tris, config=cfg,
+                                                      device=cuda))
+    rays = scenes.cornell_camera(32, 32, device=cuda)
+    lt = aot.load_packet_trace(aot.export_packet_trace(
+        host, rays.count, platforms=["cuda"], sort_rays=True))
+    want = packet_trace.trace_packets_reference(packed, rays, sort_rays=True)
+    for call in (lambda: packet_trace.trace_packets(packed, rays,
+                                                    sort_rays=True),
+                 lambda: lt(packed, rays)):
+        before = (packet_trace.KEY_LAUNCHES, packet_trace.UNSORT_LAUNCHES)
+        got = call()
+        torch.cuda.synchronize()
+        assert (packet_trace.KEY_LAUNCHES,
+                packet_trace.UNSORT_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+        _assert_same(got, want)
+    got, counts = packet_trace.trace_packets(packed, rays, sort_rays=True,
+                                             stats=True)
+    want, want_counts = packet_trace.trace_packets_reference(
+        packed, rays, sort_rays=True, stats=True)
+    _assert_same(got, want)
+    assert torch.equal(counts, want_counts)

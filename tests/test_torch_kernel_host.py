@@ -6,12 +6,13 @@ the CPU (its single-instruction NaN min/max take their plain C++ form
 off the card): every instantiation (8- and 16-wide tables, the grid march
 and a filter build) in every mode equals the plain PyTorch version bit for
 bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
-csrc/dispatch_probe.cu is built the same way and held bit for bit
-against its plain version.  This checks the kernels' logic and
-arithmetic; that nvcc builds them for sm_90a, and the card's results, are
-tests/test_torch_kernel.py's."""
+csrc/dispatch_probe.cu, csrc/coherence_key.cu and csrc/unsort.cu are built
+the same way and held bit for bit against their plain versions.  This checks
+the kernels' logic and arithmetic; that nvcc builds them for sm_90a, and the
+card's results, are tests/test_torch_kernel.py's."""
 import ctypes
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 import rtk_tpu_torch as rt
+from rtk_tpu_torch.ops import morton
 from rtk_tpu_torch.ops import packet_trace as pt
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.testing.grid import build_grid, march_batch
@@ -35,11 +37,14 @@ from test_torch_kernel import (FILTERS, MASK_QMASKS, TIE_CASES,
 torch.set_num_threads(2)
 CPU = "cpu"
 
-# What the kernel source takes from CUDA, for a host build.  A thread runs
+# What the kernel sources take from CUDA, for a host build.  A thread runs
 # as a warp of its own; __match_any_sync has every third thread play a
 # lane whose warp holds rays of other sign octants, so both the octant
 # copies of the node test and the copy that reads the signs from the ray
-# are held against the plain versions.
+# are held against the plain versions.  The coherence key's warp
+# reductions see a warp of one lane at the thread's own lane
+# (__ballot_sync), so every thread folds its own value, and its atomics
+# run one thread at a time, as the launch does.
 CUDA_SHIM = r"""
 #pragma once
 #include <math.h>
@@ -50,7 +55,8 @@ struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 static inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct dim3 { unsigned x, y, z; };
-static dim3 blockIdx, threadIdx, blockDim;
+static dim3 blockIdx, threadIdx, blockDim, gridDim;
+typedef void* cudaStream_t;
 template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
 static inline int __ffs(int x) { return __builtin_ffs(x); }
@@ -58,13 +64,35 @@ static inline unsigned __activemask() { return 1u; }
 static inline unsigned __match_any_sync(unsigned mask, int) {
   return threadIdx.x % 3 ? mask : 0u;
 }
+static inline unsigned __ballot_sync(unsigned, bool p) {
+  return p ? 1u << (threadIdx.x & 31) : 0u;
+}
+static inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+static inline unsigned atomicMin(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  if (v < old) *p = v;
+  return old;
+}
 static inline float __int_as_float(int i) {
   float f;
   memcpy(&f, &i, 4);
   return f;
 }
-typedef void* cudaStream_t;
+static inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+static inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+}
 static inline int cudaGetLastError() { return 0; }
+static inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return 0;
+}
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -503,3 +531,184 @@ def test_host_dispatch_probe(tmp_path, n):
     assert torch.equal(out[:n], ptrace.dispatch_probe_reference(x)
                        .view(torch.int32))
     assert bool((out[n:] == SENTINEL).all())
+
+
+# The front end's kernels launch as NAME<<<GRID, BLOCK, 0, STREAM>>>(.
+FRONT_LAUNCH = re.compile(r"(\w+)<<<(\w+), (\w+), 0, ([^>]+)>>>\(")
+FRONT_HOST_LAUNCH = (r"for (unsigned b_ = 0; b_ < (unsigned)(\2) * \3; ++b_)"
+                     r"\n    if ((blockIdx.x = b_ / \3, threadIdx.x = b_ % "
+                     r"\3, blockDim.x = \3, gridDim.x = (\2), true))\n"
+                     r"      \1(")
+KEY_REDUCE = "constexpr int KEY_REDUCE_BLOCKS = 1024;"
+
+
+def front_host_source(src, launches, reduce_blocks=None):
+    """csrc/coherence_key.cu or csrc/unsort.cu for a host build behind
+    CUDA_SHIM: each of its `launches` launches runs as a loop over the
+    threads in turn; reduce_blocks: the key's bounds kernels' grid cap, to
+    make a small batch take several turns of their grid-stride loops."""
+    text = src.read_text()
+    assert "#include <cuda_runtime.h>" in text
+    host, n = FRONT_LAUNCH.subn(FRONT_HOST_LAUNCH, text)
+    assert n == launches
+    if reduce_blocks is not None:
+        assert KEY_REDUCE in host
+        host = host.replace(KEY_REDUCE, "constexpr int KEY_REDUCE_BLOCKS = "
+                            f"{reduce_blocks};")
+    return host.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
+
+
+def host_library(tmp, name, reduce_blocks=None):
+    """The library kernel_library builds (the traversal without a filter,
+    the coherence key and the unsort in one .so), built for the host ->
+    its path."""
+    (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
+    sources = {
+        "trace": pt.KERNEL_SRC.read_text()
+        .replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
+        .replace(LAUNCH, HOST_LAUNCH),
+        "key": front_host_source(pt.KEY_SRC, 3, reduce_blocks),
+        "unsort": front_host_source(pt.UNSORT_SRC, 1)}
+    for part, text in sources.items():
+        (tmp / f"{name}_{part}.cpp").write_text(text)
+    so = tmp / f"lib{name}.so"
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",
+                    "-ffp-contract=off", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", f"-I{tmp}", f"-I{pt.CSRC}",
+                    *(str(tmp / f"{name}_{part}.cpp") for part in sources),
+                    "-o", str(so)], check=True, capture_output=True,
+                   text=True)
+    return so
+
+
+@pytest.fixture(scope="module")
+def key_libs(tmp_path_factory):
+    """The host build of the library as nvcc builds it, and one whose key
+    bounds kernels run 3 blocks (so every thread folds many rays)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    tmp = tmp_path_factory.mktemp("key_host")
+    return {cap: pt.bind_library(host_library(tmp, f"key{cap}", cap), True)
+            for cap in (None, 3)}
+
+
+def host_key(lib, o, d):
+    """The library's keys of CPU views o, d, through the wrapper's own
+    call (_key_call), the output past n left as SENTINEL."""
+    n = o.shape[0]
+    key = torch.full((n + 3,), SENTINEL, dtype=torch.int32)
+    bounds = torch.empty((12,), dtype=torch.int32)
+    assert pt._key_call(lib, o, d, bounds, key, None) == 0
+    assert bool((key[n:] == SENTINEL).all())
+    return key[:n]
+
+
+def key_cases():
+    """The batches of tests/test_torch_morton.py, the edge cases of the
+    key's floors and ragged sizes -> {name: (origin, direction)}."""
+    from test_torch_morton import _batch
+
+    cases = {name: tuple(map(torch.from_numpy, _batch(name)))
+             for name in ("morton", "raster", "scattered")}
+    rng = np.random.default_rng(16)
+    d = torch.from_numpy(rng.normal(size=(777, 3)).astype(np.float32))
+    one = torch.tensor([[0.5, -2.0, 3.0]])
+    cases.update({
+        # Every origin equal: the scale's 1e-2 floor.
+        "same_origin": (one.expand(777, 3), d),
+        # Every probe equal: the extent's 1e-30 floor on every axis.
+        "same_ray": (one.expand(50, 3), d[:1].expand(50, 3)),
+        # Origins at +-0 and directions in one plane (one axis's probes
+        # all equal).
+        "zero_origins": (torch.tensor([[0.0, -0.0, 0.0]]).repeat(200, 1)
+                         * torch.tensor([1.0, 1.0, -1.0]),
+                         d[:200] * torch.tensor([1.0, 1.0, 0.0])),
+        "single": (one, d[:1]),
+        "zero_direction": (one, torch.zeros((1, 3))),
+    })
+    zd = d.clone()
+    zd[::5] = 0.0  # zero directions among others: the norm's 1e-30 floor
+    o = torch.from_numpy((rng.normal(size=(777, 3)) * 4).astype(np.float32))
+    cases["zero_directions"] = (o, zd)
+    for n in (2, 31, 257, 4099):
+        cases[f"ragged{n}"] = (
+            torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)))
+    return cases
+
+
+KEY_CASES = key_cases()
+
+
+@pytest.mark.parametrize("cap", [None, 3])
+@pytest.mark.parametrize("name", list(KEY_CASES))
+def test_host_coherence_key(key_libs, name, cap):
+    """csrc/coherence_key.cu built for the host (its launches run as loops
+    over the threads, its warp reductions over one lane) equals
+    ops/morton.py's plain version bit for bit, with its bounds kernels at
+    the card's grid cap and at 3 blocks."""
+    o, d = KEY_CASES[name]
+    want = morton.ray_coherence_key_reference(o, d)
+    got = host_key(key_libs[cap], o, d)
+    assert torch.equal(got, want), f"{int((got != want).sum())} keys differ"
+
+
+def test_host_coherence_key_strides(key_libs):
+    """The key reads origins and directions through their strides: an
+    expanded origin (row stride 0) and a direction that is a transposed
+    view give the keys of contiguous copies."""
+    o, d = KEY_CASES["scattered"]
+    d_t = d.T.contiguous().T  # (N, 3) with strides (1, N)
+    assert d_t.stride() == (1, d.shape[0])
+    lib = key_libs[None]
+    assert torch.equal(host_key(lib, o, d_t), host_key(lib, o, d))
+    cam = KEY_CASES["same_origin"]
+    assert cam[0].stride()[0] == 0
+    assert torch.equal(host_key(lib, *cam),
+                       host_key(lib, cam[0].contiguous(), cam[1]))
+
+
+def test_coherence_key_kernel_takes_cuda_tensors():
+    """The wrapper never runs on the CPU: ray_coherence_key sends CPU
+    tensors to the plain version, and the kernel's wrapper refuses them."""
+    o, d = KEY_CASES["ragged31"]
+    assert torch.equal(morton.ray_coherence_key(o, d),
+                       morton.ray_coherence_key_reference(o, d))
+    with pytest.raises(ValueError, match="CUDA"):
+        pt.coherence_key_kernel(o, d)
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("n", [1, 255, 257, 4099])
+def test_host_unsort(key_libs, n, stats):
+    """csrc/unsort.cu built for the host equals unsort_reference (the
+    index-puts it replaces) bit for bit on a seeded permutation, counts
+    included, through the wrapper's own call (_unsort_call); the inputs
+    are left as they were."""
+    rng = np.random.default_rng(n)
+    idx = torch.from_numpy(rng.permutation(n))
+    out = (torch.from_numpy(rng.normal(size=n).astype(np.float32)),
+           torch.from_numpy(rng.random(n).astype(np.float32)),
+           torch.from_numpy(rng.random(n).astype(np.float32)),
+           torch.from_numpy(rng.integers(-1, 9, n).astype(np.int32)))
+    if stats:
+        out += (torch.from_numpy(rng.integers(0, 99, (5, n))
+                                 .astype(np.int32)),)
+    kept = tuple(a.clone() for a in out)
+    res = tuple(torch.full_like(a, 7) for a in out)
+    assert pt._unsort_call(key_libs[None], idx, out, res, None) == 0
+    want = pt.unsort_reference(out, idx)
+    for got, w, a, k in zip(res, want, out, kept):
+        assert torch.equal(got.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(a, k)
+
+
+def test_unsort_kernel_takes_cuda_tensors():
+    """The unsort's wrapper never runs on the CPU: the front end sends CPU
+    tensors to unsort_reference, and the wrapper refuses them."""
+    out = (torch.zeros(3), torch.zeros(3), torch.zeros(3),
+           torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        pt.unsort_kernel(out, torch.arange(3))
+    assert pt._front_steps(False, None, False) == (
+        morton.ray_coherence_key_reference, pt.unsort_reference)

@@ -14,7 +14,8 @@ primaries of the headline camera at 64^2, 128^2, ..., 8192^2 through
 Tracer.closest.  Per size (measure()): the host wall ms of one
 synchronised call and the host's ms to issue it (medians of CALLS, after
 a warm call), the card's busy ms in one call (torch.profiler: the union of
-its device events, the largest of three windows), the steady ms of
+its device events, the largest of three windows, each opened with
+spins on the card that the profiler's losses fall on), the steady ms of
 back-to-back calls (measure_trace: CUDA events), the kernel alone on the
 rows the call launches it on (CUDA events) and steps_per_block (the stats
 variant on unsorted rays).  At 1024^2 and 8192^2 it also times
@@ -25,20 +26,22 @@ and differs between processes by a third or more on one machine, so each
 size takes the median of many calls, and the fit reads each field's
 median over the runs.
 
-The fit: DISPATCH_MS is the part of a call the card's work does not
-cover, the wall less the card's busy ms, at the smallest size whose call
-takes the main path's sorted front end (SORT_RAYS_MIN = 16,384 rays:
-128^2; a smaller batch skips the key and the sort).  The card's work is
-not negligible there (one wave of the kernel takes about 0.2 ms), so it is
-subtracted.  Then a, b, c by least squares in relative error of the wall
-ms over the sizes of 1024^2 and above (the card full: 132 SMs x 10 blocks
-x 128 threads is about 169k rays), at P = 8 with PKT = 128 and 512 (fit()).
-At one P the per-packet term A * P and the per-step term C enter as one
-sum, which the fit reports as C, with A = 0; no term is negative
-(non-negative least squares).  It prints the fitted constants and each
-size's relative error under them and under the module's constants, per
-run and for the medians, the card's name and power limit, and writes the
-whole record as JSON to --out.  Needs a CUDA device; imports no jax.
+The fit: a, b, c and DISPATCH_MS together, by least squares in relative
+error of the wall ms over the sizes of 1024^2 and above (the card full: 132
+SMs x 10 blocks x 128 threads is about 169k rays), at P = 8 with PKT = 128
+and 512 (fit()).  DISPATCH_MS is the formula's fixed cost of a call: its
+intercept over those sizes.  It is not the host's share alone: on the H100,
+with the coherence key and the unsort on the card, a sorted call leaves the
+card idle for 0.16-0.42 ms (the wall less the card's busy ms at 128^2,
+host_share_128 in the record), while the card's own cost of a call that does
+not grow with its rays (the traversal's depth-bound latency, about 0.2 ms
+even at 64^2, and the sort's passes) is as large.  At one P the per-packet
+term A * P and the per-step term C enter as one sum, which the fit reports
+as C, with A = 0; no term is negative (non-negative least squares).  It
+prints the fitted constants and each size's relative error under them and
+under the module's constants, per run and for the medians, the card's name
+and power limit, and writes the whole record as JSON to --out.  Needs a CUDA
+device; imports no jax.
 """
 import argparse
 import json
@@ -63,6 +66,8 @@ PKT_SIDES = (1024, 8192)
 PKT_WIDTHS = (128, 2048)
 FIELDS = ("wall_ms", "enqueue_ms", "device_ms", "steady_ms", "kernel_ms",
           "steps_per_block")
+PAD_SPINS = 256  # short spins that open and close each profiler window
+SPIN_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel (ATen's Sleep.cu)
 
 
 def cuda_ms(fn, reps):
@@ -83,12 +88,13 @@ def cuda_ms(fn, reps):
 
 def busy_ms(prof):
     """The card's busy ms in a profiled window: the union of its device
-    events' intervals."""
+    events' intervals, the spins that open the window left out."""
     import torch
 
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and SPIN_KERNEL not in e.name)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -102,19 +108,44 @@ def busy_ms(prof):
 def device_ms(run, windows=3):
     """The card's busy ms in one call of run(): the largest over
     `windows` torch.profiler windows of one synchronised call each (the
-    profiler can drop a window's device events, never add some)."""
+    profiler can drop a window's device events, never add some).  Each
+    window opens and closes with PAD_SPINS short spins on the card
+    (torch.cuda._sleep), finished before run() starts and started after
+    it ends: late in a long process the profiler loses the first device
+    records of a window, up to all of a short call's, and at times its
+    last ones, and the spins take that loss.  A window is kept only if
+    the profiler recorded a spin before the call's records and one after
+    them (chip_smoke.py's clean_window); while none is, up to `windows`
+    more are taken, and then it raises."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     busy = []
-    for _ in range(windows):
+    for i in range(2 * windows):
+        if i >= windows and busy:
+            break
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
-        busy.append(busy_ms(prof))
-    if not max(busy):
-        raise RuntimeError("torch.profiler recorded no device event")
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = [e.time_range.start for e in dev if SPIN_KERNEL in e.name]
+        calls = [e.time_range for e in dev if SPIN_KERNEL not in e.name]
+        if calls:
+            lead = sum(t < min(r.start for r in calls) for t in spins)
+            tail = sum(t >= max(r.end for r in calls) for t in spins)
+            if lead and tail:
+                busy.append(busy_ms(prof))
+    if not busy:
+        raise RuntimeError(f"torch.profiler's losses reached the call in "
+                           f"each of {2 * windows} windows")
     return max(busy)
 
 
@@ -154,29 +185,35 @@ def measure(tracer, rays, calls=CALLS):
             "kernel_ms": kernel_ms, "steps_per_block": st.steps_per_block}
 
 
-def fixed_ms(sweep, sort_min):
-    """DISPATCH_MS from a sweep {side: measure() record}: wall_ms less
-    device_ms at the smallest side of at least sort_min rays."""
+def fixed_ms(sweep):
+    """DISPATCH_MS of a sweep {side: measure() record}: fit()'s fixed cost
+    of a call over its sides of FIT_MIN and above."""
+    return fit([r for s, r in sweep.items() if s >= FIT_MIN])[3]
+
+
+def host_share_ms(sweep, sort_min):
+    """The part of a call the card's work does not cover: wall_ms less
+    device_ms at the smallest side of at least sort_min rays (the
+    smallest batch that takes the sorted front end)."""
     r = sweep[min(s for s in sweep if s * s >= sort_min)]
     return r["wall_ms"] - r["device_ms"]
 
 
-def fit(rows, dispatch_ms, p=FIT_P, pkts=FIT_PKTS):
-    """(a_us, b_us, c_us) from records of measure() (with "rays",
-    "wall_ms", "steps_per_block"): least squares of
-    blocks * steps_per_block * (a p + b p pkt + c) / 1e3 against
-    wall_ms - dispatch_ms, each row weighted by 1 / wall_ms, one row per
-    record and pkt, no term below 0 (non-negative least squares).  a p + c
-    is one term at one p: returned as c, with a = 0."""
-    cols, y = [], []
+def fit(rows, p=FIT_P, pkts=FIT_PKTS):
+    """(a_us, b_us, c_us, dispatch_ms) from records of measure() (with
+    "rays", "wall_ms", "steps_per_block"): least squares of
+    blocks * steps_per_block * (a p + b p pkt + c) / 1e3 + dispatch_ms
+    against wall_ms, each row weighted by 1 / wall_ms, one row per record
+    and pkt, no term below 0 (non-negative least squares).  a p + c is one
+    term at one p: returned as c, with a = 0."""
+    cols = []
     for r in rows:
         for pkt in pkts:
             steps = max(1, r["rays"] // (p * pkt)) * r["steps_per_block"]
             w = 1.0 / r["wall_ms"]
-            cols.append([steps * p * pkt / 1e3 * w, steps / 1e3 * w])
-            y.append((r["wall_ms"] - dispatch_ms) * w)
-    b, c = nnls(np.asarray(cols), np.asarray(y))[0]
-    return 0.0, float(b), float(c)
+            cols.append([steps * p * pkt / 1e3 * w, steps / 1e3 * w, w])
+    b, c, dispatch = nnls(np.asarray(cols), np.ones(len(cols)))[0]
+    return 0.0, float(b), float(c), float(dispatch)
 
 
 def predict_ms(model, dispatch_ms, n_rays, steps_per_block):
@@ -267,8 +304,7 @@ def main():
     med = {s: {"rays": runs[0][s]["rays"],
                **{f: float(np.median([r[s][f] for r in runs]))
                   for f in FIELDS}} for s in runs[0]}
-    dispatch_ms = fixed_ms(med, SORT_RAYS_MIN)
-    a, b, c = fit([r for s, r in med.items() if s >= FIT_MIN], dispatch_ms)
+    a, b, c, dispatch_ms = fit([r for s, r in med.items() if s >= FIT_MIN])
     fitted = costmodel.StepModel(a_us=a, b_us=b, c_us=c)
     module = costmodel.StepModel()
     card = subprocess.run(
@@ -278,6 +314,7 @@ def main():
     rec = {"card": card,
            "fit": {"A_US": a, "B_US": b, "C_US": c,
                    "DISPATCH_MS": dispatch_ms,
+                   "host_share_128": host_share_ms(med, SORT_RAYS_MIN),
                    "steps_per_block_1024": med.get(1024, {}).get(
                        "steps_per_block"),
                    "fit_sides": [s for s in med if s >= FIT_MIN]},
@@ -290,7 +327,8 @@ def main():
         rec["errors"][name] = {
             "fit": errors(sweep, fitted, dispatch_ms),
             "module": errors(sweep, module, costmodel.DISPATCH_MS),
-            "run_fixed_ms": fixed_ms(sweep, SORT_RAYS_MIN)}
+            "run_fixed_ms": fixed_ms(sweep),
+            "run_host_share_128": host_share_ms(sweep, SORT_RAYS_MIN)}
     print("side rays | median of the runs: wall_ms enqueue_ms device_ms "
           "steps/block | relative error, fit / module, median then per run")
     for s, r in med.items():
@@ -298,8 +336,9 @@ def main():
                         for e in rec["errors"].values())
         print(f"{s}^2 {r['rays']} | {r['wall_ms']:.4f} {r['enqueue_ms']:.4f} "
               f"{r['device_ms']:.4f} {r['steps_per_block']:.3f} | {errs}")
-    print("run fixed ms:", [round(e["run_fixed_ms"], 4)
-                            for e in rec["errors"].values()])
+    print("fixed ms, host share at 128^2 ms:",
+          [(round(e["run_fixed_ms"], 4), round(e["run_host_share_128"], 4))
+           for e in rec["errors"].values()])
     print("pkt 128 vs 2048:", json.dumps(
         {f"run{i}/{s}": {k: r[s]["pkt_check"][k] for k in (
             "median_diff_ms", "noise_ms", "same_within_noise")}

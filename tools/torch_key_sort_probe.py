@@ -9,9 +9,10 @@ runs in a process of its own (so the packages do not mix), in the order
 given and then in reverse (a, b, b, a), on width^2 morton-ordered camera
 rays of the headline camera made on the card.  Per run, one JSON line:
 the key's dtype and bytes, ms of ray_coherence_key, of torch.sort(key,
-stable=True) and of the gather of the (8, N) rows through the order, CUDA
-events around `reps` calls after a warm one, and the card's name and power
-limit.  Needs a CUDA device; imports no jax.
+stable=True), of the gather of the (8, N) rows through the order and of
+the whole Tracer.closest on build_scene(blob(6)) (chip_smoke.py phase
+3's scene), CUDA events around `reps` calls after a warm one, and the
+card's name and power limit.  Needs a CUDA device; imports no jax.
 """
 import argparse
 import json
@@ -25,6 +26,7 @@ CAM = dict(eye=(0, 0, 3.0), look_at=(0, 0, 0), up=(0, 1, 0), fov_deg=45)
 def probe(width, reps):
     import torch
 
+    import rtk_tpu_torch as rt
     from rtk_tpu_torch.ops.morton import ray_coherence_key
     from rtk_tpu_torch.testing import scenes
 
@@ -50,6 +52,10 @@ def probe(width, reps):
     rows = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
                       rays.max_t[None]])
     _, gather_ms = timed(lambda: rows[:, order].contiguous())
+    del rows
+    v6, f6 = scenes.blob(6)[1:]
+    tracer = rt.Tracer(rt.build_scene((v6, f6), device="cuda"))
+    _, closest_ms = timed(lambda: tracer.closest(rays))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -57,6 +63,7 @@ def probe(width, reps):
     return {"rays": rays.count, "key_dtype": str(key.dtype),
             "key_bytes": key.element_size() * key.numel(),
             "key_ms": key_ms, "sort_ms": sort_ms, "gather_ms": gather_ms,
+            "closest_ms": closest_ms,
             "key_checksum": int(key.sum(dtype=torch.int64)),
             "order_checksum": int((order * torch.arange(
                 order.numel(), device=order.device) % 1000003).sum()),

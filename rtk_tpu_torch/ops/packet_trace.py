@@ -56,6 +56,13 @@ reference refuses raise ValueError here too (_check_flags).
 `trace_packets_kz_binned` is the reference's dispatcher by dominant
 direction axis; the kernel picks the shear axis per ray, so it is one
 trace_packets call.
+
+While a profiler records, a front end's call is the span
+`rtk.packet_trace` (utils/stats.py::span) over its steps' spans
+`rtk.packet_trace.rows`, `.key`, `.sort`, `.gather` (sorted batches),
+`.launch` (the traversal: the kernel's checks, library, outputs and
+launch, or the plain version), `.unsort` and `.wrap` (the PacketHits).
+The refit front ends run the steps' spans without the outer one.
 """
 from __future__ import annotations
 
@@ -78,6 +85,7 @@ from rtk_tpu_torch.trace.packed import (MASK_COL, MESH_COL, PRIM_COL,
                                         refit_packed_binary, repack_bounds)
 from rtk_tpu_torch.types import HitCandidate, PacketHits, Rays
 from rtk_tpu_torch.utils.build import BUILD_DIR, PKG_ROOT, build_shared
+from rtk_tpu_torch.utils.stats import span
 
 _BIG = 3.0e38
 SORT_RAYS_MIN = 16384  # coherence-sort batches at least this large
@@ -907,8 +915,9 @@ def _ray_rows(rays: Rays, sort_rays, roots=None, plain=False, lib=None):
     rows, coherence-sorted when sort_rays (None: for >= 16384 rays without
     roots), and the caller's index of each column, or None unsorted.
     plain, lib: which key (_front_steps)."""
-    comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
-                       rays.max_t[None]]).to(torch.float32)
+    with span("rtk.packet_trace.rows"):
+        comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
+                           rays.max_t[None]]).to(torch.float32)
     if sort_rays is None:
         sort_rays = rays.count >= SORT_RAYS_MIN and roots is None
     if sort_rays and roots is not None:
@@ -916,11 +925,14 @@ def _ray_rows(rays: Rays, sort_rays, roots=None, plain=False, lib=None):
                          "packet or per-ray roots; pass sort_rays=False")
     idx = None
     if sort_rays:
-        key = _front_steps(plain, lib, rays.origin.is_cuda)[0]
-        idx = torch.sort(key(rays.origin, rays.direction),
-                         stable=True).indices
-        comps = comps[:, idx]
-    return comps.contiguous(), idx
+        with span("rtk.packet_trace.key"):
+            key = _front_steps(plain, lib, rays.origin.is_cuda)[0](
+                rays.origin, rays.direction)
+        with span("rtk.packet_trace.sort"):
+            idx = torch.sort(key, stable=True).indices
+        with span("rtk.packet_trace.gather"):
+            comps = comps[:, idx].contiguous()
+    return comps, idx
 
 
 def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
@@ -933,23 +945,27 @@ def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
     ray_index = (idx.to(torch.int32)
                  if idx is not None and filter_fn is not None else None)
     qmask = None if filter_mask is None else int(filter_mask) & 0xFFFFFF
-    out = run(packed.nodes, packed.tris, comps,
-              leaf_size=packed.leaf_size, stack_size=packed.stack_size,
-              mode=mode, watertight=watertight, qmask=qmask,
-              defer_uv=defer_uv, roots=roots, filter_fn=filter_fn,
-              ray_index=ray_index, stats=stats, branching=packed.branching)
+    with span("rtk.packet_trace.launch"):
+        out = run(packed.nodes, packed.tris, comps,
+                  leaf_size=packed.leaf_size, stack_size=packed.stack_size,
+                  mode=mode, watertight=watertight, qmask=qmask,
+                  defer_uv=defer_uv, roots=roots, filter_fn=filter_fn,
+                  ray_index=ray_index, stats=stats,
+                  branching=packed.branching)
     if idx is not None:
         # Back to the caller's order.
-        out = _front_steps(plain, lib, comps.is_cuda)[1](out, idx)
-    t, u, v, slot = out[:4]
-    hit = slot >= 0
-    zero = torch.zeros((), device=t.device)
-    hits = PacketHits(
-        hit=hit, t=t, u_k=torch.where(hit, u, zero),
-        v_k=torch.where(hit, v, zero), slot=slot, origin=rays.origin,
-        direction=rays.direction, tri_v=packed.tri_v,
-        tri_vidx=packed.tri_vidx, tri_mesh=packed.tri_mesh,
-        tri_prim=packed.tri_prim, uv_deferred=defer_uv)
+        with span("rtk.packet_trace.unsort"):
+            out = _front_steps(plain, lib, comps.is_cuda)[1](out, idx)
+    with span("rtk.packet_trace.wrap"):
+        t, u, v, slot = out[:4]
+        hit = slot >= 0
+        zero = torch.zeros((), device=t.device)
+        hits = PacketHits(
+            hit=hit, t=t, u_k=torch.where(hit, u, zero),
+            v_k=torch.where(hit, v, zero), slot=slot, origin=rays.origin,
+            direction=rays.direction, tri_v=packed.tri_v,
+            tri_vidx=packed.tri_vidx, tri_mesh=packed.tri_mesh,
+            tri_prim=packed.tri_prim, uv_deferred=defer_uv)
     return (hits, out[4]) if stats else hits
 
 
@@ -958,12 +974,13 @@ def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
            stats=False, plain=False, lib=None):
     """The checks, the rows, the traversal by `run` and the unsort of
     every trace_packets-shaped front end; plain, lib: which key and
-    unsort (_front_steps)."""
-    _check_front(packed, rays, mode, filter_fn)
-    comps, idx = _ray_rows(rays, sort_rays, roots, plain, lib)
-    return _traverse(run, packed, rays, comps, idx, mode, watertight,
-                     filter_mask, defer_uv, roots, filter_fn, stats, plain,
-                     lib)
+    unsort (_front_steps), in the span `rtk.packet_trace`."""
+    with span("rtk.packet_trace"):
+        _check_front(packed, rays, mode, filter_fn)
+        comps, idx = _ray_rows(rays, sort_rays, roots, plain, lib)
+        return _traverse(run, packed, rays, comps, idx, mode, watertight,
+                         filter_mask, defer_uv, roots, filter_fn, stats,
+                         plain, lib)
 
 
 def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",

@@ -26,6 +26,10 @@ march); the grid's per-cell tables carry the mask too.  "auto" is
 marked with jit_filter runs inside the kernel's filter variant on the
 packet engine; any other filter callable routes to the stack engine,
 which calls it on real tensors (rtk_tpu/tracer.py:111-199).
+
+Each query is one span, `rtk.tracer.closest` or `rtk.tracer.any`
+(utils/stats.py::span), the root of the call's spans while a profiler
+records; the record's lazy gathers (`rtk.hits.*`) follow it.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from rtk_tpu_torch.config import TraceConfig
 from rtk_tpu_torch.ops.filter_capture import JitFilter, jit_filter
 from rtk_tpu_torch.scene import Scene
 from rtk_tpu_torch.types import Hits, PacketHits, Rays
+from rtk_tpu_torch.utils.stats import span
 
 AnyHits = Union[Hits, PacketHits]
 
@@ -171,10 +176,12 @@ class Tracer:
         engine's stepping hint and has no effect here; `filter_mask` runs
         the built-in mask filter; `filter_fn` (HitCandidate -> bool) keeps
         or rejects candidates (jit_filter-marked: in the kernel)."""
-        return self._trace(rays, "closest", filter_fn, filter_mask)
+        with span("rtk.tracer.closest"):
+            return self._trace(rays, "closest", filter_fn, filter_mask)
 
     def any(self, rays: Rays, filter_fn: Optional[Callable] = None,
             coherent: Optional[bool] = None,
             filter_mask: Optional[int] = None) -> AnyHits:
         """Any-hit query (the intended rtk_trace_ray_filter semantics)."""
-        return self._trace(rays, "any", filter_fn, filter_mask)
+        with span("rtk.tracer.any"):
+            return self._trace(rays, "any", filter_fn, filter_mask)

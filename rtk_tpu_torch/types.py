@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from rtk_tpu_torch.utils.stats import span
+
 RTK_INF = float(np.float32(3.402823e38))  # rtk.h:11
 
 
@@ -136,7 +138,8 @@ class PacketHits:
     record (mesh/triangle indices, vertex records) is gathered from the
     packed triangle tables on property access.  `.full()` materialises a
     plain Hits.  `slot` indexes the packed tables carried alongside (the
-    scene's own tensors, not copies).
+    scene's own tensors, not copies).  Each gather, and the u/v
+    recompute, is a span `rtk.hits.<field>` (`rtk.hits.uv`).
     """
 
     hit: torch.Tensor  # (N,) bool
@@ -171,16 +174,17 @@ class PacketHits:
         arithmetic (rtk.c:181-388), so they equal the carried values."""
         from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
 
-        tri = self.tri_v[self._safe_slot]  # (N, 3, 3)
-        n = self.t.shape[0]
-        dev = self.t.device
-        _, u, v, _ = intersect_triangles(
-            self.origin, ray_shear(self.direction), tri[:, None],
-            torch.full((n,), -float("inf"), device=dev),
-            torch.full((n,), float("inf"), device=dev))
-        zero = torch.zeros((), device=dev)
-        return (torch.where(self.hit, u[:, 0], zero),
-                torch.where(self.hit, v[:, 0], zero))
+        with span("rtk.hits.uv"):
+            tri = self.tri_v[self._safe_slot]  # (N, 3, 3)
+            n = self.t.shape[0]
+            dev = self.t.device
+            _, u, v, _ = intersect_triangles(
+                self.origin, ray_shear(self.direction), tri[:, None],
+                torch.full((n,), -float("inf"), device=dev),
+                torch.full((n,), float("inf"), device=dev))
+            zero = torch.zeros((), device=dev)
+            return (torch.where(self.hit, u[:, 0], zero),
+                    torch.where(self.hit, v[:, 0], zero))
 
     @property
     def w(self) -> torch.Tensor:
@@ -190,27 +194,28 @@ class PacketHits:
     def _safe_slot(self) -> torch.Tensor:
         return self.slot.clamp(0, self.tri_mesh.shape[0] - 1).long()
 
-    def _masked(self, table, fill):
-        g = table[self._safe_slot]
-        m = self.hit.reshape((-1,) + (1,) * (g.ndim - 1))
-        return torch.where(m, g, torch.full((), fill, dtype=g.dtype,
-                                            device=g.device))
+    def _masked(self, name, table, fill):
+        with span(name):
+            g = table[self._safe_slot]
+            m = self.hit.reshape((-1,) + (1,) * (g.ndim - 1))
+            return torch.where(m, g, torch.full((), fill, dtype=g.dtype,
+                                                device=g.device))
 
     @property
     def mesh_index(self) -> torch.Tensor:
-        return self._masked(self.tri_mesh, -1)
+        return self._masked("rtk.hits.mesh_index", self.tri_mesh, -1)
 
     @property
     def triangle_index(self) -> torch.Tensor:
-        return self._masked(self.tri_prim, -1)
+        return self._masked("rtk.hits.triangle_index", self.tri_prim, -1)
 
     @property
     def vertex_position(self) -> torch.Tensor:
-        return self._masked(self.tri_v, 0.0)
+        return self._masked("rtk.hits.vertex_position", self.tri_v, 0.0)
 
     @property
     def vertex_index(self) -> torch.Tensor:
-        return self._masked(self.tri_vidx, -1)
+        return self._masked("rtk.hits.vertex_index", self.tri_vidx, -1)
 
     def position(self) -> torch.Tensor:
         """Hit position o + t*d (N, 3); zeros on a miss."""

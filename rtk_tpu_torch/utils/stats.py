@@ -7,6 +7,13 @@ callback contract is kept (log_fn(user, build, message)) and extended with
 structured statistics: tree shape and SAH cost after a build, time and
 per-ray traversal counts for traces (the kernel's stats variant), and
 torch.profiler hooks.
+
+`span(name)` marks a stage of the call path as a profiler range: the
+Tracer's query (`rtk.tracer.*`), the packet front end and its steps
+(`rtk.packet_trace.*`) and PacketHits' lazy gathers (`rtk.hits.*`).
+Spans are recorded exactly while a torch profiler records
+(`profiler_trace`, or any torch.profiler.profile), on the clock of the
+card's kernel records; otherwise a span is a shared null context.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 STEP_BLOCK = 128  # rays per block of steps_per_block
+_NO_SPAN = contextlib.nullcontext()  # a span while no profiler records
 
 
 class BuildLogger:
@@ -204,12 +212,25 @@ def measure_trace(tracer, rays, iters: int = 5, mode: str = "closest",
                       steps_per_block=steps, device=where)
 
 
+def span(name: str):
+    """A context that records `name` as a profiler range while a torch
+    profiler records, and a shared null context otherwise, so that a span
+    costs a flag check when nothing records.  The range is the profiler's
+    C++ one, as torch marks its own compiled graphs: under a recording
+    profiler torch.profiler.record_function costs about eight times as
+    much a span (two dispatched ops and their own records)."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def profiler_trace(log_dir: str, annotation: Optional[str] = None):
     """Profile everything inside the block with torch.profiler (CPU, and
     the card when there is one) and write a Chrome trace to
-    log_dir/trace.json.  Yields the profiler (key_averages() for sums by
-    kernel).  annotation: a record_function label around the block."""
+    log_dir/trace.json: the port's spans (`span`) and the card's kernels
+    on one timeline.  Yields the profiler (key_averages() for sums by
+    kernel and span).  annotation: a span around the block."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -218,18 +239,18 @@ def profiler_trace(log_dir: str, annotation: Optional[str] = None):
         if annotation is None:
             yield prof
         else:
-            with torch.profiler.record_function(annotation):
+            with span(annotation):
                 yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def annotate(name: str):
-    """Decorator: group a function's work under `name` in profiler traces
-    (torch.profiler.record_function)."""
+    """Decorator: group a function's work under the span `name` in
+    profiler traces."""
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            with span(name):
                 return fn(*args, **kwargs)
 
         return inner

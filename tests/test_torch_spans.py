@@ -1,0 +1,118 @@
+"""The port's spans (utils/stats.py::span): a shared null context and no
+profiler call while nothing records; under a profiler, one span of each
+stage of a call, nested by the profiler as the call nests, in the call's
+order, and the lazy record's gathers after the call's root."""
+import numpy as np
+import pytest
+import torch
+
+import rtk_tpu_torch as rt
+from rtk_tpu_torch.ops import packet_trace as pt
+from rtk_tpu_torch.testing import scenes
+from rtk_tpu_torch.utils import stats
+
+torch.set_num_threads(2)
+
+FIELDS = ("mesh_index", "triangle_index", "vertex_position", "vertex_index",
+          "u", "v")
+# The spans of a sorted closest call and its record's reads, in the order
+# they start; every rtk.packet_trace.* span's parent is rtk.packet_trace,
+# whose parent is the root.
+ROOT = "rtk.tracer.closest"
+FRONT = "rtk.packet_trace"
+STEPS = tuple(f"{FRONT}.{s}" for s in ("rows", "key", "sort", "gather",
+                                       "launch", "unsort", "wrap"))
+HITS = tuple(f"rtk.hits.{f}" for f in ("mesh_index", "triangle_index",
+                                       "vertex_position", "vertex_index",
+                                       "uv"))
+SORTED_ONLY = {f"{FRONT}.{s}" for s in ("key", "sort", "gather", "unsort")}
+
+
+@pytest.fixture(scope="module")
+def tracer():
+    v, f = scenes.blob(2)[1:]
+    return rt.Tracer(rt.build_scene((v, f), device="cpu"),
+                     config=rt.TraceConfig(defer_uv=True))
+
+
+def _rays(side=16):
+    return scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, side,
+                              side, device="cpu")
+
+
+def _spans(prof):
+    return [e for e in prof.events() if e.name.startswith("rtk.")]
+
+
+def test_no_profiler_no_profiler_range(tracer, monkeypatch):
+    assert not torch.autograd._profiler_enabled()
+    assert stats.span("rtk.a") is stats.span("rtk.b")
+
+    def refuse(name):
+        raise AssertionError(f"a profiler range {name!r} with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    monkeypatch.setattr(pt, "SORT_RAYS_MIN", 1)
+    h = tracer.closest(_rays())
+    got = [getattr(h, f) for f in FIELDS]
+    assert bool(h.hit.any())
+    assert torch.equal(got[1], torch.where(h.hit, h.triangle_index, -1))
+
+
+def test_sorted_call_spans(tracer, monkeypatch, tmp_path):
+    monkeypatch.setattr(pt, "SORT_RAYS_MIN", 1)
+    rays = _rays()
+    with stats.profiler_trace(str(tmp_path)) as prof:
+        h = tracer.closest(rays)
+        for f in FIELDS[:5]:  # .u recomputes u and v: one rtk.hits.uv
+            getattr(h, f)
+    spans = _spans(prof)
+    assert [e.name for e in spans] == [ROOT, FRONT, *STEPS, *HITS]
+    starts = [e.time_range.start for e in spans]
+    assert starts == sorted(starts)
+    by = {e.name: e for e in spans}
+    assert by[ROOT].cpu_parent is None
+    assert by[FRONT].cpu_parent.name == ROOT
+    assert all(by[s].cpu_parent.name == FRONT for s in STEPS)
+    for name in HITS:
+        assert by[name].cpu_parent is None
+        assert by[name].time_range.start >= by[ROOT].time_range.end
+    # The spans equal the call they time: the same records as untraced.
+    assert torch.equal(h.t, tracer.closest(rays).t)
+    assert "rtk.packet_trace.launch" in (tmp_path / "trace.json").read_text()
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_unsorted_call_spans(tracer, mode):
+    rays = _rays()
+    assert rays.count < pt.SORT_RAYS_MIN
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        getattr(tracer, mode)(rays)
+    names = [e.name for e in _spans(prof)]
+    assert names == [f"rtk.tracer.{mode}", FRONT,
+                     *(s for s in STEPS if s not in SORTED_ONLY)]
+
+
+def test_refit_front_end_has_step_spans():
+    grid = scenes.deforming_grid(0.0, n=4)
+    scene = rt.build_from_soup(grid, device="cpu")
+    packed = rt.Tracer(scene).packed
+    rays = scenes.camera_rays((0, 3, 4), (0, 0, 0), (0, 1, 0), 50, 8, 8,
+                              device="cpu")
+    moved = torch.as_tensor(np.asarray(scenes.deforming_grid(0.3, n=4)))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pt.trace_packets_refit(packed, scene, moved, rays, sort_rays=True)
+    names = [e.name for e in _spans(prof)]
+    assert names == list(STEPS)
+
+
+@pytest.mark.parametrize("engine", ["stack", "stackless"])
+def test_other_engines_have_the_root_span(tracer, engine):
+    other = rt.Tracer(tracer.scene, engine=engine)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        other.closest(_rays(8))
+    assert [e.name for e in _spans(prof)] == [ROOT]

@@ -302,6 +302,11 @@ KEY_OPS_PER_RAY = 44
 # The unsort's bound (csrc/unsort.cu): a ray's index (8 bytes) and its four
 # outputs (16) read, the four written (16); no arithmetic.
 UNSORT_BYTES_PER_RAY = 40
+# The rows pass's bound (csrc/ray_rows.cu) on a sorted batch: a ray's index
+# (8 bytes), origin and direction (24) and bounds (8) read, its eight f32
+# rows (32) written; no arithmetic.  An expanded origin (stride 0: one eye
+# read in place) takes its 12 bytes off.
+ROWS_BYTES_PER_RAY = 72
 
 
 def check(cond, msg):
@@ -3072,6 +3077,7 @@ def main():
     torch.cuda.synchronize()
     packet_trace.KERNEL_LAUNCHES = packet_trace.ANY_LAUNCHES = 0
     packet_trace.KEY_LAUNCHES = packet_trace.UNSORT_LAUNCHES = 0
+    packet_trace.ROWS_LAUNCHES = 0
     start, mid, end = (torch.cuda.Event(enable_timing=True)
                        for _ in range(3))
     launch_log.start(3)
@@ -3086,6 +3092,7 @@ def main():
     any_launches = packet_trace.ANY_LAUNCHES
     key_launches = packet_trace.KEY_LAUNCHES
     unsort_launches = packet_trace.UNSORT_LAUNCHES
+    rows_launches = packet_trace.ROWS_LAUNCHES
     closest_ms = start.elapsed_time(mid)
     any_ms = mid.elapsed_time(end)
     check(launches >= 2, f"main path launched the kernel {launches} times")
@@ -3093,6 +3100,8 @@ def main():
           f"kernels {key_launches} times")
     check(unsort_launches >= 2, f"main path launched the unsort "
           f"{unsort_launches} times")
+    check(rows_launches >= 2, f"main path launched the rows pass "
+          f"{rows_launches} times")
     n_hit = int(hits.hit.sum())
     check(abs(n_hit - HEADLINE_EXPECT_HITS) <= HEADLINE_HIT_TOL,
           f"8192^2 hit count {n_hit} vs expected {HEADLINE_EXPECT_HITS}")
@@ -3101,8 +3110,6 @@ def main():
     # Steady state of the same call, and the kernel alone vs its plain
     # version on the same sorted rays (these launches are not counted).
     _, steady_ms = timed(lambda: tracer.closest(rays), reps=3)
-    comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
-                       rays.max_t[None]])
     from rtk_tpu_torch.ops import morton
     key, key_ms = timed(lambda: morton.ray_coherence_key(rays.origin,
                                                          rays.direction),
@@ -3125,9 +3132,35 @@ def main():
     _, key_rec["ms_1024"] = timed(lambda: morton.ray_coherence_key(
         r1024.origin, r1024.direction), reps=20)
     key_rec["primaries_1024"] = key_check(morton, r1024, "1024^2 primaries")
-    del r1024
-    comps = comps[:, order].contiguous()
-    del key
+    # The rows pass alone (csrc/ray_rows.cu) through the sort's order,
+    # beside its plain version on the card (the stacking and the gather it
+    # replaces) and bit-equal to it; unsorted, beside the stacking alone;
+    # and sorted at 1024^2.
+    order_1024 = torch.sort(morton.ray_coherence_key(
+        r1024.origin, r1024.direction), stable=True).indices
+    parts_1024 = (r1024.origin, r1024.direction, r1024.min_t, r1024.max_t)
+    _, rows_ms_1024 = timed(lambda: packet_trace.ray_rows_kernel(
+        *parts_1024, order_1024), reps=20)
+    del r1024, order_1024, parts_1024
+    parts = (rays.origin, rays.direction, rays.min_t, rays.max_t)
+    comps, rows_ms = timed(
+        lambda: packet_trace.ray_rows_kernel(*parts, order), reps=3)
+    rows_want, rows_plain_ms = timed(
+        lambda: packet_trace.ray_rows_reference(*parts, order), reps=3)
+    check(bits_equal(comps, rows_want), "main path rows pass/plain differ")
+    del rows_want
+    flat, rows_flat_ms = timed(lambda: packet_trace.ray_rows_kernel(*parts),
+                               reps=3)
+    flat_want, rows_flat_plain_ms = timed(
+        lambda: packet_trace.ray_rows_reference(*parts), reps=3)
+    check(bits_equal(flat, flat_want), "unsorted rows pass/plain differ")
+    del flat, flat_want, key
+    rows_rec = {"bytes_per_ray": ROWS_BYTES_PER_RAY
+                - 12 * (rays.origin.stride(0) == 0),
+                "ms_8192": rows_ms, "plain_ms_8192": rows_plain_ms,
+                "unsorted_ms_8192": rows_flat_ms,
+                "unsorted_plain_ms_8192": rows_flat_plain_ms,
+                "ms_1024": rows_ms_1024}
     kw = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size)
     k_out, kernel_ms = timed(
         lambda: packet_trace.packet_trace_kernel(packed.nodes, packed.tris,
@@ -3167,7 +3200,8 @@ def main():
         "key_ms": round(key_ms, 2), "sort_ms": round(sort_ms, 2),
         "key_dtype": key_dtype, "key": key_rec, "key_launches": key_launches,
         "unsort_ms": unsort_ms, "unsort_plain_ms": unsort_plain_ms,
-        "unsort_launches": unsort_launches,
+        "unsort_launches": unsort_launches, "rows": rows_rec,
+        "rows_launches": rows_launches,
         "kernel_launches": launches, "max_abs_err": main_err,
         "bound_ms": main_bound[0], "bound_by": main_bound[1],
         "any_kernel_ms": round(any_kernel_ms, 2),
@@ -3396,11 +3430,26 @@ def main():
                  "bit-equal; no one PyTorch call moves the four outputs; "
                  "the reference unsorts by a multi-operand XLA sort outside "
                  "any Pallas kernel"}
+    rows_row = {
+        "name": "ray_rows", "route": "cuda",
+        "source": "rtk_tpu_torch/csrc/ray_rows.cu",
+        "replaces": "rtk_tpu/ops/pallas_trace.py:1452",
+        "launches": rows_launches, "max_abs_err": 0.0,
+        "ms": rows_rec["ms_8192"], "ms_1024": rows_rec["ms_1024"],
+        "plain_ms": rows_rec["plain_ms_8192"],
+        "bound_ms": rows_rec["bytes_per_ray"] * n_head / PEAK_BYTES * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": "phase 3's 8192^2 rays through their sort order (ms_1024: "
+                 "the 1024^2 primaries; the bound at bytes_per_ray, the "
+                 "camera's origin read in place); plain_ms: the stacking and the "
+                 "gather it replaces, bit-equal; no one PyTorch call stacks "
+                 "and gathers; the reference stacks inside its jitted "
+                 "program in XLA, outside any Pallas kernel"}
     # No PyTorch call traverses a BVH: library_ms is null for every
     # traversal entry.
     print(json.dumps({"kernels": [
         {"route": "cuda", "source": src, "library_ms": None, **k}
-        for k in kernels] + [key_row, unsort_row, probe_row]}))
+        for k in kernels] + [key_row, rows_row, unsort_row, probe_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,11 @@ kernel.
 
 The sorted front end's own steps run as the port's kernels too, built
 into the same library: the coherence key (`coherence_key_kernel`,
-csrc/coherence_key.cu) and the unsort of the outputs (`unsort_kernel`,
-csrc/unsort.cu); on CPU tensors their plain versions run.  The plain
-front end, `trace_packets_reference`, keeps the plain versions on any
-device.
+csrc/coherence_key.cu), the rows stacked and gathered through the sort's
+permutation in one pass (`ray_rows_kernel`, csrc/ray_rows.cu) and the
+unsort of the outputs (`unsort_kernel`, csrc/unsort.cu); on CPU tensors
+their plain versions run.  The plain front end, `trace_packets_reference`,
+keeps the plain versions on any device.
 
 `packet_march` is the grid march over a table with one root row per
 macro-grid cell (testing/grid.py): the kernel's march instantiation walks
@@ -58,10 +59,12 @@ direction axis; the kernel picks the shear axis per ray, so it is one
 trace_packets call.
 
 While a profiler records, a front end's call is the span
-`rtk.packet_trace` (utils/stats.py::span) over its steps' spans
-`rtk.packet_trace.rows`, `.key`, `.sort`, `.gather` (sorted batches),
-`.launch` (the traversal: the kernel's checks, library, outputs and
-launch, or the plain version), `.unsort` and `.wrap` (the PacketHits).
+`rtk.packet_trace` (utils/stats.py::span) over its steps' spans: on the
+card `rtk.packet_trace.key`, `.sort` (sorted batches) and `.rows` (the
+rows pass); with the plain versions `.rows` (the stacking), `.key`,
+`.sort` and `.gather` (sorted batches); then `.launch` (the traversal:
+the kernel's checks, library, outputs and launch, or the plain version),
+`.unsort` and `.wrap` (the PacketHits).
 The refit front ends run the steps' spans without the outer one.
 """
 from __future__ import annotations
@@ -101,9 +104,11 @@ FILTER_MAX_TRIS = 1 << 24  # triangle ids ride f32 columns, exact below 2^24
 # A run resets them and reads them back to show that its main path went
 # through the kernel.  KEY_LAUNCHES counts calls of the coherence key's
 # kernels (coherence_key_kernel: a memset and three launches each),
+# ROWS_LAUNCHES launches of the rows pass (ray_rows_kernel),
 # UNSORT_LAUNCHES launches of the unsort (unsort_kernel).
 KERNEL_LAUNCHES = 0
 KEY_LAUNCHES = 0
+ROWS_LAUNCHES = 0
 UNSORT_LAUNCHES = 0
 ROOTS_LAUNCHES = 0
 FILTER_LAUNCHES = 0
@@ -119,7 +124,9 @@ CSRC = PKG_ROOT / "csrc"
 KERNEL_SRC = CSRC / "packet_trace.cu"
 # The sorted front end's kernels, built into the traversal's library.
 KEY_SRC = CSRC / "coherence_key.cu"
+ROWS_SRC = CSRC / "ray_rows.cu"
 UNSORT_SRC = CSRC / "unsort.cu"
+LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC]
 FILTER_OPS = CSRC / "filter_ops.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -145,12 +152,12 @@ def kernel_library(flt: JitFilter | None = None):
     """Build the kernel library for `flt` (None: the build without a
     filter) if it is not built yet, keyed on the hash of its sources ->
     (path of the .so, compiler output; empty when it was built already).
-    Every build holds the traversal, the coherence key and the unsort, so
-    that a caller with one loaded library (utils/aot.py's artifacts) has
-    the whole sorted front end.
+    Every build holds the traversal, the coherence key, the rows pass and
+    the unsort (LIBRARY_SRCS), so that a caller with one loaded library
+    (utils/aot.py's artifacts) has the whole sorted front end.
     Needs nvcc, not a card."""
     if flt is None:
-        return build_shared("packet_trace", [KERNEL_SRC, KEY_SRC, UNSORT_SRC],
+        return build_shared("packet_trace", LIBRARY_SRCS,
                             [_nvcc(), *NVCC_FLAGS])
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     header = BUILD_DIR / f"filter-{flt.key}.h"
@@ -159,7 +166,7 @@ def kernel_library(flt: JitFilter | None = None):
         tmp.write_text(flt.source)
         os.replace(tmp, header)
     return build_shared(
-        "packet_trace_filter", [KERNEL_SRC, KEY_SRC, UNSORT_SRC],
+        "packet_trace_filter", LIBRARY_SRCS,
         [_nvcc(), *NVCC_FLAGS, "-DRTK_FILTER", f"-I{CSRC}",
          "-include", str(header)], deps=[FILTER_OPS, header])
 
@@ -178,6 +185,9 @@ def bind_library(path, march: bool):
     lib.rtk_coherence_key.restype = i32
     lib.rtk_coherence_key.argtypes = ([ptr] + [i64] * 2 + [ptr] + [i64] * 3
                                       + [ptr] * 3)
+    lib.rtk_ray_rows.restype = i32
+    lib.rtk_ray_rows.argtypes = ([ptr, i64] + [ptr, i64, i64] * 2
+                                 + [ptr, i64] * 2 + [ptr] * 2)
     lib.rtk_unsort.restype = i32
     lib.rtk_unsort.argtypes = [ptr, i64] + [ptr] * 11
     if march:
@@ -424,6 +434,66 @@ def _key_call(lib, o, d, bounds, key, stream):
     return lib.rtk_coherence_key(o.data_ptr(), *o.stride(), d.data_ptr(),
                                  *d.stride(), o.shape[0], bounds.data_ptr(),
                                  key.data_ptr(), stream)
+
+
+def ray_rows_kernel(origin, direction, min_t, max_t, idx=None, lib=None):
+    """The (8, N) f32 rows [ox oy oz dx dy dz min_t max_t] the traversal
+    reads, on the card: one launch of the library's rtk_ray_rows
+    (csrc/ray_rows.cu), equal bit for bit to ray_rows_reference.
+    origin, direction: (N, 3); min_t, max_t: (N,); any strides (a camera's
+    expanded origin is read in place) and any float type (cast to f32).
+    idx: None (the caller's order) or (N,) int64, the caller's index of
+    each sorted ray (a permutation), whose order the rows take.  lib: as
+    coherence_key_kernel's.  Raises if the tensors are not on one card or
+    the launch fails."""
+    global ROWS_LAUNCHES
+    # The dtype test skips .to's dispatch on f32 inputs: a rooted round
+    # calls this once per round on a few rays, where host time is the cost.
+    o, d, mn, mx = (a if a.dtype == torch.float32 else a.to(torch.float32)
+                    for a in (origin, direction, min_t, max_t))
+    n = o.shape[0]
+    if (o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape
+            or mn.shape != (n,) or mx.shape != (n,)):
+        raise ValueError("origin and direction must be (N, 3) tensors and "
+                         "min_t and max_t (N,) tensors")
+    if idx is not None and (idx.dtype != torch.int64
+                            or tuple(idx.shape) != (n,)):
+        raise ValueError(f"idx must be an ({n},) int64 tensor")
+    ins = (o, d, mn, mx) if idx is None else (o, d, mn, mx, idx)
+    if not (o.is_cuda and all(a.device == o.device for a in ins)):
+        raise ValueError("ray_rows_kernel takes CUDA tensors on one device")
+    rows = torch.empty((8, n), dtype=torch.float32, device=o.device)
+    if n:
+        if lib is None:
+            lib = load_kernel()
+        if idx is not None:
+            idx = idx.contiguous()
+        with torch.cuda.device(o.device):
+            stream = torch.cuda.current_stream(o.device).cuda_stream
+            err = _rows_call(lib, idx, o, d, mn, mx, rows, stream)
+        if err != 0:
+            raise RuntimeError(f"ray rows launch failed: CUDA error {err}")
+        ROWS_LAUNCHES += 1
+    return rows
+
+
+def _rows_call(lib, idx, o, d, mn, mx, rows, stream):
+    """rtk_ray_rows of f32 views o, d (N, 3) and mn, mx (N,) (element
+    strides) through idx (None or contiguous (N,) int64) into the
+    contiguous (8, N) rows -> its error code."""
+    return lib.rtk_ray_rows(_ptr(idx), o.shape[0], o.data_ptr(), *o.stride(),
+                            d.data_ptr(), *d.stride(), mn.data_ptr(),
+                            *mn.stride(), mx.data_ptr(), *mx.stride(),
+                            rows.data_ptr(), stream)
+
+
+def ray_rows_reference(origin, direction, min_t, max_t, idx=None):
+    """ray_rows_kernel's plain version, on any device: the rows stacked in
+    the caller's order (a cat), then gathered through idx when it is
+    given."""
+    rows = torch.cat([origin.T, direction.T, min_t[None],
+                      max_t[None]]).to(torch.float32)
+    return rows if idx is None else rows[:, idx].contiguous()
 
 
 def unsort_kernel(out, idx, lib=None):
@@ -901,12 +971,14 @@ def _check_front(packed: PackedScene, rays: Rays, mode, filter_fn=None):
 
 
 def _front_steps(plain: bool, lib, cuda: bool):
-    """(key, unsort) of a front end: on CUDA tensors the kernels of `lib`
-    (None: the library built from the sources), else, or when plain, the
-    plain versions."""
+    """(key, rows, unsort) of a front end: on CUDA tensors the kernels of
+    `lib` (None: the library built from the sources), else, or when plain,
+    the plain versions."""
     if plain or not cuda:
-        return ray_coherence_key_reference, unsort_reference
+        return (ray_coherence_key_reference, ray_rows_reference,
+                unsort_reference)
     return (functools.partial(coherence_key_kernel, lib=lib),
+            functools.partial(ray_rows_kernel, lib=lib),
             functools.partial(unsort_kernel, lib=lib))
 
 
@@ -914,24 +986,33 @@ def _ray_rows(rays: Rays, sort_rays, roots=None, plain=False, lib=None):
     """The batch as the traversal takes it -> (rows, idx): the (8, N) f32
     rows, coherence-sorted when sort_rays (None: for >= 16384 rays without
     roots), and the caller's index of each column, or None unsorted.
-    plain, lib: which key (_front_steps)."""
-    with span("rtk.packet_trace.rows"):
-        comps = torch.cat([rays.origin.T, rays.direction.T, rays.min_t[None],
-                           rays.max_t[None]]).to(torch.float32)
+    plain, lib: which key and rows (_front_steps).  On the card the key
+    and the sort come first and one rows pass writes the rows in the
+    sorted order; the plain versions stack the rows in the caller's order
+    and gather them after the sort."""
     if sort_rays is None:
         sort_rays = rays.count >= SORT_RAYS_MIN and roots is None
     if sort_rays and roots is not None:
         raise ValueError("sort_rays cannot reorder rays that carry per-"
                          "packet or per-ray roots; pass sort_rays=False")
+    key_of, rows_of, _ = _front_steps(plain, lib, rays.origin.is_cuda)
+    parts = (rays.origin, rays.direction, rays.min_t, rays.max_t)
+    stack_first = rows_of is ray_rows_reference
+    if stack_first:
+        with span("rtk.packet_trace.rows"):
+            comps = rows_of(*parts)
     idx = None
     if sort_rays:
         with span("rtk.packet_trace.key"):
-            key = _front_steps(plain, lib, rays.origin.is_cuda)[0](
-                rays.origin, rays.direction)
+            key = key_of(rays.origin, rays.direction)
         with span("rtk.packet_trace.sort"):
             idx = torch.sort(key, stable=True).indices
-        with span("rtk.packet_trace.gather"):
-            comps = comps[:, idx].contiguous()
+        if stack_first:
+            with span("rtk.packet_trace.gather"):
+                comps = comps[:, idx].contiguous()
+    if not stack_first:
+        with span("rtk.packet_trace.rows"):
+            comps = rows_of(*parts, idx)
     return comps, idx
 
 
@@ -955,7 +1036,7 @@ def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
     if idx is not None:
         # Back to the caller's order.
         with span("rtk.packet_trace.unsort"):
-            out = _front_steps(plain, lib, comps.is_cuda)[1](out, idx)
+            out = _front_steps(plain, lib, comps.is_cuda)[2](out, idx)
     with span("rtk.packet_trace.wrap"):
         t, u, v, slot = out[:4]
         hit = slot >= 0

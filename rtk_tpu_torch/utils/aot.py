@@ -7,9 +7,9 @@ is this module's pinned front end and the CUDA kernel library, and what
 takes time at start-up is nvcc.  So the artifact carries the library
 itself: the .so that ops/packet_trace.kernel_library built for the trace's
 keywords (a jit_filter's own build when it has one), which holds the
-traversal and the sorted front end's coherence key and unsort.  A
-server writes it under the package's build directory by its hash, loads
-it with ctypes and calls it; it never calls nvcc.
+traversal and the sorted front end's coherence key, rows pass and
+unsort.  A server writes it under the package's build directory by its
+hash, loads it with ctypes and calls it; it never calls nvcc.
 
 The flat signatures are the reference's:
 
@@ -55,8 +55,11 @@ from rtk_tpu_torch.types import PacketHits, Rays
 from rtk_tpu_torch.utils import serialize as ser
 from rtk_tpu_torch.utils.build import BUILD_DIR
 
-# Artifact signature version: bump when the flat call signature changes.
-AOT_VERSION = 1
+# Artifact version: bump when the flat call signature or the entry points
+# of the embedded library change.  2: the library holds rtk_ray_rows, which
+# a version-1 library lacks, so such an artifact is refused before the
+# loader binds it.
+AOT_VERSION = 2
 KIND_TRACE = 16  # container kinds of this module (serialize.py has 0-2)
 KIND_REFIT = 17
 PLATFORMS = ("cpu", "cuda")
@@ -203,8 +206,8 @@ def _check_card(dev: torch.device):
 
 class _Artifact:
     """What both loaders share: the spec, the pinned signature, and the
-    traversal and the front end's key and unsort (the embedded library's
-    kernels, or the plain versions)."""
+    traversal and the front end's key, rows and unsort (the embedded
+    library's kernels, or the plain versions)."""
 
     def __init__(self, blob: bytes, kind: int, what: str):
         got, arrays, meta = ser._load_container(bytes(blob))

@@ -33,7 +33,8 @@ from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.trace.packed import pack_scene
 from rtk_tpu_torch.utils import aot, serialize
 
-from test_torch_kernel_host import KEY_CASES, host_key, host_library
+from test_torch_kernel_host import (KEY_CASES, host_key, host_library,
+                                    host_rows, rows_batch, same_bits)
 from test_torch_trace import CPU, _check, _rays
 
 torch.set_num_threads(2)
@@ -197,6 +198,26 @@ def test_aot_refuses_foreign_blobs():
         aot.load_packet_trace(bytes(future))
 
 
+@pytest.mark.parametrize("load", ["trace", "refit"])
+def test_aot_refuses_a_version_1_artifact(load):
+    """An artifact stamped with version 1 (exported before the library
+    held the rows pass, rtk_ray_rows) is refused by the version check
+    before its library is bound, with the loader's own error."""
+    scene = rt.build_from_soup(scenes.cornell_box(),
+                               config=rt.BuildConfig(leaf_size=8), device=CPU)
+    packed = pack_scene(scene)
+    blob, loader = ((aot.export_packet_trace(packed, 64),
+                     aot.load_packet_trace) if load == "trace" else
+                    (aot.export_refit_trace(packed, scene, 64),
+                     aot.load_refit_trace))
+    assert aot.AOT_VERSION == 2
+    old = bytearray(blob)
+    # meta ints start at byte 32: (AOT_VERSION, n_rays)
+    struct.pack_into("<q", old, 32, 1)
+    with pytest.raises(ValueError, match="unsupported artifact version 1"):
+        loader(bytes(old))
+
+
 _SERVER = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None
@@ -258,10 +279,11 @@ def test_example_serve_aot(capfd):
 def test_aot_cuda_artifact_binds_the_key_from_its_library(tmp_path,
                                                           monkeypatch):
     """An artifact exported for "cuda" embeds the one library that holds
-    the traversal, the coherence key and the unsort, and the loader binds
-    them from it: here the library is the host build (g++ behind the CUDA
-    stand-in header) put where nvcc's would be, and the loaded artifact's
-    key entry point gives ops/morton.py's plain keys on CPU arrays.  The
+    the traversal, the coherence key, the rows pass and the unsort, and
+    the loader binds them from it: here the library is the host build (g++
+    behind the CUDA stand-in header) put where nvcc's would be, and the
+    loaded artifact's key and rows entry points give ops/morton.py's plain
+    keys and the plain rows on CPU arrays.  The
     loader writes the library under tmp_path, not the package."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
@@ -281,6 +303,10 @@ def test_aot_cuda_artifact_binds_the_key_from_its_library(tmp_path,
     assert [f.read_bytes() for f in served] == [so.read_bytes()]
     assert lt._lib.rtk_coherence_key.argtypes is not None
     assert lt._lib.rtk_unsort.argtypes is not None
+    assert lt._lib.rtk_ray_rows.argtypes is not None
+    parts, perm = rows_batch(257, 7)
+    assert same_bits(host_rows(lt._lib, parts, perm),
+                     pt.ray_rows_reference(*parts, perm))
     for name in ("scattered", "same_origin"):
         o, d = KEY_CASES[name]
         assert torch.equal(host_key(lt._lib, o, d),

@@ -1,5 +1,5 @@
 """The CUDA packet-traversal kernel, the sorted front end's kernels (the
-coherence key and the unsort) and the dispatch probe of
+coherence key, the rows pass and the unsort) and the dispatch probe of
 tools/torch_profile_trace.py, against their plain PyTorch versions on the
 card.  Needs a CUDA device and nvcc: each test skips without a card.  On
 the H100: `python -m pytest tests/test_torch_kernel.py -m cuda -q`."""
@@ -1106,10 +1106,11 @@ def test_coherence_key_kernel(cuda):
 
 def test_sorted_trace_takes_the_key_from_the_library(cuda):
     """A sorted batch (sort_rays=True) through trace_packets and through a
-    "cuda" AOT artifact launches the key's kernels and the unsort once
-    each (the artifact from its embedded library) and equals the plain
-    front end, which sorts by the plain key and unsorts by index-puts;
-    with stats=True the unsort carries the counts too."""
+    "cuda" AOT artifact launches the key's kernels, the rows pass and the
+    unsort once each (the artifact from its embedded library) and equals
+    the plain front end, which sorts by the plain key, gathers the stacked
+    rows and unsorts by index-puts; with stats=True the unsort carries the
+    counts too."""
     from rtk_tpu_torch.utils import aot
 
     tris = scenes.cornell_box()
@@ -1125,12 +1126,12 @@ def test_sorted_trace_takes_the_key_from_the_library(cuda):
     for call in (lambda: packet_trace.trace_packets(packed, rays,
                                                     sort_rays=True),
                  lambda: lt(packed, rays)):
-        before = (packet_trace.KEY_LAUNCHES, packet_trace.UNSORT_LAUNCHES)
+        before = (packet_trace.KEY_LAUNCHES, packet_trace.ROWS_LAUNCHES,
+                  packet_trace.UNSORT_LAUNCHES)
         got = call()
         torch.cuda.synchronize()
-        assert (packet_trace.KEY_LAUNCHES,
-                packet_trace.UNSORT_LAUNCHES) == (before[0] + 1,
-                                                  before[1] + 1)
+        assert (packet_trace.KEY_LAUNCHES, packet_trace.ROWS_LAUNCHES,
+                packet_trace.UNSORT_LAUNCHES) == tuple(b + 1 for b in before)
         _assert_same(got, want)
     got, counts = packet_trace.trace_packets(packed, rays, sort_rays=True,
                                              stats=True)
@@ -1138,3 +1139,81 @@ def test_sorted_trace_takes_the_key_from_the_library(cuda):
         packed, rays, sort_rays=True, stats=True)
     _assert_same(got, want)
     assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 16384, 1 << 20])
+def test_ray_rows_kernel(cuda, n):
+    """The rows pass (csrc/ray_rows.cu, one ROWS_LAUNCHES a call, none for
+    an empty batch) equals ray_rows_reference on CPU copies bit for bit,
+    NaN payloads and signed zeros included, unsorted and through a seeded
+    permutation: contiguous rays, an expanded origin (stride 0), a
+    direction sliced from a wider tensor, and f64 rays."""
+    rng = np.random.default_rng(n)
+    vals = rng.normal(size=(n, 8)).astype(np.float32)
+    special = rng.random((n, 8)) < 0.05
+    vals[special] = rng.choice(np.array(
+        [np.nan, -0.0, 0.0, np.inf, -np.inf, 1e-45], np.float32),
+        int(special.sum()))
+    rays = torch.from_numpy(vals).to(cuda)
+    o, d, mn, mx = (rays[:, :3].contiguous(), rays[:, 3:6].contiguous(),
+                    rays[:, 6].contiguous(), rays[:, 7].contiguous())
+    wide = torch.full((n, 11), 7.0, device=cuda)
+    wide[:, 4:7] = d
+    eye = torch.tensor([0.5, -2.0, 3.0], device=cuda)
+    layouts = {"contiguous": (o, d, mn, mx),
+               "camera": (eye.as_strided((n, 3), (0, 1)), d, mn, mx),
+               "sliced": (o, wide[:, 4:7], mn, mx),
+               "f64": tuple(a.double() for a in (o, d, mn, mx))}
+    assert layouts["camera"][0].stride() == (0, 1)
+    assert layouts["sliced"][1].stride() == (11, 1)
+    perm = torch.from_numpy(rng.permutation(n))
+    for name, parts in layouts.items():
+        for idx in (None, perm):
+            before = packet_trace.ROWS_LAUNCHES
+            got = packet_trace.ray_rows_kernel(
+                *parts, None if idx is None else idx.to(cuda))
+            torch.cuda.synchronize()
+            assert packet_trace.ROWS_LAUNCHES == before + (n > 0), name
+            want = packet_trace.ray_rows_reference(
+                *(a.cpu() for a in parts), idx)
+            assert got.is_cuda and got.dtype == torch.float32
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), name
+
+
+def test_trace_packets_launches_the_rows_pass_once(cuda):
+    """Every trace_packets call on the card, sorted or not, writes its
+    rows by exactly one rows pass and equals the plain front end, which
+    launches none."""
+    tris = scenes.cornell_box()
+    packed = pack_scene(rtk_tpu_torch.build_from_soup(
+        tris, config=rtk_tpu_torch.BuildConfig(leaf_size=8), device=cuda))
+    rays = scenes.cornell_camera(48, 48, device=cuda)
+    for sort in (False, True):
+        before = packet_trace.ROWS_LAUNCHES
+        want = packet_trace.trace_packets_reference(packed, rays,
+                                                    sort_rays=sort)
+        assert packet_trace.ROWS_LAUNCHES == before
+        got = packet_trace.trace_packets(packed, rays, sort_rays=sort)
+        torch.cuda.synchronize()
+        assert packet_trace.ROWS_LAUNCHES == before + 1, sort
+        _assert_same(got, want)
+
+
+def test_sorted_call_spans_on_the_card(cuda):
+    """A sorted call's steps on the card: the key, the sort, then the rows
+    pass (no gather of stacked rows), the launch, the unsort, the wrap."""
+    tris = scenes.cornell_box()
+    packed = pack_scene(rtk_tpu_torch.build_from_soup(
+        tris, config=rtk_tpu_torch.BuildConfig(leaf_size=8), device=cuda))
+    rays = scenes.cornell_camera(32, 32, device=cuda)
+    packet_trace.trace_packets(packed, rays, sort_rays=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        packet_trace.trace_packets(packed, rays, sort_rays=True)
+        torch.cuda.synchronize()
+    steps = "rtk.packet_trace."
+    assert [e.name[len(steps):] for e in prof.events()
+            if e.name.startswith(steps)] == [
+        "key", "sort", "rows", "launch", "unsort", "wrap"]

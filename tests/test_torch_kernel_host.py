@@ -6,8 +6,9 @@ the CPU (its single-instruction NaN min/max take their plain C++ form
 off the card): every instantiation (8- and 16-wide tables, the grid march
 and a filter build) in every mode equals the plain PyTorch version bit for
 bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
-csrc/dispatch_probe.cu, csrc/coherence_key.cu and csrc/unsort.cu are built
-the same way and held bit for bit against their plain versions.  This checks
+csrc/dispatch_probe.cu, csrc/coherence_key.cu, csrc/ray_rows.cu and
+csrc/unsort.cu are built the same way and held bit for bit against their
+plain versions.  This checks
 the kernels' logic and arithmetic; that nvcc builds them for sm_90a, and the
 card's results, are tests/test_torch_kernel.py's."""
 import ctypes
@@ -543,7 +544,8 @@ KEY_REDUCE = "constexpr int KEY_REDUCE_BLOCKS = 1024;"
 
 
 def front_host_source(src, launches, reduce_blocks=None):
-    """csrc/coherence_key.cu or csrc/unsort.cu for a host build behind
+    """csrc/coherence_key.cu, csrc/ray_rows.cu or csrc/unsort.cu for a host
+    build behind
     CUDA_SHIM: each of its `launches` launches runs as a loop over the
     threads in turn; reduce_blocks: the key's bounds kernels' grid cap, to
     make a small batch take several turns of their grid-stride loops."""
@@ -560,14 +562,15 @@ def front_host_source(src, launches, reduce_blocks=None):
 
 def host_library(tmp, name, reduce_blocks=None):
     """The library kernel_library builds (the traversal without a filter,
-    the coherence key and the unsort in one .so), built for the host ->
-    its path."""
+    the coherence key, the rows pass and the unsort in one .so), built for
+    the host -> its path."""
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     sources = {
         "trace": pt.KERNEL_SRC.read_text()
         .replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
         .replace(LAUNCH, HOST_LAUNCH),
         "key": front_host_source(pt.KEY_SRC, 3, reduce_blocks),
+        "rows": front_host_source(pt.ROWS_SRC, 1),
         "unsort": front_host_source(pt.UNSORT_SRC, 1)}
     for part, text in sources.items():
         (tmp / f"{name}_{part}.cpp").write_text(text)
@@ -711,4 +714,97 @@ def test_unsort_kernel_takes_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pt.unsort_kernel(out, torch.arange(3))
     assert pt._front_steps(False, None, False) == (
-        morton.ray_coherence_key_reference, pt.unsort_reference)
+        morton.ray_coherence_key_reference, pt.ray_rows_reference,
+        pt.unsort_reference)
+
+
+def rows_batch(n, seed, dtype=torch.float32):
+    """A seeded batch of n rays (origin, direction, min_t, max_t), with
+    NaN, signed zeros, infinities and a denormal among the values, and a
+    seeded permutation of [0, n)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(size=(n, 8)).astype(np.float32)
+    special = rng.random((n, 8)) < 0.05
+    vals[special] = rng.choice(np.array(
+        [np.nan, -0.0, 0.0, np.inf, -np.inf, 1e-45], np.float32),
+        int(special.sum()))
+    t = torch.from_numpy(vals).to(dtype)
+    parts = (t[:, :3].contiguous(), t[:, 3:6].contiguous(),
+             t[:, 6].contiguous(), t[:, 7].contiguous())
+    return parts, torch.from_numpy(rng.permutation(n))
+
+
+def host_rows(lib, parts, idx):
+    """The library's rows of CPU f32 views through idx (None: the
+    caller's order), through the wrapper's own call (_rows_call), into
+    rows filled with NaN first."""
+    rows = torch.full((8, parts[0].shape[0]), float("nan"))
+    assert pt._rows_call(lib, None if idx is None else idx.contiguous(),
+                         *parts, rows, None) == 0
+    return rows
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 1025, 16384])
+def test_host_ray_rows(key_libs, n, sort):
+    """csrc/ray_rows.cu built for the host (its launch a loop over the
+    threads) equals ray_rows_reference bit for bit, NaN payloads and signed
+    zeros included, unsorted and through a seeded permutation; the inputs
+    are left as they were."""
+    parts, perm = rows_batch(n, n + 1)
+    kept = tuple(a.clone() for a in parts)
+    idx = perm if sort else None
+    got = host_rows(key_libs[None], parts, idx)
+    assert same_bits(got, pt.ray_rows_reference(*parts, idx))
+    assert all(same_bits(a, k) for a, k in zip(parts, kept))
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_host_ray_rows_strides(key_libs, sort):
+    """The rows pass reads the rays through their element strides: an
+    expanded origin and min_t (stride 0), a direction sliced from a wider
+    tensor, a direction that is a transposed view and a max_t that is a
+    column give the rows of contiguous copies, and the plain version's."""
+    n = 1031
+    (o, d, _, mx), perm = rows_batch(n, 5)
+    wide = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(n, 7)).astype(np.float32))
+    wide[:, 2:5] = d
+    wide[:, 6] = mx
+    layouts = {
+        "camera": (o[:1].expand(n, 3), d, torch.zeros(()).expand(n), mx),
+        "sliced": (o, wide[:, 2:5], torch.zeros(n), wide[:, 6]),
+        "transposed": (o, d.T.contiguous().T, torch.zeros(n), mx)}
+    assert layouts["camera"][0].stride() == (0, 1)
+    assert layouts["sliced"][1].stride() == (7, 1)
+    assert layouts["transposed"][1].stride() == (1, n)
+    idx = perm if sort else None
+    lib = key_libs[None]
+    for name, parts in layouts.items():
+        got = host_rows(lib, parts, idx)
+        assert same_bits(got, host_rows(
+            lib, tuple(a.contiguous() for a in parts), idx)), name
+        assert same_bits(got, pt.ray_rows_reference(*parts, idx)), name
+
+
+def test_ray_rows_kernel_takes_cuda_tensors():
+    """The rows pass's wrapper never runs on the CPU: it refuses CPU
+    tensors, and a batch of wrong shape or index, before it launches."""
+    (o, d, mn, mx), perm = rows_batch(9, 1)
+    before = pt.ROWS_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        pt.ray_rows_kernel(o, d, mn, mx)
+    with pytest.raises(ValueError, match="CUDA"):
+        pt.ray_rows_kernel(o, d, mn, mx, perm)
+    with pytest.raises(ValueError, match="int64"):
+        pt.ray_rows_kernel(o, d, mn, mx, perm.to(torch.int32))
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        pt.ray_rows_kernel(o, d[:, :2], mn, mx)
+    with pytest.raises(ValueError, match=r"\(N,\)"):
+        pt.ray_rows_kernel(o, d, mn[:4], mx)
+    assert pt.ROWS_LAUNCHES == before

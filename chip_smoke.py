@@ -88,7 +88,11 @@ Phases (each prints one line):
      device events and the card's idle share.  Checked by the furnace
      identity (albedo 1, emission and background e: radiance / e is a
      whole number in [1, bounces + 1] whose sum is the number of live rays
-     traced), exactly, with compaction on and off, and by the kernel
+     traced), exactly, with compaction on and off; by the bounce draws
+     handed in by ray (uniforms), whose radiance is bit for bit the same
+     with compaction and the sort on or off, the render loop's counters
+     (traces, rows, host syncs) beside the kernel launches and batches;
+     and by the kernel
      against its plain version on the whole batches that call launched
      (every bounce batch for closest, bounce 2's for any).  9b:
      render_direct (a lit pixel's shadow ray is unoccluded on the stack
@@ -1735,6 +1739,36 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
           and rows[-1]["live"] < rows[0]["live"],
           "9a: the bounce batches do not shrink")
     total = sum(r["live"] for r in rows)
+
+    # The draws handed in by ray and bounce (render_path's uniforms): one
+    # radiance, bit for bit, with compaction and the sort on or off; the
+    # render loop's counters beside the launches they stand for.
+    uniforms = torch.rand((bounces, n, 2), generator=gen(5), device=dev)
+    names = ("PATH_TRACES", "PATH_ROWS", "PATH_SYNCS")
+    for c in names:
+        setattr(path, c, 0)
+    (rad_u, log_u, _), got_u = counted(lambda: run_logged(uniforms=uniforms))
+    path_counts = {c: getattr(path, c) for c in names}
+    check(path_counts["PATH_TRACES"] == got_u["KERNEL_LAUNCHES"]
+          == len(log_u.batches) == bounces + 1,
+          f"9a uniforms: {path_counts} for {got_u}")
+    check(path_counts["PATH_ROWS"] == sum(b.count for b in log_u.batches)
+          and path_counts["PATH_SYNCS"] == bounces,
+          f"9a uniforms: {path_counts} for batches "
+          f"{[b.count for b in log_u.batches]}")
+    differ = {}
+    for name, over in (("no_compact", dict(compact=False)),
+                       ("no_sort", dict(sort_rays=False)),
+                       ("neither", dict(compact=False, sort_rays=False))):
+        other = run_logged(uniforms=uniforms, **over)[0]
+        differ[name] = int((other != rad_u).any(dim=1).sum())
+    check(not any(differ.values()),
+          f"9a uniforms: rays whose radiance differs from the compacted "
+          f"sorted call's {differ}")
+    rec_u = {"counters": path_counts, "launches": got_u,
+             "launched": [b.count for b in log_u.batches],
+             "rays_differing": differ, "mean_radiance": float(rad_u.mean())}
+    del rad_u, log_u, uniforms
     # Per-ray counts of each bounce batch (the stats variant), the kernel
     # alone on the sorted rows the front end hands it, and its bound.
     counts, got_s = counted(lambda: [pt.trace_packets(packed, b, stats=True)[1]
@@ -1762,7 +1796,7 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
              "build_pack_s": build_s, "depth": packed.depth,
              "per_bounce": rows, "total_rays": total, "ms": ms,
              "mrays_s": total / ms / 1e3, "launches": got,
-             "mean_radiance": float(rad.mean())}
+             "mean_radiance": float(rad.mean()), "uniforms": rec_u}
     rec_a["host_syncs"] = host_syncs(lambda: path.render_path(
         tracer, cam, mats, gen(1), **kw))
     rec_a["profile"] = profile_clip(lambda: path.render_path(

@@ -12,7 +12,13 @@ shrinks the next launch; ray counts are bucketed to powers of two) and
 optionally sorted by a Morton key of origin and direction octant to
 restore coherence.  Random draws come from a torch.Generator where
 rtk_tpu takes a JAX key; `_shade_sample` and `cosine_sample` also take
-the uniforms as given, so the same uniforms give the same image.
+the uniforms as given, so the same uniforms give the same image, and
+`render_path(uniforms=...)` takes them by ray and bounce, so that a
+path's radiance does not depend on compaction, buckets or the sort.
+
+Spans (utils/stats.py::span): `rtk.path.render` (the call),
+`rtk.path.trace` and `rtk.path.shade` (each bounce) and
+`rtk.path.compact` (the live count's host sync and the take).
 """
 from __future__ import annotations
 
@@ -25,9 +31,18 @@ import torch
 from rtk_tpu_torch.ops.morton import morton3d
 from rtk_tpu_torch.tracer import Tracer
 from rtk_tpu_torch.types import Rays, _f32
+from rtk_tpu_torch.utils.stats import span
 
 _LIVE_MAX_T = float(np.float32(3.4e38))  # a live bounce ray's max_t
 _MIN_THROUGHPUT = 1e-5  # a path below it in every channel ends
+
+# render_path in this process: PATH_TRACES traces launched, PATH_ROWS the
+# rows they launched (the sum of the batch sizes, buckets included) and
+# PATH_SYNCS host syncs (the live count of a compacted bounce).  A run
+# resets them and reads them back, as ops/packet_trace.py's launch counters.
+PATH_TRACES = 0
+PATH_ROWS = 0
+PATH_SYNCS = 0
 
 
 @dataclasses.dataclass
@@ -166,6 +181,8 @@ def render_path(
     sort_rays: bool = True,
     compact: bool = True,
     bounce_tracer: Tracer | None = None,
+    *,
+    uniforms: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Path-trace a ray batch; returns (N, 3) linear radiance on the rays'
     device.
@@ -178,46 +195,71 @@ def render_path(
     full batch with dead rays at max_t = 0).
 
     generator: a torch.Generator on the rays' device (None: torch's
-    default) in place of rtk_tpu's JAX key.
+    default) in place of rtk_tpu's JAX key; it draws one pair of uniforms
+    a slot of each bounce batch.
     bounce_tracer: optional engine for the incoherent bounce batches
     (e.g. Tracer(scene, engine="march")); primaries always go through
     `tracer`.
+    uniforms: the draws handed in, (>= bounces, N, 2) float32 on the rays'
+    device: bounce k of the path that started as ray i samples its next
+    direction from uniforms[k, i] (the generator is then not used), so
+    the radiance is the same with compact and sort_rays on or off.
     """
+    global PATH_TRACES, PATH_ROWS, PATH_SYNCS
     n = rays.count
     dev = rays.device
-    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    index = torch.arange(n, device=dev)  # slot -> original ray id
-    cur = rays
-    bg = _f32(background, dev)
-    lo = tracer.scene.bounds_min
-    hi = tracer.scene.bounds_max
+    if uniforms is not None and (
+            uniforms.dim() != 3 or uniforms.shape[0] < bounces
+            or uniforms.shape[1:] != (n, 2)
+            or uniforms.dtype != torch.float32 or uniforms.device != dev):
+        raise ValueError(
+            f"uniforms must be a float32 (>= {bounces}, {n}, 2) tensor on "
+            f"{dev}, not {uniforms.dtype} {tuple(uniforms.shape)} on "
+            f"{uniforms.device}")
+    with span("rtk.path.render"):
+        radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        index = torch.arange(n, device=dev)  # slot -> original ray id
+        cur = rays
+        bg = _f32(background, dev)
+        lo = tracer.scene.bounds_min
+        hi = tracer.scene.bounds_max
 
-    for bounce in range(bounces + 1):
-        # `coherent` is the reference engine's stepping hint for bounce
-        # batches; Tracer.closest accepts and ignores it.
-        src = tracer if (bounce == 0 or bounce_tracer is None) \
-            else bounce_tracer
-        hits = src.closest(cur, coherent=(bounce == 0))
-        last = bounce == bounces
-        out = _shade_sample(hits, cur, throughput, index, radiance,
-                            materials, generator, bg, lo, hi,
-                            epsilon=epsilon, sort_rays=sort_rays, last=last)
-        if last:
-            break
-        radiance, nxt, throughput, perm, n_alive_dev = out
-
-        if compact:
-            n_alive = int(n_alive_dev)  # one host sync per bounce
-            if n_alive == 0:
+        for bounce in range(bounces + 1):
+            # `coherent` is the reference engine's stepping hint for bounce
+            # batches; Tracer.closest accepts and ignores it.
+            src = tracer if (bounce == 0 or bounce_tracer is None) \
+                else bounce_tracer
+            with span("rtk.path.trace"):
+                hits = src.closest(cur, coherent=(bounce == 0))
+            PATH_TRACES += 1
+            PATH_ROWS += cur.count
+            last = bounce == bounces
+            u1 = u2 = None
+            if uniforms is not None and not last:
+                u1, u2 = uniforms[bounce, index].unbind(dim=1)
+            with span("rtk.path.shade"):
+                out = _shade_sample(hits, cur, throughput, index, radiance,
+                                    materials, generator, bg, lo, hi,
+                                    epsilon=epsilon, sort_rays=sort_rays,
+                                    last=last, u1=u1, u2=u2)
+            if last:
                 break
-            m = min(cur.count, _round_up_bucket(n_alive, 1024))
-            cur, throughput, index = _compact_take(
-                nxt, throughput, index, perm, m=m)
-        else:
-            cur = nxt
+            radiance, nxt, throughput, perm, n_alive_dev = out
 
-    return radiance
+            if compact:
+                with span("rtk.path.compact"):
+                    n_alive = int(n_alive_dev)  # one host sync per bounce
+                    PATH_SYNCS += 1
+                    if n_alive == 0:
+                        break
+                    m = min(cur.count, _round_up_bucket(n_alive, 1024))
+                    cur, throughput, index = _compact_take(
+                        nxt, throughput, index, perm, m=m)
+            else:
+                cur = nxt
+
+        return radiance
 
 
 def render_direct(

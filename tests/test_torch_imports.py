@@ -45,6 +45,8 @@ MODULES = [
     "rtk_tpu_torch.parallel.shard", "rtk_tpu_torch.utils.aot",
     # The batch-sizing cost model.
     "rtk_tpu_torch.utils.costmodel",
+    # The plain path tracer the render loop is held to.
+    "rtk_tpu_torch.testing.path_reference",
 ]
 
 EXAMPLES = ["torch_render_cornell", "torch_animate_deform",

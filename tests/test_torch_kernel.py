@@ -871,6 +871,43 @@ def test_render_path_runs_the_kernel(cuda, compact):
     assert torch.equal(q[:, 0] > 1, hit)  # a primary that hit went on
 
 
+def test_render_path_uniforms_on_the_card(cuda, monkeypatch):
+    """The bounce draws handed in by ray (render_path's uniforms): on the
+    card one radiance, bit for bit, with compaction (buckets from 64 rays,
+    so they drop dead rays) and the sort on or off; and the CPU's (plain
+    version) within 1e-4 on at least 99% of the paths (a bounce origin
+    that differs in the last bit may take the other side of an edge)."""
+    from rtk_tpu_torch.models import path
+
+    real = path._round_up_bucket
+    monkeypatch.setattr(path, "_round_up_bucket",
+                        lambda n, minimum: real(n, 64))
+    tris = _soup_of(scenes.blob(3)[0])
+    albedo, emission = [[0.7, 0.6, 0.5]], [[0.1, 0.1, 0.1]]
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 128,
+                              128, device="cpu")
+    u = torch.rand((3, rays.count, 2),
+                   generator=torch.Generator().manual_seed(3))
+    kw = dict(bounces=3, background=(0.2, 0.3, 0.4))
+    out = {}
+    for dev in ("cpu", cuda):
+        tracer = rtk_tpu_torch.Tracer(rtk_tpu_torch.build_scene(
+            tris, device=dev))
+        mats = path.Materials.make(albedo, emission, device=dev)
+        r = rtk_tpu_torch.Rays(*(getattr(rays, f).to(dev) for f in (
+            "origin", "direction", "min_t", "max_t")))
+        out[str(dev)] = [path.render_path(tracer, r, mats,
+                                          uniforms=u.to(dev), compact=c,
+                                          sort_rays=s, **kw)
+                         for c in (True, False) for s in (True, False)]
+    card = out[str(cuda)]
+    assert all(torch.equal(q, card[0]) for q in card[1:])
+    cpu = out["cpu"][0]
+    close = ((card[0].cpu() - cpu).abs() <= 1e-4).all(dim=1)
+    assert float(close.float().mean()) >= 0.99
+    assert float(cpu.amax()) > 0.2
+
+
 def test_render_direct_and_ao_on_the_card_equal_the_cpu(cuda, monkeypatch):
     """No random draw in render_direct: the card's image equals the
     CPU's (plain version) within 1e-5 on at least 99% of the pixels (the

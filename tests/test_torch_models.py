@@ -384,8 +384,16 @@ def test_render_ao(both):
 
 def test_render_entry_points_take_a_generator():
     """A torch.Generator stands where the reference takes its key; the
-    other parameters keep the reference's names and order."""
+    other parameters keep the reference's names and order.  render_path
+    adds one keyword-only parameter after them: `uniforms`, the draws
+    handed in by ray and bounce."""
+    extra = {"render_path": ["uniforms"]}
     for name in ("render_path", "render_direct", "render_ao"):
         want = list(inspect.signature(getattr(jpath, name)).parameters)
-        got = list(inspect.signature(getattr(tpath, name)).parameters)
-        assert got == [p if p != "key" else "generator" for p in want], name
+        params = inspect.signature(getattr(tpath, name)).parameters
+        got = list(params)
+        assert got == ([p if p != "key" else "generator" for p in want]
+                       + extra.get(name, [])), name
+        for p in extra.get(name, []):
+            assert params[p].kind is inspect.Parameter.KEYWORD_ONLY
+            assert params[p].default is None

@@ -91,8 +91,11 @@ Phases (each prints one line):
      traced), exactly, with compaction on and off; by the bounce draws
      handed in by ray (uniforms), whose radiance is bit for bit the same
      with compaction and the sort on or off, the render loop's counters
-     (traces, rows, host syncs) beside the kernel launches and batches;
-     and by the kernel
+     (traces, rows, host syncs, shade launches) beside the kernel
+     launches and batches; by the shade kernel (csrc/shade.cu) against
+     the eager plain pass on every batch of that frame, every output bit
+     for bit, each alone beside its bound and the plain pass (the eager
+     pass's shade + sort + take ms beside this smoke's); and by the kernel
      against its plain version on the whole batches that call launched
      (every bounce batch for closest, bounce 2's for any).  9b:
      render_direct (a lit pixel's shadow ray is unoccluded on the stack
@@ -311,6 +314,18 @@ UNSORT_BYTES_PER_RAY = 40
 # rows (32) written; no arithmetic.  An expanded origin (stride 0: one eye
 # read in place) takes its 12 bytes off.
 ROWS_BYTES_PER_RAY = 72
+# The shade pass's bound (csrc/shade.cu) on a bounce with the uniforms
+# handed in, bounces but the last: the record's hit flag, t and slot (9
+# bytes), the triangle (36) and its mesh (4), the ray's origin and
+# direction (24), throughput (12), path index (8), two uniforms (8) and
+# radiance (12) read; radiance (12), the next ray (32), throughput (12)
+# and key (4) written.  The last bounce reads the hit, slot, mesh,
+# throughput, index and radiance and writes the radiance.
+SHADE_BYTES_PER_RAY = 173
+SHADE_LAST_BYTES_PER_RAY = 53
+# Phase 9a's shade + sort + take a bounce when the shade pass was eager
+# (this frame, on an H100 80GB HBM3 at 700 W), beside each bounce's now.
+EAGER_SHADE_SORT_TAKE_MS = [1.481, 1.453, 1.457, 1.488, 0.158]
 
 
 def check(cond, msg):
@@ -1647,6 +1662,76 @@ class BounceLog:
                                         starts)]
 
 
+def shade_vs_plain(path, tracer, cam, mats, uniforms, bounces, background):
+    """The shade kernel (models/path.py::shade_kernel) on each batch of a
+    compacted, sorted frame with the uniforms handed in, against the eager
+    plain pass (_shade_sample, its uniforms' gather included) on the same
+    inputs: every output bit-equal; each one's ms (the kernel over 20
+    launches, the plain pass over 3, on a scratch radiance) beside the
+    kernel's bound.  -> {"per_bounce": [...], "ms", "plain_ms",
+    "bound_ms" (the bounce batches' means), "max_abs_err"}."""
+    dev = cam.device
+    n = cam.count
+    bg = torch.tensor(background, dtype=torch.float32, device=dev)
+    lo, hi = tracer.scene.bounds_min, tracer.scene.bounds_max
+    radiance = torch.zeros((n, 3), device=dev)
+    throughput = torch.ones((n, 3), device=dev)
+    index = torch.arange(n, device=dev)
+    cur = cam
+    per = []
+    for bounce in range(bounces + 1):
+        hits = tracer.closest(cur)
+        last = bounce == bounces
+        kw = dict(epsilon=1e-4, sort_rays=True, last=last)
+        draws = didx = None
+        if not last:
+            draws, didx = uniforms[bounce], index
+
+        def kernel(rad):
+            return path.shade_kernel(hits, cur, throughput, index, rad, mats,
+                                     bg, lo, hi, draws=draws,
+                                     draw_index=didx, **kw)
+
+        def plain(rad):
+            return path._shade_plain(hits, cur, throughput, index, rad, mats,
+                                     None, bg, lo, hi, uniforms=uniforms,
+                                     bounce=bounce, **kw)
+
+        scratch = radiance.clone()
+        _, k_ms = timed(lambda: kernel(scratch), reps=20)
+        _, p_ms = timed(lambda: plain(scratch), reps=3)
+        got = kernel(radiance.clone())
+        want = plain(radiance)
+        per_bytes = SHADE_LAST_BYTES_PER_RAY if last else SHADE_BYTES_PER_RAY
+        row = {"bounce": bounce, "rays": cur.count, "ms": k_ms,
+               "plain_ms": p_ms,
+               "bound_ms": per_bytes * cur.count / PEAK_BYTES * 1e3}
+        if last:
+            check(bits_equal(got, want), "9a shade: last radiance differs")
+            per.append(row)
+            break
+        radiance, nxt, throughput_w, perm, alive = want
+        same = (bits_equal(got[0], radiance)
+                and all(bits_equal(getattr(got[1], f), getattr(nxt, f))
+                        for f in ("origin", "direction", "min_t", "max_t"))
+                and bits_equal(got[2], throughput_w)
+                and torch.equal(torch.sort(got[3], stable=True).indices, perm)
+                and int(got[4]) == int(alive))
+        check(same, f"9a shade bounce {bounce}: kernel and plain differ")
+        row["live"] = int(alive)
+        per.append(row)
+        m = min(cur.count, path._round_up_bucket(int(alive), 1024))
+        cur, throughput, index = path._compact_take(nxt, throughput_w, index,
+                                                    perm, m=m)
+    mid = per[:-1]
+    return {"per_bounce": per, "max_abs_err": 0.0,
+            "ms": sum(r["ms"] for r in mid) / len(mid),
+            "plain_ms": sum(r["plain_ms"] for r in mid) / len(mid),
+            "bound_ms": sum(r["bound_ms"] for r in mid) / len(mid),
+            "frame_ms": sum(r["ms"] for r in per),
+            "frame_plain_ms": sum(r["plain_ms"] for r in per)}
+
+
 def host_syncs(run):
     """Synchronizing calls PyTorch makes on the host while run() runs."""
     import warnings
@@ -1681,17 +1766,22 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
                 "DEFER_UV_LAUNCHES", "MARCH_LAUNCHES", "ROOTS_LAUNCHES")
     launches = dict.fromkeys(counters, 0)
 
+    launches["SHADE_LAUNCHES"] = 0
+
     def counted(fn):
-        """fn() as a main-path run -> (its result, its launches)."""
+        """fn() as a main-path run -> (its result, its launches, the shade
+        kernel's (models/path.py's SHADE_LAUNCHES) among them)."""
         sync()
         for c in counters:
             setattr(pt, c, 0)
+        path.SHADE_LAUNCHES = 0
         launch_log.start(9)
         out = fn()
         sync()
         launch_log.stop()
         got = {c: getattr(pt, c) for c in counters}
-        for c in counters:
+        got["SHADE_LAUNCHES"] = path.SHADE_LAUNCHES
+        for c in got:
             launches[c] += got[c]
         return out, got
 
@@ -1728,13 +1818,17 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
 
     run_logged()  # warm-up
     (rad, log, end), got = counted(run_logged)
-    check(got["KERNEL_LAUNCHES"] == len(log.batches) == bounces + 1,
-          f"9a: {got['KERNEL_LAUNCHES']} kernel launches for "
+    check(got["KERNEL_LAUNCHES"] == len(log.batches) == bounces + 1
+          == got["SHADE_LAUNCHES"],
+          f"9a: {got['KERNEL_LAUNCHES']} kernel and "
+          f"{got['SHADE_LAUNCHES']} shade launches for "
           f"{len(log.batches)} traces")
     check(rad.shape == (n, 3) and bool(torch.isfinite(rad).all())
           and bool((rad >= 0).all()) and float(rad.max()) > 0.01,
           "9a: radiance not finite, non-negative and lit")
     rows = log.per_bounce(end)
+    for r, before in zip(rows, EAGER_SHADE_SORT_TAKE_MS):
+        r["eager_shade_sort_take_ms"] = before
     check(all(a["live"] >= b["live"] for a, b in zip(rows, rows[1:]))
           and rows[-1]["live"] < rows[0]["live"],
           "9a: the bounce batches do not shrink")
@@ -1749,8 +1843,10 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
         setattr(path, c, 0)
     (rad_u, log_u, _), got_u = counted(lambda: run_logged(uniforms=uniforms))
     path_counts = {c: getattr(path, c) for c in names}
+    path_counts["SHADE_LAUNCHES"] = got_u["SHADE_LAUNCHES"]
     check(path_counts["PATH_TRACES"] == got_u["KERNEL_LAUNCHES"]
-          == len(log_u.batches) == bounces + 1,
+          == len(log_u.batches) == bounces + 1
+          == path_counts["SHADE_LAUNCHES"],
           f"9a uniforms: {path_counts} for {got_u}")
     check(path_counts["PATH_ROWS"] == sum(b.count for b in log_u.batches)
           and path_counts["PATH_SYNCS"] == bounces,
@@ -1768,6 +1864,10 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
     rec_u = {"counters": path_counts, "launches": got_u,
              "launched": [b.count for b in log_u.batches],
              "rays_differing": differ, "mean_radiance": float(rad_u.mean())}
+    # The shade kernel alone against the eager plain pass on each batch of
+    # the same frame: every output bit for bit, ms beside the bound.
+    rec_a_shade = shade_vs_plain(path, tracer, cam, mats, uniforms, bounces,
+                                 kw["background"])
     del rad_u, log_u, uniforms
     # Per-ray counts of each bounce batch (the stats variant), the kernel
     # alone on the sorted rows the front end hands it, and its bound.
@@ -1796,7 +1896,8 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
              "build_pack_s": build_s, "depth": packed.depth,
              "per_bounce": rows, "total_rays": total, "ms": ms,
              "mrays_s": total / ms / 1e3, "launches": got,
-             "mean_radiance": float(rad.mean()), "uniforms": rec_u}
+             "mean_radiance": float(rad.mean()), "uniforms": rec_u,
+             "shade": rec_a_shade}
     rec_a["host_syncs"] = host_syncs(lambda: path.render_path(
         tracer, cam, mats, gen(1), **kw))
     rec_a["profile"] = profile_clip(lambda: path.render_path(
@@ -3479,11 +3580,29 @@ def main():
                  "gather it replaces, bit-equal; no one PyTorch call stacks "
                  "and gathers; the reference stacks inside its jitted "
                  "program in XLA, outside any Pallas kernel"}
+    # The shade pass of render_path (the reference's is an XLA fusion under
+    # jit, no Pallas kernel): ms, plain_ms and bound_ms are the means over
+    # 9a's four bounce batches that are not the last.
+    sh = p9["9a"]["shade"]
+    shade_row = {
+        "name": "shade", "route": "cuda",
+        "source": "rtk_tpu_torch/csrc/shade.cu",
+        "replaces": "rtk_tpu/models/path.py:98",
+        "launches": p9_launches["shade"], "max_abs_err": sh["max_abs_err"],
+        "ms": sh["ms"], "plain_ms": sh["plain_ms"], "bound_ms": sh["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": "9a's atrium frame, 1024^2 compacted and sorted bounce "
+                 f"batches with the uniforms handed in ({SHADE_BYTES_PER_RAY} "
+                 "bytes a ray); plain_ms: the eager pass and the uniforms' "
+                 "gather it replaces, bit-equal on every output; no one "
+                 "PyTorch call shades; the reference shades inside its "
+                 "jitted loop in XLA, outside any Pallas kernel"}
     # No PyTorch call traverses a BVH: library_ms is null for every
     # traversal entry.
     print(json.dumps({"kernels": [
         {"route": "cuda", "source": src, "library_ms": None, **k}
-        for k in kernels] + [key_row, rows_row, unsort_row, probe_row]}))
+        for k in kernels] + [key_row, rows_row, unsort_row, shade_row,
+                             probe_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,7 @@ batches, stream-compacted and re-sorted between bounces so the traversal
 kernel stays fed with coherent work.
 
 Structure: a host-driven wavefront loop.  Each bounce is a trace, then a
-shade / sample / sort pass in plain PyTorch on the rays' device; between
+shade / sample / key pass and a sort by that key; between
 bounces rays are compacted to the live prefix (dropping finished rays
 shrinks the next launch; ray counts are bucketed to powers of two) and
 optionally sorted by a Morton key of origin and direction octant to
@@ -16,12 +16,24 @@ the uniforms as given, so the same uniforms give the same image, and
 `render_path(uniforms=...)` takes them by ray and bounce, so that a
 path's radiance does not depend on compaction, buckets or the sort.
 
+The shade pass runs in
+  * `shade_kernel`: the hand-written CUDA kernel (csrc/shade.cu, one
+    thread a ray, built into the traversal's library), for CUDA tensors;
+    it reads the hit record through one row into the triangle tables (a
+    PacketHits' slot, a plain Hits' own row), so every engine's records
+    go through it;
+  * `_shade_sample`: the plain version in eager PyTorch, for CPU tensors.
+The two agree bit for bit on every output of every ray.  A CUDA tensor
+always goes to the kernel: a build or launch failure raises, it never
+falls back.
+
 Spans (utils/stats.py::span): `rtk.path.render` (the call),
 `rtk.path.trace` and `rtk.path.shade` (each bounce) and
 `rtk.path.compact` (the live count's host sync and the take).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -30,7 +42,7 @@ import torch
 
 from rtk_tpu_torch.ops.morton import morton3d
 from rtk_tpu_torch.tracer import Tracer
-from rtk_tpu_torch.types import Rays, _f32
+from rtk_tpu_torch.types import PacketHits, Rays, _f32
 from rtk_tpu_torch.utils.stats import span
 
 _LIVE_MAX_T = float(np.float32(3.4e38))  # a live bounce ray's max_t
@@ -40,9 +52,12 @@ _MIN_THROUGHPUT = 1e-5  # a path below it in every channel ends
 # rows they launched (the sum of the batch sizes, buckets included) and
 # PATH_SYNCS host syncs (the live count of a compacted bounce).  A run
 # resets them and reads them back, as ops/packet_trace.py's launch counters.
+# SHADE_LAUNCHES counts launches of the shade kernel (shade_kernel), one
+# a bounce of a render on the card.
 PATH_TRACES = 0
 PATH_ROWS = 0
 PATH_SYNCS = 0
+SHADE_LAUNCHES = 0
 
 
 @dataclasses.dataclass
@@ -165,6 +180,209 @@ def _shade_sample(hits, cur: Rays, throughput, index, radiance,
     return radiance, nxt, throughput, perm, alive.sum()
 
 
+class _View3(ctypes.Structure):
+    """csrc/shade.cu's View3: an (n, 3) f32 view with element strides."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("s0", ctypes.c_longlong),
+                ("s1", ctypes.c_longlong)]
+
+
+class ShadeArgs(ctypes.Structure):
+    """csrc/shade.cu's RtkShadeArgs, field for field."""
+
+    _fields_ = ([("n", ctypes.c_longlong), ("rows", ctypes.c_longlong)]
+                + [(f, ctypes.c_int) for f in ("packet", "last", "sort_rays",
+                                               "materials")]
+                + [(f, ctypes.c_void_p) for f in ("hit", "t", "slot", "u",
+                                                  "v", "tri_v", "tri_mesh")]
+                + [(f, _View3) for f in ("origin", "direction",
+                                         "ray_direction")]
+                + [(f, ctypes.c_void_p) for f in (
+                    "throughput", "index", "radiance", "albedo", "emission",
+                    "background", "lo", "hi", "draws")]
+                + [("ds0", ctypes.c_longlong), ("ds1", ctypes.c_longlong),
+                   ("draw_index", ctypes.c_void_p)]
+                + [(f, ctypes.c_float) for f in ("epsilon", "min_throughput",
+                                                 "live_max_t")]
+                + [(f, ctypes.c_void_p) for f in (
+                    "next_origin", "next_direction", "next_min_t",
+                    "next_max_t", "next_throughput", "key", "alive")])
+
+
+def _check(a, what, dtype, shape, dev):
+    """Raise ValueError unless `a` is on `dev` with `dtype` and `shape`
+    (None: any size)."""
+    if (a.device != dev or a.dtype != dtype or a.dim() != len(shape)
+            or any(w is not None and g != w
+                   for g, w in zip(a.shape, shape))):
+        want = tuple("*" if w is None else w for w in shape)
+        raise ValueError(f"{what} must be a {dtype} {want} tensor on {dev}, "
+                         f"not {a.dtype} {tuple(a.shape)} on {a.device}")
+
+
+def _view3(a, what, n, dev):
+    _check(a, what, torch.float32, (n, 3), dev)
+    return _View3(a.data_ptr(), *a.stride())
+
+
+def _shade_args(hits, cur: Rays, throughput, index, radiance,
+                materials: Materials, bg, lo, hi, *, epsilon, sort_rays,
+                last, draws=None, draw_index=None):
+    """Check the shade kernel's inputs (device, dtype, shape; radiance
+    contiguous, as it is written in place), allocate its outputs with
+    torch.empty on their device -> (ShadeArgs, outputs (None if last,
+    else (next rays, throughput, key, number alive)), the contiguous
+    copies the arguments point into, to be held until the launch).  The
+    arguments of shade_kernel; every other tensor they point into is the
+    caller's."""
+    dev = radiance.device
+    n = cur.count
+    keep = []
+
+    def ptr(a, what, dtype, shape):
+        _check(a, what, dtype, shape, dev)
+        keep.append(a.contiguous())
+        return keep[-1].data_ptr()
+
+    if not radiance.is_contiguous():
+        raise ValueError("radiance must be contiguous (it is updated in "
+                         "place)")
+    a = ShadeArgs(n=n, last=int(bool(last)), sort_rays=int(bool(sort_rays)),
+                  epsilon=epsilon, min_throughput=_MIN_THROUGHPUT,
+                  live_max_t=_LIVE_MAX_T)
+    a.radiance = ptr(radiance, "radiance", torch.float32, (None, 3))
+    a.hit = ptr(hits.hit, "hits.hit", torch.bool, (n,))
+    a.throughput = ptr(throughput, "throughput", torch.float32, (n, 3))
+    a.index = ptr(index, "index", torch.int64, (n,))
+    m = materials.albedo.shape[0]
+    if m < 1:
+        raise ValueError("materials must hold at least one row")
+    a.materials = m
+    a.albedo = ptr(materials.albedo, "albedo", torch.float32, (m, 3))
+    a.emission = ptr(materials.emission, "emission", torch.float32, (m, 3))
+    a.background = ptr(bg, "background", torch.float32, (3,))
+    a.lo = ptr(lo, "lo", torch.float32, (3,))
+    a.hi = ptr(hi, "hi", torch.float32, (3,))
+    if isinstance(hits, PacketHits):
+        a.packet, a.rows = 1, hits.tri_mesh.shape[0]
+        a.tri_v = ptr(hits.tri_v, "tri_v", torch.float32, (a.rows, 3, 3))
+        a.tri_mesh = ptr(hits.tri_mesh, "tri_mesh", torch.int32, (a.rows,))
+        a.slot = ptr(hits.slot, "hits.slot", torch.int32, (n,))
+        a.t = ptr(hits.t, "hits.t", torch.float32, (n,))
+        a.origin = _view3(hits.origin, "hits.origin", n, dev)
+        a.direction = _view3(hits.direction, "hits.direction", n, dev)
+    else:
+        a.packet, a.rows = 0, n
+        a.tri_v = ptr(hits.vertex_position, "hits.vertex_position",
+                      torch.float32, (n, 3, 3))
+        a.tri_mesh = ptr(hits.mesh_index, "hits.mesh_index", torch.int32,
+                         (n,))
+        a.u = ptr(hits.u, "hits.u", torch.float32, (n,))
+        a.v = ptr(hits.v, "hits.v", torch.float32, (n,))
+    if last:
+        return a, None, keep
+    a.ray_direction = _view3(cur.direction, "rays.direction", n, dev)
+    if draws is None or draws.dim() != 2 or draws.shape[1] != 2:
+        raise ValueError("draws must be a (*, 2) tensor: u1, u2 a row")
+    rows = n if draw_index is None else radiance.shape[0]
+    _check(draws, "draws", torch.float32, (rows, 2), dev)
+    a.draws, a.ds0, a.ds1 = draws.data_ptr(), *draws.stride()
+    if draw_index is not None:
+        a.draw_index = ptr(draw_index, "draw_index", torch.int64, (n,))
+    f32 = dict(dtype=torch.float32, device=dev)
+    nxt = Rays(origin=torch.empty((n, 3), **f32),
+               direction=torch.empty((n, 3), **f32),
+               min_t=torch.empty((n,), **f32), max_t=torch.empty((n,), **f32))
+    tp = torch.empty((n, 3), **f32)
+    key = torch.empty((n,), dtype=torch.int32, device=dev)
+    alive = torch.empty((), dtype=torch.int64, device=dev)
+    a.next_origin, a.next_direction = (nxt.origin.data_ptr(),
+                                       nxt.direction.data_ptr())
+    a.next_min_t, a.next_max_t = nxt.min_t.data_ptr(), nxt.max_t.data_ptr()
+    a.next_throughput, a.key, a.alive = (tp.data_ptr(), key.data_ptr(),
+                                         alive.data_ptr())
+    return a, (nxt, tp, key, alive), keep
+
+
+def _shade_call(lib, args: ShadeArgs, stream) -> int:
+    """rtk_shade of prepared arguments -> its error code."""
+    return lib.rtk_shade(ctypes.addressof(args), stream)
+
+
+def shade_kernel(hits, cur: Rays, throughput, index, radiance,
+                 materials: Materials, bg, lo, hi, *, epsilon, sort_rays,
+                 last, draws=None, draw_index=None):
+    """One bounce's shade pass on the card: one launch of the library's
+    rtk_shade (csrc/shade.cu), equal bit for bit to _shade_sample's
+    radiance, next rays, throughput and live count, and to the order key
+    its sort permutation sorts.
+
+    hits: the bounce's PacketHits or plain Hits; cur: the rays it traced;
+    throughput (N, 3), index (N,) int64 (distinct paths, rows of
+    radiance), radiance (paths, 3), updated in place; bg, lo, hi (3,).
+    draws: the two uniforms a row, (N, 2) read by slot (draw_index None)
+    or (paths, 2) read at draw_index (N,) int64 (the uniforms handed in by
+    ray); unused on the last bounce.  -> radiance if last, else
+    (radiance, next rays, throughput, order key (N,) int32, number alive
+    (a 0-d int64 tensor)).  Raises if the tensors are not on one card, of
+    the wrong dtype or shape, or the launch fails."""
+    global SHADE_LAUNCHES
+    if not radiance.is_cuda:
+        raise ValueError("shade_kernel takes CUDA tensors; the plain "
+                         "version is _shade_sample")
+    args, out, keep = _shade_args(
+        hits, cur, throughput, index, radiance, materials, bg, lo, hi,
+        epsilon=epsilon, sort_rays=sort_rays, last=last, draws=draws,
+        draw_index=draw_index)
+    from rtk_tpu_torch.ops.packet_trace import load_kernel
+
+    lib = load_kernel()
+    with torch.cuda.device(radiance.device):
+        stream = torch.cuda.current_stream(radiance.device).cuda_stream
+        err = _shade_call(lib, args, stream)
+    del keep
+    if err != 0:
+        raise RuntimeError(f"shade launch failed: CUDA error {err}")
+    SHADE_LAUNCHES += 1
+    return radiance if last else (radiance, *out)
+
+
+def _shade_plain(hits, cur: Rays, throughput, index, radiance,
+                 materials: Materials, generator, bg, lo, hi, *, epsilon,
+                 sort_rays, last, uniforms, bounce):
+    """render_path's shade step through the plain pass (CPU tensors): the
+    uniforms handed in gathered by path, then _shade_sample."""
+    u1 = u2 = None
+    if uniforms is not None and not last:
+        u1, u2 = uniforms[bounce, index].unbind(dim=1)
+    return _shade_sample(hits, cur, throughput, index, radiance, materials,
+                         generator, bg, lo, hi, epsilon=epsilon,
+                         sort_rays=sort_rays, last=last, u1=u1, u2=u2)
+
+
+def _shade_card(hits, cur: Rays, throughput, index, radiance,
+                materials: Materials, generator, bg, lo, hi, *, epsilon,
+                sort_rays, last, uniforms, bounce):
+    """render_path's shade step through the kernel (CUDA tensors), with
+    _shade_plain's results: the kernel reads the uniforms handed in at
+    uniforms[bounce, index], or the generator's (2, N) draw, made first as
+    cosine_sample makes it; then the sort of its key."""
+    draws = draw_index = None
+    if not last and uniforms is not None:
+        draws, draw_index = uniforms[bounce], index
+    elif not last:
+        draws = torch.rand((2, cur.count), generator=generator,
+                           device=radiance.device, dtype=torch.float32).T
+    out = shade_kernel(hits, cur, throughput, index, radiance, materials, bg,
+                       lo, hi, epsilon=epsilon, sort_rays=sort_rays,
+                       last=last, draws=draws, draw_index=draw_index)
+    if last:
+        return out
+    radiance, nxt, throughput, key, n_alive = out
+    return (radiance, nxt, throughput, torch.sort(key, stable=True).indices,
+            n_alive)
+
+
 def _compact_take(cur: Rays, throughput, index, perm, *, m):
     sel = perm[:m]
     return cur[sel], throughput[sel], index[sel]
@@ -224,6 +442,7 @@ def render_path(
         bg = _f32(background, dev)
         lo = tracer.scene.bounds_min
         hi = tracer.scene.bounds_max
+        shade = _shade_card if dev.type == "cuda" else _shade_plain
 
         for bounce in range(bounces + 1):
             # `coherent` is the reference engine's stepping hint for bounce
@@ -235,14 +454,11 @@ def render_path(
             PATH_TRACES += 1
             PATH_ROWS += cur.count
             last = bounce == bounces
-            u1 = u2 = None
-            if uniforms is not None and not last:
-                u1, u2 = uniforms[bounce, index].unbind(dim=1)
             with span("rtk.path.shade"):
-                out = _shade_sample(hits, cur, throughput, index, radiance,
-                                    materials, generator, bg, lo, hi,
-                                    epsilon=epsilon, sort_rays=sort_rays,
-                                    last=last, u1=u1, u2=u2)
+                out = shade(hits, cur, throughput, index, radiance,
+                            materials, generator, bg, lo, hi,
+                            epsilon=epsilon, sort_rays=sort_rays, last=last,
+                            uniforms=uniforms, bounce=bounce)
             if last:
                 break
             radiance, nxt, throughput, perm, n_alive_dev = out

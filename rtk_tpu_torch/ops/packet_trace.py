@@ -126,7 +126,10 @@ KERNEL_SRC = CSRC / "packet_trace.cu"
 KEY_SRC = CSRC / "coherence_key.cu"
 ROWS_SRC = CSRC / "ray_rows.cu"
 UNSORT_SRC = CSRC / "unsort.cu"
-LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC]
+# render_path's shade pass (models/path.py::shade_kernel), in the same
+# library so that one build and one load serve the whole render loop.
+SHADE_SRC = CSRC / "shade.cu"
+LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC, SHADE_SRC]
 FILTER_OPS = CSRC / "filter_ops.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -152,9 +155,10 @@ def kernel_library(flt: JitFilter | None = None):
     """Build the kernel library for `flt` (None: the build without a
     filter) if it is not built yet, keyed on the hash of its sources ->
     (path of the .so, compiler output; empty when it was built already).
-    Every build holds the traversal, the coherence key, the rows pass and
-    the unsort (LIBRARY_SRCS), so that a caller with one loaded library
-    (utils/aot.py's artifacts) has the whole sorted front end.
+    Every build holds the traversal, the coherence key, the rows pass,
+    the unsort and render_path's shade pass (LIBRARY_SRCS), so that a
+    caller with one loaded library (utils/aot.py's artifacts) has the
+    whole sorted front end.
     Needs nvcc, not a card."""
     if flt is None:
         return build_shared("packet_trace", LIBRARY_SRCS,
@@ -190,6 +194,8 @@ def bind_library(path, march: bool):
                                  + [ptr, i64] * 2 + [ptr] * 2)
     lib.rtk_unsort.restype = i32
     lib.rtk_unsort.argtypes = [ptr, i64] + [ptr] * 11
+    lib.rtk_shade.restype = i32
+    lib.rtk_shade.argtypes = [ptr, ptr]
     if march:
         lib.rtk_packet_march.restype = i32
         lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9

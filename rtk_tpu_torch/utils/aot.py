@@ -57,9 +57,10 @@ from rtk_tpu_torch.utils.build import BUILD_DIR
 
 # Artifact version: bump when the flat call signature or the entry points
 # of the embedded library change.  2: the library holds rtk_ray_rows, which
-# a version-1 library lacks, so such an artifact is refused before the
-# loader binds it.
-AOT_VERSION = 2
+# a version-1 library lacks; 3: it holds rtk_shade (render_path's shade
+# pass), which a version-2 library lacks.  An artifact of another version
+# is refused before the loader binds it.
+AOT_VERSION = 3
 KIND_TRACE = 16  # container kinds of this module (serialize.py has 0-2)
 KIND_REFIT = 17
 PLATFORMS = ("cpu", "cuda")

@@ -198,11 +198,15 @@ def test_aot_refuses_foreign_blobs():
         aot.load_packet_trace(bytes(future))
 
 
-@pytest.mark.parametrize("load", ["trace", "refit"])
-def test_aot_refuses_a_version_1_artifact(load):
+@pytest.mark.parametrize(
+    "load,old_version", [("trace", 1), ("refit", 1), ("trace", 2),
+                         ("refit", 2)],
+    ids=["trace", "refit", "trace-v2", "refit-v2"])
+def test_aot_refuses_a_version_1_artifact(load, old_version):
     """An artifact stamped with version 1 (exported before the library
-    held the rows pass, rtk_ray_rows) is refused by the version check
-    before its library is bound, with the loader's own error."""
+    held the rows pass, rtk_ray_rows) or version 2 (before it held the
+    shade pass, rtk_shade) is refused by the version check before its
+    library is bound, with the loader's own error."""
     scene = rt.build_from_soup(scenes.cornell_box(),
                                config=rt.BuildConfig(leaf_size=8), device=CPU)
     packed = pack_scene(scene)
@@ -210,11 +214,12 @@ def test_aot_refuses_a_version_1_artifact(load):
                      aot.load_packet_trace) if load == "trace" else
                     (aot.export_refit_trace(packed, scene, 64),
                      aot.load_refit_trace))
-    assert aot.AOT_VERSION == 2
+    assert aot.AOT_VERSION == 3
     old = bytearray(blob)
     # meta ints start at byte 32: (AOT_VERSION, n_rays)
-    struct.pack_into("<q", old, 32, 1)
-    with pytest.raises(ValueError, match="unsupported artifact version 1"):
+    struct.pack_into("<q", old, 32, old_version)
+    with pytest.raises(ValueError,
+                       match=f"unsupported artifact version {old_version}"):
         loader(bytes(old))
 
 

@@ -1254,3 +1254,189 @@ def test_sorted_call_spans_on_the_card(cuda):
     assert [e.name[len(steps):] for e in prof.events()
             if e.name.startswith(steps)] == [
         "key", "sort", "rows", "launch", "unsort", "wrap"]
+
+
+# ---- render_path's shade pass (csrc/shade.cu) ----
+
+# The atrium as the path cell renders it: floor, ceiling (the light), 64
+# columns and 4 walls as four meshes, a 1024^2 Morton camera.
+ATRIUM_PARTS = (32768, 32768, 64 * 5120, 4 * 4096)
+ATRIUM_CAM = dict(eye=(0, 6, 9), look_at=(0, 2, 0), up=(0, 1, 0),
+                  fov_deg=60)
+PATH_ALBEDO = [[0.7, 0.7, 0.7], [0.0, 0.0, 0.0], [0.6, 0.3, 0.3],
+               [0.7, 0.7, 0.7]]
+PATH_EMISSION = [[0, 0, 0], [4.0, 4.0, 4.0], [0, 0, 0], [0, 0, 0]]
+PATH_BG = (0.2, 0.3, 0.4)
+
+
+@pytest.fixture(scope="module")
+def atrium_path():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from rtk_tpu_torch.models import path
+
+    dev = torch.device("cuda")
+    atr = scenes.atrium()
+    cuts = np.cumsum((0,) + ATRIUM_PARTS)
+    scene = rtk_tpu_torch.build_scene(
+        [_soup_of(atr[a:b]) for a, b in zip(cuts[:-1], cuts[1:])],
+        rtk_tpu_torch.BuildConfig(leaf_size=16), device=dev)
+    cam = scenes.camera_rays(**ATRIUM_CAM, width=1024, height=1024,
+                             order="morton", device=dev)
+    return dict(tracer=rtk_tpu_torch.Tracer(scene), cam=cam,
+                mats=path.Materials.make(PATH_ALBEDO, PATH_EMISSION,
+                                         device=dev),
+                bg=torch.tensor(PATH_BG, device=dev),
+                lo=scene.bounds_min, hi=scene.bounds_max,
+                uniforms=torch.rand((4, cam.count, 2), device=dev,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(5)))
+
+
+def _bits(a):
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+@pytest.mark.parametrize("handed", [True, False])
+@pytest.mark.parametrize("sort_rays", [True, False])
+def test_shade_kernel_equals_plain_on_the_atrium(atrium_path, sort_rays,
+                                                 handed):
+    """The shade kernel against the eager plain pass on the card, on the
+    primaries and all four bounce batches of a compacted 1024^2 atrium
+    frame: the radiance, every field of the next rays, the throughput and
+    the live count bit for bit, and its key sorts to the plain pass's
+    permutation; dead rays and misses included.  Draws handed in by path,
+    or a generator's (2, N) draw read by slot."""
+    from rtk_tpu_torch.models import path
+
+    a = atrium_path
+    n = a["cam"].count
+    dev = a["cam"].device
+    g = torch.Generator(device=dev).manual_seed(1)
+    radiance = torch.zeros((n, 3), device=dev)
+    throughput = torch.ones((n, 3), device=dev)
+    index = torch.arange(n, device=dev)
+    cur = a["cam"]
+    kw = dict(epsilon=1e-4, sort_rays=sort_rays)
+    for bounce in range(5):
+        hits = a["tracer"].closest(cur)
+        last = bounce == 4
+        draws = draw_index = u1 = u2 = None
+        if handed and not last:
+            draws, draw_index = a["uniforms"][bounce], index
+            u1, u2 = a["uniforms"][bounce, index].unbind(dim=1)
+        elif not last:
+            u = torch.rand((2, cur.count), generator=g, device=dev)
+            draws, u1, u2 = u.T, u[0], u[1]
+        before = path.SHADE_LAUNCHES
+        got = path.shade_kernel(hits, cur, throughput, index,
+                                radiance.clone(), a["mats"], a["bg"],
+                                a["lo"], a["hi"], last=last, draws=draws,
+                                draw_index=draw_index, **kw)
+        assert path.SHADE_LAUNCHES == before + 1
+        want = path._shade_sample(hits, cur, throughput, index, radiance,
+                                  a["mats"], None, a["bg"], a["lo"],
+                                  a["hi"], last=last, u1=u1, u2=u2, **kw)
+        if last:
+            assert torch.equal(_bits(got), _bits(want))
+            break
+        for g_, w_, what in zip(got, want, ("radiance", "rays",
+                                            "throughput", "order",
+                                            "alive")):
+            if what == "rays":
+                for f in ("origin", "direction", "min_t", "max_t"):
+                    assert torch.equal(_bits(getattr(g_, f)),
+                                       _bits(getattr(w_, f))), (bounce, f)
+            elif what == "order":
+                assert torch.equal(torch.sort(g_, stable=True).indices, w_)
+            else:
+                assert torch.equal(_bits(g_), _bits(w_)), (bounce, what)
+        _, nxt, throughput, perm, alive = want
+        assert 0 < int(alive) < cur.count
+        m = min(cur.count, path._round_up_bucket(int(alive), 1024))
+        cur, throughput, index = path._compact_take(nxt, throughput, index,
+                                                    perm, m=m)
+
+
+def test_render_path_through_the_shade_kernel(atrium_path, monkeypatch):
+    """render_path with the uniforms handed in: the frame through the
+    kernel equals the frame through the plain pass bit for bit; the
+    kernel launches once a bounce (5 a frame) beside the loop's counters
+    (5 traces of 1,048,576 rows, 4 host syncs)."""
+    from rtk_tpu_torch.models import path
+
+    a = atrium_path
+    kw = dict(bounces=4, background=PATH_BG, uniforms=a["uniforms"])
+    for c in ("SHADE_LAUNCHES", "PATH_TRACES", "PATH_ROWS", "PATH_SYNCS"):
+        monkeypatch.setattr(path, c, 0)
+    got = path.render_path(a["tracer"], a["cam"], a["mats"], **kw)
+    torch.cuda.synchronize()
+    assert (path.SHADE_LAUNCHES, path.PATH_TRACES, path.PATH_ROWS,
+            path.PATH_SYNCS) == (5, 5, 5 * a["cam"].count, 4)
+    monkeypatch.setattr(path, "_shade_card", path._shade_plain)
+    want = path.render_path(a["tracer"], a["cam"], a["mats"], **kw)
+    assert path.SHADE_LAUNCHES == 5
+    assert torch.equal(_bits(got), _bits(want))
+    assert float(got.amax()) > 1.0
+
+
+@pytest.mark.parametrize("handed", [True, False])
+def test_render_path_stackless_bounces_through_the_kernel(cuda, monkeypatch,
+                                                          handed):
+    """A stackless bounce_tracer gives plain Hits records (no slot): the
+    kernel reads their own vertex positions, mesh indices and
+    barycentrics, and the frame equals the plain pass's bit for bit."""
+    from rtk_tpu_torch.models import path
+
+    scene = rtk_tpu_torch.build_scene(_soup_of(scenes.cornell_box()),
+                                      device=cuda)
+    tracer = rtk_tpu_torch.Tracer(scene)
+    records = []
+
+    class Stackless(rtk_tpu_torch.Tracer):
+        def closest(self, rays, **kw):
+            hits = super().closest(rays, **kw)
+            records.append(type(hits))
+            return hits
+
+    bounce_tracer = Stackless(scene, engine="stackless")
+    rays = scenes.cornell_camera(64, 64, device=cuda)  # a closed box
+    mats = path.Materials.make([[0.7, 0.6, 0.5]], [[0.1, 0.1, 0.1]],
+                               device=cuda)
+    kw = dict(bounces=3, background=PATH_BG)
+    if handed:
+        kw["uniforms"] = torch.rand((3, rays.count, 2), device=cuda)
+
+    def frame():
+        g = torch.Generator(device=cuda).manual_seed(2)
+        return path.render_path(tracer, rays, mats, g,
+                                bounce_tracer=bounce_tracer, **kw)
+
+    monkeypatch.setattr(path, "SHADE_LAUNCHES", 0)
+    got = frame()
+    assert path.SHADE_LAUNCHES == 4
+    assert records == [rtk_tpu_torch.Hits] * 3
+    monkeypatch.setattr(path, "_shade_card", path._shade_plain)
+    want = frame()
+    assert torch.equal(_bits(got), _bits(want))
+    assert float(got.amax()) > 0.2
+
+
+def test_shade_kernel_refuses_a_cpu_tensor(atrium_path):
+    """On CUDA tensors the wrapper launches or raises: a CPU tensor among
+    the card's is refused before any launch."""
+    from rtk_tpu_torch.models import path
+
+    a = atrium_path
+    cam = a["cam"][:4096]
+    hits = a["tracer"].closest(cam)
+    n = cam.count
+    dev = cam.device
+    before = path.SHADE_LAUNCHES
+    with pytest.raises(ValueError, match="cpu"):
+        path.shade_kernel(hits, cam, torch.ones((n, 3)),
+                          torch.arange(n, device=dev),
+                          torch.zeros((n, 3), device=dev), a["mats"],
+                          a["bg"], a["lo"], a["hi"], epsilon=1e-4,
+                          sort_rays=True, last=True)
+    assert path.SHADE_LAUNCHES == before

@@ -6,9 +6,9 @@ the CPU (its single-instruction NaN min/max take their plain C++ form
 off the card): every instantiation (8- and 16-wide tables, the grid march
 and a filter build) in every mode equals the plain PyTorch version bit for
 bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
-csrc/dispatch_probe.cu, csrc/coherence_key.cu, csrc/ray_rows.cu and
-csrc/unsort.cu are built the same way and held bit for bit against their
-plain versions.  This checks
+csrc/dispatch_probe.cu, csrc/coherence_key.cu, csrc/ray_rows.cu,
+csrc/unsort.cu and csrc/shade.cu are built the same way and held bit for
+bit against their plain versions.  This checks
 the kernels' logic and arithmetic; that nvcc builds them for sm_90a, and the
 card's results, are tests/test_torch_kernel.py's."""
 import ctypes
@@ -89,6 +89,7 @@ static inline unsigned __float_as_uint(float f) {
   memcpy(&u, &f, 4);
   return u;
 }
+static inline float __fsqrt_rn(float x) { return sqrtf(x); }
 static inline int cudaGetLastError() { return 0; }
 static inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   memset(p, v, n);
@@ -544,9 +545,8 @@ KEY_REDUCE = "constexpr int KEY_REDUCE_BLOCKS = 1024;"
 
 
 def front_host_source(src, launches, reduce_blocks=None):
-    """csrc/coherence_key.cu, csrc/ray_rows.cu or csrc/unsort.cu for a host
-    build behind
-    CUDA_SHIM: each of its `launches` launches runs as a loop over the
+    """csrc/coherence_key.cu, csrc/ray_rows.cu, csrc/unsort.cu or
+    csrc/shade.cu for a host build behind CUDA_SHIM: each of its `launches` launches runs as a loop over the
     threads in turn; reduce_blocks: the key's bounds kernels' grid cap, to
     make a small batch take several turns of their grid-stride loops."""
     text = src.read_text()
@@ -562,8 +562,8 @@ def front_host_source(src, launches, reduce_blocks=None):
 
 def host_library(tmp, name, reduce_blocks=None):
     """The library kernel_library builds (the traversal without a filter,
-    the coherence key, the rows pass and the unsort in one .so), built for
-    the host -> its path."""
+    the coherence key, the rows pass, the unsort and render_path's shade
+    pass in one .so), built for the host -> its path."""
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     sources = {
         "trace": pt.KERNEL_SRC.read_text()
@@ -571,7 +571,8 @@ def host_library(tmp, name, reduce_blocks=None):
         .replace(LAUNCH, HOST_LAUNCH),
         "key": front_host_source(pt.KEY_SRC, 3, reduce_blocks),
         "rows": front_host_source(pt.ROWS_SRC, 1),
-        "unsort": front_host_source(pt.UNSORT_SRC, 1)}
+        "unsort": front_host_source(pt.UNSORT_SRC, 1),
+        "shade": front_host_source(pt.SHADE_SRC, 1)}
     for part, text in sources.items():
         (tmp / f"{name}_{part}.cpp").write_text(text)
     so = tmp / f"lib{name}.so"
@@ -808,3 +809,288 @@ def test_ray_rows_kernel_takes_cuda_tensors():
     with pytest.raises(ValueError, match=r"\(N,\)"):
         pt.ray_rows_kernel(o, d, mn[:4], mx)
     assert pt.ROWS_LAUNCHES == before
+
+
+# ---- csrc/shade.cu: render_path's shade pass ----
+
+# The host build's sqrtf, cosf and sinf are torch's own on the CPU (its
+# vectorised functions, which differ from libm's in the last bit for a
+# few values), handed in as ctypes callbacks: on the card the kernel and
+# torch call the same CUDA functions, and here the same torch ones, so the
+# rest of the kernel's arithmetic is held bit for bit.  The norm's root is
+# __fsqrt_rn, correctly rounded, as torch's norm takes it on both devices.
+TORCH_MATH = r"""
+typedef float (*rtk_unary_f)(float);
+extern "C" { rtk_unary_f rtk_host_sqrtf, rtk_host_cosf, rtk_host_sinf; }
+#define sqrtf(x) rtk_host_sqrtf(x)
+#define cosf(x) rtk_host_cosf(x)
+#define sinf(x) rtk_host_sinf(x)
+"""
+UNARY = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
+
+
+@pytest.fixture(scope="module")
+def shade_lib(tmp_path_factory):
+    """csrc/shade.cu built for the host (its launch a loop over the
+    threads) with torch's CPU sqrt, cos and sin."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    tmp = tmp_path_factory.mktemp("shade_host")
+    (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
+    cpp = tmp / "shade.cpp"
+    cpp.write_text(front_host_source(pt.SHADE_SRC, 1).replace(
+        '#include "cuda_shim.h"', '#include "cuda_shim.h"\n' + TORCH_MATH))
+    so = tmp / "libshade.so"
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",
+                    "-ffp-contract=off", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", f"-I{tmp}", str(cpp), "-o",
+                    str(so)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.rtk_shade.restype = ctypes.c_int
+    lib.rtk_shade.argtypes = [ctypes.c_void_p] * 2
+    hooks = {name: UNARY(lambda x, f=f: float(f(torch.tensor(
+        [x], dtype=torch.float32))[0]))
+        for name, f in (("sqrtf", torch.sqrt), ("cosf", torch.cos),
+                        ("sinf", torch.sin))}
+    for name, hook in hooks.items():
+        ctypes.c_void_p.in_dll(lib, f"rtk_host_{name}").value = ctypes.cast(
+            hook, ctypes.c_void_p).value
+    lib.hooks = hooks  # the callbacks live as long as the library
+    return lib
+
+
+SHADE_SIDE = 32
+# Three materials for the hall's four meshes (the walls' index is past
+# them and clamps to the last); the second's albedo ends every path that
+# hits the ceiling by the throughput floor.
+SHADE_ALBEDO = [[0.7, 0.7, 0.7], [1e-6, 1e-6, 1e-6], [0.6, 0.3, 0.3]]
+SHADE_EMISSION = [[0, 0, 0], [4.0, 4.0, 4.0], [0.1, 0.2, 0.3]]
+
+
+@pytest.fixture(scope="module")
+def shade_scene():
+    """The lit hall of tests/test_torch_path.py (open on two sides, so
+    rays miss), its materials, and 32^2 camera rays."""
+    from test_torch_path import _hall
+
+    parts = [p.astype(np.float32) for p in _hall()]
+    scene = rt.build_scene([(p.reshape(-1, 3),
+                             np.arange(3 * len(p)).reshape(-1, 3))
+                            for p in parts], device=CPU)
+    from rtk_tpu_torch.models import path
+
+    return dict(scene=scene, tracer=rt.Tracer(scene),
+                stackless=rt.Tracer(scene, engine="stackless"),
+                mats=path.Materials.make(SHADE_ALBEDO, SHADE_EMISSION,
+                                         device=CPU),
+                bg=torch.tensor([0.2, 0.3, 0.4]),
+                rays=scenes.camera_rays((0.3, 1.4, 1.8), (0, 1.0, 0),
+                                        (0, 1, 0), 75, SHADE_SIDE,
+                                        SHADE_SIDE, order="morton",
+                                        device=CPU))
+
+
+def shade_batch(sc, bounce, seed):
+    """A bounce batch of the hall -> (rays, throughput, index, radiance,
+    uniforms by path): bounce 0 the camera's rays; bounce 1 the next rays
+    of bounce 0 through the plain pass (dead rays among them).  Seeded
+    throughputs (every seventh under the floor once the albedo is taken),
+    a permutation of the paths (more paths than rays) and radiance."""
+    from rtk_tpu_torch.models import path
+
+    g = torch.Generator().manual_seed(seed)
+    n = sc["rays"].count
+    paths = n + 77
+    cur = sc["rays"]
+    if bounce:
+        prev = shade_batch(sc, 0, seed + 1)
+        hits = sc["tracer"].closest(prev[0])
+        u = prev[4][prev[2]]
+        cur = path._shade_sample(
+            hits, prev[0], prev[1], prev[2], prev[3].clone(), sc["mats"],
+            None, sc["bg"], sc["scene"].bounds_min, sc["scene"].bounds_max,
+            epsilon=1e-4, sort_rays=True, last=False, u1=u[:, 0],
+            u2=u[:, 1])[1]
+    throughput = torch.rand((n, 3), generator=g)
+    throughput[::7] *= 1e-4
+    return (cur, throughput, torch.randperm(paths, generator=g)[:n],
+            torch.rand((paths, 3), generator=g),
+            torch.rand((paths, 2), generator=g))
+
+
+def host_shade(lib, hits, cur, throughput, index, radiance, sc, *,
+               sort_rays, last, draws=None, draw_index=None):
+    """The host build's pass through the wrapper's own checks and call
+    (_shade_args, _shade_call) -> radiance if last, else (radiance, next
+    rays, throughput, key, number alive); the outputs are filled with NaN
+    (keys with -1) first."""
+    from rtk_tpu_torch.models import path
+
+    args, out, keep = path._shade_args(
+        hits, cur, throughput, index, radiance, sc["mats"], sc["bg"],
+        sc["scene"].bounds_min, sc["scene"].bounds_max, epsilon=1e-4,
+        sort_rays=sort_rays, last=last, draws=draws, draw_index=draw_index)
+    if out is not None:
+        nxt, tp, key, alive = out
+        for a in (nxt.origin, nxt.direction, nxt.min_t, nxt.max_t, tp):
+            a.fill_(float("nan"))
+        key.fill_(-1)
+        alive.fill_(-5)  # the entry point zeroes it
+    assert path._shade_call(lib, args, None) == 0
+    del keep
+    return radiance if last else (radiance, *out)
+
+
+def assert_shade_equal(got, want, sc, sort_rays):
+    """Every output of the kernel equals the plain pass's bit for bit: the
+    radiance, the next rays, the throughput and the live count, the sort
+    permutation of its key, and the key itself, made again from the plain
+    pass's next rays with models/path.py's own _ray_sort_key."""
+    from rtk_tpu_torch.models import path
+
+    radiance, nxt, tp, key, alive = got
+    w_rad, w_nxt, w_tp, w_perm, w_alive = want
+    assert same_bits(radiance, w_rad), "radiance"
+    for f in ("origin", "direction", "min_t", "max_t"):
+        assert same_bits(getattr(nxt, f), getattr(w_nxt, f)), f
+    assert same_bits(tp, w_tp), "throughput"
+    assert int(alive) == int(w_alive)
+    assert torch.equal(torch.sort(key, stable=True).indices, w_perm)
+    dead = (w_nxt.max_t == 0).to(torch.int32)
+    if sort_rays:
+        dead = (dead << 28) | (path._ray_sort_key(
+            w_nxt, sc["scene"].bounds_min, sc["scene"].bounds_max) >> 4)
+    assert torch.equal(key, dead)
+
+
+@pytest.mark.parametrize("handed", [False, True])
+@pytest.mark.parametrize("sort_rays", [True, False])
+@pytest.mark.parametrize("record", ["packet", "plain"])
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_host_shade_equals_plain(shade_lib, shade_scene, bounce, record,
+                                 sort_rays, handed):
+    """csrc/shade.cu built for the host equals models/path.py's plain
+    _shade_sample bit for bit on a 32^2 bounce batch of the hall (misses
+    through the open sides, rays dead by the throughput floor, a mesh
+    past the material count), on a PacketHits record and on the stackless
+    engine's plain Hits, with the sort on and off, and with a generator's
+    (2, N) draw read by slot or the uniforms handed in read by path."""
+    from rtk_tpu_torch.models import path
+
+    sc = shade_scene
+    cur, tp, index, radiance, uniforms = shade_batch(sc, bounce, 40 + bounce)
+    hits = sc["tracer" if record == "packet" else "stackless"].closest(cur)
+    assert isinstance(hits, rt.PacketHits) == (record == "packet")
+    hit = hits.hit
+    assert 0 < int(hit.sum()) < cur.count
+    if handed:
+        draws, draw_index = uniforms, index
+        u = uniforms[index]
+    else:
+        u = torch.rand((2, cur.count),
+                       generator=torch.Generator().manual_seed(9)).T
+        draws, draw_index = u, None
+        assert draws.stride() == (1, cur.count)
+    kept = (tp.clone(), index.clone(), draws.clone())
+    want = path._shade_sample(
+        hits, cur, tp, index, radiance.clone(), sc["mats"], None, sc["bg"],
+        sc["scene"].bounds_min, sc["scene"].bounds_max, epsilon=1e-4,
+        sort_rays=sort_rays, last=False, u1=u[:, 0], u2=u[:, 1])
+    got = host_shade(shade_lib, hits, cur, tp, index, radiance, sc,
+                     sort_rays=sort_rays, last=False, draws=draws,
+                     draw_index=draw_index)
+    assert_shade_equal(got, want, sc, sort_rays)
+    assert got[0] is radiance  # updated in place
+    dead = got[1].max_t == 0
+    assert bool(dead[~hit].all()) and bool(dead[hit].any())
+    assert all(torch.equal(a, b) for a, b in zip((tp, index, draws), kept))
+
+
+@pytest.mark.parametrize("record", ["packet", "plain"])
+def test_host_shade_last_bounce(shade_lib, shade_scene, record):
+    """The last bounce adds the emission or the sky to the radiance and
+    writes nothing else: no draws are read."""
+    from rtk_tpu_torch.models import path
+
+    sc = shade_scene
+    cur, tp, index, radiance, _ = shade_batch(sc, 1, 3)
+    hits = sc["tracer" if record == "packet" else "stackless"].closest(cur)
+    want = path._shade_sample(
+        hits, cur, tp, index, radiance.clone(), sc["mats"], None, sc["bg"],
+        sc["scene"].bounds_min, sc["scene"].bounds_max, epsilon=1e-4,
+        sort_rays=True, last=True)
+    got = host_shade(shade_lib, hits, cur, tp, index, radiance, sc,
+                     sort_rays=True, last=True)
+    assert got is radiance and same_bits(got, want)
+
+
+def test_host_shade_strides(shade_lib, shade_scene):
+    """The pass reads the rays and the record's rays through their
+    element strides: a camera's expanded origin (row stride 0) and a
+    direction that is a transposed view give the results of contiguous
+    copies, and the plain pass's."""
+    from rtk_tpu_torch.models import path
+
+    sc = shade_scene
+    _, tp, index, radiance, uniforms = shade_batch(sc, 0, 8)
+    r = sc["rays"]
+    cur = rt.Rays(r.origin[:1].expand(r.count, 3),
+                  r.direction.T.contiguous().T, r.min_t, r.max_t)
+    assert cur.origin.stride() == (0, 1)
+    assert cur.direction.stride() == (1, r.count)
+    flat = rt.Rays(*(a.contiguous() for a in (cur.origin, cur.direction,
+                                              cur.min_t, cur.max_t)))
+    u = uniforms[index]
+    want = path._shade_sample(
+        sc["tracer"].closest(flat), flat, tp, index, radiance.clone(),
+        sc["mats"], None, sc["bg"], sc["scene"].bounds_min,
+        sc["scene"].bounds_max, epsilon=1e-4, sort_rays=True, last=False,
+        u1=u[:, 0], u2=u[:, 1])
+    hits = sc["tracer"].closest(cur)
+    assert hits.origin.stride() == (0, 1)
+    got = host_shade(shade_lib, hits, cur, tp, index, radiance, sc,
+                     sort_rays=True, last=False, draws=uniforms,
+                     draw_index=index)
+    assert_shade_equal(got, want, sc, True)
+
+
+def test_shade_kernel_takes_cuda_tensors(shade_scene):
+    """The shade pass's wrapper never runs on the CPU (render_path sends
+    CPU tensors to the plain pass), and it refuses a wrong device, dtype
+    or shape before it launches."""
+    from rtk_tpu_torch.models import path
+
+    sc = shade_scene
+    cur, tp, index, radiance, uniforms = shade_batch(sc, 0, 5)
+    hits = sc["tracer"].closest(cur)
+    lo, hi = sc["scene"].bounds_min, sc["scene"].bounds_max
+    kw = dict(epsilon=1e-4, sort_rays=True, last=False, draws=uniforms,
+              draw_index=index)
+    before = path.SHADE_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        path.shade_kernel(hits, cur, tp, index, radiance, sc["mats"],
+                          sc["bg"], lo, hi, **kw)
+
+    def refused(match, **over):
+        a = dict(hits=hits, cur=cur, throughput=tp, index=index,
+                 radiance=radiance, materials=sc["mats"], bg=sc["bg"],
+                 lo=lo, hi=hi, **kw)
+        a.update(over)
+        with pytest.raises(ValueError, match=match):
+            path._shade_args(**a)
+
+    refused("meta", throughput=tp.to("meta"))
+    refused("int64", index=index.to(torch.int32))
+    refused(r"throughput must be a torch.float32 \(1024, 3\)",
+            throughput=tp[:, :2])
+    refused("float32", throughput=tp.double())
+    refused("draw_index", draw_index=index[:9])
+    refused(r"\(\*, 2\)", draws=uniforms[:, :1])
+    refused(r"\(1101, 2\)", draws=uniforms[:50])
+    refused("contiguous", radiance=radiance.T.contiguous().T)
+    refused("hits.slot", hits=rt.PacketHits(
+        **{**{f: getattr(hits, f) for f in (
+            "hit", "t", "u_k", "v_k", "origin", "direction", "tri_v",
+            "tri_vidx", "tri_mesh", "tri_prim")},
+           "slot": hits.slot.to(torch.int64)}))
+    assert path.SHADE_LAUNCHES == before

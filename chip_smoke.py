@@ -665,6 +665,9 @@ class LaunchLog:
 
         pt._kernel = logged(trace, False)
         pt.packet_march_kernel = logged(march, True)
+        # The card's front-end steps hold the launchers themselves.
+        pt.CARD = dataclasses.replace(pt.CARD, trace=pt._kernel,
+                                      march=pt.packet_march_kernel)
 
     def start(self, phase):
         """Hold every launch from here on, tagged with `phase`."""
@@ -2586,7 +2589,7 @@ AOT_SERVER = r"""
 import json, os, shutil, sys, time
 t_start = time.time()
 import torch
-from rtk_tpu_torch.ops import packet_trace
+from rtk_tpu_torch.ops import library, packet_trace
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.utils.aot import load_packet_trace, load_refit_trace
 from rtk_tpu_torch.utils.serialize import load_packed_scene
@@ -2626,7 +2629,7 @@ print(json.dumps({"t_start": t_start, "import_s": t_import - t_start,
                   "load_s": t_load - t_import,
                   "first_trace_s": t_first - t_load, "t_first": t_first,
                   "builds": sorted(map(str, packet_trace.BUILD_SECONDS)),
-                  "libs": sorted(map(str, packet_trace._libs)),
+                  "libs": sorted(map(str, library._libs)),
                   "launches": packet_trace.KERNEL_LAUNCHES,
                   "key_launches": packet_trace.KEY_LAUNCHES,
                   "unsort_launches": packet_trace.UNSORT_LAUNCHES}))
@@ -3091,7 +3094,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
     import rtk_tpu_torch as rt
-    from rtk_tpu_torch.ops import packet_trace
+    from rtk_tpu_torch.ops import library, packet_trace
     from rtk_tpu_torch.ops.packet_trace import (trace_packets,
                                                 trace_packets_reference)
     from rtk_tpu_torch.testing import scenes
@@ -3119,10 +3122,10 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=5) as pool:
         probe_build = pool.submit(ptrace.probe_library)
-        list(pool.map(packet_trace.load_kernel, (None, *filters.values())))
+        list(pool.map(library.load_kernel, (None, *filters.values())))
         probe_build.result()
     build_s = time.perf_counter() - t0
-    nvcc = subprocess.run([packet_trace._nvcc(), "--version"], check=True,
+    nvcc = subprocess.run([library._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
 
     def ptxas(key):
@@ -3130,7 +3133,7 @@ def main():
         w16 and (without a filter) w8_march, and per kernel of the
         coherence key and the unsort."""
         out, name = {}, None
-        for ln in packet_trace.BUILD_LOGS[key].splitlines():
+        for ln in library.BUILD_LOGS[key].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 w = re.search(r"ILi(\d+)ELb([01])E", m.group(1))

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from rtk_tpu_torch.config import TraceConfig
-from rtk_tpu_torch.ops.packet_trace import DEFAULT_P, PKT, _trace_rooted
+from rtk_tpu_torch.ops.packet_trace import (DEFAULT_P, PKT, _trace_rooted,
+                                            front_steps)
 from rtk_tpu_torch.scene import Scene
 from rtk_tpu_torch.trace import stack as _stack
 from rtk_tpu_torch.types import Hits, PacketHits, Rays
@@ -457,6 +458,7 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
         raise ValueError(f"rays on {rays.device}, scene on {iscene.device}")
     n = rays.count
     dev = rays.device
+    steps = front_steps(dev, plain)
     unit = PKT if unit is None else int(unit)
     n_inst = iscene.num_instances
     C = min(max_candidates, n_inst)
@@ -506,9 +508,8 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
         bt = best["t"][rows]
         # Roots gathered from pack_instanced's checked rows by instance
         # ids in range: the launch makes no host sync to check them.
-        h = _trace_rooted(packed, Rays(o, d, rays.min_t[rows], bt),
-                          pscene.packed_roots[iscene.instance_blas[inst]],
-                          plain=plain)
+        h = _trace_rooted(steps, packed, Rays(o, d, rays.min_t[rows], bt),
+                          pscene.packed_roots[iscene.instance_blas[inst]])
         better = h.hit & (h.t < bt)
         r = rows[better]
         best["t"][r] = h.t[better]

@@ -40,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from rtk_tpu_torch.ops import library
 from rtk_tpu_torch.ops.morton import morton3d
 from rtk_tpu_torch.tracer import Tracer
 from rtk_tpu_torch.types import PacketHits, Rays, _f32
@@ -334,15 +335,9 @@ def shade_kernel(hits, cur: Rays, throughput, index, radiance,
         hits, cur, throughput, index, radiance, materials, bg, lo, hi,
         epsilon=epsilon, sort_rays=sort_rays, last=last, draws=draws,
         draw_index=draw_index)
-    from rtk_tpu_torch.ops.packet_trace import load_kernel
-
-    lib = load_kernel()
-    with torch.cuda.device(radiance.device):
-        stream = torch.cuda.current_stream(radiance.device).cuda_stream
-        err = _shade_call(lib, args, stream)
+    library.launch(radiance.device, "rtk_shade", _shade_call,
+                   library.load_kernel(), args)
     del keep
-    if err != 0:
-        raise RuntimeError(f"shade launch failed: CUDA error {err}")
     SHADE_LAUNCHES += 1
     return radiance if last else (radiance, *out)
 

@@ -67,15 +67,15 @@ def ray_coherence_key(origin: torch.Tensor,
     adjacent in this order visit nearly the same BVH nodes, so a warp of
     them diverges less and shares more of its node fetches.
 
-    On CUDA tensors the key comes from the port's own kernels
-    (ops/packet_trace.coherence_key_kernel, csrc/coherence_key.cu), which
-    raise if they cannot run; elsewhere from the plain version,
-    ray_coherence_key_reference.  The two give the same bits.
+    The key is the front end's (ops/packet_trace.front_steps, by the
+    origins' device): on CUDA tensors the port's own kernels
+    (coherence_key_kernel, csrc/coherence_key.cu), which raise if they
+    cannot run; on the CPU the plain version, ray_coherence_key_reference.
+    The two give the same bits.
     """
-    if origin.is_cuda or direction.is_cuda:
-        from rtk_tpu_torch.ops.packet_trace import coherence_key_kernel
-        return coherence_key_kernel(origin, direction)
-    return ray_coherence_key_reference(origin, direction)
+    # Imported here: ops/packet_trace.py imports this module.
+    from rtk_tpu_torch.ops.packet_trace import front_steps
+    return front_steps(origin.device).key(origin, direction)
 
 
 def ray_coherence_key_reference(origin: torch.Tensor,

@@ -15,12 +15,13 @@ wide (PackedScene.branching); each width is its own instantiation of the
 kernel.
 
 The sorted front end's own steps run as the port's kernels too, built
-into the same library: the coherence key (`coherence_key_kernel`,
-csrc/coherence_key.cu), the rows stacked and gathered through the sort's
-permutation in one pass (`ray_rows_kernel`, csrc/ray_rows.cu) and the
-unsort of the outputs (`unsort_kernel`, csrc/unsort.cu); on CPU tensors
-their plain versions run.  The plain front end, `trace_packets_reference`,
-keeps the plain versions on any device.
+into the same library (ops/library.py): the coherence key
+(`coherence_key_kernel`, csrc/coherence_key.cu), the rows stacked and
+gathered through the sort's permutation in one pass (`ray_rows_kernel`,
+csrc/ray_rows.cu) and the unsort of the outputs (`unsort_kernel`,
+csrc/unsort.cu).  Which code runs the steps is one `Steps` value, which
+`front_steps` picks by device: CARD, the kernels, for CUDA tensors; PLAIN,
+the plain versions, for CPU tensors and in `trace_packets_reference`.
 
 `packet_march` is the grid march over a table with one root row per
 macro-grid cell (testing/grid.py): the kernel's march instantiation walks
@@ -59,35 +60,31 @@ direction axis; the kernel picks the shear axis per ray, so it is one
 trace_packets call.
 
 While a profiler records, a front end's call is the span
-`rtk.packet_trace` (utils/stats.py::span) over its steps' spans: on the
-card `rtk.packet_trace.key`, `.sort` (sorted batches) and `.rows` (the
-rows pass); with the plain versions `.rows` (the stacking), `.key`,
-`.sort` and `.gather` (sorted batches); then `.launch` (the traversal:
-the kernel's checks, library, outputs and launch, or the plain version),
-`.unsort` and `.wrap` (the PacketHits).
+`rtk.packet_trace` (utils/stats.py::span) over its steps' spans:
+`rtk.packet_trace.key` and `.sort` (sorted batches), `.rows`, `.launch`
+(the traversal: the kernel's checks, library, outputs and launch, or the
+plain version), `.unsort` and `.wrap` (the PacketHits).
 The refit front ends run the steps' spans without the outer one.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import os
-import shutil
-import time
+from typing import Callable
 
 import numpy as np
 import torch
 
+from rtk_tpu_torch.ops import library
 from rtk_tpu_torch.ops.filter_capture import JitFilter
 from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
+from rtk_tpu_torch.ops.library import BUILD_SECONDS  # noqa: F401 (read here)
 from rtk_tpu_torch.ops.morton import ray_coherence_key_reference
 from rtk_tpu_torch.scene import refit
 from rtk_tpu_torch.trace.packed import (MASK_COL, MESH_COL, PRIM_COL,
                                         BinaryRefitAux, PackedScene,
                                         refit_packed_binary, repack_bounds)
 from rtk_tpu_torch.types import HitCandidate, PacketHits, Rays
-from rtk_tpu_torch.utils.build import BUILD_DIR, PKG_ROOT, build_shared
 from rtk_tpu_torch.utils.stats import span
 
 _BIG = 3.0e38
@@ -119,106 +116,6 @@ ANY_LAUNCHES = 0
 MASK_LAUNCHES = 0
 DEFER_UV_LAUNCHES = 0
 WIDTHS = (8, 16)  # node-table widths the kernel is instantiated for
-
-CSRC = PKG_ROOT / "csrc"
-KERNEL_SRC = CSRC / "packet_trace.cu"
-# The sorted front end's kernels, built into the traversal's library.
-KEY_SRC = CSRC / "coherence_key.cu"
-ROWS_SRC = CSRC / "ray_rows.cu"
-UNSORT_SRC = CSRC / "unsort.cu"
-# render_path's shade pass (models/path.py::shade_kernel), in the same
-# library so that one build and one load serve the whole render loop.
-SHADE_SRC = CSRC / "shade.cu"
-LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC, SHADE_SRC]
-FILTER_OPS = CSRC / "filter_ops.h"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-
-# Loaded kernel libraries by filter key (None: the build without a
-# filter), the compiler output (ptxas -v) and seconds of each build made
-# by this process.
-_libs: dict = {}
-BUILD_LOGS: dict = {}
-BUILD_SECONDS: dict = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def kernel_library(flt: JitFilter | None = None):
-    """Build the kernel library for `flt` (None: the build without a
-    filter) if it is not built yet, keyed on the hash of its sources ->
-    (path of the .so, compiler output; empty when it was built already).
-    Every build holds the traversal, the coherence key, the rows pass,
-    the unsort and render_path's shade pass (LIBRARY_SRCS), so that a
-    caller with one loaded library (utils/aot.py's artifacts) has the
-    whole sorted front end.
-    Needs nvcc, not a card."""
-    if flt is None:
-        return build_shared("packet_trace", LIBRARY_SRCS,
-                            [_nvcc(), *NVCC_FLAGS])
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    header = BUILD_DIR / f"filter-{flt.key}.h"
-    if not header.exists() or header.read_text() != flt.source:
-        tmp = header.with_name(f"{header.name}.tmp{os.getpid()}")
-        tmp.write_text(flt.source)
-        os.replace(tmp, header)
-    return build_shared(
-        "packet_trace_filter", LIBRARY_SRCS,
-        [_nvcc(), *NVCC_FLAGS, "-DRTK_FILTER", f"-I{CSRC}",
-         "-include", str(header)], deps=[FILTER_OPS, header])
-
-
-def bind_library(path, march: bool):
-    """Load a kernel library with ctypes and declare its entry points;
-    march: the library is a build without a filter, which also holds the
-    march instantiation."""
-    lib = ctypes.CDLL(str(path))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtk_packet_trace.restype = i32
-    lib.rtk_packet_trace.argtypes = [ptr] * 5 + [i32] * 8 + [ptr] * 6
-    lib.rtk_packet_trace_max_stack.restype = i32
-    lib.rtk_packet_trace_max_stack.argtypes = []
-    i64 = ctypes.c_longlong
-    lib.rtk_coherence_key.restype = i32
-    lib.rtk_coherence_key.argtypes = ([ptr] + [i64] * 2 + [ptr] + [i64] * 3
-                                      + [ptr] * 3)
-    lib.rtk_ray_rows.restype = i32
-    lib.rtk_ray_rows.argtypes = ([ptr, i64] + [ptr, i64, i64] * 2
-                                 + [ptr, i64] * 2 + [ptr] * 2)
-    lib.rtk_unsort.restype = i32
-    lib.rtk_unsort.argtypes = [ptr, i64] + [ptr] * 11
-    lib.rtk_shade.restype = i32
-    lib.rtk_shade.argtypes = [ptr, ptr]
-    if march:
-        lib.rtk_packet_march.restype = i32
-        lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
-                                         + [ptr] * 7)
-    return lib
-
-
-def _build(flt: JitFilter | None):
-    """Build and load one kernel library -> (ctypes library, compiler
-    output, seconds)."""
-    t0 = time.perf_counter()
-    so, log = kernel_library(flt)
-    return bind_library(so, flt is None), log, time.perf_counter() - t0
-
-
-def load_kernel(filter_fn: JitFilter | None = None):
-    """Build (at first use, keyed on the source hash and, for a filter
-    build, the predicate's) and load the kernel library.  Raises if nvcc
-    is missing or the build fails."""
-    key = None if filter_fn is None else filter_fn.key
-    if key not in _libs:
-        _libs[key], BUILD_LOGS[key], BUILD_SECONDS[key] = _build(filter_fn)
-    return _libs[key]
 
 
 def _check_tables(nodes, tris, rays8, w):
@@ -304,7 +201,7 @@ def _kernel_prelude(nodes, tris, rays8, stack_size, w, filter_fn=None,
     if any(a.data_ptr() % 16 for a in (nodes, tris)):
         raise ValueError("kernel tables must be 16-byte aligned")
     if lib is None:
-        lib = load_kernel(filter_fn)
+        lib = library.load_kernel(filter_fn)
     cap = lib.rtk_packet_trace_max_stack()
     if stack_size > cap:
         raise ValueError(f"tree needs a {stack_size}-entry traversal stack; "
@@ -319,9 +216,10 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
-def _launch(call, rays8, stats):
-    """Allocate the outputs, run call(out pointers..., stream) on the rays'
-    device and raise on a launch error -> (t, u, v, slot[, counts])."""
+def _launch(entry, call, rays8, stats, *args):
+    """Allocate the outputs and launch call(*args, out pointers...,
+    stream) on the rays' device (library.launch) -> (t, u, v, slot[,
+    counts])."""
     n = rays8.shape[1]
     dev = rays8.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -330,13 +228,8 @@ def _launch(call, rays8, stats):
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     counts = (torch.empty((5, n), dtype=torch.int32, device=dev) if stats
               else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call(t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
-                   _ptr(counts), stream)
-    if err != 0:
-        raise RuntimeError(f"packet_trace kernel launch failed: CUDA error "
-                           f"{err}")
+    library.launch(dev, entry, call, *args, t.data_ptr(), u.data_ptr(),
+                   v.data_ptr(), slot.data_ptr(), _ptr(counts))
     return (t, u, v, slot, counts) if stats else (t, u, v, slot)
 
 
@@ -369,14 +262,15 @@ def packet_trace_kernel(nodes, tris, rays8, *, leaf_size: int,
                    branching=branching)
 
 
-def _kernel(nodes, tris, rays8, *, leaf_size, stack_size, mode, watertight,
-            qmask, defer_uv, roots, filter_fn, ray_index, stats, branching,
+def _kernel(nodes, tris, rays8, *, leaf_size, stack_size, mode="closest",
+            watertight=True, qmask=None, defer_uv=False, roots=None,
+            filter_fn=None, ray_index=None, stats=False, branching=8,
             roots_in_range=False, lib=None):
-    """packet_trace_kernel; roots_in_range: the roots are entries of the
-    tables already (checked on the host when their source was made, or
-    clamped into range on the device), so the launch makes no host sync to
-    check them.  lib: launch from this loaded library (an AOT artifact's,
-    utils/aot.py) instead of the one built from the sources."""
+    """packet_trace_kernel, as CARD's trace; roots_in_range: the roots are
+    entries of the tables already (checked on the host when their source
+    was made, or clamped into range on the device), so the launch makes no
+    host sync to check them.  lib: launch from this loaded library (an AOT
+    artifact's, utils/aot.py) instead of the one built from the sources."""
     global KERNEL_LAUNCHES, ROOTS_LAUNCHES, FILTER_LAUNCHES, STATS_LAUNCHES
     global W16_LAUNCHES, ANY_LAUNCHES, MASK_LAUNCHES, DEFER_UV_LAUNCHES
     lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
@@ -385,11 +279,12 @@ def _kernel(nodes, tris, rays8, *, leaf_size, stack_size, mode, watertight,
     ray_index = _check_filter(filter_fn, ray_index, rays8)
     roots = _check_roots(roots, nodes, rays8, branching,
                          tris.shape[0] // leaf_size, roots_in_range)
-    out = _launch(lambda *o: lib.rtk_packet_trace(
+    out = _launch(
+        "rtk_packet_trace", lib.rtk_packet_trace, rays8, stats,
         nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), _ptr(roots),
         _ptr(ray_index), rays8.shape[1], leaf_size, branching,
         int(mode == "any"), int(watertight), int(qmask is not None),
-        int(qmask or 0), int(defer_uv), *o), rays8, stats)
+        int(qmask or 0), int(defer_uv))
     KERNEL_LAUNCHES += 1
     ROOTS_LAUNCHES += roots is not None
     FILTER_LAUNCHES += filter_fn is not None
@@ -423,13 +318,10 @@ def coherence_key_kernel(origin: torch.Tensor, direction: torch.Tensor,
     if not key.numel():
         return key
     if lib is None:
-        lib = load_kernel()
+        lib = library.load_kernel()
     bounds = torch.empty((12,), dtype=torch.int32, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = _key_call(lib, o, d, bounds, key, stream)
-    if err != 0:
-        raise RuntimeError(f"coherence key launch failed: CUDA error {err}")
+    library.launch(o.device, "rtk_coherence_key", _key_call, lib, o, d,
+                   bounds, key)
     KEY_LAUNCHES += 1
     return key
 
@@ -471,14 +363,11 @@ def ray_rows_kernel(origin, direction, min_t, max_t, idx=None, lib=None):
     rows = torch.empty((8, n), dtype=torch.float32, device=o.device)
     if n:
         if lib is None:
-            lib = load_kernel()
+            lib = library.load_kernel()
         if idx is not None:
             idx = idx.contiguous()
-        with torch.cuda.device(o.device):
-            stream = torch.cuda.current_stream(o.device).cuda_stream
-            err = _rows_call(lib, idx, o, d, mn, mx, rows, stream)
-        if err != 0:
-            raise RuntimeError(f"ray rows launch failed: CUDA error {err}")
+        library.launch(o.device, "rtk_ray_rows", _rows_call, lib, idx, o, d,
+                       mn, mx, rows)
         ROWS_LAUNCHES += 1
     return rows
 
@@ -521,12 +410,9 @@ def unsort_kernel(out, idx, lib=None):
     res = tuple(torch.empty_like(a) for a in out)
     if n:
         if lib is None:
-            lib = load_kernel()
-        with torch.cuda.device(t.device):
-            stream = torch.cuda.current_stream(t.device).cuda_stream
-            err = _unsort_call(lib, idx, out, res, stream)
-        if err != 0:
-            raise RuntimeError(f"unsort launch failed: CUDA error {err}")
+            lib = library.load_kernel()
+        library.launch(t.device, "rtk_unsort", _unsort_call, lib, idx, out,
+                       res)
         UNSORT_LAUNCHES += 1
     return res
 
@@ -726,14 +612,16 @@ def packet_trace_reference(nodes, tris, rays8, *, leaf_size: int,
     return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
 
 
+def _trace_plain(nodes, tris, rays8, *, roots_in_range=False, **kw):
+    """packet_trace_reference as PLAIN's trace: it checks the roots
+    whatever the caller knows of them (roots_in_range)."""
+    return packet_trace_reference(nodes, tris, rays8, **kw)
+
+
 def packet_trace(nodes, tris, rays8, **kw):
     """The kernel wrapper: CUDA tensors launch the kernel, CPU tensors take
     the plain version."""
-    if rays8.is_cuda:
-        return packet_trace_kernel(nodes, tris, rays8, **kw)
-    if rays8.device.type != "cpu":
-        raise ValueError(f"no packet traversal for device {rays8.device}")
-    return packet_trace_reference(nodes, tris, rays8, **kw)
+    return front_steps(rays8.device).trace(nodes, tris, rays8, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -794,11 +682,12 @@ def packet_march_kernel(nodes, tris, rays8, *, leaf_size: int,
     lib, nodes, tris, rays8 = _kernel_prelude(nodes, tris, rays8,
                                               stack_size, 8)
     _check_grid(grid, nodes)
-    out = _launch(lambda *o: lib.rtk_packet_march(
+    out = _launch(
+        "rtk_packet_march", lib.rtk_packet_march, rays8, stats,
         nodes.data_ptr(), tris.data_ptr(), rays8.data_ptr(), rays8.shape[1],
         leaf_size, int(mode == "any"), int(watertight),
         int(qmask is not None), int(qmask or 0), *grid.dims, *grid.lo,
-        *grid.cs, *grid.hi, grid.occ.data_ptr(), *o), rays8, stats)
+        *grid.cs, *grid.hi, grid.occ.data_ptr())
     KERNEL_LAUNCHES += 1
     STATS_LAUNCHES += stats
     MARCH_LAUNCHES += 1
@@ -896,11 +785,46 @@ def packet_march_reference(nodes, tris, rays8, *, leaf_size: int,
 def packet_march(nodes, tris, rays8, **kw):
     """The march wrapper: CUDA tensors launch the kernel's march
     instantiation, CPU tensors take its plain version."""
-    if rays8.is_cuda:
-        return packet_march_kernel(nodes, tris, rays8, **kw)
-    if rays8.device.type != "cpu":
-        raise ValueError(f"no grid march for device {rays8.device}")
-    return packet_march_reference(nodes, tris, rays8, **kw)
+    return front_steps(rays8.device).march(nodes, tris, rays8, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Steps:
+    """The code that runs each step of a front end, with the signatures of
+    the plain versions; the traversal also takes roots_in_range."""
+
+    key: Callable
+    rows: Callable
+    unsort: Callable
+    trace: Callable
+    march: Callable
+
+    @staticmethod
+    def of(lib) -> "Steps":
+        """The kernels of a loaded library (an AOT artifact's); the march,
+        which no artifact runs, is CARD's."""
+        return Steps(*(functools.partial(f, lib=lib) for f in (
+            coherence_key_kernel, ray_rows_kernel, unsort_kernel, _kernel)),
+            packet_march_kernel)
+
+
+PLAIN = Steps(ray_coherence_key_reference, ray_rows_reference,
+              unsort_reference, _trace_plain, packet_march_reference)
+# The kernels of the library built from the sources (ops/library.py).
+CARD = Steps(coherence_key_kernel, ray_rows_kernel, unsort_kernel, _kernel,
+             packet_march_kernel)
+
+
+def front_steps(device: torch.device, plain: bool = False,
+                card: Steps | None = None) -> Steps:
+    """The steps for tensors on `device`: PLAIN on the CPU, and on any
+    device when plain; on a CUDA device `card` (Steps.of an artifact's
+    library), or CARD when it is None."""
+    if plain or device.type == "cpu":
+        return PLAIN
+    if device.type != "cuda":
+        raise ValueError(f"no packet traversal for device {device}")
+    return CARD if card is None else card
 
 
 def _ray_roots(packed: PackedScene, n: int, packet_roots, ray_roots, pkt,
@@ -976,73 +900,51 @@ def _check_front(packed: PackedScene, rays: Rays, mode, filter_fn=None):
                 "in f32 (< 2^24 triangles); use the stack engine")
 
 
-def _front_steps(plain: bool, lib, cuda: bool):
-    """(key, rows, unsort) of a front end: on CUDA tensors the kernels of
-    `lib` (None: the library built from the sources), else, or when plain,
-    the plain versions."""
-    if plain or not cuda:
-        return (ray_coherence_key_reference, ray_rows_reference,
-                unsort_reference)
-    return (functools.partial(coherence_key_kernel, lib=lib),
-            functools.partial(ray_rows_kernel, lib=lib),
-            functools.partial(unsort_kernel, lib=lib))
-
-
-def _ray_rows(rays: Rays, sort_rays, roots=None, plain=False, lib=None):
+def _ray_rows(steps: Steps, rays: Rays, sort_rays, roots=None):
     """The batch as the traversal takes it -> (rows, idx): the (8, N) f32
     rows, coherence-sorted when sort_rays (None: for >= 16384 rays without
-    roots), and the caller's index of each column, or None unsorted.
-    plain, lib: which key and rows (_front_steps).  On the card the key
-    and the sort come first and one rows pass writes the rows in the
-    sorted order; the plain versions stack the rows in the caller's order
-    and gather them after the sort."""
+    roots), and the caller's index of each column, or None unsorted.  The
+    key and the sort come first, then one pass of steps.rows writes the
+    rows in the sorted order."""
     if sort_rays is None:
         sort_rays = rays.count >= SORT_RAYS_MIN and roots is None
     if sort_rays and roots is not None:
         raise ValueError("sort_rays cannot reorder rays that carry per-"
                          "packet or per-ray roots; pass sort_rays=False")
-    key_of, rows_of, _ = _front_steps(plain, lib, rays.origin.is_cuda)
-    parts = (rays.origin, rays.direction, rays.min_t, rays.max_t)
-    stack_first = rows_of is ray_rows_reference
-    if stack_first:
-        with span("rtk.packet_trace.rows"):
-            comps = rows_of(*parts)
     idx = None
     if sort_rays:
         with span("rtk.packet_trace.key"):
-            key = key_of(rays.origin, rays.direction)
+            key = steps.key(rays.origin, rays.direction)
         with span("rtk.packet_trace.sort"):
             idx = torch.sort(key, stable=True).indices
-        if stack_first:
-            with span("rtk.packet_trace.gather"):
-                comps = comps[:, idx].contiguous()
-    if not stack_first:
-        with span("rtk.packet_trace.rows"):
-            comps = rows_of(*parts, idx)
+    with span("rtk.packet_trace.rows"):
+        comps = steps.rows(rays.origin, rays.direction, rays.min_t,
+                           rays.max_t, idx)
     return comps, idx
 
 
-def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
-              watertight, filter_mask, defer_uv, roots=None, filter_fn=None,
-              stats=False, plain=False, lib=None):
+def _traverse(steps: Steps, packed: PackedScene, rays: Rays, comps, idx,
+              mode, watertight, filter_mask, defer_uv, roots=None,
+              filter_fn=None, stats=False, roots_in_range=False):
     """Run the traversal over rows from _ray_rows, restore the caller's
-    order (the unsort of _front_steps(plain, lib)) and wrap the outputs
-    with packed's hit-assembly tables."""
+    order and wrap the outputs with packed's hit-assembly tables."""
     # The caller's ray index survives the sort (pallas_trace.py:1475-1481).
     ray_index = (idx.to(torch.int32)
                  if idx is not None and filter_fn is not None else None)
     qmask = None if filter_mask is None else int(filter_mask) & 0xFFFFFF
     with span("rtk.packet_trace.launch"):
-        out = run(packed.nodes, packed.tris, comps,
-                  leaf_size=packed.leaf_size, stack_size=packed.stack_size,
-                  mode=mode, watertight=watertight, qmask=qmask,
-                  defer_uv=defer_uv, roots=roots, filter_fn=filter_fn,
-                  ray_index=ray_index, stats=stats,
-                  branching=packed.branching)
+        out = steps.trace(packed.nodes, packed.tris, comps,
+                          leaf_size=packed.leaf_size,
+                          stack_size=packed.stack_size, mode=mode,
+                          watertight=watertight, qmask=qmask,
+                          defer_uv=defer_uv, roots=roots,
+                          filter_fn=filter_fn, ray_index=ray_index,
+                          stats=stats, branching=packed.branching,
+                          roots_in_range=roots_in_range)
     if idx is not None:
         # Back to the caller's order.
         with span("rtk.packet_trace.unsort"):
-            out = _front_steps(plain, lib, comps.is_cuda)[2](out, idx)
+            out = steps.unsort(out, idx)
     with span("rtk.packet_trace.wrap"):
         t, u, v, slot = out[:4]
         hit = slot >= 0
@@ -1056,18 +958,18 @@ def _traverse(run, packed: PackedScene, rays: Rays, comps, idx, mode,
     return (hits, out[4]) if stats else hits
 
 
-def _front(run, packed: PackedScene, rays: Rays, mode, watertight,
+def _front(steps: Steps, packed: PackedScene, rays: Rays, mode, watertight,
            sort_rays, filter_mask, defer_uv, roots, filter_fn=None,
-           stats=False, plain=False, lib=None):
-    """The checks, the rows, the traversal by `run` and the unsort of
-    every trace_packets-shaped front end; plain, lib: which key and
-    unsort (_front_steps), in the span `rtk.packet_trace`."""
+           stats=False, roots_in_range=False):
+    """The checks, the rows, the traversal and the unsort of every
+    trace_packets-shaped front end, each by `steps`, in the span
+    `rtk.packet_trace`."""
     with span("rtk.packet_trace"):
         _check_front(packed, rays, mode, filter_fn)
-        comps, idx = _ray_rows(rays, sort_rays, roots, plain, lib)
-        return _traverse(run, packed, rays, comps, idx, mode, watertight,
+        comps, idx = _ray_rows(steps, rays, sort_rays, roots)
+        return _traverse(steps, packed, rays, comps, idx, mode, watertight,
                          filter_mask, defer_uv, roots, filter_fn, stats,
-                         plain, lib)
+                         roots_in_range)
 
 
 def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
@@ -1123,8 +1025,8 @@ def trace_packets(packed: PackedScene, rays: Rays, mode: str = "closest",
                  tris128=tris128, leaf_loop=leaf_loop, hbm_tris=hbm_tris)
     roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
                        p_pk)
-    return _front(packet_trace, packed, rays, mode, watertight, sort_rays,
-                  filter_mask, defer_uv, roots, filter_fn, stats)
+    return _front(front_steps(rays.device), packed, rays, mode, watertight,
+                  sort_rays, filter_mask, defer_uv, roots, filter_fn, stats)
 
 
 def trace_packets_reference(packed: PackedScene, rays: Rays,
@@ -1139,32 +1041,24 @@ def trace_packets_reference(packed: PackedScene, rays: Rays,
     and unsort, on any device."""
     roots = _ray_roots(packed, rays.count, packet_roots, ray_roots, pkt,
                        p_pk)
-    return _front(packet_trace_reference, packed, rays, mode, watertight,
-                  sort_rays, filter_mask, defer_uv, roots, filter_fn, stats,
-                  plain=True)
+    return _front(PLAIN, packed, rays, mode, watertight, sort_rays,
+                  filter_mask, defer_uv, roots, filter_fn, stats)
 
 
-def _trace_rooted(packed: PackedScene, rays: Rays, roots,
-                  plain: bool = False, mode: str = "closest",
-                  watertight: bool = True, filter_mask: int | None = None,
-                  pkt: int | None = None):
+def _trace_rooted(steps: Steps, packed: PackedScene, rays: Rays, roots,
+                  mode: str = "closest", watertight: bool = True,
+                  filter_mask: int | None = None, pkt: int | None = None):
     """trace_packets(packed, rays, mode, watertight, ray_roots=roots,
-    sort_rays=False, filter_mask=..., pkt=...) for (N,) int32 roots on
-    the rays' device that are entries of packed's tables already:
+    sort_rays=False, filter_mask=..., pkt=...) by `steps` for (N,) int32
+    roots on the rays' device that are entries of packed's tables already:
     instancing's rounds gather them from pack_instanced's packed_roots and
     the binned rounds from the bins' roots, both checked on the host when
     made; the grid rounds clamp cell ranks into the cells' root rows.  On
-    the card the launch then makes no host sync to check them.  plain: the
-    plain version (which checks them)."""
+    the card the launch then makes no host sync to check them (the plain
+    trace checks them)."""
     _check_flags(packed, pkt=pkt)
-    if plain:
-        run = packet_trace_reference
-    elif rays.origin.is_cuda:
-        run = functools.partial(_kernel, roots_in_range=True)
-    else:
-        run = packet_trace
-    return _front(run, packed, rays, mode, watertight, False, filter_mask,
-                  False, roots)
+    return _front(steps, packed, rays, mode, watertight, False, filter_mask,
+                  False, roots, roots_in_range=True)
 
 
 def trace_packets_kz_binned(packed: PackedScene, rays: Rays, pkt: int = 256,
@@ -1273,20 +1167,19 @@ def trace_packets_refit(packed: PackedScene, scene, new_tri_pos, rays: Rays,
     """
     _check_flags(packed, narrow=narrow, leaf_loop=leaf_loop,
                  hbm_tris=hbm_tris)
-    return _refit_trace(packet_trace, packed, scene, new_tri_pos, rays, mode,
-                        watertight, sort_rays, defer_uv)
+    return _refit_trace(front_steps(rays.device), packed, scene, new_tri_pos,
+                        rays, mode, watertight, sort_rays, defer_uv)
 
 
-def _refit_trace(run, packed: PackedScene, scene, new_tri_pos, rays: Rays,
-                 mode, watertight, sort_rays, defer_uv, lib=None):
-    """trace_packets_refit after its flag checks, the traversal by `run`
-    and the key and unsort from `lib` (utils/aot.py's artifacts pass their
-    own library)."""
+def _refit_trace(steps: Steps, packed: PackedScene, scene, new_tri_pos,
+                 rays: Rays, mode, watertight, sort_rays, defer_uv):
+    """trace_packets_refit after its flag checks, each step by `steps`
+    (utils/aot.py's artifacts pass their own library's)."""
     _check_front(packed, rays, mode)
     scene2, packed2 = _refit_repack(scene, packed, new_tri_pos)
-    comps, idx = _ray_rows(rays, sort_rays, lib=lib)
-    hits = _traverse(run, packed2, rays, comps, idx, mode, watertight, None,
-                     defer_uv, lib=lib)
+    comps, idx = _ray_rows(steps, rays, sort_rays)
+    hits = _traverse(steps, packed2, rays, comps, idx, mode, watertight,
+                     None, defer_uv)
     return hits, scene2, packed2
 
 
@@ -1327,10 +1220,11 @@ def trace_packets_refit_frames(packed: PackedScene, scene, frames_tri_pos,
     _check_flags(packed, narrow=narrow, leaf_loop=leaf_loop,
                  hbm_tris=hbm_tris)
     _check_front(packed, rays, mode)
-    comps, idx = _ray_rows(rays, sort_rays)
+    steps = front_steps(rays.device)
+    comps, idx = _ray_rows(steps, rays, sort_rays)
     out = []
     for tri_pos in frames_tri_pos:
         _, packed2 = _refit_repack(scene, packed, tri_pos)
-        out.append(_traverse(packet_trace, packed2, rays, comps, idx, mode,
+        out.append(_traverse(steps, packed2, rays, comps, idx, mode,
                              watertight, None, defer_uv))
     return out

@@ -26,7 +26,7 @@ import torch
 
 from rtk_tpu_torch.instancing import _instance_candidates_impl
 from rtk_tpu_torch.ops.packet_trace import (_trace_rooted,
-                                            check_root_entries,
+                                            check_root_entries, front_steps,
                                             trace_packets)
 from rtk_tpu_torch.trace.packed import PackedScene
 from rtk_tpu_torch.types import PacketHits, Rays
@@ -132,6 +132,7 @@ def trace_packets_binned(packed: PackedScene, rays: Rays,
         raise ValueError(f"rays on {rays.device}, scene on {packed.device}")
     n = rays.count
     dev = rays.device
+    steps = front_steps(dev)
     bin_roots, bin_lo, bin_hi, n_bins = _BINS.get(packed, depth)
     c = min(max_candidates, n_bins)
     cand_idx, cand_t, overflow = _instance_candidates_impl(bin_lo, bin_hi,
@@ -147,7 +148,7 @@ def trace_packets_binned(packed: PackedScene, rays: Rays,
         order = torch.sort(key, stable=True).indices
         bt = best_t[order]
         h = _trace_rooted(
-            packed,
+            steps, packed,
             Rays(rays.origin[order], rays.direction[order],
                  rays.min_t[order], torch.where(live[order], bt, 0.0)),
             bin_roots[key[order].clamp_max(n_bins - 1)], mode=mode,

@@ -43,11 +43,10 @@ from rtk_tpu_torch.builder.lbvh import leaf_code
 from rtk_tpu_torch.config import BuildConfig
 from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
 from rtk_tpu_torch.ops.packet_trace import (_BIG, MarchGrid, _crcp,
-                                            _trace_rooted, march_entry,
-                                            packet_march,
-                                            packet_march_reference,
-                                            trace_packets,
-                                            trace_packets_reference)
+                                            _trace_rooted, front_steps,
+                                            march_entry, trace_packets,
+                                            trace_packets_reference,
+                                            unsort_reference)
 from rtk_tpu_torch.scene import Scene, build_from_soup
 from rtk_tpu_torch.trace.packed import (PackedScene, pack_multiroot,
                                         pack_scene)
@@ -423,19 +422,13 @@ def trace_packets_march(grid: GridScene, rays: Rays, mode: str = "closest",
         raise ValueError(f"unknown mode {mode!r}")
     mg, comps, idx = march_batch(grid, rays)
     cm = grid.cells_march
-    run = packet_march_reference if plain else packet_march
-    out = run(cm.nodes, cm.tris, comps, leaf_size=cm.leaf_size,
-              stack_size=cm.stack_size, grid=mg,
-              mode=mode, watertight=watertight,
-              qmask=None if filter_mask is None
-              else int(filter_mask) & 0xFFFFFF, stats=stats)
-
-    def unsort(a):
-        out_ = torch.empty_like(a)
-        out_[..., idx] = a
-        return out_
-
-    t, u, v, slot = (unsort(a) for a in out[:4])
+    out = front_steps(comps.device, plain).march(
+        cm.nodes, cm.tris, comps, leaf_size=cm.leaf_size,
+        stack_size=cm.stack_size, grid=mg, mode=mode, watertight=watertight,
+        qmask=None if filter_mask is None else int(filter_mask) & 0xFFFFFF,
+        stats=stats)
+    out = unsort_reference(out, idx)
+    t, u, v, slot = out[:4]
     hit = slot >= 0
     slot = torch.where(hit, grid.march_to_flat[slot.clamp_min(0).long()], -1)
     zero = torch.zeros((), device=t.device)
@@ -445,7 +438,7 @@ def trace_packets_march(grid: GridScene, rays: Rays, mode: str = "closest",
         direction=rays.direction, tri_v=grid.flat.tri_v,
         tri_vidx=grid.flat.tri_vidx, tri_mesh=grid.flat.tri_mesh,
         tri_prim=grid.flat.tri_prim)
-    return (hits, unsort(out[4])) if stats else hits
+    return (hits, out[4]) if stats else hits
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +512,7 @@ def _pack_cell(grid: GridScene, ijk, done, abort):
 
 
 def _grid_round(grid: GridScene, st, *, unit, skips, mode, watertight,
-                filter_mask, plain):
+                filter_mask, steps):
     """One round over the state rows `st` (dict of equal-length tensors):
     empty-space leaps, grouping by cell rank, one rooted launch, retire and
     advance (rtk_tpu/testing/grid.py:384-630).  Fixed shapes throughout:
@@ -607,9 +600,9 @@ def _grid_round(grid: GridScene, st, *, unit, skips, mode, watertight,
     done = cell == -1
     marching = cell >= 0
     h = _trace_rooted(
-        grid.cells,
+        steps, grid.cells,
         Rays(o, d, st["mint"], torch.where(marching, best_t, 0.0)),
-        key.clamp_max(n_occ - 1).to(torch.int32), plain=plain, mode=mode,
+        key.clamp_max(n_occ - 1).to(torch.int32), mode=mode,
         watertight=watertight, filter_mask=filter_mask, pkt=unit)
     live_rows = marching.sum()
     improved = h.slot >= 0
@@ -698,6 +691,7 @@ def trace_packets_grid(grid: GridScene, rays: Rays, mode: str = "closest",
         raise ValueError(f"rays on {rays.device}, grid on {grid.device}")
     n = rays.count
     dev = rays.device
+    steps = front_steps(dev, plain)
     if caps is None:
         caps = (n,) * rounds
     else:
@@ -724,7 +718,7 @@ def trace_packets_grid(grid: GridScene, rays: Rays, mode: str = "closest",
         head = {k: v[:cap] for k, v in st.items()}
         head, row = _grid_round(grid, head, unit=unit, skips=skips,
                                 mode=mode, watertight=watertight,
-                                filter_mask=filter_mask, plain=plain)
+                                filter_mask=filter_mask, steps=steps)
         st = head if cap >= n else {k: torch.cat([head[k], v[cap:]])
                                     for k, v in st.items()}
         rows.append(row)

@@ -5,7 +5,7 @@ flat signature and pinned shapes, so that a server pays file reads and no
 Python tracing; utils/serialize.py round-trips the data.  Here the program
 is this module's pinned front end and the CUDA kernel library, and what
 takes time at start-up is nvcc.  So the artifact carries the library
-itself: the .so that ops/packet_trace.kernel_library built for the trace's
+itself: the .so that ops/library.kernel_library built for the trace's
 keywords (a jit_filter's own build when it has one), which holds the
 traversal and the sorted front end's coherence key, rows pass and
 unsort.  A server writes it under the package's build directory by its
@@ -46,6 +46,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from rtk_tpu_torch.ops import library
 from rtk_tpu_torch.ops import packet_trace as pt
 from rtk_tpu_torch.ops.filter_capture import (predicate_from_nodes,
                                               predicate_nodes)
@@ -110,7 +111,7 @@ def _library(platforms, flt):
     the platforms (built with nvcc at first use; no card needed)."""
     if "cuda" not in platforms:
         return None, b""
-    so, _ = pt.kernel_library(flt)
+    so, _ = library.kernel_library(flt)
     return so.name, so.read_bytes()
 
 
@@ -207,8 +208,8 @@ def _check_card(dev: torch.device):
 
 class _Artifact:
     """What both loaders share: the spec, the pinned signature, and the
-    traversal and the front end's key, rows and unsort (the embedded
-    library's kernels, or the plain versions)."""
+    front end's steps (the embedded library's kernels, or the plain
+    versions)."""
 
     def __init__(self, blob: bytes, kind: int, what: str):
         got, arrays, meta = ser._load_container(bytes(blob))
@@ -225,10 +226,11 @@ class _Artifact:
         self.trace_kw = dict(spec["trace_kw"])
         nodes = self.trace_kw.pop("filter_fn", None)
         self._filter = None if nodes is None else predicate_from_nodes(nodes)
-        self._lib = None
+        self._lib = self._card = None
         if spec["library"] is not None:
             self._lib = self._load_library(spec["library"],
                                            arrays.pop("aot.lib").tobytes())
+            self._card = pt.Steps.of(self._lib)
 
     def _load_library(self, info, data: bytes):
         """Write the embedded library under its hash (atomically, once)
@@ -246,7 +248,7 @@ class _Artifact:
             tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
             tmp.write_bytes(data)
             os.replace(tmp, path)
-        return pt.bind_library(path, march=self._filter is None)
+        return library.bind_library(path, march=self._filter is None)
 
     @property
     def n_rays(self) -> int:
@@ -254,10 +256,9 @@ class _Artifact:
 
     def _check_args(self, args):
         """The call's arrays against the pinned signature (what jax.export
-        checks for the reference) -> the traversal for their device and
-        the library the front end's key and unsort come from (on the card
-        the embedded one; None on the CPU, which runs the plain
-        versions)."""
+        checks for the reference) -> the front end's steps for their
+        device: on the card the embedded library's kernels, on the CPU the
+        plain versions."""
         for i, (a, shape, dt) in enumerate(zip(
                 args, self.in_shapes, self._spec["in_dtypes"])):
             a = torch.as_tensor(a)
@@ -269,15 +270,9 @@ class _Artifact:
         if dev.type not in self.platforms:
             raise ValueError(f"the artifact was exported for "
                              f"{list(self.platforms)}, not {dev.type}")
-        if dev.type == "cpu":
-            return pt.packet_trace_reference, None
-        _check_card(dev)
-        lib = self._lib
-
-        def run(nodes, tris, rays8, **kw):
-            return pt._kernel(nodes, tris, rays8, lib=lib, **kw)
-
-        return run, lib
+        if dev.type == "cuda":
+            _check_card(dev)
+        return pt.front_steps(dev, card=self._card)
 
 
 class LoadedTrace(_Artifact):
@@ -291,9 +286,8 @@ class LoadedTrace(_Artifact):
         super().__init__(blob, KIND_TRACE, "a packet-trace artifact")
 
     def __call__(self, packed: PackedScene, rays: Rays) -> PacketHits:
-        run, lib = self._check_args((packed.nodes, packed.tris,
-                                     rays.origin, rays.direction,
-                                     rays.min_t, rays.max_t))
+        steps = self._check_args((packed.nodes, packed.tris, rays.origin,
+                                  rays.direction, rays.min_t, rays.max_t))
         if (packed.leaf_size, packed.branching) != (
                 self._spec["leaf_size"], self._spec["branching"]):
             raise ValueError(
@@ -301,10 +295,10 @@ class LoadedTrace(_Artifact):
                 f"{packed.branching}; the artifact was exported for "
                 f"{self._spec['leaf_size']} and {self._spec['branching']}")
         kw = self.trace_kw
-        return pt._front(run, packed, rays, self.mode,
+        return pt._front(steps, packed, rays, self.mode,
                          kw.get("watertight", True), kw.get("sort_rays"),
                          kw.get("filter_mask"), kw.get("defer_uv", False),
-                         None, self._filter, lib=lib)
+                         None, self._filter)
 
 
 def load_packet_trace(blob: bytes) -> LoadedTrace:
@@ -340,15 +334,14 @@ class LoadedRefitTrace(_Artifact):
 
     def __call__(self, packed: PackedScene, tri_pos, rays: Rays
                  ) -> PacketHits:
-        run, lib = self._check_args((tri_pos, rays.origin,
-                                     rays.direction, rays.min_t,
-                                     rays.max_t))
+        steps = self._check_args((tri_pos, rays.origin, rays.direction,
+                                  rays.min_t, rays.max_t))
         scene, baked = self._topology(rays.device)
         kw = self.trace_kw
-        hits, _, _ = pt._refit_trace(run, baked, scene, tri_pos, rays,
+        hits, _, _ = pt._refit_trace(steps, baked, scene, tri_pos, rays,
                                      self.mode, kw.get("watertight", True),
                                      kw.get("sort_rays"),
-                                     kw.get("defer_uv", False), lib)
+                                     kw.get("defer_uv", False))
         return dataclasses.replace(hits, tri_vidx=packed.tri_vidx,
                                    tri_mesh=packed.tri_mesh,
                                    tri_prim=packed.tri_prim)

@@ -292,11 +292,11 @@ def test_aot_cuda_artifact_binds_the_key_from_its_library(tmp_path,
     loader writes the library under tmp_path, not the package."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
-    from rtk_tpu_torch.ops import morton
+    from rtk_tpu_torch.ops import library, morton
     from rtk_tpu_torch.ops import packet_trace as pt
 
     so = host_library(tmp_path, "aot_host")
-    monkeypatch.setattr(pt, "kernel_library", lambda flt=None: (so, ""))
+    monkeypatch.setattr(library, "kernel_library", lambda flt=None: (so, ""))
     monkeypatch.setattr(aot, "BUILD_DIR", tmp_path / "served")
     packed = _packed()
     rays = scenes.cornell_camera(32, 32, device=CPU)

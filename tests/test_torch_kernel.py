@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import rtk_tpu_torch
-from rtk_tpu_torch.ops import packet_trace
+from rtk_tpu_torch.ops import library, packet_trace
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.trace.packed import pack_scene
 
@@ -95,7 +95,7 @@ def test_kernel_sah_tables(cuda):
 def test_kernel_refuses_too_deep_tree(cuda):
     packed = pack_scene(rtk_tpu_torch.build_scene(
         _soup_of(scenes.cornell_box()), device=cuda))
-    cap = packet_trace.load_kernel().rtk_packet_trace_max_stack()
+    cap = library.load_kernel().rtk_packet_trace_max_stack()
     rays = torch.zeros((8, 4), device=cuda)
     with pytest.raises(ValueError, match="stack"):
         packet_trace.packet_trace_kernel(
@@ -280,7 +280,7 @@ def test_kernel_refuses_deep_forest(cuda):
 
     tri_v, *tree, roots = chain_forest(280)
     packed = pack_binary_tree(tri_v, *tree, roots, leaf_size=1, device=cuda)
-    cap = packet_trace.load_kernel().rtk_packet_trace_max_stack()
+    cap = library.load_kernel().rtk_packet_trace_max_stack()
     assert packed.stack_size > cap
     rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 8, 8,
                               device=cuda)
@@ -345,7 +345,8 @@ def test_leaf_roots_match_reference(cuda, kw):
     live = leafy & (rays.max_t > rays.min_t)
     assert got[0].hit[leafy].any()
     assert bool((got[1][2][live] == 1).all() and (got[1][1][leafy] == 0).all())
-    unchecked = packet_trace._trace_rooted(packed, rays, roots, **kw)
+    unchecked = packet_trace._trace_rooted(packet_trace.CARD, packed, rays,
+                                           roots, **kw)
     _assert_same(unchecked, want[0])
     bad = roots.clone()
     bad[0] = -1
@@ -731,7 +732,7 @@ def test_kernel_deep_tree_within_the_stack(cuda):
 
     tri_v, *tree, roots = chain_forest(240)
     packed = pack_binary_tree(tri_v, *tree, roots, leaf_size=1, device=cuda)
-    cap = packet_trace.load_kernel().rtk_packet_trace_max_stack()
+    cap = library.load_kernel().rtk_packet_trace_max_stack()
     assert cap // 2 < packed.stack_size <= cap
     rays = tie_rays(2000, cuda)
     roots_t = torch.ones(rays.count, dtype=torch.int32, device=cuda)

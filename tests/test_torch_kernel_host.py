@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import rtk_tpu_torch as rt
-from rtk_tpu_torch.ops import morton
+from rtk_tpu_torch.ops import library, morton
 from rtk_tpu_torch.ops import packet_trace as pt
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.testing.grid import build_grid, march_batch
@@ -110,7 +110,7 @@ HOST_LAUNCH = """    for (unsigned b_ = 0; b_ < (unsigned)blocks * RTK_BLOCK; ++
 
 
 def _host_build(tmp, name, flags=()):
-    src = pt.KERNEL_SRC.read_text()
+    src = library.KERNEL_SRC.read_text()
     assert LAUNCH in src and "#include <cuda_runtime.h>" in src
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     cpp = tmp / f"{name}.cpp"
@@ -120,7 +120,7 @@ def _host_build(tmp, name, flags=()):
     so = tmp / f"lib{name}.so"
     subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",
                     "-ffp-contract=off", "-shared", "-fPIC",
-                    "-Wno-unknown-pragmas", f"-I{tmp}", f"-I{pt.CSRC}",
+                    "-Wno-unknown-pragmas", f"-I{tmp}", f"-I{library.CSRC}",
                     *flags, str(cpp), "-o", str(so)], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
@@ -566,19 +566,19 @@ def host_library(tmp, name, reduce_blocks=None):
     pass in one .so), built for the host -> its path."""
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     sources = {
-        "trace": pt.KERNEL_SRC.read_text()
+        "trace": library.KERNEL_SRC.read_text()
         .replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
         .replace(LAUNCH, HOST_LAUNCH),
-        "key": front_host_source(pt.KEY_SRC, 3, reduce_blocks),
-        "rows": front_host_source(pt.ROWS_SRC, 1),
-        "unsort": front_host_source(pt.UNSORT_SRC, 1),
-        "shade": front_host_source(pt.SHADE_SRC, 1)}
+        "key": front_host_source(library.KEY_SRC, 3, reduce_blocks),
+        "rows": front_host_source(library.ROWS_SRC, 1),
+        "unsort": front_host_source(library.UNSORT_SRC, 1),
+        "shade": front_host_source(library.SHADE_SRC, 1)}
     for part, text in sources.items():
         (tmp / f"{name}_{part}.cpp").write_text(text)
     so = tmp / f"lib{name}.so"
     subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",
                     "-ffp-contract=off", "-shared", "-fPIC",
-                    "-Wno-unknown-pragmas", f"-I{tmp}", f"-I{pt.CSRC}",
+                    "-Wno-unknown-pragmas", f"-I{tmp}", f"-I{library.CSRC}",
                     *(str(tmp / f"{name}_{part}.cpp") for part in sources),
                     "-o", str(so)], check=True, capture_output=True,
                    text=True)
@@ -592,7 +592,8 @@ def key_libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     tmp = tmp_path_factory.mktemp("key_host")
-    return {cap: pt.bind_library(host_library(tmp, f"key{cap}", cap), True)
+    return {cap: library.bind_library(host_library(tmp, f"key{cap}", cap),
+                                      True)
             for cap in (None, 3)}
 
 
@@ -714,7 +715,8 @@ def test_unsort_kernel_takes_cuda_tensors():
            torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         pt.unsort_kernel(out, torch.arange(3))
-    assert pt._front_steps(False, None, False) == (
+    steps = pt.front_steps(torch.device("cpu"))
+    assert (steps.key, steps.rows, steps.unsort) == (
         morton.ray_coherence_key_reference, pt.ray_rows_reference,
         pt.unsort_reference)
 
@@ -838,7 +840,7 @@ def shade_lib(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("shade_host")
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     cpp = tmp / "shade.cpp"
-    cpp.write_text(front_host_source(pt.SHADE_SRC, 1).replace(
+    cpp.write_text(front_host_source(library.SHADE_SRC, 1).replace(
         '#include "cuda_shim.h"', '#include "cuda_shim.h"\n' + TORCH_MATH))
     so = tmp / "libshade.so"
     subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",

@@ -1,10 +1,12 @@
 """The rows of the packet front end (ops/packet_trace.py::_ray_rows): the
 plain version is the stacking and the gather, CPU tensors and the plain
-front end keep that path and its spans and never touch the library, and
-the card's order of steps (key, sort, then one rows pass through the
-permutation) gives the same rows.  csrc/ray_rows.cu itself is held against
-the plain version in tests/test_torch_kernel_host.py (a host build) and
-tests/test_torch_kernel.py (the card)."""
+front end take the plain steps and never touch the library, and every
+Steps runs in one order (key, sort, then one rows pass through the
+permutation) and gives the same rows.  csrc/ray_rows.cu itself is held
+against the plain version in tests/test_torch_kernel_host.py (a host
+build) and tests/test_torch_kernel.py (the card)."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -60,15 +62,17 @@ def test_ray_rows_reference_is_the_cat_and_gather(seed, sort):
 @pytest.mark.parametrize("plain", [False, True])
 @pytest.mark.parametrize("sort", [False, True])
 def test_cpu_ray_rows_keep_the_plain_path(sort, plain):
-    """On CPU tensors, and in the plain front end, _ray_rows stacks the
-    rows, sorts by the plain key and gathers, as before the rows pass: the
-    same rows and index, the spans rows, key, sort, gather (rows alone
-    unsorted), and no launch of the library."""
+    """On CPU tensors, and in the plain front end, _ray_rows runs the
+    plain steps: the rows stacked and gathered through the plain key's
+    sort, the spans key, sort, rows (rows alone unsorted), and no launch
+    of the library."""
     rays = _rays(777, 3)
     before = (pt.ROWS_LAUNCHES, pt.KEY_LAUNCHES)
+    steps = pt.front_steps(rays.device, plain)
+    assert steps is pt.PLAIN
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        rows, idx = pt._ray_rows(rays, sort, plain=plain)
+        rows, idx = pt._ray_rows(steps, rays, sort)
     assert (pt.ROWS_LAUNCHES, pt.KEY_LAUNCHES) == before
     want = _cat_rows(rays.origin, rays.direction, rays.min_t, rays.max_t)
     if sort:
@@ -79,33 +83,41 @@ def test_cpu_ray_rows_keep_the_plain_path(sort, plain):
     else:
         assert idx is None
     assert same_bits(rows, want)
-    assert _spans(prof) == (["rows", "key", "sort", "gather"] if sort
-                            else ["rows"])
+    assert _spans(prof) == (["key", "sort", "rows"] if sort else ["rows"])
 
 
+@pytest.mark.parametrize("stand_in", [False, True])
 @pytest.mark.parametrize("sort", [False, True])
-def test_card_order_of_the_front_steps(monkeypatch, sort):
-    """With the steps of the card (here the plain rows behind another
-    callable, as _front_steps hands out the kernels), _ray_rows sorts
-    first and writes the rows once through the permutation: the spans key,
-    sort, rows (rows alone unsorted), no gather, and the plain path's rows
-    and index."""
+def test_card_order_of_the_front_steps(sort, stand_in):
+    """Whichever Steps it is given (the plain steps, or a stand-in whose
+    key and rows are the plain ones behind other callables, as the card's
+    kernels are), _ray_rows keys and sorts first and writes the rows once
+    through the permutation: each step called once, the spans key, sort,
+    rows (rows alone unsorted), and the rows of the cat and the gather."""
     rays = _camera()
-    want_rows, want_idx = pt._ray_rows(rays, sort)
     calls = []
 
+    def key_of(*args):
+        calls.append(("key", len(args)))
+        return morton.ray_coherence_key_reference(*args)
+
     def rows_of(*args):
-        calls.append(len(args))
+        calls.append(("rows", len(args)))
         return pt.ray_rows_reference(*args)
 
-    steps = (morton.ray_coherence_key_reference, rows_of, pt.unsort_reference)
-    monkeypatch.setattr(pt, "_front_steps", lambda *a: steps)
+    steps = (dataclasses.replace(pt.PLAIN, key=key_of, rows=rows_of)
+             if stand_in else pt.PLAIN)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        rows, idx = pt._ray_rows(rays, sort)
-    assert calls == [5]
+        rows, idx = pt._ray_rows(steps, rays, sort)
+    if stand_in:
+        assert calls == ([("key", 2)] if sort else []) + [("rows", 5)]
     assert _spans(prof) == (["key", "sort", "rows"] if sort else ["rows"])
-    assert same_bits(rows, want_rows)
+    want = _cat_rows(rays.origin, rays.direction, rays.min_t, rays.max_t)
     assert (idx is None) == (not sort)
     if sort:
+        want_idx = torch.sort(morton.ray_coherence_key_reference(
+            rays.origin, rays.direction), stable=True).indices
         assert torch.equal(idx, want_idx)
+        want = want[:, want_idx]
+    assert same_bits(rows, want)

@@ -20,12 +20,12 @@ FIELDS = ("mesh_index", "triangle_index", "vertex_position", "vertex_index",
 # whose parent is the root.
 ROOT = "rtk.tracer.closest"
 FRONT = "rtk.packet_trace"
-STEPS = tuple(f"{FRONT}.{s}" for s in ("rows", "key", "sort", "gather",
-                                       "launch", "unsort", "wrap"))
+STEPS = tuple(f"{FRONT}.{s}" for s in ("key", "sort", "rows", "launch",
+                                       "unsort", "wrap"))
 HITS = tuple(f"rtk.hits.{f}" for f in ("mesh_index", "triangle_index",
                                        "vertex_position", "vertex_index",
                                        "uv"))
-SORTED_ONLY = {f"{FRONT}.{s}" for s in ("key", "sort", "gather", "unsort")}
+SORTED_ONLY = {f"{FRONT}.{s}" for s in ("key", "sort", "unsort")}
 
 
 @pytest.fixture(scope="module")

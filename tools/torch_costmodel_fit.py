@@ -174,7 +174,7 @@ def measure(tracer, rays, calls=CALLS):
         walls.append((time.perf_counter() - t0) * 1e3)
     st = measure_trace(tracer, rays, iters=calls, with_steps=True)
     packed = tracer.packed
-    rows, _ = pt._ray_rows(rays, None)
+    rows, _ = pt._ray_rows(pt.front_steps(rays.device), rays, None)
     kernel_ms = cuda_ms(lambda: pt.packet_trace_kernel(
         packed.nodes, packed.tris, rows, leaf_size=packed.leaf_size,
         stack_size=packed.stack_size), calls)

@@ -363,6 +363,7 @@ def main():
         raise SystemExit("needs a CUDA device; none found")
 
     import rtk_tpu_torch as rt
+    from rtk_tpu_torch.ops import library
     from rtk_tpu_torch.ops import packet_trace as pt
     from rtk_tpu_torch.ops.morton import ray_coherence_key
     from rtk_tpu_torch.testing import scenes
@@ -388,7 +389,8 @@ def main():
         text=True).stdout.strip()
     sources = [(s.split("=", 1)[0] if "=" in s else f"source{i}",
                 pathlib.Path(s.split("=", 1)[-1]).resolve())
-               for i, s in enumerate(args.source)] or [("", pt.KERNEL_SRC)]
+               for i, s in enumerate(args.source)] or [
+                   ("", library.KERNEL_SRC)]
     variants = [v.split("=", 1) for v in args.variant] or [["tree", ""]]
     variants = [(n.split(":", 1) if ":" in n else [None, n]) + [f]
                 for n, f in variants]
@@ -398,7 +400,7 @@ def main():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     header = BUILD_DIR / f"ladder-filter-{flt.key}.h"
     header.write_text(flt.source)
-    cuobjdump = pathlib.Path(pt._nvcc()).with_name("cuobjdump")
+    cuobjdump = pathlib.Path(library._nvcc()).with_name("cuobjdump")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     jobs = []
     for si, (src_label, src) in enumerate(sources):
@@ -408,12 +410,13 @@ def main():
             label = name if len(sources) == 1 else f"{src_label}:{name}"
             for kind, extra, deps in (
                     ("plain", [], []),
-                    ("filter", ["-DRTK_FILTER", f"-I{pt.CSRC}", "-include",
-                                str(header)], [pt.FILTER_OPS, header])):
+                    ("filter", ["-DRTK_FILTER", f"-I{library.CSRC}",
+                                "-include", str(header)],
+                     [library.FILTER_OPS, header])):
                 jobs.append((label, src, flags, kind,
                              f"ladder{si}_{name}_{kind}",
-                             [pt._nvcc(), *pt.NVCC_FLAGS, *flags.split(),
-                              *extra], deps))
+                             [library._nvcc(), *library.NVCC_FLAGS,
+                              *flags.split(), *extra], deps))
 
     def run_build(job):
         _, src, _, _, lib_name, command, deps = job
@@ -629,7 +632,7 @@ def main():
                    samples=8, max_dist=3.0)
     for name, batch in (("shadow", blog.any_batches[0]),
                         ("ao", blog.any_batches[1])):
-        r9, _ = pt._ray_rows(batch, None)
+        r9, _ = pt._ray_rows(pt.front_steps(batch.device), batch, None)
         cases.append(("render", name, "plain", rtracer.packed, r9,
                       {"mode_any": 1}))
         cases.append(("render", name + "_stats", "plain", rtracer.packed,

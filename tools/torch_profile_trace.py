@@ -38,6 +38,7 @@ if REPO not in sys.path:  # run as a script: the package is one level up
     sys.path.insert(0, REPO)
 
 import rtk_tpu_torch as rt  # noqa: E402
+from rtk_tpu_torch.ops import library  # noqa: E402
 from rtk_tpu_torch.ops import packet_trace as pt  # noqa: E402
 from rtk_tpu_torch.testing import scenes  # noqa: E402
 from rtk_tpu_torch.trace.packed import pack_scene  # noqa: E402
@@ -64,7 +65,7 @@ def probe_library():
     if _lib is None:
         t0 = time.perf_counter()
         so, _ = build_shared("dispatch_probe", [PROBE_SRC],
-                             [pt._nvcc(), *pt.NVCC_FLAGS])
+                             [library._nvcc(), *library.NVCC_FLAGS])
         lib = ctypes.CDLL(str(so))
         lib.rtk_dispatch_probe.restype = ctypes.c_int
         lib.rtk_dispatch_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -178,7 +179,7 @@ def trace_stages(packed, rays):
     "trace_sorted"} callables.  raw_kernel returns the traversal's (t, u,
     v, slot) over the rays' (8, N) rows, stacked once here in the caller's
     order; the others return PacketHits."""
-    rows, _ = pt._ray_rows(rays, False)
+    rows, _ = pt._ray_rows(pt.front_steps(rays.device), rays, False)
     kw = dict(leaf_size=packed.leaf_size, stack_size=packed.stack_size)
     return {
         "raw_kernel": lambda: pt.packet_trace(packed.nodes, packed.tris, rows,

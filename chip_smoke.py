@@ -51,9 +51,13 @@ Phases (each prints one line):
      config 3, the atrium (409,600 tris, bench.py:590-664): SAH tables at
      both widths, 1024^2 primaries and one cosine-sampled diffuse bounce
      (its coherence keys bit-equal to the plain version on a CPU copy)
-     traced at both widths, and the fused grid march on the atrium's LBVH
-     through Tracer(engine="march") against the flat trace (closest on the
-     bounce and the primaries, any-hit masks), with the march kernel
+     traced at both widths, with the mixed-axis share of the bounce and
+     of the primaries in their sorted order (the 32-ray warps whose shear
+     axes differ) and K1 closest alone on the 8-wide bounce beside its
+     bound (the kernels line's packet_trace row, "bounce8"), and the fused
+     grid march on the atrium's LBVH through Tracer(engine="march")
+     against the flat trace (closest on the bounce and the primaries,
+     any-hit masks), with the march kernel
      against its plain version on the bounce (counts on a 256^2 subset);
   8. dynamic scenes: build once, then per frame refit the bounds to moved
      vertices, regather the kernel's tables and trace (refit,
@@ -1072,6 +1076,7 @@ def phase7(rt, dev, launch_log, soup6, cam512, width=8192, atrium_width=1024,
     from rtk_tpu_torch.ops import packet_trace as pt
     from rtk_tpu_torch.testing import scenes
     from rtk_tpu_torch.testing.grid import march_batch, trace_packets_march
+    from rtk_tpu_torch.utils.stats import mixed_axis_share
 
     sync = torch.cuda.synchronize
     rec = {}
@@ -1157,19 +1162,34 @@ def phase7(rt, dev, launch_log, soup6, cam512, width=8192, atrium_width=1024,
                                                 bounce.direction),
                        stable=True).indices
     brows = rows_of(bounce)[:, order].contiguous()
-    del order
+    # The 32-ray warps whose shear axes differ, in the sorted order the
+    # kernel is handed: they take the leaf test that reads the axis from
+    # the ray.
+    prim_order = torch.sort(morton.ray_coherence_key(cam.origin,
+                                                     cam.direction),
+                            stable=True).indices
+    mixed = {"bounce": mixed_axis_share(bounce.direction[order]),
+             "primary": mixed_axis_share(cam.direction[prim_order])}
+    del order, prim_order
+    bcounts = {w: pt.packet_trace_kernel(
+        p.nodes, p.tris, brows, leaf_size=16, stack_size=p.stack_size,
+        branching=w, stats=True)[4] for w, p in tables.items()}
+    bms = {w: kernel_alone(pt, p, brows)[1] for w, p in tables.items()}
+    b8_bound, b8_by = bound(bcounts[8], tables[8])
     rec["atrium"] = {
         "tris": atr.shape[0], "rays": cam.count,
         "primary_hits": int(prim.hit.sum()),
         "bounce_hits": int(b16.hit.sum()), "width_mismatch": mism,
         "depth": {w: p.depth for w, p in tables.items()},
-        "bounce_ms": ms,
-        "bounce_kernel_ms": {w: kernel_alone(pt, p, brows)[1]
-                             for w, p in tables.items()},
-        "per_ray_mean": {w: per_ray_mean(pt.packet_trace_kernel(
-            p.nodes, p.tris, brows, leaf_size=16, stack_size=p.stack_size,
-            branching=w, stats=True)[4]) for w, p in tables.items()}}
-    del tables, b8, b16
+        "bounce_ms": ms, "bounce_kernel_ms": bms,
+        "mixed_axis_share": mixed,
+        "per_ray_mean": {w: per_ray_mean(c) for w, c in bcounts.items()},
+        # K1 closest on the bounce at 8 wide: the kernels line's yardstick
+        # of incoherent rays.
+        "k1_bounce8": {"ms": bms[8], "bound_ms": b8_bound,
+                       "bound_by": b8_by, "share": b8_bound / bms[8],
+                       "mixed_axis_share": mixed["bounce"]}}
+    del tables, b8, b16, bcounts
 
     # ---- K2: the grid march on the atrium's LBVH (leaf 16) ----
     sync()
@@ -3486,7 +3506,8 @@ def main():
         {"name": "packet_trace", "replaces": "rtk_tpu/ops/pallas_trace.py:146",
          "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": main_bound[0],
-         "bound_by": main_bound[1]},
+         "bound_by": main_bound[1],
+         "bounce8": p7["atrium"]["k1_bounce8"]},
         {"name": "packet_trace_any",
          "replaces": "rtk_tpu/ops/pallas_trace.py:450",
          **p8_kernels["packet_trace_any"]},

@@ -48,9 +48,21 @@
 //   * a lane keeps descending until it holds a leaf, and the warp tests
 //     its leaves together: lanes at a node and lanes at a leaf would make
 //     the warp run both paths in turn;
-//   * the leaf test is compiled once per shear axis and picked by the
-//     ray's kz, so vertex components are chosen at compile time instead
-//     of by three-way selects a triangle; coherent rays share kz;
+//   * the leaf test is compiled once per shear axis, so vertex components
+//     are chosen at compile time instead of by three-way selects a
+//     triangle.  A warp takes the per-axis copy only when all its active
+//     lanes (those at a leaf) share the ray's kz, one match instruction a
+//     leaf phase: lanes of different axes would run the copies in turn,
+//     and the rays of an incoherent batch (bounces, after the coherence
+//     sort) hold two or three axes in most warps.  A mixed warp runs one
+//     copy that selects each vertex component by the ray's axis: the same
+//     operations on the same values, so the same bits.  Measured slower
+//     (PERF.md section 6): the choice made once a ray, for the whole
+//     traversal, in one loop or in a loop of its own (mixed warps lose the
+//     octant copies and the leaf phases whose lanes share kz); the mixed
+//     traversal as a function of its own, not inlined (ptxas spilled in
+//     its leaf loop); selects on kz == 0 and kz == 1 kept from the ray's
+//     start (the coherent loop's registers moved);
 //   * on flat tables (8 and 16 wide) the child box test is compiled once
 //     per sign octant of the ray's direction, so each axis's near and far
 //     planes are chosen at compile time instead of by six selects a child.
@@ -232,7 +244,7 @@ __device__ __forceinline__ float test_min(float a, float b) {
 #endif
 }
 
-// A shear axis known at compile time (0, 1, 2).
+// A shear axis known at compile time (0, 1, 2), or -1: read from the ray.
 template <int N>
 struct Axis {
   static constexpr int value = N;
@@ -370,11 +382,23 @@ __device__ __forceinline__ void traverse(
     return true;
   };
 
+  // The component kz + k (mod 3) of (x, y, z): k = 1 gives kx, 2 ky and 0
+  // kz.  Folded at compile time in a per-axis copy, selected by the ray's
+  // axis otherwise (KZ < 0).
+  auto shear_comp = [&](auto axis, const int k, const float x,
+                        const float y, const float z) -> float {
+    constexpr int KZ = decltype(axis)::value;
+    if constexpr (KZ >= 0) {
+      return sel3((KZ + k) % 3, x, y, z);
+    } else {
+      const int c = r.kz + k;
+      return sel3(c >= 3 ? c - 3 : c, x, y, z);
+    }
+  };
+
   // One triangle row against the ray, with the shear axes of `axis`.
   auto test = [&](auto axis, const float4 q0, const float4 q1,
                   const TriTail q2, const int slot) {
-    constexpr int KZ = decltype(axis)::value;
-    constexpr int KX = (KZ + 1) % 3, KY = (KX + 1) % 3;
     // Padding rows (NaN vertices) can never hit; masked-out rows are
     // rejected before any arithmetic.
     if (q0.x != q0.x) return;
@@ -387,9 +411,9 @@ __device__ __forceinline__ void traverse(
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       // Translate before shearing (pallas_trace.py:953-968).
-      const float tx = sel3(KX, vx[j], vy[j], vz[j]) - r.okx;
-      const float ty = sel3(KY, vx[j], vy[j], vz[j]) - r.oky;
-      const float tz = sel3(KZ, vx[j], vy[j], vz[j]) - r.okz;
+      const float tx = shear_comp(axis, 1, vx[j], vy[j], vz[j]) - r.okx;
+      const float ty = shear_comp(axis, 2, vx[j], vy[j], vz[j]) - r.oky;
+      const float tz = shear_comp(axis, 0, vx[j], vy[j], vz[j]) - r.okz;
       xs[j] = tx + r.sx * tz;
       ys[j] = ty + r.sy * tz;
       zs[j] = r.sz * tz;
@@ -482,9 +506,12 @@ __device__ __forceinline__ void traverse(
       done = descend(Oct<-1>{});
     }
     if (done) break;
-    // One copy of the leaf test per shear axis: the vertex components are
-    // picked at compile time, not by three-way selects a triangle.
-    if (r.kz == 0) leaf(Axis<0>{});
+    // The per-axis copies of the leaf test only where every lane at a leaf
+    // shares the ray's kz: lanes of different axes would run their copies
+    // in turn, so a mixed warp takes the copy that reads the axis.
+    const unsigned active = __activemask();
+    if (__match_any_sync(active, r.kz) != active) leaf(Axis<-1>{});
+    else if (r.kz == 0) leaf(Axis<0>{});
     else if (r.kz == 1) leaf(Axis<1>{});
     else leaf(Axis<2>{});
     if (mode_any && best_slot >= 0) break;

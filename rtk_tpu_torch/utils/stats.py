@@ -166,6 +166,28 @@ def steps_per_block(steps: torch.Tensor, block: int = STEP_BLOCK) -> float:
     return float(s.amax(dim=1).double().mean())
 
 
+def mixed_axis_share(direction: torch.Tensor, warp: int = 32) -> float:
+    """Share of the consecutive `warp`-ray groups of `direction` ((N, 3),
+    in the order given; a short last group counts) whose rays' shear axes
+    differ.  A ray's shear axis is the kernel's kz: its largest |d|
+    component, ties x, then y, then z (a NaN component gives z).
+
+    The kernel takes its per-axis leaf copies only where a warp's active
+    lanes share the axis, so this is an upper bound on the share of leaf
+    phases that take the copy reading the axis from the ray: a leaf
+    phase's lanes are a subset of the warp."""
+    n = direction.shape[0]
+    if n == 0:
+        return 0.0
+    a = direction.abs()
+    top = a.amax(dim=1)
+    kz = torch.where(a[:, 0] == top, 0, torch.where(a[:, 1] == top, 1, 2))
+    # A short last group padded with its own last ray's axis.
+    kz = torch.cat([kz, kz[-1:].expand((-n) % warp)]).reshape(-1, warp)
+    mixed = kz.amax(dim=1) != kz.amin(dim=1)
+    return float(mixed.double().mean())
+
+
 def measure_trace(tracer, rays, iters: int = 5, mode: str = "closest",
                   with_steps: bool = False) -> TraceStats:
     """Time a trace through a Tracer, and optionally count its traversal

@@ -799,6 +799,94 @@ def test_w16_wide_nodes_with_ties(cuda, n):
     assert got.hit.any()
 
 
+def _shear_axis_rays(batch, device, seed=41):
+    """Rays aimed at blob(4) from about 3 units out whose shear axes (the
+    dominant |d| component, ties x, y, z) are set ray by ray, and their
+    mixed-axis share -> (Rays, share).  "cycle": 4096 rays whose lanes
+    cycle kz 0, 1, 2 in every warp, with ties of |d| (all three equal: x;
+    |dy| = |dz| > |dx|: y); "one_axis": 4096 rays of kz 2, the control;
+    "ragged": 1000 rays of random axes, a fifth dead, a short last warp."""
+    from rtk_tpu_torch.utils.stats import mixed_axis_share
+
+    rng = np.random.default_rng(seed)
+    n = 1000 if batch == "ragged" else 4096
+    axis = {"cycle": np.arange(n) % 3, "one_axis": np.full(n, 2),
+            "ragged": rng.integers(0, 3, n)}[batch]
+
+    def signs(shape):
+        return np.where(rng.random(shape) < 0.5, -1.0, 1.0)
+
+    d = np.clip(rng.normal(size=(n, 3)) * 0.3, -0.9, 0.9)
+    d[np.arange(n), axis] = signs(n)
+    if batch == "cycle":
+        d[::7] = signs(d[::7].shape)
+        d[4::11] = signs(d[4::11].shape) * [0.25, 1.0, 1.0]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = -3.0 * d + rng.normal(size=(n, 3)).astype(np.float32) * 0.2
+    dead = rng.random(n) < (0.2 if batch == "ragged" else 0.0)
+    rays = rtk_tpu_torch.Rays.make(o, d, 0.0, np.where(dead, 0.0, 3.0e38),
+                                   device=device)
+    return rays, mixed_axis_share(rays.direction)
+
+
+def _shear_axis_tables(variant, device):
+    """The tables of each variant: blob(4) LBVH (leaf 4) with a tri_mask
+    of 1, 2, 3 by triangle; its step-quantized SAH tree packed 16 wide for
+    "w16"; the two-BLAS forest for "roots"."""
+    if variant == "w16":
+        return _sah_tables(device, scenes.blob(4)[0])[16]
+    if variant == "roots":
+        return _two_blas_forests(device)[0][0]
+    v, f = scenes.blob(4)[1:]
+    mask = (np.arange(f.shape[0]) % 3 + 1).astype(np.uint32)
+    return pack_scene(rtk_tpu_torch.build_scene((v, f), device=device),
+                      tri_mask=mask)
+
+
+SHEAR_AXIS_VARIANTS = {
+    "closest": {}, "any": {"mode": "any"}, "mask": {"filter_mask": 2},
+    "defer_uv": {"defer_uv": True}, "stats": {"stats": True},
+    "filter": {"filter_fn": "odd_tri"}, "roots": {"ray_roots": None},
+    "w16": {}}
+
+
+@pytest.mark.parametrize("variant", sorted(SHEAR_AXIS_VARIANTS))
+@pytest.mark.parametrize("batch", ["cycle", "one_axis", "ragged"])
+def test_kernel_mixed_shear_axes(cuda, batch, variant):
+    """Warps whose rays hold more than one shear axis take the leaf test
+    that reads the axis from the ray, and one-axis warps the per-axis
+    copies: every variant equals its plain version bit for bit on both
+    (the stats variant's five count rows too), unsorted so that the warps
+    are the batch's own."""
+    rays, share = _shear_axis_rays(batch, cuda)
+    if batch == "cycle":
+        assert share == 1.0
+    elif batch == "one_axis":
+        assert share == 0.0
+    else:
+        assert share > 0.0
+    packed = _shear_axis_tables(variant, cuda)
+    kw = dict(SHEAR_AXIS_VARIANTS[variant])
+    if variant == "filter":
+        kw["filter_fn"] = rtk_tpu_torch.jit_filter(FILTERS["odd_tri"])
+    if variant == "roots":
+        roots = _two_blas_forests(cuda)[0][1]
+        kw["ray_roots"] = torch.as_tensor(
+            roots[np.arange(rays.count) % len(roots)], dtype=torch.int32,
+            device=cuda)
+    before = packet_trace.KERNEL_LAUNCHES
+    got = packet_trace.trace_packets(packed, rays, sort_rays=False, **kw)
+    torch.cuda.synchronize()
+    assert packet_trace.KERNEL_LAUNCHES == before + 1
+    want = packet_trace.trace_packets_reference(packed, rays,
+                                                sort_rays=False, **kw)
+    if variant == "stats":
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    _assert_same(got, want)
+    assert got.hit.any()
+
+
 @pytest.mark.parametrize("kind", ["lbvh", "sah", "sah16"])
 def test_kernel_on_refit_tables(cuda, kind):
     """The kernel against its plain version on tables refit to a moved

@@ -40,9 +40,10 @@ CPU = "cpu"
 
 # What the kernel sources take from CUDA, for a host build.  A thread runs
 # as a warp of its own; __match_any_sync has every third thread play a
-# lane whose warp holds rays of other sign octants, so both the octant
-# copies of the node test and the copy that reads the signs from the ray
-# are held against the plain versions.  The coherence key's warp
+# lane whose warp holds rays of other sign octants and other shear axes,
+# so both the octant and per-axis copies of the node and leaf tests and
+# the loop that reads the signs and the axis from the ray are held
+# against the plain versions.  The coherence key's warp
 # reductions see a warp of one lane at the thread's own lane
 # (__ballot_sync), so every thread folds its own value, and its atomics
 # run one thread at a time, as the launch does.

@@ -136,6 +136,81 @@ def test_steps_per_block_is_the_blocks_critical_path():
                                                          / 3)
 
 
+def _axis_by_hand(d):
+    """The kernel's kz of one direction: largest |d|, ties x, y, z."""
+    a = [abs(float(c)) for c in d]
+    top = max(a)
+    return 0 if a[0] == top else (1 if a[1] == top else 2)
+
+
+def _mixed_by_hand(direction, warp=32):
+    groups = [direction[i:i + warp] for i in range(0, len(direction), warp)]
+    return sum(len({_axis_by_hand(d) for d in g}) > 1
+               for g in groups) / len(groups)
+
+
+def _sorted_bounce(n=1000, seed=31):
+    """Seeded bounce-like rays in the coherence key's order, as the front
+    end sorts a bounce batch: half leave a floor close to its normal (+y),
+    half leave a wall (normal -x) spread about theirs."""
+    from rtk_tpu_torch.ops.morton import ray_coherence_key_reference
+
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-4, 4, size=(n, 3)).astype(np.float32)
+    floor = np.arange(n) < n // 2
+    o[floor, 1] = -4.0
+    o[~floor, 0] = 4.0
+    nrm = np.where(floor[:, None], [0.0, 4.0, 0.0], [-1.0, 0.0, 0.0])
+    d = nrm + rng.normal(size=(n, 3))
+    d = torch.as_tensor((d / np.linalg.norm(d, axis=1,
+                                            keepdims=True)).astype(np.float32))
+    order = torch.sort(ray_coherence_key_reference(torch.as_tensor(o), d),
+                       stable=True).indices
+    return d[order]
+
+
+def _mixed_axis_case(name):
+    """(directions, the share counted by hand) of each case."""
+    if name == "one_axis":
+        d = torch.tensor([[0.1, -0.2, 1.0], [0.3, 0.3, -0.9]]).repeat(50, 1)
+        return d, 0.0
+    if name == "lanes_cycle":
+        one = torch.tensor([[1.0, 0.2, -0.3], [0.1, -1.0, 0.5],
+                            [0.2, 0.4, 1.0]])
+        return one.repeat(32, 1), 1.0
+    if name == "short_last_group":
+        # Groups of 32, 32 and 6: only the short last one is mixed.
+        d = torch.tensor([[1.0, 0.5, 0.5]]).repeat(70, 1)
+        d[66] = torch.tensor([0.1, 0.2, -2.0])
+        return d, 1 / 3
+    if name == "ties":
+        # Ties of |d| go x, then y, then z: the first group all x, the
+        # second all y, the third x and y.
+        to_x = torch.tensor([[1.0, 1.0, 1.0], [-1.0, 1.0, 0.5],
+                             [1.0, 0.2, -1.0], [-2.0, -2.0, 0.0]])
+        to_y = torch.tensor([[0.5, 1.0, 1.0], [0.0, -1.0, 1.0],
+                             [0.25, 3.0, -3.0], [-0.5, 1.0, -0.5]])
+        d = torch.cat([to_x.repeat(8, 1), to_y.repeat(8, 1),
+                       torch.cat([to_x, to_y]).repeat(4, 1)])
+        return d, 1 / 3
+    d = _sorted_bounce()
+    return d, _mixed_by_hand(d.tolist())
+
+
+@pytest.mark.parametrize("name", ["one_axis", "lanes_cycle",
+                                  "short_last_group", "ties",
+                                  "sorted_bounce"])
+def test_mixed_axis_share(name):
+    """The share of consecutive 32-ray groups whose shear axes differ,
+    against a count by hand (ties x, then y, then z, as the kernel's kz)."""
+    d, want = _mixed_axis_case(name)
+    assert _mixed_by_hand(d.tolist()) == pytest.approx(want)
+    assert stats.mixed_axis_share(d) == pytest.approx(want)
+    if name == "sorted_bounce":
+        assert 0.0 < want < 1.0
+        assert stats.mixed_axis_share(d[:0]) == 0.0
+
+
 def _scenes(leaf=4):
     tris = scenes.blob(3)[0]
     jscene = rtk_tpu.build_scene(_soup_of(tris),

@@ -1,7 +1,7 @@
 """Time builds of rtk_tpu_torch's traversal kernel against each other on one
 CUDA card, with what the compiler made of each.
 
-    python3 tools/torch_kernel_ladder.py [--source [LABEL=]PATH]... [--variant [LABEL:]NAME=FLAGS]... [--pairs 20]
+    python3 tools/torch_kernel_ladder.py [--source [LABEL=]PATH]... [--variant [LABEL:]NAME=FLAGS]... [--batches atrium,render] [--pairs 20]
 
 Each --source is a copy of csrc/packet_trace.cu with the same C interface
 (default: the package's own; e.g. `parent=` a checkout of another commit
@@ -20,7 +20,8 @@ is built twice, plain and with the odd-triangle filter predicate, and:
     ladder/), which holds every record in full; the standard output gets
     registers, spills, instruction and LDL/STL counts, digests and median
     times;
-  * the kernel alone is timed with CUDA events on these batches:
+  * the kernel alone is timed with CUDA events on these batches (--batches:
+    the headline and those named, default all):
     - "headline": the main path's rows at --width^2 (default 8192):
       blob(6), LBVH leaf 4, morton camera rays in coherence-key order.
       Modes: closest, any, mask, defer_uv, stats, and the filter build
@@ -62,9 +63,12 @@ is built twice, plain and with the odd-triangle filter predicate, and:
     The builds run in turn, forwards then backwards, --rounds times; the
     minimum and median of the rounds are reported;
   * every output of every build (t, u, v, slot, counts) must equal the
-    first build's bit for bit; the first build's per-ray counts are
-    printed with their divergence (per 32-ray warp, the mean of the
-    warp's largest count over the mean count);
+    first build's bit for bit; each case's mixed-axis share (utils/
+    stats.py: the 32-ray warps of its rows whose shear axes differ, which
+    take the leaf test that reads the axis from the ray) is printed; the
+    first build's per-ray counts are printed with their divergence (per
+    32-ray warp, the mean of the warp's largest count over the mean
+    count);
   * on every stats case, box tests per internal pop (n_box / n_int); on
     every mask batch (headline, grid8b), the masked-row share: 1 - sum
     n_tri / sum (n_leaf x leaf_size), the leaf loop's slots spent on rows
@@ -92,6 +96,7 @@ is built twice, plain and with the odd-triangle filter predicate, and:
     variant are printed, so the time the instruction stream needs if it
     never stalls (instructions a ray over 132 SMs x 4 schedulers x the
     clock) can be estimated from the SASS counts.
+--pairs 0 leaves out the grouping key's end-to-end pairs.
 
 One JSON object per line; needs a CUDA card and nvcc; imports no jax.
 """
@@ -121,6 +126,8 @@ MODES = {"closest": {}, "any": {"mode_any": 1}, "mask": {"qmask": 1},
 COUNTS = ("steps", "internal_pops", "leaf_pops", "box_tests", "tri_tests")
 REPS_SCALE = {"headline": 1, "grid8b": 12, "grid8b_sah": 12, "roots": 60,
               "w16": 1, "atrium": 12, "render": 12}
+# The batches --batches can name (grid8b brings grid8b_sah).
+BATCHES = ("grid8b", "roots", "w16", "atrium", "render")
 
 
 def warp_view(c):
@@ -357,8 +364,13 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--pairs", type=int, default=20)
+    ap.add_argument("--batches", default=",".join(BATCHES),
+                    help="comma-separated, of " + ", ".join(BATCHES))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    chosen = set(filter(None, args.batches.split(",")))
+    if chosen - set(BATCHES):
+        ap.error(f"--batches: unknown {sorted(chosen - set(BATCHES))}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device; none found")
 
@@ -368,6 +380,7 @@ def main():
     from rtk_tpu_torch.ops.morton import ray_coherence_key
     from rtk_tpu_torch.testing import scenes
     from rtk_tpu_torch.utils.build import BUILD_DIR, build_shared
+    from rtk_tpu_torch.utils.stats import mixed_axis_share
 
     dev = torch.device("cuda")
     out_dir = pathlib.Path(args.out or BUILD_DIR / "ladder")
@@ -493,170 +506,191 @@ def main():
                   {"qmask": 1, "stats": True}))
 
     # grid8b
-    cfg = rt.BuildConfig(branching=8, leaf_size=8, wide_nodes=False)
-    g0 = scenes.deforming_grid(0.0, n=1024)
-    scene8 = rt.build_from_soup(g0, config=cfg, device=dev)
-    p8 = rt.Tracer(scene8, tri_mask=np.where(
-        np.arange(g0.shape[0]) % 2 == 1, 1, 2).astype(np.uint32)).packed
-    g2 = scenes.deforming_grid(0.2, n=1024)
-    p8 = repack_bounds(p8, refit(scene8, torch.as_tensor(g2, device=dev)))
-    del scene8, g0
-    cam8 = scenes.camera_rays(**cs.GRID_CAM, width=2048, height=2048,
-                              order="morton", device=dev, on_device=True)
-    rows8 = rows_of(cam8.origin, cam8.direction, cam8.min_t, cam8.max_t)
-    del cam8
-    for m in ("defer_uv", "closest", "stats", "any", "mask"):
-        cases.append(("grid8b", m, "plain", p8, rows8, MODES[m]))
-    cases.append(("grid8b", "any_stats", "plain", p8, rows8,
-                  {"mode_any": 1, "stats": True}))
-    cases.append(("grid8b", "mask_stats", "plain", p8, rows8,
-                  {"qmask": 1, "stats": True}))
+    if "grid8b" in chosen:
+        cfg = rt.BuildConfig(branching=8, leaf_size=8, wide_nodes=False)
+        g0 = scenes.deforming_grid(0.0, n=1024)
+        scene8 = rt.build_from_soup(g0, config=cfg, device=dev)
+        p8 = rt.Tracer(scene8, tri_mask=np.where(
+            np.arange(g0.shape[0]) % 2 == 1, 1, 2).astype(np.uint32)).packed
+        g2 = scenes.deforming_grid(0.2, n=1024)
+        p8 = repack_bounds(p8, refit(scene8, torch.as_tensor(g2,
+                                                             device=dev)))
+        del scene8, g0
+        cam8 = scenes.camera_rays(**cs.GRID_CAM, width=2048, height=2048,
+                                  order="morton", device=dev, on_device=True)
+        rows8 = rows_of(cam8.origin, cam8.direction, cam8.min_t, cam8.max_t)
+        del cam8
+        for m in ("defer_uv", "closest", "stats", "any", "mask"):
+            cases.append(("grid8b", m, "plain", p8, rows8, MODES[m]))
+        cases.append(("grid8b", "any_stats", "plain", p8, rows8,
+                      {"mode_any": 1, "stats": True}))
+        cases.append(("grid8b", "mask_stats", "plain", p8, rows8,
+                      {"qmask": 1, "stats": True}))
 
-    # grid8b_sah: the same rows through one SAH tree at both widths
-    tree = NativeOracle(g2.reshape(-1, 9), leaf_max=8).export_tree()
-    for w in (8, 16):
-        pw = pack_binary_tree(g2, *tree, leaf_size=8, branching=w,
-                              device=dev)
-        cases.append(("grid8b_sah", f"w{w}", "plain", pw, rows8, {}))
-        cases.append(("grid8b_sah", f"w{w}_stats", "plain", pw, rows8,
-                      {"stats": True}))
-    del tree, g2
+        # grid8b_sah: the same rows through one SAH tree at both widths
+        tree = NativeOracle(g2.reshape(-1, 9), leaf_max=8).export_tree()
+        for w in (8, 16):
+            pw = pack_binary_tree(g2, *tree, leaf_size=8, branching=w,
+                                  device=dev)
+            cases.append(("grid8b_sah", f"w{w}", "plain", pw, rows8, {}))
+            cases.append(("grid8b_sah", f"w{w}_stats", "plain", pw, rows8,
+                          {"stats": True}))
+        del tree, g2
 
     # roots: config 5's round 0
-    _, _, iscene, tables = cs.config5(rt, dev)
-    ps = tables["lbvh8"]
-    del tables
-    cam5 = scenes.camera_rays(**cs.INST_CAM, width=1024, height=1024,
-                              order="morton", device=dev, on_device=True)
-    cand, _, _ = instancing._instance_candidates(iscene, cam5, 1)
-    sel = torch.nonzero(cand[:, 0] >= 0).squeeze(1)
-    inst = cand[sel, 0].long()
-    for name, grouped in (("roots", True), ("roots_world", False)):
-        s_, i_ = sel, inst
-        if grouped:
-            o_ = torch.sort(inst, stable=True).indices
-            s_, i_ = sel[o_], inst[o_]
-        o, d = instancing._object_rays(iscene.object_from_world[i_],
-                                       cam5.origin[s_], cam5.direction[s_])
-        r5 = rows_of(o, d, cam5.min_t[s_], cam5.max_t[s_])
-        roots = ps.packed_roots[iscene.instance_blas[i_]].contiguous()
-        cases.append(("roots", name, "plain", ps.packed, r5,
-                      {"roots": roots}))
-        cases.append(("roots", name + "_stats", "plain", ps.packed, r5,
-                      {"roots": roots, "stats": True}))
-    del cand, sel, inst, cam5, iscene
+    if "roots" in chosen:
+        _, _, iscene, tables = cs.config5(rt, dev)
+        ps = tables["lbvh8"]
+        del tables
+        cam5 = scenes.camera_rays(**cs.INST_CAM, width=1024, height=1024,
+                                  order="morton", device=dev, on_device=True)
+        cand, _, _ = instancing._instance_candidates(iscene, cam5, 1)
+        sel = torch.nonzero(cand[:, 0] >= 0).squeeze(1)
+        inst = cand[sel, 0].long()
+        for name, grouped in (("roots", True), ("roots_world", False)):
+            s_, i_ = sel, inst
+            if grouped:
+                o_ = torch.sort(inst, stable=True).indices
+                s_, i_ = sel[o_], inst[o_]
+            o, d = instancing._object_rays(iscene.object_from_world[i_],
+                                           cam5.origin[s_],
+                                           cam5.direction[s_])
+            r5 = rows_of(o, d, cam5.min_t[s_], cam5.max_t[s_])
+            roots = ps.packed_roots[iscene.instance_blas[i_]].contiguous()
+            cases.append(("roots", name, "plain", ps.packed, r5,
+                          {"roots": roots}))
+            cases.append(("roots", name + "_stats", "plain", ps.packed, r5,
+                          {"roots": roots, "stats": True}))
+        del cand, sel, inst, cam5, iscene
 
     # w16: phase 7's 16-wide headline
-    tables, _ = cs.sah_widths(rt, dev, v6[f6])
-    cam = scenes.camera_rays(**CAM, width=args.width, height=args.width,
-                             order="morton", device=dev, on_device=True)
-    rows16 = rows_of(cam.origin, cam.direction, cam.min_t, cam.max_t)
-    del cam
-    cases.append(("w16", "closest", "plain", tables[16], rows16, {}))
-    cases.append(("w16", "stats", "plain", tables[16], rows16,
-                  {"stats": True}))
-    del tables
+    if "w16" in chosen:
+        tables, _ = cs.sah_widths(rt, dev, v6[f6])
+        cam = scenes.camera_rays(**CAM, width=args.width, height=args.width,
+                                 order="morton", device=dev, on_device=True)
+        rows16 = rows_of(cam.origin, cam.direction, cam.min_t, cam.max_t)
+        del cam
+        cases.append(("w16", "closest", "plain", tables[16], rows16, {}))
+        cases.append(("w16", "stats", "plain", tables[16], rows16,
+                      {"stats": True}))
+        del tables
 
     # atrium: phase 7's bounce at both widths and through the march
-    from rtk_tpu_torch.models.path import cosine_sample, geometric_normal
     from rtk_tpu_torch.testing.grid import march_batch
 
-    atr = scenes.atrium()
-    tables, _ = cs.sah_widths(rt, dev, atr)
-    cam = scenes.camera_rays(**cs.ATRIUM_CAM, width=1024, height=1024,
-                             order="morton", device=dev)
-    prim = pt.trace_packets(tables[8], cam)
-    nrm = geometric_normal(prim, cam.direction)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    bounce = rt.Rays(origin=prim.position() + 1e-3 * nrm,
-                     direction=cosine_sample(gen, nrm),
-                     min_t=torch.full((cam.count,), 1e-3, device=dev),
-                     max_t=torch.where(prim.hit, float(np.float32(3.4e38)),
-                                       0.0))
-    order = torch.sort(ray_coherence_key(bounce.origin, bounce.direction),
-                       stable=True).indices
-    brows = rows_of(bounce.origin, bounce.direction, bounce.min_t,
-                    bounce.max_t)[:, order].contiguous()
-    for w in (8, 16):
-        cases.append(("atrium", f"bounce{w}", "plain", tables[w], brows, {}))
-        cases.append(("atrium", f"bounce{w}_stats", "plain", tables[w],
-                      brows, {"stats": True}))
-    march = rt.Tracer(rt.build_from_soup(atr, config=rt.BuildConfig(
-        leaf_size=16), device=dev), engine="march")
-    cases.append(("atrium", "lbvh", "plain", march.packed, brows, {}))
-    cm = march.grid.cells_march
     marches = []
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    for name, rays in (("march", bounce), ("march_prim", cam)):
-        for key, batch_of in (("", march_batch),
-                              ("_cellkey", cell_key_batch)):
-            mg, mrows, _ = batch_of(march.grid, rays)
-            cases.append(("atrium", name + key, "plain", cm, mrows,
-                          {"grid": mg}))
-            cases.append(("atrium", name + key + "_stats", "plain", cm,
-                          mrows, {"grid": mg, "stats": True}))
-            if rays is bounce:
-                marches.append((f"atrium/{name}{key}", cm, mrows, mg))
-            # What grouping costs: the key, sort and gather.
-            batch_of(march.grid, rays)
-            start.record()
-            for _ in range(5):
+    atr = scenes.atrium() if chosen & {"atrium", "render"} else None
+    if "atrium" in chosen:
+        from rtk_tpu_torch.models.path import cosine_sample, geometric_normal
+
+        tables, _ = cs.sah_widths(rt, dev, atr)
+        cam = scenes.camera_rays(**cs.ATRIUM_CAM, width=1024, height=1024,
+                                 order="morton", device=dev)
+        prim = pt.trace_packets(tables[8], cam)
+        nrm = geometric_normal(prim, cam.direction)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        bounce = rt.Rays(origin=prim.position() + 1e-3 * nrm,
+                         direction=cosine_sample(gen, nrm),
+                         min_t=torch.full((cam.count,), 1e-3, device=dev),
+                         max_t=torch.where(prim.hit,
+                                           float(np.float32(3.4e38)), 0.0))
+        order = torch.sort(ray_coherence_key(bounce.origin,
+                                             bounce.direction),
+                           stable=True).indices
+        brows = rows_of(bounce.origin, bounce.direction, bounce.min_t,
+                        bounce.max_t)[:, order].contiguous()
+        for w in (8, 16):
+            cases.append(("atrium", f"bounce{w}", "plain", tables[w],
+                          brows, {}))
+            cases.append(("atrium", f"bounce{w}_stats", "plain", tables[w],
+                          brows, {"stats": True}))
+        march = rt.Tracer(rt.build_from_soup(atr, config=rt.BuildConfig(
+            leaf_size=16), device=dev), engine="march")
+        cases.append(("atrium", "lbvh", "plain", march.packed, brows, {}))
+        cm = march.grid.cells_march
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        for name, rays in (("march", bounce), ("march_prim", cam)):
+            for key, batch_of in (("", march_batch),
+                                  ("_cellkey", cell_key_batch)):
+                mg, mrows, _ = batch_of(march.grid, rays)
+                cases.append(("atrium", name + key, "plain", cm, mrows,
+                              {"grid": mg}))
+                cases.append(("atrium", name + key + "_stats", "plain", cm,
+                              mrows, {"grid": mg, "stats": True}))
+                if rays is bounce:
+                    marches.append((f"atrium/{name}{key}", cm, mrows, mg))
+                # What grouping costs: the key, sort and gather.
                 batch_of(march.grid, rays)
-            end.record()
-            torch.cuda.synchronize()
-            emit({"grouping_ms": f"atrium/{name}{key}",
-                  "ms": start.elapsed_time(end) / 5})
-    emit({"key_end_to_end": key_end_to_end(
-        march, {"bounce": bounce, "primaries": cam}, args.pairs, 10),
-        "card": card})
-    del tables, prim, nrm, bounce, order, march, cam
+                start.record()
+                for _ in range(5):
+                    batch_of(march.grid, rays)
+                end.record()
+                torch.cuda.synchronize()
+                emit({"grouping_ms": f"atrium/{name}{key}",
+                      "ms": start.elapsed_time(end) / 5})
+        if args.pairs:
+            emit({"key_end_to_end": key_end_to_end(
+                march, {"bounce": bounce, "primaries": cam}, args.pairs,
+                10), "card": card})
+        del tables, prim, nrm, bounce, order, march, cam
 
     # render: phase 9's atrium as four meshes; 9b's shadow rays and first
     # AO probe, and 9a's bounce 2 through the march
-    from rtk_tpu_torch.models import path
+    if "render" in chosen:
+        from rtk_tpu_torch.models import path
 
-    cuts = np.cumsum((0,) + cs.ATRIUM_PARTS)
-    rscene = rt.build_scene(
-        [(atr[a:b].reshape(-1, 3), np.arange((b - a) * 3).reshape(-1, 3))
-         for a, b in zip(cuts[:-1], cuts[1:])], rt.BuildConfig(leaf_size=16),
-        device=dev)
-    rtracer = rt.Tracer(rscene)
-    rmarch = rt.Tracer(rscene, engine="march")
-    mats = path.Materials.make(cs.ATRIUM_ALBEDO, cs.ATRIUM_EMISSION,
-                               device=dev)
-    cam = scenes.camera_rays(**cs.ATRIUM_CAM, width=1024, height=1024,
-                             order="morton", device=dev)
-    blog = cs.BounceLog(rtracer)
-    path.render_direct(blog, cam, mats, **cs.ATRIUM_LIGHT)
-    path.render_ao(blog, cam, torch.Generator(device=dev).manual_seed(3),
-                   samples=8, max_dist=3.0)
-    for name, batch in (("shadow", blog.any_batches[0]),
-                        ("ao", blog.any_batches[1])):
-        r9, _ = pt._ray_rows(pt.front_steps(batch.device), batch, None)
-        cases.append(("render", name, "plain", rtracer.packed, r9,
-                      {"mode_any": 1}))
-        cases.append(("render", name + "_stats", "plain", rtracer.packed,
-                      r9, {"mode_any": 1, "stats": True}))
-    mlog = cs.BounceLog(rtracer, rmarch)
-    path.render_path(mlog, cam, mats,
-                     torch.Generator(device=dev).manual_seed(1), bounces=4,
-                     background=(0.2, 0.3, 0.4))
-    mg9, mrows9, _ = march_batch(rmarch.grid, mlog.batches[2])
-    cm9 = rmarch.grid.cells_march
-    cases.append(("render", "march_b2", "plain", cm9, mrows9, {"grid": mg9}))
-    cases.append(("render", "march_b2_stats", "plain", cm9, mrows9,
-                  {"grid": mg9, "stats": True}))
-    cases.append(("render", "march_b2_cellkey", "plain", cm9,
-                  cell_key_batch(rmarch.grid, mlog.batches[2])[1],
-                  {"grid": mg9}))
-    marches.append(("render/march_b2", cm9, mrows9, mg9))
-    del blog, mlog, cam, rscene, rtracer, rmarch, atr
+        cuts = np.cumsum((0,) + cs.ATRIUM_PARTS)
+        rscene = rt.build_scene(
+            [(atr[a:b].reshape(-1, 3),
+              np.arange((b - a) * 3).reshape(-1, 3))
+             for a, b in zip(cuts[:-1], cuts[1:])],
+            rt.BuildConfig(leaf_size=16), device=dev)
+        rtracer = rt.Tracer(rscene)
+        rmarch = rt.Tracer(rscene, engine="march")
+        mats = path.Materials.make(cs.ATRIUM_ALBEDO, cs.ATRIUM_EMISSION,
+                                   device=dev)
+        cam = scenes.camera_rays(**cs.ATRIUM_CAM, width=1024, height=1024,
+                                 order="morton", device=dev)
+        blog = cs.BounceLog(rtracer)
+        path.render_direct(blog, cam, mats, **cs.ATRIUM_LIGHT)
+        path.render_ao(blog, cam,
+                       torch.Generator(device=dev).manual_seed(3),
+                       samples=8, max_dist=3.0)
+        for name, batch in (("shadow", blog.any_batches[0]),
+                            ("ao", blog.any_batches[1])):
+            r9, _ = pt._ray_rows(pt.front_steps(batch.device), batch, None)
+            cases.append(("render", name, "plain", rtracer.packed, r9,
+                          {"mode_any": 1}))
+            cases.append(("render", name + "_stats", "plain",
+                          rtracer.packed, r9,
+                          {"mode_any": 1, "stats": True}))
+        mlog = cs.BounceLog(rtracer, rmarch)
+        path.render_path(mlog, cam, mats,
+                         torch.Generator(device=dev).manual_seed(1),
+                         bounces=4, background=(0.2, 0.3, 0.4))
+        mg9, mrows9, _ = march_batch(rmarch.grid, mlog.batches[2])
+        cm9 = rmarch.grid.cells_march
+        cases.append(("render", "march_b2", "plain", cm9, mrows9,
+                      {"grid": mg9}))
+        cases.append(("render", "march_b2_stats", "plain", cm9, mrows9,
+                      {"grid": mg9, "stats": True}))
+        cases.append(("render", "march_b2_cellkey", "plain", cm9,
+                      cell_key_batch(rmarch.grid, mlog.batches[2])[1],
+                      {"grid": mg9}))
+        marches.append(("render/march_b2", cm9, mrows9, mg9))
+        del blog, mlog, cam, rscene, rtracer, rmarch
+    del atr
     emit({"batches": {f"{b}/w{pk.branching}": {
         "rays": r.shape[1], "node_rows": pk.nodes.shape[0],
         "tri_rows": pk.tris.shape[0], "leaf_size": pk.leaf_size,
         "table_mb": (pk.nodes.numel() + pk.tris.numel()) * 4 / 1e6}
         for b, _, _, pk, r, _ in cases},
           "l2_bytes": torch.cuda.get_device_properties(0).L2_cache_size})
+    # Each case's rows: the share of 32-ray warps whose shear axes differ.
+    emit({"mixed_axis_share": {
+        f"{b}/{c}": mixed_axis_share(r[3:6].T)
+        for b, c, _, _, r, _ in cases if not c.endswith("stats")}})
 
     outs = {}
     stream = torch.cuda.current_stream().cuda_stream

@@ -20,6 +20,10 @@ import math
 import torch
 
 EMPTY = -1
+# Levels of the range table that the last refit_ranges_flat built (a build
+# or a refit): each level above the first enqueues two cats, a minimum and
+# a maximum, so a refit's eager op count grows with it.
+REFIT_LEVELS = 0
 
 
 def leaf_code(leaf_id):
@@ -137,8 +141,10 @@ def refit_ranges_flat(lo, hi, leaf_min, leaf_max):
     """AABB refit as range-min/max queries over each node's contiguous
     leaf range [lo, hi]: a sparse table of shifted mins/maxes (edge-
     replicated), answered with two row gathers per node."""
+    global REFIT_LEVELS
     n_leaf = leaf_min.shape[0]
     levels = max(1, math.ceil(math.log2(max(n_leaf, 2)))) + 1
+    REFIT_LEVELS = levels
     mins, maxs = [leaf_min], [leaf_max]
     cur_min, cur_max = leaf_min, leaf_max
     for lvl in range(1, levels):

@@ -7,6 +7,8 @@ bit-equal to rtk_tpu's on the same input.  Triangles are stored in
 traversal (Morton-sorted) order so every leaf is a contiguous slice.
 `refit` moves a built Scene to deformed vertices with the topology kept:
 gathers, minima and maxima on the scene's device, nothing on the host.
+Its body is the span `rtk.refit` (utils/stats.py::span) and REFITS counts
+its calls.
 """
 from __future__ import annotations
 
@@ -20,6 +22,12 @@ from rtk_tpu_torch.builder.lbvh import (karras_topology_scan, leaf_code,
                                         refit_ranges_flat)
 from rtk_tpu_torch.config import BuildConfig
 from rtk_tpu_torch.ops.morton import morton3d
+from rtk_tpu_torch.utils.stats import span
+
+# Refits in this process (refit, and trace/packed.py's refit_packed_binary):
+# a run resets them and reads them back, as ops/packet_trace.py's launch
+# counters.
+REFITS = 0
 
 
 @dataclasses.dataclass
@@ -259,5 +267,8 @@ def refit(scene: Scene, new_tri_pos) -> Scene:
     (the order passed to build_from_soup), an array or a tensor; the work
     runs on the scene's device and is only enqueued there.
     """
-    new_tri_pos = soup_tensor(new_tri_pos, scene.num_tris, scene.device)
-    return dataclasses.replace(scene, **_refit_impl(scene, new_tri_pos))
+    global REFITS
+    REFITS += 1
+    with span("rtk.refit"):
+        new_tri_pos = soup_tensor(new_tri_pos, scene.num_tris, scene.device)
+        return dataclasses.replace(scene, **_refit_impl(scene, new_tri_pos))

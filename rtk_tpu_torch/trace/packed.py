@@ -21,8 +21,10 @@ import dataclasses
 import numpy as np
 import torch
 
+import rtk_tpu_torch.scene as scene_module
 from rtk_tpu_torch.builder.lbvh import refit_ranges_flat
 from rtk_tpu_torch.scene import soup_tensor
+from rtk_tpu_torch.utils.stats import span
 
 W = 8
 NODE_ROW_I32 = 8  # per child: [minx miny minz maxx maxy maxz meta0 meta1]
@@ -32,6 +34,8 @@ MASK_COL = 9  # filter-mask bits as an exact float value (<= 2^24)
 MASK_ALL = float(0xFFFFFF)  # 24-bit all-pass mask
 MESH_COL = 10  # mesh index as an exact float value
 PRIM_COL = 11  # triangle index as an exact float value
+# Calls of repack_bounds in this process, read back as scene.py's REFITS.
+REPACKS = 0
 
 
 @dataclasses.dataclass
@@ -402,37 +406,39 @@ def refit_packed_binary(packed: PackedScene, aux: BinaryRefitAux,
     enqueues work: per-leaf bounds from the packed rows, the range-query
     levels, the row gathers.
     """
-    tri_pos = soup_tensor(new_tri_pos, packed.num_tris, packed.device)
-    # Padding rows hold -1: they gather triangle 0 through the clamp and
-    # are masked out of the bounds and the triangle table by `valid`.
-    tri_v = tri_pos[packed.tri_perm.clamp(0, packed.num_tris - 1).long()]
-    valid = packed.tri_perm >= 0
-    k = packed.leaf_size
-    nl = aux.visit_of_rank.shape[0]
-    if tri_v.shape[0] != nl * k:
-        raise ValueError(f"{tri_v.shape[0]} triangle rows for {nl} leaves "
-                         f"of {k}")
-    # Per-leaf bounds from the packed rows (visit order): each visit block
-    # is k consecutive rows; padding rows enter the reduce as +/-inf.
-    vmin = torch.where(valid[:, None, None], tri_v, float("inf"))
-    vmax = torch.where(valid[:, None, None], tri_v, -float("inf"))
-    lmin_visit = vmin.reshape(nl, k * 3, 3).amin(dim=1)
-    lmax_visit = vmax.reshape(nl, k * 3, 3).amax(dim=1)
-    if nl == 1:
-        bmin, bmax = lmin_visit, lmax_visit
-    else:
-        by_rank = aux.visit_of_rank.long()
-        bmin, bmax = refit_ranges_flat(aux.rank_lo, aux.rank_hi,
-                                       lmin_visit[by_rank],
-                                       lmax_visit[by_rank])
-    by_lidx = aux.visit_of_lidx.long()
-    nodes = _gather_rows(bmin, bmax, lmin_visit[by_lidx],
-                         lmax_visit[by_lidx], packed.slot_src, packed.meta)
-    mask_col = packed.tris[:, MASK_COL]  # the mask column rides along
-    return dataclasses.replace(
-        packed, nodes=nodes, tri_v=tri_v,
-        tris=_tri_rows(tri_v, valid, mask_col, packed.tri_mesh,
-                       packed.tri_prim))
+    scene_module.REFITS += 1
+    with span("rtk.refit"):
+        tri_pos = soup_tensor(new_tri_pos, packed.num_tris, packed.device)
+        # Padding rows hold -1: they gather triangle 0 through the clamp and
+        # are masked out of the bounds and the triangle table by `valid`.
+        tri_v = tri_pos[packed.tri_perm.clamp(0, packed.num_tris - 1).long()]
+        valid = packed.tri_perm >= 0
+        k = packed.leaf_size
+        nl = aux.visit_of_rank.shape[0]
+        if tri_v.shape[0] != nl * k:
+            raise ValueError(f"{tri_v.shape[0]} triangle rows for {nl} leaves "
+                             f"of {k}")
+        # Per-leaf bounds from the packed rows (visit order): each visit block
+        # is k consecutive rows; padding rows enter the reduce as +/-inf.
+        vmin = torch.where(valid[:, None, None], tri_v, float("inf"))
+        vmax = torch.where(valid[:, None, None], tri_v, -float("inf"))
+        lmin_visit = vmin.reshape(nl, k * 3, 3).amin(dim=1)
+        lmax_visit = vmax.reshape(nl, k * 3, 3).amax(dim=1)
+        if nl == 1:
+            bmin, bmax = lmin_visit, lmax_visit
+        else:
+            by_rank = aux.visit_of_rank.long()
+            bmin, bmax = refit_ranges_flat(aux.rank_lo, aux.rank_hi,
+                                           lmin_visit[by_rank],
+                                           lmax_visit[by_rank])
+        by_lidx = aux.visit_of_lidx.long()
+        nodes = _gather_rows(bmin, bmax, lmin_visit[by_lidx],
+                             lmax_visit[by_lidx], packed.slot_src, packed.meta)
+        mask_col = packed.tris[:, MASK_COL]  # the mask column rides along
+        return dataclasses.replace(
+            packed, nodes=nodes, tri_v=tri_v,
+            tris=_tri_rows(tri_v, valid, mask_col, packed.tri_mesh,
+                           packed.tri_prim))
 
 
 def _binary_refit_aux(left, right, first, count, is_leaf, leaf_nodes,
@@ -494,14 +500,17 @@ def repack_bounds(packed: PackedScene, scene) -> PackedScene:
     tri_perm, depth, branching) is reused, so stack_size is the same, and
     the mask column of the old triangle table is carried over, so a
     tri_mask survives the refit."""
-    tri_v = scene.tri_v[packed.tri_perm.long()]
-    mask_col = packed.tris[:, MASK_COL]
-    return dataclasses.replace(
-        packed, tri_v=tri_v,
-        nodes=_gather_rows(scene.bin_min, scene.bin_max, scene.leaf_min,
-                           scene.leaf_max, packed.slot_src, packed.meta),
-        tris=_tri_rows(tri_v, packed.tri_prim >= 0, mask_col,
-                       packed.tri_mesh, packed.tri_prim))
+    global REPACKS
+    REPACKS += 1
+    with span("rtk.repack"):
+        tri_v = scene.tri_v[packed.tri_perm.long()]
+        mask_col = packed.tris[:, MASK_COL]
+        return dataclasses.replace(
+            packed, tri_v=tri_v,
+            nodes=_gather_rows(scene.bin_min, scene.bin_max, scene.leaf_min,
+                               scene.leaf_max, packed.slot_src, packed.meta),
+            tris=_tri_rows(tri_v, packed.tri_prim >= 0, mask_col,
+                           packed.tri_mesh, packed.tri_prim))
 
 
 def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,

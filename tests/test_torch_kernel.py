@@ -928,6 +928,53 @@ def test_kernel_on_refit_tables(cuda, kind):
         refit_tables, rays, defer_uv=True))
 
 
+def test_refit_frame_on_the_card(cuda):
+    """BASELINE config 4's frame as the benchmark's refit cell runs it: the
+    96 x 96 grid (LBVH leaf 8, no wide arrays) refit and its Tracer
+    refreshed with no host sync, then one kernel launch for the frame's
+    closest call; the refit equals the same refit on the CPU bit for bit
+    and the records equal the plain version's."""
+    import dataclasses
+
+    from rtk_tpu_torch import scene as tscene
+    from rtk_tpu_torch.builder import lbvh
+    from rtk_tpu_torch.trace import packed as tpacked
+
+    scene = rtk_tpu_torch.build_scene(
+        _soup_of(scenes.deforming_grid(0.0)),
+        rtk_tpu_torch.BuildConfig(leaf_size=8, wide_nodes=False),
+        device=cuda)
+    tracer = rtk_tpu_torch.Tracer(scene)
+    tracer.packed
+    frame = torch.as_tensor(scenes.deforming_grid(0.35), device=cuda)
+    rays = scenes.camera_rays((0, 3, 4), (0, 0, 0), (0, 1, 0), 50, 256, 256,
+                              order="morton", device=cuda)
+    torch.cuda.synchronize()
+    before = (tscene.REFITS, tpacked.REPACKS, packet_trace.KERNEL_LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moved = rtk_tpu_torch.refit(scene, frame)
+        tracer = tracer.refresh(moved)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hits = tracer.closest(rays)
+    torch.cuda.synchronize()
+    after = (tscene.REFITS, tpacked.REPACKS, packet_trace.KERNEL_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert lbvh.REFIT_LEVELS == 13 and scene.num_leaves == 2304
+    on_cpu = dataclasses.replace(scene, **{
+        f.name: getattr(scene, f.name).cpu()
+        for f in dataclasses.fields(scene)
+        if isinstance(getattr(scene, f.name), torch.Tensor)})
+    want = rtk_tpu_torch.refit(on_cpu, frame.cpu())
+    for f in ("tri_v", "leaf_min", "leaf_max", "bin_min", "bin_max",
+              "bounds_min", "bounds_max"):
+        assert torch.equal(getattr(moved, f).cpu(), getattr(want, f)), f
+    assert hits.hit.any()
+    _assert_same(hits, packet_trace.trace_packets_reference(tracer.packed,
+                                                            rays))
+
+
 @pytest.mark.parametrize("compact", [True, False])
 def test_render_path_runs_the_kernel(cuda, compact):
     """render_path on the card launches the kernel once a bounce, and the

@@ -422,15 +422,20 @@ def test_packet_chunked_matches():
         trace_packets_chunked(packed, rays, chunk=256, stats=True)
 
 
-@pytest.mark.parametrize("engine", ["packet", "march", "stack"])
-def test_tracer_refresh(engine):
+@pytest.mark.parametrize("engine,wide", [
+    pytest.param("packet", True, id="packet"),
+    pytest.param("march", True, id="march"),
+    pytest.param("stack", True, id="stack"),
+    # BASELINE config 4's build: no wide arrays, the packed tables only.
+    pytest.param("packet", False, id="packet-no_wide_nodes")])
+def test_tracer_refresh(engine, wide):
     """Tracer.refresh keeps config, mask and engine, repacks built tables
     and never rebuilds them, drops the march grid; filter_mask results
     equal a fresh masked Tracer of the frame."""
     t0, t1 = scenes.deforming_grid(0.0, n=16), scenes.deforming_grid(0.6,
                                                                      n=16)
     mask = (np.arange(t0.shape[0]) % 2 + 1).astype(np.uint32)
-    cfg = rt.BuildConfig(leaf_size=8)
+    cfg = rt.BuildConfig(leaf_size=8, wide_nodes=wide)
     tcfg = rt.TraceConfig(defer_uv=True)
     scene = rt.build_scene(_soup_of(t0), cfg, device=CPU)
     tracer = rt.Tracer(scene, engine=engine, config=tcfg, tri_mask=mask)
@@ -464,6 +469,54 @@ def test_tracer_refresh(engine):
         assert torch.equal(got.hit, flat.hit)
         np.testing.assert_allclose(got.t.numpy(), flat.t.numpy(), rtol=1e-6,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_refit_refresh_closest_chain(wide):
+    """The benchmark's frame loop: refit -> refresh -> closest chained over
+    frames of config 4's grid (each refit from the last frame's scene),
+    equal each frame to a fresh build of that frame."""
+    cfg = rt.BuildConfig(leaf_size=8, wide_nodes=wide)
+    scene = rt.build_scene(_soup_of(scenes.deforming_grid(0.0, n=16)), cfg,
+                           device=CPU)
+    tracer = rt.Tracer(scene)
+    tracer.packed
+    rays = _cam(32)
+    for t in (0.05, 0.1, 0.15, 0.9):
+        frame = scenes.deforming_grid(t, n=16)
+        scene = rt.refit(scene, frame)
+        tracer = tracer.refresh(scene)
+        got = tracer.closest(rays)
+        want = rt.Tracer(rt.build_scene(_soup_of(frame), cfg,
+                                        device=CPU)).closest(rays)
+        assert want.hit.any()
+        _parity(got, want)
+        same = got.triangle_index == want.triangle_index
+        for f in ("t", "u", "v", "mesh_index"):
+            assert torch.equal(getattr(got, f)[same], getattr(want, f)[same])
+
+
+def test_refit_counters():
+    """REFITS and REPACKS count calls; REFIT_LEVELS is the range table's
+    levels of the last refit, ceil(log2 leaves) + 1."""
+    from rtk_tpu_torch import scene as tscene
+
+    t0, t1 = scenes.deforming_grid(0.0, n=16), scenes.deforming_grid(0.3,
+                                                                     n=16)
+    scene = rt.build_scene(_soup_of(t0), rt.BuildConfig(
+        leaf_size=8, wide_nodes=False), device=CPU)
+    tracer = rt.Tracer(scene)
+    tracer.packed
+    lbvh.REFIT_LEVELS = 0
+    before = tscene.REFITS, tpacked.REPACKS
+    tracer.refresh(rt.refit(scene, t1))
+    assert (tscene.REFITS - before[0], tpacked.REPACKS - before[1]) == (1, 1)
+    assert scene.num_leaves == 64 and lbvh.REFIT_LEVELS == 7
+    # The host-SAH tables refit and regather in one call: a refit.
+    packed, aux = _tables("sah", n=16)
+    before = tscene.REFITS, tpacked.REPACKS
+    tpacked.refit_packed_binary(packed, aux, t1)
+    assert (tscene.REFITS - before[0], tpacked.REPACKS - before[1]) == (1, 0)
 
 
 def _leaf(first, count):

@@ -1,7 +1,8 @@
 """The port's spans (utils/stats.py::span): a shared null context and no
 profiler call while nothing records; under a profiler, one span of each
 stage of a call, nested by the profiler as the call nests, in the call's
-order, and the lazy record's gathers after the call's root."""
+order, and the lazy record's gathers after the call's root; a frame's
+refit and repack (`rtk.refit`, `rtk.repack`) ahead of its trace."""
 import numpy as np
 import pytest
 import torch
@@ -26,6 +27,7 @@ HITS = tuple(f"rtk.hits.{f}" for f in ("mesh_index", "triangle_index",
                                        "vertex_position", "vertex_index",
                                        "uv"))
 SORTED_ONLY = {f"{FRONT}.{s}" for s in ("key", "sort", "unsort")}
+REFIT = ("rtk.refit", "rtk.repack")  # a frame's refit, then its repack
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +108,62 @@ def test_refit_front_end_has_step_spans():
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         pt.trace_packets_refit(packed, scene, moved, rays, sort_rays=True)
     names = [e.name for e in _spans(prof)]
-    assert names == list(STEPS)
+    assert names == [*REFIT, *STEPS]
+
+
+def _grid_frames(wide=True):
+    """A deforming grid's scene (leaf 8), its Tracer with packed tables,
+    and two later frames."""
+    scene = rt.build_from_soup(
+        scenes.deforming_grid(0.0, n=4), device="cpu",
+        config=rt.BuildConfig(leaf_size=8, wide_nodes=wide))
+    tracer = rt.Tracer(scene)
+    tracer.packed
+    return scene, tracer, [torch.as_tensor(scenes.deforming_grid(t, n=4))
+                           for t in (0.3, 0.6)]
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_refit_and_refresh_spans(wide):
+    scene, tracer, frames = _grid_frames(wide)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for frame in frames:
+            scene = rt.refit(scene, frame)
+            tracer = tracer.refresh(scene)
+    spans = _spans(prof)
+    assert [e.name for e in spans] == [*REFIT, *REFIT]
+    # Neither holds the other: the refit ends before the repack starts.
+    assert all(e.cpu_parent is None for e in spans)
+    for a, b in zip(spans, spans[1:]):
+        assert a.time_range.end <= b.time_range.start
+
+
+def test_refit_packed_binary_span():
+    tris = scenes.deforming_grid(0.0, n=4)
+    packed, aux = rt.build_sah_packed(
+        (tris.reshape(-1, 3), np.arange(tris.shape[0] * 3).reshape(-1, 3)),
+        rt.BuildConfig(leaf_size=8), refittable=True, device="cpu")
+    rays = _rays(8)
+    moved = torch.as_tensor(scenes.deforming_grid(0.3, n=4))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pt.trace_packets_refit(packed, aux, moved, rays)
+    names = [e.name for e in _spans(prof)]
+    assert names == ["rtk.refit", *(s for s in STEPS
+                                    if s not in SORTED_ONLY)]
+
+
+def test_no_refit_span_without_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a profiler range {name!r} with no profiler")
+
+    scene, tracer, frames = _grid_frames(wide=False)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    scene = rt.refit(scene, frames[0])
+    tracer = tracer.refresh(scene)
+    pt.trace_packets_refit(tracer.packed, scene, frames[1], _rays(8))
+    assert bool(tracer.closest(_rays(8)).hit.any())
 
 
 @pytest.mark.parametrize("engine", ["stack", "stackless"])

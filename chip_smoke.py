@@ -70,14 +70,21 @@ Phases (each prints one line):
      the same path at deforming_grid(n=1024), 2,097,152 triangles, 2048^2
      rays, three single frames and an 8-frame clip.  Every frame's refit
      tables are held against a fresh build of that frame (same hit mask, t
-     within 1e-5); refit to the built soup gives back the built tables bit
-     for bit; the front-ends equal refit -> repack -> trace_packets and
-     each other bit for bit; the kernel equals its plain version on refit
-     tables; a refreshed masked Tracer equals a fresh one, a refreshed
-     march Tracer meets phase 7's bar, a 16-wide refit equals the 8-wide
-     one, and trace_packets_chunked equals trace_packets.  Reported per
-     frame: refit, repack, kernel and end-to-end ms beside a fresh build,
-     and the card's idle share over 8a's clip from torch.profiler;
+     within 1e-5); the refit and repack (csrc/refit.cu's launches) equal
+     their plain versions on CPU copies bit for bit, and refit to the
+     built soup gives back the built tables in value (the build's eager
+     reductions on the card may take the other sign of a zero bound: the
+     line counts such zeros); the front-ends equal refit -> repack ->
+     trace_packets and each other bit for bit; the kernel equals its plain
+     version on refit tables; a refreshed masked Tracer equals a fresh
+     one, a refreshed march Tracer meets phase 7's bar, a 16-wide refit
+     equals the 8-wide one, and trace_packets_chunked equals
+     trace_packets.  Reported per frame: refit, repack, kernel and
+     end-to-end ms beside a fresh build, the refit's and repack's launches,
+     their issue rate beside their plain versions', their card ms alone
+     and their byte bound (tools/torch_profile_refit.py's rows; the
+     kernels line's refit and repack rows), and the card's idle share
+     over 8a's clip from torch.profiler;
   9. the render path (models/path.py).  9a: render_path on BASELINE
      config 3, the atrium (409,600 triangles as four meshes, the ceiling
      the light; LBVH leaf 16 through Tracer), 1024^2 primaries and 4
@@ -183,11 +190,13 @@ Phases (each prints one line):
      == unsorted and (b) == (c) bit for bit), Tracer.closest at 64^2
      and 128^2 (phase 13's fixed-cost points) and at 1024^2 (sorted), and
      that call's coherence key alone.  14c: the refit tool's
-     stages on config 4 (refit, repack, trace, the fused frame, one tiny
-     op, a 1024^2 trace; the fused frame's tables and records == the
-     stages').  Every stage: ms at the issue rate, Mrays/s, the wall of
-     one synchronised call (outside the profiler), the card's busy ms and
-     device events of one call, wall less busy, and events x each floor.
+     stages on config 4 (refit, repack, their plain versions, trace, the
+     fused frame, one tiny op, a 1024^2 trace; the fused frame's tables
+     and records == the stages') and its refit rows (launches, issue
+     rate beside the plain versions', card ms alone, byte bound).  Every
+     stage: ms at the issue rate, Mrays/s, the wall of one synchronised
+     call (outside the profiler), the card's busy ms and device events
+     of one call, wall less busy, and events x each floor.
 Then the kernel summary as one JSON line (per traversal variant:
 launches on its path, max |kernel - plain|, kernel and plain ms, and the
 bound: the least time the card could take, from the per-ray box and
@@ -266,6 +275,11 @@ WIDTH_MISMATCH = 1e-6  # ...and at most this share of the rays disagreeing
 # 106-119): the same hit mask, |t| within REFIT_T_TOL.
 GRID_CAM = dict(eye=(0, 3, 4), look_at=(0, 0, 0), up=(0, 1, 0), fov_deg=50)
 REFIT_T_TOL = 1e-5
+# The Scene's fields a refit writes, and those that hold the boxes of
+# leaf ranges (where the sign of a zero bound depends on the pairing).
+SCENE_BOXES = ("bin_min", "bin_max", "leaf_min", "leaf_max", "tri_v",
+               "node_min", "node_max", "bounds_min", "bounds_max")
+NODE_BOXES = ("bin_min", "bin_max", "node_min", "node_max")
 
 # Phase 9: the render path.  The atrium's parts in scenes.atrium()'s order
 # (floor, ceiling, 64 columns, 4 walls) as four meshes; the ceiling is the
@@ -1331,19 +1345,26 @@ def phase8(rt, dev, launch_log, small=(96, 256, 32),
     its record and the kernel entries of the any, mask and defer_uv
     launches.  Counts are zeroed just before each main-path run and read
     just after; the comparisons and timings come after."""
+    from rtk_tpu_torch import scene as tscene
     from rtk_tpu_torch.ops import packet_trace as pt
     from rtk_tpu_torch.testing import scenes
+    from rtk_tpu_torch.trace import packed as tpacked
     from rtk_tpu_torch.trace.packed import (pack_binary_tree, pack_scene,
                                             refit_packed_binary,
                                             repack_bounds)
     from rtk_tpu_torch.utils.native_sah import NativeOracle
 
+    prefit = load_tool("torch_profile_refit")
     sync = torch.cuda.synchronize
     cfg = rt.BuildConfig(branching=8, leaf_size=8, wide_nodes=False)
     flags = dict(defer_uv=True)
     counters = ("KERNEL_LAUNCHES", "ANY_LAUNCHES", "MASK_LAUNCHES",
                 "DEFER_UV_LAUNCHES")
     launches = dict.fromkeys(counters, 0)
+    # The refit's and the repack's launches on the main path.
+    refit_counters = ((tscene, "REFIT_LAUNCHES"),
+                      (tpacked, "REPACK_LAUNCHES"))
+    refit_launches = {"refit": 0, "repack": 0}
     errs = {"any": 0.0, "mask": 0.0, "defer_uv": 0.0}
 
     def soup_of(tris):
@@ -1352,6 +1373,48 @@ def phase8(rt, dev, launch_log, small=(96, 256, 32),
 
     def on_card(tris):
         return torch.as_tensor(tris, device=dev)
+
+    def on_cpu(obj):
+        """A Scene or PackedScene with its tensors copied to the CPU."""
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).cpu()
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    def zero_signs(got, want, what):
+        """-> entries whose bits differ; fails unless each is a zero of
+        the other sign (equal values)."""
+        differ = got.view(torch.int32) != want.view(torch.int32)
+        check(torch.equal(got[differ], want[differ])
+              and bool((got[differ] == 0).all()),
+              f"{what}: differs in more than the sign of a zero")
+        return int(differ.sum())
+
+    def refit_vs_plain(scene, packed, frame, what):
+        """The card's refit and repack of `frame` against their plain
+        versions on CPU copies -> (scene', packed', max abs error, zero
+        signs): bit for bit, but for the sign of a node's zero bound
+        (csrc/refit.cu keeps the leftmost of a -0.0 / +0.0 tie in a leaf
+        range, the plain range table's vectorised minima may take
+        another), counted."""
+        got = rt.refit(scene, frame)
+        got_p = repack_bounds(packed, got)
+        want = tscene.refit_reference(on_cpu(scene), frame.cpu())
+        want_p = tpacked.repack_reference(on_cpu(packed), want)
+        err, signs = 0.0, 0
+        for f in SCENE_BOXES:
+            g, w = getattr(got, f).cpu(), getattr(want, f)
+            if f in NODE_BOXES:
+                signs += zero_signs(g, w, f"{what}: refit {f}")
+            else:
+                check(bits_equal(g, w), f"{what}: refit {f} differs")
+            err = max(err, float((g - w).abs().max()))
+        tables_equal(on_cpu(got_p), want_p, f"{what}: repack",
+                     ("tris", "tri_v"))
+        signs += zero_signs(got_p.nodes.cpu().view(torch.float32),
+                            want_p.nodes.view(torch.float32),
+                            f"{what}: repack nodes")
+        return got, got_p, err, signs
 
     def fresh_tables(frame, tri_mask=None):
         return pack_scene(rt.build_from_soup(frame, config=cfg, device=dev),
@@ -1389,6 +1452,8 @@ def phase8(rt, dev, launch_log, small=(96, 256, 32),
         sync()
         for c in counters:
             setattr(pt, c, 0)
+        for mod, c in refit_counters:
+            setattr(mod, c, 0)
         launch_log.start(8)
         one = {name: [pt.trace_packets_refit(p, s, clip[i], cam,
                                              sort_rays=False, **flags)
@@ -1403,6 +1468,8 @@ def phase8(rt, dev, launch_log, small=(96, 256, 32),
         launch_log.stop()
         for c in counters:
             launches[c] += getattr(pt, c)
+        for name, (mod, c) in zip(refit_launches, refit_counters):
+            refit_launches[name] += getattr(mod, c)
         rec = {"tris": t, "rays": cam.count, "clip_frames": n_clip,
                "lbvh_build_pack_ms": lbvh_ms, "sah_build_pack_ms": sah_ms,
                "depth": {k: p.depth for k, (p, _) in tables.items()},
@@ -1413,16 +1480,29 @@ def phase8(rt, dev, launch_log, small=(96, 256, 32),
                 check(bool(torch.isfinite(h.t[h.hit]).all()) and h.uv_deferred,
                       f"{name}: clip frame record")
 
-        # Refit to the built soup gives back the built tables.
-        same = rt.refit(scene, g0)
-        for f in ("bin_min", "bin_max", "leaf_min", "leaf_max", "tri_v",
-                  "node_min", "node_max", "bounds_min", "bounds_max"):
-            check(bits_equal(getattr(same, f), getattr(scene, f)),
-                  f"refit(same soup): {f}")
-        tables_equal(repack_bounds(packed, same), packed, "repack(same)")
+        # The refit and the repack against their plain versions, on a
+        # frame and on the built soup; refit to the built soup gives back
+        # the built tables, the sign of a zero bound aside (the build's
+        # eager reductions on the card pair -0.0 and +0.0 their own way).
+        _, _, err, signs = refit_vs_plain(scene, packed, clip[singles[1]],
+                                          "refit frame")
+        same, same_p, err2, signs2 = refit_vs_plain(
+            scene, packed, on_card(g0), "refit(same soup)")
+        rec["refit_max_abs_err"] = max(err, err2)
+        rec["refit_zero_signs_vs_plain"] = {"frame": signs,
+                                            "same_soup": signs2}
+        rec["refit_zero_signs_vs_build"] = sum(
+            zero_signs(getattr(same, f), getattr(scene, f),
+                       f"refit(same soup): {f}")
+            for f in SCENE_BOXES if f != "tri_v")
+        check(bits_equal(same.tri_v, scene.tri_v), "refit(same soup): tri_v")
+        rec["repack_zero_signs_vs_build"] = zero_signs(
+            same_p.nodes.view(torch.float32),
+            packed.nodes.view(torch.float32), "repack(same soup): nodes")
+        tables_equal(same_p, packed, "repack(same)", ("tris", "tri_v"))
         tables_equal(refit_packed_binary(sah, aux, g0), sah,
                      "refit_packed_binary(same)")
-        del same
+        del same, same_p
 
         # Every frame against a fresh build of its soup; the front-ends
         # against each other and against the separate steps.
@@ -1470,13 +1550,21 @@ def phase8(rt, dev, launch_log, small=(96, 256, 32),
                                     tables=tables)
 
     def frame_times(st, reps):
-        """Per-frame ms of each stage, steady state with CUDA events."""
+        """Per-frame ms of each stage, steady state with CUDA events; the
+        refit's and the repack's rows (prefit.refit_rows: launches, the
+        card's ms alone beside the plain versions', the byte bound)."""
         f = st.clip[st.singles[1]]
         rows = rows_of(st.cam)
         out = {}
         sc2, out["refit_ms"] = timed(lambda: rt.refit(st.scene, f), reps=reps)
         p2, out["repack_ms"] = timed(lambda: repack_bounds(st.packed, sc2),
                                      reps=reps)
+        out["refit_rows"] = prefit.refit_rows({
+            "refit": lambda: rt.refit(st.scene, f),
+            "repack": lambda: repack_bounds(st.packed, sc2),
+            "refit_plain": lambda: tscene.refit_reference(st.scene, f),
+            "repack_plain": lambda: tpacked.repack_reference(st.packed, sc2),
+        }, sc2, p2)
         _, out["kernel_ms"] = timed(lambda: pt.packet_trace_kernel(
             p2.nodes, p2.tris, rows, leaf_size=p2.leaf_size,
             stack_size=p2.stack_size, defer_uv=True), reps=reps)
@@ -1587,6 +1675,28 @@ def phase8(rt, dev, launch_log, small=(96, 256, 32),
             rec_b["per_ray_mean"] = per_ray_mean(counts)
         del k_out, p_out, counts
     rec_b["peak_gib"] = launch_log.peak_gib()
+    # The refit's and the repack's rows of the kernels line: the card's ms
+    # alone at 8b (ms_config4: at 8a) beside the bound, and the issue
+    # rate (issue_ms) beside the plain version's (plain_ms).
+    for name in refit_launches:
+        ra, rb = (r["steady"]["refit_rows"][name] for r in (rec_a, rec_b))
+        want = 2 if name == "refit" else 1  # no wide node arrays
+        check(ra["launches"] == rb["launches"] == want,
+              f"{name}: {ra['launches']}, {rb['launches']} launches a "
+              f"frame, not {want}")
+        entries[name] = {
+            "launches": refit_launches[name],
+            "launches_a_frame": rb["launches"],
+            "max_abs_err": max(rec_a["refit_max_abs_err"],
+                               rec_b["refit_max_abs_err"]),
+            "ms": rb["card_ms"], "ms_config4": ra["card_ms"],
+            "issue_ms": rb["issue_ms"], "issue_ms_config4": ra["issue_ms"],
+            "plain_ms": rb["plain_ms"], "plain_ms_config4": ra["plain_ms"],
+            "bound_ms": rb["bound_ms"], "bound_ms_config4": ra["bound_ms"],
+            "bound_by": "bytes", "bytes": rb["bytes"],
+            "bytes_config4": ra["bytes"],
+            "shape": f"8b's {rec_b['tris']} triangles (config4: 8a's "
+                     f"{rec_a['tris']}), LBVH leaf 8 without wide arrays"}
     return ({"8a": rec_a, "8b": rec_b,
              "launches": {k.split("_LAUNCHES")[0].lower(): v
                           for k, v in launches.items()}}, entries)
@@ -3100,6 +3210,7 @@ def phase14(rt, dev, ptrace, prefit, v6, f6):
     tables_equal(packed_f, packed_s, "14c fused/repack")
     bits_same(hits, fns_c["trace"](), "14c fused/trace")
     rec_c = {"rays": rays_c["trace"], "hits": int(hits.hit.sum()),
+             "refit_rows": prefit.refit_rows(fns_c, scene_s, packed_s),
              "stages": {}}
     for name, fn in fns_c.items():
         ms = prefit.timeit(fn, iters=prefit.ITERS.get(name, 10)) * 1e3
@@ -3151,7 +3262,7 @@ def main():
     def ptxas(key):
         """ptxas -v's registers, frame and spills per instantiation: w8,
         w16 and (without a filter) w8_march, and per kernel of the
-        coherence key and the unsort."""
+        coherence key, the unsort, the refit and the repack."""
         out, name = {}, None
         for ln in library.BUILD_LOGS[key].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -3160,7 +3271,9 @@ def main():
                 name = (f"w{w.group(1)}" + ("_march" if w.group(2) == "1"
                                             else "") if w else
                         next((k for k in ("origin_bounds", "probe_bounds",
-                                          "morton_key", "unsort_outputs")
+                                          "morton_key", "unsort_outputs",
+                                          "refit_parents", "refit_leaves",
+                                          "refit_slots", "repack")
                               if k in m.group(1)), None))
             elif name and ("registers" in ln or "spill" in ln):
                 out.setdefault(name, []).append(
@@ -3621,12 +3734,20 @@ def main():
                  "gather it replaces, bit-equal on every output; no one "
                  "PyTorch call shades; the reference shades inside its "
                  "jitted loop in XLA, outside any Pallas kernel"}
+    # A deforming frame's refit and repack (the reference refits in XLA
+    # under jit, no Pallas kernel; no one PyTorch call refits): phase 8's
+    # rows, the plain versions the eager ops they replace.
+    refit_rows = [
+        {"name": name, "route": "cuda",
+         "source": "rtk_tpu_torch/csrc/refit.cu",
+         "replaces": "rtk_tpu/scene.py:314", "library_ms": None,
+         **p8_kernels[name]} for name in ("refit", "repack")]
     # No PyTorch call traverses a BVH: library_ms is null for every
     # traversal entry.
     print(json.dumps({"kernels": [
         {"route": "cuda", "source": src, "library_ms": None, **k}
         for k in kernels] + [key_row, rows_row, unsort_row, shade_row,
-                             probe_row]}))
+                             *refit_rows, probe_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

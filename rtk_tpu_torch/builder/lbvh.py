@@ -20,9 +20,12 @@ import math
 import torch
 
 EMPTY = -1
-# Levels of the range table that the last refit_ranges_flat built (a build
-# or a refit): each level above the first enqueues two cats, a minimum and
-# a maximum, so a refit's eager op count grows with it.
+# Levels of the range table that the last refit_ranges_flat built (a build,
+# or a refit by the plain version, scene.refit_reference): each level above
+# the first enqueues two cats, a minimum and a maximum, so the plain
+# refit's eager op count grows with it.  The card's refit
+# (scene.refit_kernel) builds no table and leaves it as it is, so after a
+# build on the card and refits there it reads the build's levels.
 REFIT_LEVELS = 0
 
 

@@ -210,19 +210,8 @@ class ShadeArgs(ctypes.Structure):
                     "next_max_t", "next_throughput", "key", "alive")])
 
 
-def _check(a, what, dtype, shape, dev):
-    """Raise ValueError unless `a` is on `dev` with `dtype` and `shape`
-    (None: any size)."""
-    if (a.device != dev or a.dtype != dtype or a.dim() != len(shape)
-            or any(w is not None and g != w
-                   for g, w in zip(a.shape, shape))):
-        want = tuple("*" if w is None else w for w in shape)
-        raise ValueError(f"{what} must be a {dtype} {want} tensor on {dev}, "
-                         f"not {a.dtype} {tuple(a.shape)} on {a.device}")
-
-
 def _view3(a, what, n, dev):
-    _check(a, what, torch.float32, (n, 3), dev)
+    library.check_tensor(a, what, torch.float32, (n, 3), dev)
     return _View3(a.data_ptr(), *a.stride())
 
 
@@ -241,7 +230,7 @@ def _shade_args(hits, cur: Rays, throughput, index, radiance,
     keep = []
 
     def ptr(a, what, dtype, shape):
-        _check(a, what, dtype, shape, dev)
+        library.check_tensor(a, what, dtype, shape, dev)
         keep.append(a.contiguous())
         return keep[-1].data_ptr()
 
@@ -286,7 +275,7 @@ def _shade_args(hits, cur: Rays, throughput, index, radiance,
     if draws is None or draws.dim() != 2 or draws.shape[1] != 2:
         raise ValueError("draws must be a (*, 2) tensor: u1, u2 a row")
     rows = n if draw_index is None else radiance.shape[0]
-    _check(draws, "draws", torch.float32, (rows, 2), dev)
+    library.check_tensor(draws, "draws", torch.float32, (rows, 2), dev)
     a.draws, a.ds0, a.ds1 = draws.data_ptr(), *draws.stride()
     if draw_index is not None:
         a.draw_index = ptr(draw_index, "draw_index", torch.int64, (n,))

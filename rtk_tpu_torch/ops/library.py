@@ -2,7 +2,7 @@
 binding and the launch of its entry points, each a C function that takes
 the stream last and returns a CUDA error code.  The wrappers that check
 tensors and count launches are their callers' (ops/packet_trace.py,
-models/path.py)."""
+models/path.py, scene.py, trace/packed.py)."""
 from __future__ import annotations
 
 import ctypes
@@ -26,7 +26,12 @@ UNSORT_SRC = CSRC / "unsort.cu"
 # render_path's shade pass (models/path.py::shade_kernel), in the same
 # library so that one build and one load serve the whole render loop.
 SHADE_SRC = CSRC / "shade.cu"
-LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC, SHADE_SRC]
+# A deforming frame's refit and repack (scene.py::refit_kernel,
+# trace/packed.py::repack_kernel), so that an AOT refit artifact carries
+# them too.
+REFIT_SRC = CSRC / "refit.cu"
+LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC, SHADE_SRC,
+                REFIT_SRC]
 FILTER_OPS = CSRC / "filter_ops.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -89,10 +94,26 @@ def bind_library(path, march: bool):
     lib.rtk_unsort.argtypes = [ptr, i64] + [ptr] * 11
     lib.rtk_shade.restype = i32
     lib.rtk_shade.argtypes = [ptr, ptr]
+    declare_refit(lib)
     if march:
         lib.rtk_packet_march.restype = i32
         lib.rtk_packet_march.argtypes = ([ptr] * 3 + [i32] * 9 + [f32] * 9
                                          + [ptr] * 7)
+    return lib
+
+
+def declare_refit(lib):
+    """Declare csrc/refit.cu's entry points on a loaded library."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.rtk_refit_parents.restype = i32
+    lib.rtk_refit_parents.argtypes = [ptr, ptr, i64, i64, ptr, ptr]
+    lib.rtk_refit_leaves.restype = i32
+    lib.rtk_refit_leaves.argtypes = [ptr, i64, ptr, i64, i32] + [ptr] * 11
+    lib.rtk_refit_slots.restype = i32
+    lib.rtk_refit_slots.argtypes = [ptr] + [i64] * 3 + [ptr] * 7
+    lib.rtk_repack.restype = i32
+    lib.rtk_repack.argtypes = ([ptr, ptr, i64, i32] + [ptr, ptr, i64] * 3
+                               + [ptr] * 3 + [i64] + [ptr] * 4)
     return lib
 
 
@@ -112,6 +133,17 @@ def load_kernel(filter_fn: JitFilter | None = None):
     if key not in _libs:
         _libs[key], BUILD_LOGS[key], BUILD_SECONDS[key] = _build(filter_fn)
     return _libs[key]
+
+
+def check_tensor(a, what, dtype, shape, dev):
+    """Raise ValueError unless `a` is on `dev` with `dtype` and `shape`
+    (None: any size): the launch wrappers' check of their tensors."""
+    if (a.device != dev or a.dtype != dtype or a.dim() != len(shape)
+            or any(w is not None and g != w
+                   for g, w in zip(a.shape, shape))):
+        want = tuple("*" if w is None else w for w in shape)
+        raise ValueError(f"{what} must be a {dtype} {want} tensor on {dev}, "
+                         f"not {a.dtype} {tuple(a.shape)} on {a.device}")
 
 
 def launch(device: torch.device, entry: str, call, *args) -> None:

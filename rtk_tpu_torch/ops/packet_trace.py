@@ -45,7 +45,8 @@ box tests and triangle tests beside the hits (the kernel's nullable
 
 `trace_packets_refit` and `trace_packets_refit_frames` are the dynamic
 scene's front-ends: refit the tables to moved vertices on the device
-(scene.refit + repack_bounds, or refit_packed_binary for a host-SAH
+(scene.refit + repack_bounds, each a `Steps` step: on the card
+csrc/refit.cu's launches; or refit_packed_binary for a host-SAH
 topology), then trace; `trace_packets_chunked` bounds the working memory
 of a huge batch.  They run the same kernel.
 
@@ -80,10 +81,11 @@ from rtk_tpu_torch.ops.filter_capture import JitFilter
 from rtk_tpu_torch.ops.intersect import intersect_triangles, ray_shear
 from rtk_tpu_torch.ops.library import BUILD_SECONDS  # noqa: F401 (read here)
 from rtk_tpu_torch.ops.morton import ray_coherence_key_reference
-from rtk_tpu_torch.scene import refit
+from rtk_tpu_torch.scene import refit_by, refit_kernel, refit_reference
 from rtk_tpu_torch.trace.packed import (MASK_COL, MESH_COL, PRIM_COL,
                                         BinaryRefitAux, PackedScene,
-                                        refit_packed_binary, repack_bounds)
+                                        refit_packed_binary, repack_by,
+                                        repack_kernel, repack_reference)
 from rtk_tpu_torch.types import HitCandidate, PacketHits, Rays
 from rtk_tpu_torch.utils.stats import span
 
@@ -791,28 +793,35 @@ def packet_march(nodes, tris, rays8, **kw):
 @dataclasses.dataclass(frozen=True)
 class Steps:
     """The code that runs each step of a front end, with the signatures of
-    the plain versions; the traversal also takes roots_in_range."""
+    the plain versions; the traversal also takes roots_in_range.  refit
+    and repack are a deforming frame's (scene.refit, repack_bounds)."""
 
     key: Callable
     rows: Callable
     unsort: Callable
     trace: Callable
     march: Callable
+    refit: Callable
+    repack: Callable
 
     @staticmethod
     def of(lib) -> "Steps":
         """The kernels of a loaded library (an AOT artifact's); the march,
         which no artifact runs, is CARD's."""
-        return Steps(*(functools.partial(f, lib=lib) for f in (
-            coherence_key_kernel, ray_rows_kernel, unsort_kernel, _kernel)),
-            packet_march_kernel)
+        def own(f):
+            return functools.partial(f, lib=lib)
+
+        return Steps(own(coherence_key_kernel), own(ray_rows_kernel),
+                     own(unsort_kernel), own(_kernel), packet_march_kernel,
+                     own(refit_kernel), own(repack_kernel))
 
 
 PLAIN = Steps(ray_coherence_key_reference, ray_rows_reference,
-              unsort_reference, _trace_plain, packet_march_reference)
+              unsort_reference, _trace_plain, packet_march_reference,
+              refit_reference, repack_reference)
 # The kernels of the library built from the sources (ops/library.py).
 CARD = Steps(coherence_key_kernel, ray_rows_kernel, unsort_kernel, _kernel,
-             packet_march_kernel)
+             packet_march_kernel, refit_kernel, repack_kernel)
 
 
 def front_steps(device: torch.device, plain: bool = False,
@@ -1126,14 +1135,15 @@ def uniform_kz(rays: Rays) -> int | None:
     return k0 if bool((kzr == k0).all()) else None
 
 
-def _refit_repack(scene, packed: PackedScene, tri_pos):
+def _refit_repack(steps: Steps, scene, packed: PackedScene, tri_pos):
     """One frame's refit and repack -> (scene', packed').  scene: the LBVH
-    Scene the tables were packed from (refit + repack_bounds) or a
-    BinaryRefitAux (a host-SAH topology, refit_packed_binary)."""
+    Scene the tables were packed from (refit + repack_bounds, each by
+    `steps`) or a BinaryRefitAux (a host-SAH topology,
+    refit_packed_binary)."""
     if isinstance(scene, BinaryRefitAux):
         return scene, refit_packed_binary(packed, scene, tri_pos)
-    scene2 = refit(scene, tri_pos)
-    return scene2, repack_bounds(packed, scene2)
+    scene2 = refit_by(steps.refit, scene, tri_pos)
+    return scene2, repack_by(steps.repack, packed, scene2)
 
 
 def trace_packets_refit(packed: PackedScene, scene, new_tri_pos, rays: Rays,
@@ -1176,7 +1186,7 @@ def _refit_trace(steps: Steps, packed: PackedScene, scene, new_tri_pos,
     """trace_packets_refit after its flag checks, each step by `steps`
     (utils/aot.py's artifacts pass their own library's)."""
     _check_front(packed, rays, mode)
-    scene2, packed2 = _refit_repack(scene, packed, new_tri_pos)
+    scene2, packed2 = _refit_repack(steps, scene, packed, new_tri_pos)
     comps, idx = _ray_rows(steps, rays, sort_rays)
     hits = _traverse(steps, packed2, rays, comps, idx, mode, watertight,
                      None, defer_uv)
@@ -1224,7 +1234,7 @@ def trace_packets_refit_frames(packed: PackedScene, scene, frames_tri_pos,
     comps, idx = _ray_rows(steps, rays, sort_rays)
     out = []
     for tri_pos in frames_tri_pos:
-        _, packed2 = _refit_repack(scene, packed, tri_pos)
+        _, packed2 = _refit_repack(steps, scene, packed, tri_pos)
         out.append(_traverse(steps, packed2, rays, comps, idx, mode,
                              watertight, None, defer_uv))
     return out

@@ -5,10 +5,13 @@ centroids, one stable sort, the Karras topology over leaf clusters, a
 range-query refit of the bounds and the wide collapse.  Every output is
 bit-equal to rtk_tpu's on the same input.  Triangles are stored in
 traversal (Morton-sorted) order so every leaf is a contiguous slice.
-`refit` moves a built Scene to deformed vertices with the topology kept:
-gathers, minima and maxima on the scene's device, nothing on the host.
-Its body is the span `rtk.refit` (utils/stats.py::span) and REFITS counts
-its calls.
+`refit` moves a built Scene to deformed vertices with the topology kept,
+on the scene's device, nothing on the host: on the card in the port's
+own launches (`refit_kernel`, csrc/refit.cu), elsewhere by eager
+gathers, minima and maxima (`refit_reference`, its plain version).  The
+choice is ops/packet_trace.py's `front_steps` by device, as for every
+step of the front end.  Its body is the span `rtk.refit`
+(utils/stats.py::span) and REFITS counts its calls.
 """
 from __future__ import annotations
 
@@ -21,13 +24,16 @@ from rtk_tpu_torch.builder.collapse import collapse_wide, gather_slot_bounds
 from rtk_tpu_torch.builder.lbvh import (karras_topology_scan, leaf_code,
                                         refit_ranges_flat)
 from rtk_tpu_torch.config import BuildConfig
+from rtk_tpu_torch.ops import library
 from rtk_tpu_torch.ops.morton import morton3d
 from rtk_tpu_torch.utils.stats import span
 
 # Refits in this process (refit, and trace/packed.py's refit_packed_binary):
 # a run resets them and reads them back, as ops/packet_trace.py's launch
-# counters.
+# counters.  REFIT_LAUNCHES counts the card refit's launches
+# (refit_kernel): 2 a refit, 3 where the Scene has wide node arrays.
 REFITS = 0
+REFIT_LAUNCHES = 0
 
 
 @dataclasses.dataclass
@@ -232,6 +238,15 @@ def _leaf_bounds(tri_v: torch.Tensor, num_tris: int, leaf_size: int):
             hi.reshape(n_leaf, leaf_size * 3, 3).amax(dim=1))
 
 
+def _one_leaf_slots(scene: Scene, leaf_min, leaf_max):
+    """The one-leaf scene's wide row refit: slot 0 of row 0 is the leaf,
+    the other slots stay empty as built."""
+    node_min, node_max = scene.node_min.clone(), scene.node_max.clone()
+    node_min[0, 0] = leaf_min[0]
+    node_max[0, 0] = leaf_max[0]
+    return node_min, node_max
+
+
 def _refit_impl(scene: Scene, new_tri_pos: torch.Tensor) -> dict:
     """Regather the vertices in sorted order and refit every bound, the
     topology kept (rtk has no refit: it rebuilds)."""
@@ -243,10 +258,7 @@ def _refit_impl(scene: Scene, new_tri_pos: torch.Tensor) -> dict:
                                       scene.leaf_size)
     node_min, node_max = scene.node_min, scene.node_max
     if leaf_min.shape[0] == 1:
-        # The one-leaf scene: slot 0 of row 0 is the leaf, the rest empty.
-        node_min, node_max = node_min.clone(), node_max.clone()
-        node_min[0, 0] = leaf_min[0]
-        node_max[0, 0] = leaf_max[0]
+        node_min, node_max = _one_leaf_slots(scene, leaf_min, leaf_max)
         bmin, bmax = leaf_min, leaf_max
     else:
         bmin, bmax = refit_ranges_flat(scene.bin_lo, scene.bin_hi, leaf_min,
@@ -260,15 +272,108 @@ def _refit_impl(scene: Scene, new_tri_pos: torch.Tensor) -> dict:
                 leaf_min=leaf_min, leaf_max=leaf_max)
 
 
+def refit_reference(scene: Scene, tri_pos: torch.Tensor) -> Scene:
+    """refit_kernel's plain version on any device (the plain steps'
+    refit): tri_pos, the frame as soup_tensor gives it, gathered in the
+    sorted order, the leaf bounds reduced and the node bounds answered from
+    a range table (builder/lbvh.py::refit_ranges_flat), eager op by op."""
+    return dataclasses.replace(scene, **_refit_impl(scene, tri_pos))
+
+
+def refit_kernel(scene: Scene, tri_pos: torch.Tensor, lib=None) -> Scene:
+    """refit on the card: csrc/refit.cu's rtk_refit_parents and
+    rtk_refit_leaves (rtk_refit_parents skipped for the one-leaf scene),
+    and rtk_refit_slots where the Scene has wide node arrays, on the
+    current stream, with no host sync; every output a new tensor
+    (torch.empty), equal bit for bit to refit_reference of the same frame
+    on the CPU but for the sign of a zero bound where the range table pairs
+    a -0.0 with a +0.0 (csrc/refit.cu says which).  The one-leaf scene's
+    slot bounds are written as refit_reference writes them.
+
+    tri_pos: (num_tris, 3, 3) float32 on the scene's card, as soup_tensor
+    gives it.  lib: a loaded library to launch from (an AOT artifact's,
+    utils/aot.py) instead of the one built from the sources.  Raises if the
+    tensors are not on one card or their shapes are not the scene's."""
+    global REFIT_LAUNCHES
+    dev = scene.device
+    if dev.type != "cuda":
+        raise ValueError("refit_kernel takes a Scene on a CUDA device; the "
+                         "plain version is refit_reference")
+    n_leaf, k = scene.num_leaves, scene.leaf_size
+    n_int = n_leaf - 1
+    i32, check = torch.int32, library.check_tensor
+    check(tri_pos, "tri_pos", torch.float32, (scene.num_tris, 3, 3), dev)
+    check(scene.perm, "scene.perm", i32, (n_leaf * k,), dev)
+    for name in ("bin_left", "bin_right"):
+        check(getattr(scene, name), f"scene.{name}", i32, (max(n_int, 1),),
+              dev)
+    if lib is None:
+        lib = library.load_kernel()
+    f32 = dict(dtype=torch.float32, device=dev)
+    tri_pos = tri_pos.contiguous()
+    left, right = scene.bin_left.contiguous(), scene.bin_right.contiguous()
+    tri_v = torch.empty((n_leaf * k, 3, 3), **f32)
+    leaf_min, leaf_max = (torch.empty((n_leaf, 3), **f32) for _ in range(2))
+    bounds_min, bounds_max = (torch.empty((3,), **f32) for _ in range(2))
+    if n_int:
+        bmin, bmax = (torch.empty((n_int, 3), **f32) for _ in range(2))
+    else:
+        bmin, bmax = leaf_min, leaf_max  # as refit_reference returns them
+    # Each internal node's parent, each leaf's, each node's arrival count.
+    scratch = torch.empty((2 * n_int + n_leaf,), dtype=i32, device=dev)
+    if n_int:
+        library.launch(dev, "rtk_refit_parents", lib.rtk_refit_parents,
+                       left.data_ptr(), right.data_ptr(), n_int, n_leaf,
+                       scratch.data_ptr())
+        REFIT_LAUNCHES += 1
+    library.launch(dev, "rtk_refit_leaves", lib.rtk_refit_leaves,
+                   tri_pos.data_ptr(), scene.num_tris,
+                   scene.perm.contiguous().data_ptr(), n_leaf, k,
+                   left.data_ptr(), right.data_ptr(), scratch.data_ptr(),
+                   tri_v.data_ptr(), leaf_min.data_ptr(), leaf_max.data_ptr(),
+                   bmin.data_ptr(), bmax.data_ptr(), bounds_min.data_ptr(),
+                   bounds_max.data_ptr())
+    REFIT_LAUNCHES += 1
+    node_min, node_max = scene.node_min, scene.node_max
+    if not n_int:
+        node_min, node_max = _one_leaf_slots(scene, leaf_min, leaf_max)
+    elif scene.has_wide:  # else 1-row dummies, left as they are
+        child = scene.node_child.contiguous()
+        check(child, "scene.node_child", i32, tuple(node_min.shape[:2]), dev)
+        node_min, node_max = (torch.empty(tuple(node_min.shape), **f32)
+                              for _ in range(2))
+        library.launch(dev, "rtk_refit_slots", lib.rtk_refit_slots,
+                       child.data_ptr(), child.numel(), n_int, n_leaf,
+                       bmin.data_ptr(), bmax.data_ptr(), leaf_min.data_ptr(),
+                       leaf_max.data_ptr(), node_min.data_ptr(),
+                       node_max.data_ptr())
+        REFIT_LAUNCHES += 1
+    return dataclasses.replace(
+        scene, node_min=node_min, node_max=node_max, tri_v=tri_v,
+        bounds_min=bounds_min, bounds_max=bounds_max, bin_min=bmin,
+        bin_max=bmax, leaf_min=leaf_min, leaf_max=leaf_max)
+
+
+def refit_by(step, scene: Scene, new_tri_pos) -> Scene:
+    """refit through `step` (a Steps' refit, ops/packet_trace.py: an AOT
+    artifact passes its own library's): the frame put on the scene's device
+    by soup_tensor, the call counted in REFITS, its body the span
+    `rtk.refit`."""
+    global REFITS
+    REFITS += 1
+    with span("rtk.refit"):
+        return step(scene, soup_tensor(new_tri_pos, scene.num_tris,
+                                       scene.device))
+
+
 def refit(scene: Scene, new_tri_pos) -> Scene:
     """Refit an existing Scene to deformed geometry (same topology).
 
     new_tri_pos: (T, 3, 3) triangle vertices in the *original soup order*
     (the order passed to build_from_soup), an array or a tensor; the work
-    runs on the scene's device and is only enqueued there.
+    runs on the scene's device and is only enqueued there: refit_kernel
+    on a card, refit_reference on the CPU.
     """
-    global REFITS
-    REFITS += 1
-    with span("rtk.refit"):
-        new_tri_pos = soup_tensor(new_tri_pos, scene.num_tris, scene.device)
-        return dataclasses.replace(scene, **_refit_impl(scene, new_tri_pos))
+    from rtk_tpu_torch.ops.packet_trace import front_steps  # imports us
+
+    return refit_by(front_steps(scene.device).refit, scene, new_tri_pos)

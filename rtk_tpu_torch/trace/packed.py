@@ -11,8 +11,10 @@ with torch on the scene's device and are bit-equal to rtk_tpu's.
 
 Packing runs once per topology, on the host.  A refit regathers bounds
 and vertices through the saved mappings on the device: repack_bounds for
-a table packed from a Scene, refit_packed_binary (with a BinaryRefitAux)
-for one packed from a host-built binary tree.
+a table packed from a Scene (on the card one launch, `repack_kernel`,
+csrc/refit.cu; elsewhere its plain version, `repack_reference`, picked
+by ops/packet_trace.py's `front_steps`), refit_packed_binary (with a
+BinaryRefitAux) for one packed from a host-built binary tree.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 import rtk_tpu_torch.scene as scene_module
 from rtk_tpu_torch.builder.lbvh import refit_ranges_flat
+from rtk_tpu_torch.ops import library
 from rtk_tpu_torch.scene import soup_tensor
 from rtk_tpu_torch.utils.stats import span
 
@@ -34,8 +37,11 @@ MASK_COL = 9  # filter-mask bits as an exact float value (<= 2^24)
 MASK_ALL = float(0xFFFFFF)  # 24-bit all-pass mask
 MESH_COL = 10  # mesh index as an exact float value
 PRIM_COL = 11  # triangle index as an exact float value
-# Calls of repack_bounds in this process, read back as scene.py's REFITS.
+# Calls of repack_bounds in this process, read back as scene.py's REFITS;
+# REPACK_LAUNCHES counts the card repack's launches (repack_kernel, one a
+# repack).
 REPACKS = 0
+REPACK_LAUNCHES = 0
 
 
 @dataclasses.dataclass
@@ -494,23 +500,90 @@ def _binary_refit_aux(left, right, first, count, is_leaf, leaf_nodes,
                           visit_of_lidx=i32(visit_of_lidx))
 
 
-def repack_bounds(packed: PackedScene, scene) -> PackedScene:
-    """Refresh a PackedScene after refit(scene, ...) (same topology, new
-    bounds and vertices), on the device.  The layout (meta, slot_src,
-    tri_perm, depth, branching) is reused, so stack_size is the same, and
-    the mask column of the old triangle table is carried over, so a
-    tri_mask survives the refit."""
+def repack_reference(packed: PackedScene, scene) -> PackedScene:
+    """repack_kernel's plain version on any device (the plain steps'
+    repack): the vertices gathered through tri_perm, the node rows and the
+    triangle table built again by eager ops."""
+    tri_v = scene.tri_v[packed.tri_perm.long()]
+    mask_col = packed.tris[:, MASK_COL]
+    return dataclasses.replace(
+        packed, tri_v=tri_v,
+        nodes=_gather_rows(scene.bin_min, scene.bin_max, scene.leaf_min,
+                           scene.leaf_max, packed.slot_src, packed.meta),
+        tris=_tri_rows(tri_v, packed.tri_prim >= 0, mask_col,
+                       packed.tri_mesh, packed.tri_prim))
+
+
+def repack_kernel(packed: PackedScene, scene, lib=None) -> PackedScene:
+    """repack_bounds on the card: one launch of csrc/refit.cu's rtk_repack
+    on the current stream, with no host sync, equal bit for bit to
+    repack_reference.  nodes, tris and tri_v are new tensors
+    (torch.empty); the layout and the hit-assembly index tables are
+    packed's.  lib: a loaded library to launch from (an AOT artifact's,
+    utils/aot.py) instead of the one built from the sources.  Raises if
+    the tensors are not on one card or the tables do not fit the scene."""
+    global REPACK_LAUNCHES
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError("repack_kernel takes tables on a CUDA device; the "
+                         "plain version is repack_reference")
+    nd, w = packed.slot_src.shape
+    tp = packed.tri_perm.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    n_bin, n_leaf = scene.bin_min.shape[0], scene.leaf_min.shape[0]
+    rows = scene.tri_v.shape[0]
+    for a, what, dtype, shape in (
+            (packed.slot_src, "slot_src", i32, (nd, w)),
+            (packed.meta, "meta", i32, (nd, 4)),
+            (packed.tri_mesh, "tri_mesh", i32, (tp,)),
+            (packed.tri_prim, "tri_prim", i32, (tp,)),
+            (packed.tri_perm, "tri_perm", i32, (tp,)),
+            (packed.tris, "tris", f32, (tp, TRI_ROW_F32)),
+            (scene.bin_min, "scene.bin_min", f32, (n_bin, 3)),
+            (scene.bin_max, "scene.bin_max", f32, (n_bin, 3)),
+            (scene.leaf_min, "scene.leaf_min", f32, (n_leaf, 3)),
+            (scene.leaf_max, "scene.leaf_max", f32, (n_leaf, 3)),
+            (scene.tri_v, "scene.tri_v", f32, (rows, 3, 3))):
+        library.check_tensor(a, what, dtype, shape, dev)
+    if lib is None:
+        lib = library.load_kernel()
+    ins = [a.contiguous() for a in (
+        packed.slot_src, packed.meta, scene.bin_min, scene.bin_max,
+        scene.leaf_min, scene.leaf_max, packed.tri_perm, scene.tri_v,
+        packed.tri_mesh, packed.tri_prim, packed.tris)]
+    (slot_src, meta, bmin, bmax, lmin, lmax, tri_perm, scene_v, mesh, prim,
+     old_tris) = (a.data_ptr() for a in ins)
+    nodes = torch.empty((nd * w, NODE_ROW_I32), dtype=i32, device=dev)
+    tris = torch.empty((tp, TRI_ROW_F32), dtype=f32, device=dev)
+    tri_v = torch.empty((tp, 3, 3), dtype=f32, device=dev)
+    library.launch(dev, "rtk_repack", lib.rtk_repack, slot_src, meta, nd, w,
+                   bmin, bmax, n_bin, lmin, lmax, n_leaf, tri_perm, scene_v,
+                   rows, mesh, prim, old_tris, tp, nodes.data_ptr(),
+                   tris.data_ptr(), tri_v.data_ptr())
+    REPACK_LAUNCHES += 1
+    return dataclasses.replace(packed, nodes=nodes, tris=tris, tri_v=tri_v)
+
+
+def repack_by(step, packed: PackedScene, scene) -> PackedScene:
+    """repack_bounds through `step` (a Steps' repack, ops/packet_trace.py:
+    an AOT artifact passes its own library's): the call counted in
+    REPACKS, its body the span `rtk.repack`."""
     global REPACKS
     REPACKS += 1
     with span("rtk.repack"):
-        tri_v = scene.tri_v[packed.tri_perm.long()]
-        mask_col = packed.tris[:, MASK_COL]
-        return dataclasses.replace(
-            packed, tri_v=tri_v,
-            nodes=_gather_rows(scene.bin_min, scene.bin_max, scene.leaf_min,
-                               scene.leaf_max, packed.slot_src, packed.meta),
-            tris=_tri_rows(tri_v, packed.tri_prim >= 0, mask_col,
-                           packed.tri_mesh, packed.tri_prim))
+        return step(packed, scene)
+
+
+def repack_bounds(packed: PackedScene, scene) -> PackedScene:
+    """Refresh a PackedScene after refit(scene, ...) (same topology, new
+    bounds and vertices), on the device: repack_kernel on a card,
+    repack_reference on the CPU.  The layout (meta, slot_src, tri_perm,
+    depth, branching) is reused, so stack_size is the same, and the mask
+    column of the old triangle table is carried over, so a tri_mask
+    survives the refit."""
+    from rtk_tpu_torch.ops.packet_trace import front_steps  # imports us
+
+    return repack_by(front_steps(packed.device).repack, packed, scene)
 
 
 def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,

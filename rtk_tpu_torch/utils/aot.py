@@ -7,8 +7,8 @@ is this module's pinned front end and the CUDA kernel library, and what
 takes time at start-up is nvcc.  So the artifact carries the library
 itself: the .so that ops/library.kernel_library built for the trace's
 keywords (a jit_filter's own build when it has one), which holds the
-traversal and the sorted front end's coherence key, rows pass and
-unsort.  A server writes it under the package's build directory by its
+traversal, the sorted front end's coherence key, rows pass and unsort,
+and the refit and repack that a refit artifact runs on the card.  A server writes it under the package's build directory by its
 hash, loads it with ctypes and calls it; it never calls nvcc.
 
 The flat signatures are the reference's:
@@ -59,9 +59,11 @@ from rtk_tpu_torch.utils.build import BUILD_DIR
 # Artifact version: bump when the flat call signature or the entry points
 # of the embedded library change.  2: the library holds rtk_ray_rows, which
 # a version-1 library lacks; 3: it holds rtk_shade (render_path's shade
-# pass), which a version-2 library lacks.  An artifact of another version
-# is refused before the loader binds it.
-AOT_VERSION = 3
+# pass), which a version-2 library lacks; 4: it holds the refit and repack
+# (csrc/refit.cu: rtk_refit_parents, rtk_refit_leaves, rtk_refit_slots,
+# rtk_repack), which a version-3 library lacks.  An artifact of another
+# version is refused before the loader binds it.
+AOT_VERSION = 4
 KIND_TRACE = 16  # container kinds of this module (serialize.py has 0-2)
 KIND_REFIT = 17
 PLATFORMS = ("cpu", "cuda")

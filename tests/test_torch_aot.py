@@ -200,12 +200,13 @@ def test_aot_refuses_foreign_blobs():
 
 @pytest.mark.parametrize(
     "load,old_version", [("trace", 1), ("refit", 1), ("trace", 2),
-                         ("refit", 2)],
-    ids=["trace", "refit", "trace-v2", "refit-v2"])
+                         ("refit", 2), ("trace", 3), ("refit", 3)],
+    ids=["trace", "refit", "trace-v2", "refit-v2", "trace-v3", "refit-v3"])
 def test_aot_refuses_a_version_1_artifact(load, old_version):
     """An artifact stamped with version 1 (exported before the library
-    held the rows pass, rtk_ray_rows) or version 2 (before it held the
-    shade pass, rtk_shade) is refused by the version check before its
+    held the rows pass, rtk_ray_rows), version 2 (before it held the
+    shade pass, rtk_shade) or version 3 (before it held the refit and
+    repack, csrc/refit.cu) is refused by the version check before its
     library is bound, with the loader's own error."""
     scene = rt.build_from_soup(scenes.cornell_box(),
                                config=rt.BuildConfig(leaf_size=8), device=CPU)
@@ -214,7 +215,7 @@ def test_aot_refuses_a_version_1_artifact(load, old_version):
                      aot.load_packet_trace) if load == "trace" else
                     (aot.export_refit_trace(packed, scene, 64),
                      aot.load_refit_trace))
-    assert aot.AOT_VERSION == 3
+    assert aot.AOT_VERSION == 4
     old = bytearray(blob)
     # meta ints start at byte 32: (AOT_VERSION, n_rays)
     struct.pack_into("<q", old, 32, old_version)

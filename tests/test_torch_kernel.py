@@ -928,51 +928,162 @@ def test_kernel_on_refit_tables(cuda, kind):
         refit_tables, rays, defer_uv=True))
 
 
-def test_refit_frame_on_the_card(cuda):
-    """BASELINE config 4's frame as the benchmark's refit cell runs it: the
-    96 x 96 grid (LBVH leaf 8, no wide arrays) refit and its Tracer
-    refreshed with no host sync, then one kernel launch for the frame's
-    closest call; the refit equals the same refit on the CPU bit for bit
-    and the records equal the plain version's."""
+def _on_cpu(obj):
+    """A Scene or PackedScene with its tensors copied to the CPU."""
     import dataclasses
 
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def _cpu_bits(a):
+    a = a.cpu()
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+def _zero_sign_only(got, want):
+    """-> entries whose bits differ; raises unless each is a zero that
+    differs in its sign alone (equal values)."""
+    differ = _cpu_bits(got) != _cpu_bits(want)
+    assert torch.equal(got.cpu()[differ], want.cpu()[differ])
+    assert bool((got.cpu()[differ] == 0).all())
+    return int(differ.sum())
+
+
+# Frames of the 32-frame clip the refit cell runs (t = 0.05 k): k = 0, 5
+# and 30 hold y values of +0.0 and -0.0, k = 7 and 31 none.
+CLIP_FRAMES = (7, 0, 5, 30, 31)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_refit_frame_on_the_card(cuda, wide):
+    """BASELINE config 4's frames as the benchmark's refit cell runs them:
+    the 96 x 96 grid (LBVH leaf 8; the cell's has no wide arrays) refit
+    frame after frame and its Tracer refreshed with no host sync, in 2
+    refit launches (3 with wide node arrays) and 1 repack launch a frame,
+    then one kernel launch for the frame's closest call.  Each frame's
+    Scene and tables equal the same refit and repack on the CPU bit for
+    bit, and the records the plain version's.  The card's eager version of
+    the refit (the plain steps on CUDA tensors) agrees in value; where the
+    sign of a zero bound differs from the CPU's, the test counts it."""
     from rtk_tpu_torch import scene as tscene
     from rtk_tpu_torch.builder import lbvh
+    from rtk_tpu_torch.testing.carry import PACKED_ARRAYS, SCENE_ARRAYS
     from rtk_tpu_torch.trace import packed as tpacked
 
     scene = rtk_tpu_torch.build_scene(
         _soup_of(scenes.deforming_grid(0.0)),
-        rtk_tpu_torch.BuildConfig(leaf_size=8, wide_nodes=False),
+        rtk_tpu_torch.BuildConfig(leaf_size=8, wide_nodes=wide),
         device=cuda)
     tracer = rtk_tpu_torch.Tracer(scene)
-    tracer.packed
-    frame = torch.as_tensor(scenes.deforming_grid(0.35), device=cuda)
+    cpu_scene, cpu_packed = _on_cpu(scene), _on_cpu(tracer.packed)
     rays = scenes.camera_rays((0, 3, 4), (0, 0, 0), (0, 1, 0), 50, 256, 256,
                               order="morton", device=cuda)
-    torch.cuda.synchronize()
-    before = (tscene.REFITS, tpacked.REPACKS, packet_trace.KERNEL_LAUNCHES)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        moved = rtk_tpu_torch.refit(scene, frame)
-        tracer = tracer.refresh(moved)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    eager_zero_signs = 0
+    for k in CLIP_FRAMES:
+        frame = torch.as_tensor(scenes.deforming_grid(0.05 * k), device=cuda)
+        torch.cuda.synchronize()
+        counters = (tscene.REFITS, tpacked.REPACKS, tscene.REFIT_LAUNCHES,
+                    tpacked.REPACK_LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scene = rtk_tpu_torch.refit(scene, frame)
+            tracer = tracer.refresh(scene)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        after = (tscene.REFITS, tpacked.REPACKS, tscene.REFIT_LAUNCHES,
+                 tpacked.REPACK_LAUNCHES)
+        assert [a - b for a, b in zip(after, counters)] == [
+            1, 1, 3 if wide else 2, 1]
+        cpu_scene = rtk_tpu_torch.refit(cpu_scene, frame.cpu())
+        cpu_packed = tpacked.repack_bounds(cpu_packed, cpu_scene)
+        for f in SCENE_ARRAYS:
+            assert torch.equal(_cpu_bits(getattr(scene, f)),
+                               _cpu_bits(getattr(cpu_scene, f))), (k, f)
+        for f in PACKED_ARRAYS:
+            assert torch.equal(_cpu_bits(getattr(tracer.packed, f)),
+                               _cpu_bits(getattr(cpu_packed, f))), (k, f)
+        eager = packet_trace.PLAIN.refit(scene, frame)
+        eager_zero_signs += sum(
+            _zero_sign_only(getattr(eager, f), getattr(scene, f))
+            for f in ("leaf_min", "leaf_max", "bin_min", "bin_max",
+                      "bounds_min", "bounds_max"))
+    print(f"the card's eager refit differs from the kernel's in "
+          f"{eager_zero_signs} zero signs over {len(CLIP_FRAMES)} frames")
+    before = packet_trace.KERNEL_LAUNCHES
     hits = tracer.closest(rays)
     torch.cuda.synchronize()
-    after = (tscene.REFITS, tpacked.REPACKS, packet_trace.KERNEL_LAUNCHES)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert packet_trace.KERNEL_LAUNCHES == before + 1
     assert lbvh.REFIT_LEVELS == 13 and scene.num_leaves == 2304
-    on_cpu = dataclasses.replace(scene, **{
-        f.name: getattr(scene, f.name).cpu()
-        for f in dataclasses.fields(scene)
-        if isinstance(getattr(scene, f.name), torch.Tensor)})
-    want = rtk_tpu_torch.refit(on_cpu, frame.cpu())
-    for f in ("tri_v", "leaf_min", "leaf_max", "bin_min", "bin_max",
-              "bounds_min", "bounds_max"):
-        assert torch.equal(getattr(moved, f).cpu(), getattr(want, f)), f
     assert hits.hit.any()
     _assert_same(hits, packet_trace.trace_packets_reference(tracer.packed,
                                                             rays))
+
+
+def test_refit_kernels_on_small_scenes(cuda):
+    """refit_kernel and repack_kernel on the CPU refit tests' odd shapes (a
+    one-leaf scene, padding rows, a shuffled soup, wide arrays and a
+    tri_mask) equal the plain versions on CPU copies bit for bit."""
+    from rtk_tpu_torch import scene as tscene
+    from rtk_tpu_torch.testing.carry import PACKED_ARRAYS, SCENE_ARRAYS
+    from rtk_tpu_torch.trace import packed as tpacked
+
+    rng = np.random.default_rng(9)
+    for t, leaf in ((3, 4), (301, 4), (300, 8), (1, 1)):
+        base = (rng.normal(size=(t, 1, 3)) * 2.0
+                + rng.normal(size=(t, 3, 3)) * 0.3).astype(np.float32)
+        moved = (base
+                 + rng.normal(size=base.shape) * 0.2).astype(np.float32)
+        scene = rtk_tpu_torch.build_from_soup(
+            base, config=rtk_tpu_torch.BuildConfig(leaf_size=leaf),
+            device=cuda)
+        mask = (np.arange(t) % 3 + 1).astype(np.uint32)
+        packed = pack_scene(scene, tri_mask=mask)
+        got = tscene.refit_kernel(scene,
+                                  torch.as_tensor(moved, device=cuda))
+        want = tscene.refit_reference(_on_cpu(scene),
+                                      torch.from_numpy(moved))
+        for f in SCENE_ARRAYS:
+            assert torch.equal(_cpu_bits(getattr(got, f)),
+                               _cpu_bits(getattr(want, f))), (t, f)
+        got_p = tpacked.repack_kernel(packed, got)
+        want_p = tpacked.repack_reference(_on_cpu(packed), want)
+        for f in PACKED_ARRAYS:
+            assert torch.equal(_cpu_bits(getattr(got_p, f)),
+                               _cpu_bits(getattr(want_p, f))), (t, f)
+
+
+def test_aot_refit_artifact_runs_its_own_refit(cuda, monkeypatch):
+    """A "cuda" refit artifact refits and repacks with its embedded
+    library's kernels (2 and 1 launches a frame; the library built from
+    the sources is never asked for) and equals trace_packets_refit."""
+    from rtk_tpu_torch import scene as tscene
+    from rtk_tpu_torch.trace import packed as tpacked
+    from rtk_tpu_torch.utils import aot
+
+    tris = scenes.deforming_grid(0.0, n=16)
+    cfg = rtk_tpu_torch.BuildConfig(leaf_size=8, wide_nodes=False)
+    host = rtk_tpu_torch.build_from_soup(tris, config=cfg, device="cpu")
+    scene = rtk_tpu_torch.build_from_soup(tris, config=cfg, device=cuda)
+    packed = pack_scene(scene)
+    rays = scenes.camera_rays((0, 3, 4), (0, 0, 0), (0, 1, 0), 50, 32, 32,
+                              device=cuda)
+    lr = aot.load_refit_trace(aot.export_refit_trace(
+        pack_scene(host), host, rays.count, platforms=["cuda"]))
+    frame = torch.as_tensor(scenes.deforming_grid(0.35, n=16), device=cuda)
+    want, _, _ = packet_trace.trace_packets_refit(packed, scene, frame, rays)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the artifact asked for the source build")
+
+    monkeypatch.setattr(library, "load_kernel", refuse)
+    before = tscene.REFIT_LAUNCHES, tpacked.REPACK_LAUNCHES
+    got = lr(packed, frame, rays)
+    torch.cuda.synchronize()
+    assert (tscene.REFIT_LAUNCHES - before[0],
+            tpacked.REPACK_LAUNCHES - before[1]) == (2, 1)
+    _assert_same(got, want)
 
 
 @pytest.mark.parametrize("compact", [True, False])

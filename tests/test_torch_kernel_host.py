@@ -7,8 +7,8 @@ off the card): every instantiation (8- and 16-wide tables, the grid march
 and a filter build) in every mode equals the plain PyTorch version bit for
 bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
 csrc/dispatch_probe.cu, csrc/coherence_key.cu, csrc/ray_rows.cu,
-csrc/unsort.cu and csrc/shade.cu are built the same way and held bit for
-bit against their plain versions.  This checks
+csrc/unsort.cu, csrc/shade.cu and csrc/refit.cu are built the same way and
+held bit for bit against their plain versions.  This checks
 the kernels' logic and arithmetic; that nvcc builds them for sm_90a, and the
 card's results, are tests/test_torch_kernel.py's."""
 import ctypes
@@ -74,6 +74,18 @@ static inline unsigned atomicMin(unsigned* p, unsigned v) {
   const unsigned old = *p;
   if (v < old) *p = v;
   return old;
+}
+static inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
+static inline void __threadfence() {}
+template <class T> static inline T __ldcg(const T* p) { return *p; }
+static inline int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, 4);
+  return i;
 }
 static inline float __int_as_float(int i) {
   float f;
@@ -545,14 +557,24 @@ FRONT_HOST_LAUNCH = (r"for (unsigned b_ = 0; b_ < (unsigned)(\2) * \3; ++b_)"
 KEY_REDUCE = "constexpr int KEY_REDUCE_BLOCKS = 1024;"
 
 
-def front_host_source(src, launches, reduce_blocks=None):
-    """csrc/coherence_key.cu, csrc/ray_rows.cu, csrc/unsort.cu or
-    csrc/shade.cu for a host build behind CUDA_SHIM: each of its `launches` launches runs as a loop over the
-    threads in turn; reduce_blocks: the key's bounds kernels' grid cap, to
-    make a small batch take several turns of their grid-stride loops."""
+# The same loop from the last thread to the first.
+REVERSED_HOST_LAUNCH = (r"for (long long b_ = (long long)(\2) * \3 - 1; "
+                        r"b_ >= 0; --b_)\n    if ((blockIdx.x = b_ / \3, "
+                        r"threadIdx.x = b_ % \3, blockDim.x = \3, "
+                        r"gridDim.x = (\2), true))\n      \1(")
+
+
+def front_host_source(src, launches, reduce_blocks=None, reverse=False):
+    """csrc/coherence_key.cu, csrc/ray_rows.cu, csrc/unsort.cu,
+    csrc/shade.cu or csrc/refit.cu for a host build behind CUDA_SHIM: each
+    of its `launches` launches runs as a loop over the threads in turn
+    (reverse: from the last thread to the first); reduce_blocks: the key's
+    bounds kernels' grid cap, to make a small batch take several turns of
+    their grid-stride loops."""
     text = src.read_text()
     assert "#include <cuda_runtime.h>" in text
-    host, n = FRONT_LAUNCH.subn(FRONT_HOST_LAUNCH, text)
+    host, n = FRONT_LAUNCH.subn(
+        REVERSED_HOST_LAUNCH if reverse else FRONT_HOST_LAUNCH, text)
     assert n == launches
     if reduce_blocks is not None:
         assert KEY_REDUCE in host
@@ -563,8 +585,9 @@ def front_host_source(src, launches, reduce_blocks=None):
 
 def host_library(tmp, name, reduce_blocks=None):
     """The library kernel_library builds (the traversal without a filter,
-    the coherence key, the rows pass, the unsort and render_path's shade
-    pass in one .so), built for the host -> its path."""
+    the coherence key, the rows pass, the unsort, render_path's shade pass
+    and the refit and repack in one .so), built for the host -> its
+    path."""
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     sources = {
         "trace": library.KERNEL_SRC.read_text()
@@ -573,7 +596,8 @@ def host_library(tmp, name, reduce_blocks=None):
         "key": front_host_source(library.KEY_SRC, 3, reduce_blocks),
         "rows": front_host_source(library.ROWS_SRC, 1),
         "unsort": front_host_source(library.UNSORT_SRC, 1),
-        "shade": front_host_source(library.SHADE_SRC, 1)}
+        "shade": front_host_source(library.SHADE_SRC, 1),
+        "refit": front_host_source(library.REFIT_SRC, 4)}
     for part, text in sources.items():
         (tmp / f"{name}_{part}.cpp").write_text(text)
     so = tmp / f"lib{name}.so"
@@ -1097,3 +1121,241 @@ def test_shade_kernel_takes_cuda_tensors(shade_scene):
             "tri_vidx", "tri_mesh", "tri_prim")},
            "slot": hits.slot.to(torch.int64)}))
     assert path.SHADE_LAUNCHES == before
+
+
+# ---- a deforming frame's refit and repack: csrc/refit.cu ----
+
+@pytest.fixture(scope="module")
+def refit_libs(tmp_path_factory):
+    """csrc/refit.cu built for the host behind CUDA_SHIM, its launches run
+    over the threads first to last ("forward") and last to first
+    ("reversed"): in the climb, whichever child of a node comes second
+    folds it, so the two builds fold every node from the other side."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    tmp = tmp_path_factory.mktemp("refit_host")
+    (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
+    libs = {}
+    for order in ("forward", "reversed"):
+        cpp = tmp / f"refit_{order}.cpp"
+        cpp.write_text(front_host_source(library.REFIT_SRC, 4,
+                                         reverse=order == "reversed"))
+        so = tmp / f"librefit_{order}.so"
+        subprocess.run([shutil.which("g++"), "-std=c++17", "-O2",
+                        "-ffp-contract=off", "-shared", "-fPIC",
+                        f"-I{tmp}", str(cpp), "-o", str(so)], check=True,
+                       capture_output=True, text=True)
+        libs[order] = library.declare_refit(ctypes.CDLL(str(so)))
+    return libs
+
+
+def _filled(*shape):
+    """An f32 output filled with SENTINEL, a NaN no pass writes."""
+    return torch.full(shape, SENTINEL, dtype=torch.int32).view(torch.float32)
+
+
+def host_refit(lib, scene, tri_pos):
+    """scene.refit_kernel's launches on the host build over CPU tensors
+    (outputs filled with SENTINEL first) -> the refit Scene."""
+    import dataclasses
+
+    n_leaf, k = scene.num_leaves, scene.leaf_size
+    n_int = n_leaf - 1
+    tri_pos = tri_pos.contiguous()
+    tri_v = _filled(n_leaf * k, 3, 3)
+    leaf_min, leaf_max = _filled(n_leaf, 3), _filled(n_leaf, 3)
+    bounds_min, bounds_max = _filled(3), _filled(3)
+    bmin, bmax = ((_filled(n_int, 3), _filled(n_int, 3)) if n_int
+                  else (leaf_min, leaf_max))
+    scratch = torch.full((2 * n_int + n_leaf,), -7, dtype=torch.int32)
+    if n_int:
+        assert lib.rtk_refit_parents(
+            _ptr(scene.bin_left), _ptr(scene.bin_right), n_int, n_leaf,
+            _ptr(scratch), None) == 0
+    assert lib.rtk_refit_leaves(
+        _ptr(tri_pos), scene.num_tris, _ptr(scene.perm), n_leaf, k,
+        _ptr(scene.bin_left), _ptr(scene.bin_right), _ptr(scratch),
+        *map(_ptr, (tri_v, leaf_min, leaf_max, bmin, bmax, bounds_min,
+                    bounds_max)), None) == 0
+    node_min, node_max = scene.node_min, scene.node_max
+    if not n_int:
+        node_min, node_max = node_min.clone(), node_max.clone()
+        node_min[0, 0], node_max[0, 0] = leaf_min[0], leaf_max[0]
+    elif scene.has_wide:
+        node_min, node_max = (_filled(*scene.node_min.shape)
+                              for _ in range(2))
+        assert lib.rtk_refit_slots(
+            _ptr(scene.node_child), scene.node_child.numel(), n_int, n_leaf,
+            *map(_ptr, (bmin, bmax, leaf_min, leaf_max, node_min,
+                        node_max)), None) == 0
+    return dataclasses.replace(
+        scene, node_min=node_min, node_max=node_max, tri_v=tri_v,
+        leaf_min=leaf_min, leaf_max=leaf_max, bin_min=bmin, bin_max=bmax,
+        bounds_min=bounds_min, bounds_max=bounds_max)
+
+
+def host_repack(lib, packed, scene):
+    """trace/packed.repack_kernel's launch on the host build over CPU
+    tensors (outputs filled with SENTINEL first) -> the repacked tables."""
+    import dataclasses
+
+    nd, w = packed.slot_src.shape
+    tp = packed.tri_perm.shape[0]
+    nodes = torch.full((nd * w, 8), SENTINEL, dtype=torch.int32)
+    tris, tri_v = _filled(tp, 16), _filled(tp, 3, 3)
+    assert lib.rtk_repack(
+        _ptr(packed.slot_src), _ptr(packed.meta), nd, w, _ptr(scene.bin_min),
+        _ptr(scene.bin_max), scene.bin_min.shape[0], _ptr(scene.leaf_min),
+        _ptr(scene.leaf_max), scene.leaf_min.shape[0], _ptr(packed.tri_perm),
+        _ptr(scene.tri_v), scene.tri_v.shape[0], _ptr(packed.tri_mesh),
+        _ptr(packed.tri_prim), _ptr(packed.tris), tp, _ptr(nodes),
+        _ptr(tris), _ptr(tri_v), None) == 0
+    return dataclasses.replace(packed, nodes=nodes, tris=tris, tri_v=tri_v)
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("name", ["grid", "shuffled", "one_leaf", "pad"])
+def test_host_refit_and_repack(refit_libs, name, wide, order):
+    """The refit's launches (the parents, the leaves' gather, fold and
+    climb, the wide slots) and the repack's equal the plain refit and
+    repack_bounds bit for bit on test_torch_refit.py's cases, a tri_mask
+    riding the repack, with the climb's threads in either order; refit to
+    the built soup gives back the built tables."""
+    from test_torch_refit import CASES, _case, assert_bit_equal
+
+    from rtk_tpu_torch.testing import carry
+    from rtk_tpu_torch.trace import packed as tpacked
+
+    assert name in CASES
+    lib = refit_libs[order]
+    base, moved, leaf = _case(name)
+    scene = rt.build_from_soup(base, config=rt.BuildConfig(
+        leaf_size=leaf, wide_nodes=wide), device=CPU)
+    mask = (np.arange(base.shape[0]) % 3 + 1).astype(np.uint32)
+    packed = pack_scene(scene, tri_mask=mask)
+    for frame in (moved, base):
+        want = rt.refit(scene, frame)
+        got = host_refit(lib, scene, torch.from_numpy(frame))
+        assert_bit_equal(got, want, carry.SCENE_ARRAYS)
+        assert_bit_equal(host_repack(lib, packed, got),
+                         tpacked.repack_bounds(packed, want),
+                         carry.PACKED_ARRAYS)
+    assert_bit_equal(got, scene, carry.SCENE_ARRAYS)
+
+
+def _signed_zero_frame(seed=5, t=96):
+    """A soup of t triangles and a frame of it in which every y is +0.0,
+    -0.0 or above and every z is +0.0, -0.0 or below, drawn at random:
+    the y minima and the z maxima of most leaves and nodes are zeros of
+    both signs."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(t, 3, 3)).astype(np.float32)
+    frame = base.copy()
+    pick = rng.integers(0, 4, size=(t, 3))
+    zeros = np.array([0.0, -0.0], np.float32)
+    frame[..., 1] = np.where(pick < 2, zeros[pick % 2],
+                             np.abs(frame[..., 1]) + 0.5)
+    frame[..., 2] = np.where(pick % 3 == 0, zeros[(pick // 3) % 2],
+                             -np.abs(frame[..., 2]) - 0.5)
+    return base, frame
+
+
+def _left_folds(rows, n_leaf, lo, hi):
+    """Boxes of the leaves and of the leaf ranges [lo, hi] folded left to
+    right, the left value kept on a tie: the rule of csrc/refit.cu."""
+    def fold(vals, keep_left_min):
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = np.where((v < acc) if keep_left_min else (v > acc), v, acc)
+        return acc
+
+    per_leaf = rows.reshape(n_leaf, -1, 3)
+    lmin = np.stack([fold(list(x), True) for x in per_leaf])
+    lmax = np.stack([fold(list(x), False) for x in per_leaf])
+    bmin = np.stack([fold(list(lmin[a:b + 1]), True) for a, b in zip(lo, hi)])
+    bmax = np.stack([fold(list(lmax[a:b + 1]), False)
+                     for a, b in zip(lo, hi)])
+    return lmin, lmax, bmin, bmax
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+@pytest.mark.parametrize("t,leaf", [(24, 4), (96, 2)])
+def test_host_refit_signed_zeros(refit_libs, order, t, leaf):
+    """-0.0 and +0.0 in one leaf and across one node's leaf range: every
+    box is the leftmost extreme of its range (csrc/refit.cu's rule), with
+    the climb's threads in either order.  The plain refit's leaf boxes and
+    bounds (amin and amax) agree bit for bit.  Its node boxes come from a
+    range table of vectorised torch.minimum and torch.maximum, whose tie
+    keeps the right operand: they agree in value, and where their bits
+    differ, the box's range holds zeros of both signs at its extreme."""
+    from test_torch_refit import assert_bit_equal
+
+    from rtk_tpu_torch.testing import carry
+    from rtk_tpu_torch.trace import packed as tpacked
+
+    lib = refit_libs[order]
+    base, frame = _signed_zero_frame(t=t)
+    scene = rt.build_from_soup(base, config=rt.BuildConfig(
+        leaf_size=leaf, wide_nodes=True), device=CPU)
+    got = host_refit(lib, scene, torch.from_numpy(frame))
+    want = rt.refit(scene, frame)
+    rows = got.tri_v.numpy().reshape(-1, 3)
+    lo, hi = scene.bin_lo.numpy(), scene.bin_hi.numpy()
+    lmin, lmax, bmin, bmax = _left_folds(rows, scene.num_leaves, lo, hi)
+
+    def bits(a):
+        return np.asarray(a).view(np.int32)
+
+    def mixed(vals):  # zeros of both signs among the values
+        z = vals == 0
+        return (z & np.signbit(vals)).any(0) & (z & ~np.signbit(vals)).any(0)
+
+    # The case is exercised: a leaf whose y minimum is a zero reached with
+    # both signs, and a node whose leaves' y minima are zeros of both.
+    per_leaf = rows.reshape(scene.num_leaves, -1, 3)
+    assert any(mixed(x)[1] and x[:, 1].min() == 0 for x in per_leaf)
+    assert any(mixed(lmin[a:b + 1])[1] and lmin[a:b + 1, 1].min() == 0
+               for a, b in zip(lo, hi))
+    assert np.array_equal(bits(got.leaf_min), bits(lmin))
+    assert np.array_equal(bits(got.leaf_max), bits(lmax))
+    assert np.array_equal(bits(got.bin_min), bits(bmin))
+    assert np.array_equal(bits(got.bin_max), bits(bmax))
+    # The root (node 0) covers every leaf: its box is the scene's bounds.
+    assert np.array_equal(bits(got.bounds_min), bits(bmin[0]))
+    assert np.array_equal(bits(got.bounds_max), bits(bmax[0]))
+    for f in ("tri_v", "leaf_min", "leaf_max", "bounds_min", "bounds_max"):
+        assert np.array_equal(bits(getattr(got, f)),
+                              bits(getattr(want, f))), f
+    for f, boxes, own in (("bin_min", lmin, bmin), ("bin_max", lmax, bmax)):
+        plain = getattr(want, f).numpy()
+        assert np.array_equal(plain, own), f  # equal values
+        differ = bits(plain) != bits(own)
+        tied = np.stack([mixed(boxes[a:b + 1]) for a, b in zip(lo, hi)])
+        assert not (differ & ~(tied & (own == 0))).any(), f
+    # The wide slots take their boxes from these, and so does the repack.
+    for f in ("node_min", "node_max"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert torch.equal(g, w), f
+    packed = pack_scene(scene)
+    assert_bit_equal(host_repack(lib, packed, got),
+                     tpacked.repack_bounds(packed, got), carry.PACKED_ARRAYS)
+
+
+def test_refit_and_repack_kernels_take_cuda_tensors():
+    """refit_kernel and repack_kernel refuse CPU tensors (the plain
+    versions take them) and launch nothing."""
+    from rtk_tpu_torch import scene as tscene
+    from rtk_tpu_torch.trace import packed as tpacked
+
+    scene = rt.build_from_soup(scenes.deforming_grid(0.0, n=4), device=CPU)
+    packed = pack_scene(scene)
+    frame = torch.from_numpy(scenes.deforming_grid(0.3, n=4))
+    before = tscene.REFIT_LAUNCHES, tpacked.REPACK_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA device"):
+        tscene.refit_kernel(scene, frame)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tpacked.repack_kernel(packed, scene)
+    assert (tscene.REFIT_LAUNCHES, tpacked.REPACK_LAUNCHES) == before
+    assert pt.front_steps(torch.device("cpu")).refit is tscene.refit_reference
+    assert pt.CARD.repack is tpacked.repack_kernel

@@ -235,3 +235,22 @@ def test_profile_refit_fused_equals_stages(refit_case):
     big = fns["trace_big"]()
     assert big.t.shape == (1024,) and int(big.hit.sum()) > 0
     assert bool((fns["tiny_op"]() == 1.0).all())
+    # On the CPU the refit and the repack are their plain versions.
+    _same(fns["refit_plain"](), scene2, carry.SCENE_ARRAYS)
+    _same(fns["repack_plain"](), packed2, carry.PACKED_ARRAYS)
+
+
+def test_profile_refit_frame_bytes(refit_case):
+    """frame_bytes at n=8 (128 triangles in 16 leaves of 8, 15 wide nodes
+    of 8 slots, 72 packed node rows of 8): the refit reads the soup
+    (4,608 B) and writes the sorted rows (4,608), 32 boxes (768) and the
+    wide slots' boxes (2,880); the repack reads the rows (4,608) and
+    writes the packed vertices and triangle table (12,800) and the node
+    rows (2,304)."""
+    fns, _, _, _ = refit_case
+    scene2, packed2 = fns["refit"](), fns["repack"]()
+    assert (scene2.num_tris, scene2.num_leaves) == (128, 16)
+    assert tuple(scene2.node_min.shape) == (15, 8, 3)
+    assert tuple(packed2.nodes.shape) == (72, 8)
+    assert prefit.frame_bytes(scene2, packed2) == {
+        "refit": 4608 + 4608 + 768 + 2880, "repack": 4608 + 12800 + 2304}

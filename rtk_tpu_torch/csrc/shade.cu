@@ -19,8 +19,10 @@
 //   3. radiance[index[i]] += throughput * (emission on a hit, else the
 //      background): index holds no duplicates, so a plain read-modify-write
 //      equals index_add_ bit for bit;
-//   4. on every bounce but the last: the geometric normal flipped to face
-//      the ray, the cosine direction from the two uniforms of draws[j]
+//   4. on every bounce but the last: the geometric normal (an instanced
+//      record's mapped from the hit instance's object space to world
+//      space) flipped to face the ray, the cosine direction from the two
+//      uniforms of draws[j]
 //      (j = draw_index[i] for the uniforms handed in by ray, else i), the
 //      origin on the surface pushed off by epsilon along the normal, the
 //      throughput times the albedo, the liveness, the bounds and the int32
@@ -32,9 +34,11 @@
 // What bounds it on an H100: the bytes, about 170 a ray (the record's 13,
 // the triangle's 36 and its mesh, the ray's 24, throughput and index 20,
 // the two uniforms, radiance read and written, and the next ray,
-// throughput and key written: 48).  The triangle, the uniforms and the
-// radiance are read where the row, the path's index and the sort put
-// them, so their sectors are partly wasted; the writes are coalesced.
+// throughput and key written: 48); an instanced record adds its instance
+// and the 36 bytes of that instance's linear part.  The triangle, the
+// uniforms and the radiance are read where the row, the path's index and
+// the sort put them, so their sectors are partly wasted; the writes are
+// coalesced.
 //
 // Numerics: every f32 operation is the eager pass's, in its order, and
 // the library is built with -fmad=false, so each elementwise operation of
@@ -111,6 +115,12 @@ struct RtkShadeArgs {
   float* next_throughput;        // (n, 3)
   int* key;                      // (n,) the order key
   unsigned long long* alive;     // 0-d, zeroed by the entry point
+  // An instanced record (packet only; null on a flat one): the hit
+  // instance of each ray (-1 on a miss, clamped to the table as the plain
+  // version's gather clamps it) and the instances' affines.
+  const int* instance;           // (n,)
+  const float* object_from_world;  // (instances, 3, 4)
+  long long instances;
 };
 
 }  // extern "C"
@@ -219,6 +229,17 @@ __global__ void __launch_bounds__(SHADE_BLOCK)
       float nrm[3] = {fmaf(e1[1], e2[2], -(e1[2] * e2[1])),
                       fmaf(e1[2], e2[0], -(e1[0] * e2[2])),
                       fmaf(e1[0], e2[1], -(e1[1] * e2[0]))};
+      if (a.instance) {
+        // models/path.py::world_normal: L^T n, L the linear part of the
+        // hit instance's object_from_world, in its order of sums.
+        long long k = a.instance[i];
+        k = k < 0 ? 0 : (k > a.instances - 1 ? a.instances - 1 : k);
+        const float* m = a.object_from_world + k * 12;
+        float w[3];
+        for (int c = 0; c < 3; ++c)
+          w[c] = (m[c] * nrm[0] + m[4 + c] * nrm[1]) + m[8 + c] * nrm[2];
+        for (int c = 0; c < 3; ++c) nrm[c] = w[c];
+      }
       const float len = clamp_min(__fsqrt_rn(norm_sq(nrm[0], nrm[1], nrm[2])),
                                   1e-20f);
       for (int c = 0; c < 3; ++c) nrm[c] = nrm[c] / len;

@@ -20,6 +20,18 @@ no host sync to check the roots it gathers from them.  A round takes only
 the rays still live for it, grouped by instance as a coherence order; the
 TPU's padding of each instance's rays to whole 128-ray packets (one root
 per packet) is not needed when every thread carries its own root.
+
+InstancedTracer puts an instanced scene where render_path takes a Tracer:
+its closest is trace_closest_instanced_packets, whose record carries the
+hit instance and the instance table, so that the shade pass maps the
+object-space normal to world space.
+
+Spans (utils/stats.py::span): `rtk.instanced.trace` (an instanced closest
+call), `rtk.instanced.candidates` (the slab; the residual's all-instance
+slab too), `rtk.instanced.round` (a candidate round, from its live count's
+host sync to the scatter of its hits: the sort by instance, the object
+rays and the rooted trace; a round with no live ray ends at the sync) and
+`rtk.instanced.residual` (the exactness residual).
 """
 from __future__ import annotations
 
@@ -36,6 +48,20 @@ from rtk_tpu_torch.ops.packet_trace import (DEFAULT_P, PKT, _trace_rooted,
 from rtk_tpu_torch.scene import Scene
 from rtk_tpu_torch.trace import stack as _stack
 from rtk_tpu_torch.types import Hits, PacketHits, Rays
+from rtk_tpu_torch.utils.stats import span
+
+# trace_closest_instanced_packets in this process: INSTANCED_TRACES calls,
+# INSTANCED_ROUNDS candidate rounds launched, INSTANCED_ROWS the rows they
+# traced, INSTANCED_SYNCS the host syncs of this module's own (a round's
+# live count, the residual's count and its rounds'; the stack engine's
+# steps sync on their own) and INSTANCED_RESIDUAL the rays the residual
+# re-traced over all instances.  A run resets them and reads them back,
+# as ops/packet_trace.py's launch counters.
+INSTANCED_TRACES = 0
+INSTANCED_ROUNDS = 0
+INSTANCED_ROWS = 0
+INSTANCED_SYNCS = 0
+INSTANCED_RESIDUAL = 0
 
 @dataclasses.dataclass
 class InstancedScene:
@@ -230,7 +256,9 @@ def _instance_candidates_impl(lo, hi, rays: Rays, c: int):
 
 def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int):
     """_instance_candidates_impl over the instances' world boxes."""
-    return _instance_candidates_impl(iscene.inst_lo, iscene.inst_hi, rays, c)
+    with span("rtk.instanced.candidates"):
+        return _instance_candidates_impl(iscene.inst_lo, iscene.inst_hi,
+                                         rays, c)
 
 
 def _object_rays(object_from_world, origin, direction):
@@ -404,12 +432,14 @@ def _residual_exhaustive(pscene: PackedInstancedScene, rays: Rays, best):
     """Exhaustive candidate rounds over ALL instances through the stack
     engine for the unproven rays (`rays`, `best` already compacted to
     them); the stack engine's merged slot maps to a packed slot."""
+    global INSTANCED_SYNCS
     iscene = pscene.iscene
     cfg = _stack_config(iscene, TraceConfig())
     cand_idx, cand_t, _ = _instance_candidates(iscene, rays,
                                                iscene.num_instances)
     for s in range(cand_idx.shape[1]):
         rows = torch.nonzero(cand_t[:, s] < best["t"]).squeeze(1)
+        INSTANCED_SYNCS += 1
         if not rows.numel():
             break
         inst = cand_idx[rows, s].long()
@@ -433,13 +463,17 @@ def _residual(pscene: PackedInstancedScene, rays: Rays, best,
               unproven) -> int:
     """The exactness residual: re-trace the unproven rays over all
     instances and update `best` in place -> how many rays it re-traced."""
-    idx = torch.nonzero(unproven).squeeze(1)
-    if idx.numel():
-        sub = {k: v[idx] for k, v in best.items()}
-        _residual_exhaustive(pscene, rays[idx], sub)
-        for k, v in best.items():
-            v[idx] = sub[k]
-    return idx.numel()
+    global INSTANCED_SYNCS, INSTANCED_RESIDUAL
+    with span("rtk.instanced.residual"):
+        idx = torch.nonzero(unproven).squeeze(1)
+        INSTANCED_SYNCS += 1
+        if idx.numel():
+            sub = {k: v[idx] for k, v in best.items()}
+            _residual_exhaustive(pscene, rays[idx], sub)
+            for k, v in best.items():
+                v[idx] = sub[k]
+        INSTANCED_RESIDUAL += idx.numel()
+        return idx.numel()
 
 
 def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
@@ -452,6 +486,7 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
     (C+1)-th instance entry is still closer than their best hit, or a
     round cap cut them).  parallel/shard.py runs this on each ray shard
     and the residual once over the gathered unproven rays."""
+    global INSTANCED_ROUNDS, INSTANCED_ROWS, INSTANCED_SYNCS
     iscene = pscene.iscene
     packed = pscene.packed
     if rays.device != iscene.device:
@@ -485,38 +520,43 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
     over_cap = torch.zeros((n,), dtype=torch.bool, device=dev)
     live_counts = []
     for s in range(C):
-        live = cand_t[:, s] < best["t"]
-        rows = torch.nonzero(live).squeeze(1)
-        live_counts.append(rows.numel())
-        if not rows.numel():
-            continue  # candidates are nearest-first: later rounds are empty
-        inst = cand_idx[rows, s].long()
-        order = torch.sort(inst, stable=True).indices
-        rows, inst = rows[order], inst[order]
-        if round_caps is not None and round_caps[s] < M:
-            # Row of each live ray in the reference's grouped layout.
-            counts = torch.bincount(inst, minlength=n_inst)
-            padded = (counts + unit - 1) // unit * unit
-            pos = ((torch.cumsum(padded, 0) - padded)[inst]
-                   + torch.arange(rows.numel(), device=dev)
-                   - (torch.cumsum(counts, 0) - counts)[inst])
-            keep = pos < round_caps[s]
-            over_cap[rows[~keep]] = True
-            rows, inst = rows[keep], inst[keep]
-        o, d = _object_rays(iscene.object_from_world[inst],
-                            rays.origin[rows], rays.direction[rows])
-        bt = best["t"][rows]
-        # Roots gathered from pack_instanced's checked rows by instance
-        # ids in range: the launch makes no host sync to check them.
-        h = _trace_rooted(steps, packed, Rays(o, d, rays.min_t[rows], bt),
-                          pscene.packed_roots[iscene.instance_blas[inst]])
-        better = h.hit & (h.t < bt)
-        r = rows[better]
-        best["t"][r] = h.t[better]
-        best["u"][r] = h.u[better]
-        best["v"][r] = h.v[better]
-        best["slot"][r] = h.slot[better]
-        best["inst"][r] = inst[better].to(torch.int32)
+        with span("rtk.instanced.round"):
+            live = cand_t[:, s] < best["t"]
+            rows = torch.nonzero(live).squeeze(1)
+            INSTANCED_SYNCS += 1
+            live_counts.append(rows.numel())
+            if not rows.numel():
+                continue  # candidates are nearest-first: later rounds are empty
+            inst = cand_idx[rows, s].long()
+            order = torch.sort(inst, stable=True).indices
+            rows, inst = rows[order], inst[order]
+            if round_caps is not None and round_caps[s] < M:
+                # Row of each live ray in the reference's grouped layout.
+                counts = torch.bincount(inst, minlength=n_inst)
+                padded = (counts + unit - 1) // unit * unit
+                pos = ((torch.cumsum(padded, 0) - padded)[inst]
+                       + torch.arange(rows.numel(), device=dev)
+                       - (torch.cumsum(counts, 0) - counts)[inst])
+                keep = pos < round_caps[s]
+                over_cap[rows[~keep]] = True
+                rows, inst = rows[keep], inst[keep]
+            o, d = _object_rays(iscene.object_from_world[inst],
+                                rays.origin[rows], rays.direction[rows])
+            bt = best["t"][rows]
+            # Roots gathered from pack_instanced's checked rows by instance
+            # ids in range: the launch makes no host sync to check them.
+            h = _trace_rooted(steps, packed,
+                              Rays(o, d, rays.min_t[rows], bt),
+                              pscene.packed_roots[iscene.instance_blas[inst]])
+            INSTANCED_ROUNDS += 1
+            INSTANCED_ROWS += rows.numel()
+            better = h.hit & (h.t < bt)
+            r = rows[better]
+            best["t"][r] = h.t[better]
+            best["u"][r] = h.u[better]
+            best["v"][r] = h.v[better]
+            best["slot"][r] = h.slot[better]
+            best["inst"][r] = inst[better].to(torch.int32)
 
     # A ray whose (C+1)-th instance entry is still closer than its best hit
     # is unproven, and so is one a round cap cut.
@@ -539,6 +579,8 @@ def trace_closest_instanced_packets(
     Returns (PacketHits, instance_index (N,) i32), plus the per-round live
     counts (C,) with return_live_counts.  Hit vertex positions are in the
     OBJECT space of the hit instance; position() and t are world-space.
+    The record carries instance_index and the instances' object_from_world
+    (PacketHits.instance, .object_from_world).
 
     exact: rays the C-candidate cap cannot prove, and live rows a round
       cap cut, re-trace over all instances (_residual_exhaustive).
@@ -553,10 +595,13 @@ def trace_closest_instanced_packets(
     interpret, leaf_loop and ordered pick the TPU kernel's schedule and
     have no effect here.
     """
+    global INSTANCED_TRACES
     packed = pscene.packed
-    best, unproven, live_counts, round_caps = _instanced_rounds(
-        pscene, rays, max_candidates, p_pk, round_caps, unit, plain)
-    n_res = _residual(pscene, rays, best, unproven) if exact else 0
+    with span("rtk.instanced.trace"):
+        best, unproven, live_counts, round_caps = _instanced_rounds(
+            pscene, rays, max_candidates, p_pk, round_caps, unit, plain)
+        n_res = _residual(pscene, rays, best, unproven) if exact else 0
+    INSTANCED_TRACES += 1
     if stats is not None:
         stats.update(live_counts=live_counts, caps=round_caps,
                      residual=n_res)
@@ -567,10 +612,45 @@ def trace_closest_instanced_packets(
         # World rays: position() is the world-space hit point.
         origin=rays.origin, direction=rays.direction,
         tri_v=packed.tri_v, tri_vidx=packed.tri_vidx,
-        tri_mesh=packed.tri_mesh, tri_prim=packed.tri_prim)
+        tri_mesh=packed.tri_mesh, tri_prim=packed.tri_prim,
+        instance=best["inst"],
+        object_from_world=pscene.iscene.object_from_world)
     if return_live_counts:
         return hits, best["inst"], torch.tensor(live_counts)
     return hits, best["inst"]
+
+
+@dataclasses.dataclass
+class InstancedBounds:
+    """The union of an instanced scene's world boxes: what render_path
+    reads of a Tracer's scene (its sort key's bounds)."""
+
+    bounds_min: torch.Tensor  # (3,) f32
+    bounds_max: torch.Tensor  # (3,) f32
+
+
+class InstancedTracer:
+    """An instanced scene where render_path takes a Tracer.
+
+    closest(rays) is trace_closest_instanced_packets(pscene, rays,
+    max_candidates=...): exact (the residual re-traces what the candidate
+    cap cannot prove), with no round caps, and its record carries the hit
+    instance, so that the shade pass maps the object-space normal to world
+    space.  scene.bounds_min / bounds_max: the union of the instances'
+    world boxes."""
+
+    def __init__(self, pscene: PackedInstancedScene, max_candidates: int = 8):
+        self.pscene = pscene
+        self.max_candidates = int(max_candidates)
+        iscene = pscene.iscene
+        self.scene = InstancedBounds(iscene.inst_lo.amin(dim=0),
+                                     iscene.inst_hi.amax(dim=0))
+
+    def closest(self, rays: Rays, coherent: bool | None = None) -> PacketHits:
+        """Nearest hit over every instance.  `coherent` is the reference
+        engine's stepping hint, accepted as Tracer.closest accepts it."""
+        return trace_closest_instanced_packets(
+            self.pscene, rays, max_candidates=self.max_candidates)[0]
 
 
 def calibrate_round_caps(pscene: PackedInstancedScene, rays: Rays,

@@ -82,11 +82,28 @@ class Materials:
         return Materials(albedo=albedo, emission=emission)
 
 
+def world_normal(n: torch.Tensor, instance: torch.Tensor,
+                 object_from_world: torch.Tensor) -> torch.Tensor:
+    """Object-space normals (N, 3) of an instanced record to world space:
+    L^T n with L the linear part of the hit instance's object_from_world
+    (the inverse transpose of its world_from_object), each component a
+    fixed sum of products.  instance (N,) is clamped to the table (a miss's
+    -1 reads instance 0).  Not normalised."""
+    k = instance.clamp(0, object_from_world.shape[0] - 1).long()
+    m = object_from_world[k]
+    return (m[:, 0, :3] * n[:, 0:1] + m[:, 1, :3] * n[:, 1:2]
+            + m[:, 2, :3] * n[:, 2:3])
+
+
 def geometric_normal(hits, direction: torch.Tensor) -> torch.Tensor:
     """Unit geometric normal of each hit triangle, flipped to face the
-    incoming ray. (N, 3)."""
+    incoming ray. (N, 3).  An instanced record's (hits.instance set) is
+    mapped from the hit instance's object space to world space first."""
     v = hits.vertex_position
     n = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    instance = getattr(hits, "instance", None)
+    if instance is not None:
+        n = world_normal(n, instance, hits.object_from_world)
     n = n / torch.linalg.vector_norm(n, dim=1, keepdim=True).clamp_min(1e-20)
     flip = (n * direction).sum(dim=1, keepdim=True) > 0
     return torch.where(flip, -n, n)
@@ -207,7 +224,9 @@ class ShadeArgs(ctypes.Structure):
                                                  "live_max_t")]
                 + [(f, ctypes.c_void_p) for f in (
                     "next_origin", "next_direction", "next_min_t",
-                    "next_max_t", "next_throughput", "key", "alive")])
+                    "next_max_t", "next_throughput", "key", "alive",
+                    "instance", "object_from_world")]
+                + [("instances", ctypes.c_longlong)])
 
 
 def _view3(a, what, n, dev):
@@ -261,6 +280,13 @@ def _shade_args(hits, cur: Rays, throughput, index, radiance,
         a.t = ptr(hits.t, "hits.t", torch.float32, (n,))
         a.origin = _view3(hits.origin, "hits.origin", n, dev)
         a.direction = _view3(hits.direction, "hits.direction", n, dev)
+        if hits.instance is not None:
+            a.instances = hits.object_from_world.shape[0]
+            a.instance = ptr(hits.instance, "hits.instance", torch.int32,
+                             (n,))
+            a.object_from_world = ptr(hits.object_from_world,
+                                      "hits.object_from_world",
+                                      torch.float32, (a.instances, 3, 4))
     else:
         a.packet, a.rows = 0, n
         a.tri_v = ptr(hits.vertex_position, "hits.vertex_position",

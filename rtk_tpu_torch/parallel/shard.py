@@ -269,7 +269,9 @@ def trace_instanced_sharded(
         hit=best["slot"] >= 0, t=best["t"], u_k=best["u"], v_k=best["v"],
         slot=best["slot"], origin=rays.origin, direction=rays.direction,
         tri_v=packed.tri_v, tri_vidx=packed.tri_vidx,
-        tri_mesh=packed.tri_mesh, tri_prim=packed.tri_prim)
+        tri_mesh=packed.tri_mesh, tri_prim=packed.tri_prim,
+        instance=best["inst"],
+        object_from_world=pscene.iscene.object_from_world.to(dev))
     return hits, best["inst"]
 
 

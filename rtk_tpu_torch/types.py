@@ -140,6 +140,11 @@ class PacketHits:
     plain Hits.  `slot` indexes the packed tables carried alongside (the
     scene's own tensors, not copies).  Each gather, and the u/v
     recompute, is a span `rtk.hits.<field>` (`rtk.hits.uv`).
+
+    An instanced record (instancing.py) holds vertex positions in the
+    object space of each ray's hit instance, and carries that instance and
+    the instances' object_from_world table, so that a shade pass can map
+    its normal to world space; both are None on a flat record.
     """
 
     hit: torch.Tensor  # (N,) bool
@@ -156,6 +161,8 @@ class PacketHits:
     # defer_uv traces carry no u/v out of the kernel; .u/.v re-run the
     # same watertight shear test against the one winning triangle.
     uv_deferred: bool = False
+    instance: torch.Tensor | None = None  # (N,) i32 hit instance, -1 = miss
+    object_from_world: torch.Tensor | None = None  # (I, 3, 4) f32
 
     @property
     def count(self) -> int:
@@ -232,6 +239,8 @@ class PacketHits:
 
     def __getitem__(self, idx) -> "PacketHits":
         per_ray = ("hit", "t", "u_k", "v_k", "slot", "origin", "direction")
+        if self.instance is not None:
+            per_ray += ("instance",)
         return dataclasses.replace(
             self, **{f: getattr(self, f)[idx] for f in per_ray})
 

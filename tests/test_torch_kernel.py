@@ -1554,36 +1554,47 @@ def test_shade_kernel_equals_plain_on_the_atrium(atrium_path, sort_rays,
     the live count bit for bit, and its key sorts to the plain pass's
     permutation; dead rays and misses included.  Draws handed in by path,
     or a generator's (2, N) draw read by slot."""
+    a = atrium_path
+    _shade_frame(a["tracer"], a["cam"], a["mats"], a["bg"], a["lo"],
+                 a["hi"], a["uniforms"], sort_rays=sort_rays, handed=handed)
+
+
+def _shade_frame(tracer, cam, mats, bg, lo, hi, uniforms, *, sort_rays,
+                 handed, bounces=4, record=lambda hits: None):
+    """The shade kernel against the eager plain pass on every batch of a
+    compacted frame of `bounces` bounces from `cam` through `tracer`:
+    every output bit for bit, the key sorting to the plain permutation.
+    record(hits) checks each bounce's record."""
     from rtk_tpu_torch.models import path
 
-    a = atrium_path
-    n = a["cam"].count
-    dev = a["cam"].device
+    n = cam.count
+    dev = cam.device
     g = torch.Generator(device=dev).manual_seed(1)
     radiance = torch.zeros((n, 3), device=dev)
     throughput = torch.ones((n, 3), device=dev)
     index = torch.arange(n, device=dev)
-    cur = a["cam"]
+    cur = cam
     kw = dict(epsilon=1e-4, sort_rays=sort_rays)
-    for bounce in range(5):
-        hits = a["tracer"].closest(cur)
-        last = bounce == 4
+    for bounce in range(bounces + 1):
+        hits = tracer.closest(cur)
+        record(hits)
+        last = bounce == bounces
         draws = draw_index = u1 = u2 = None
         if handed and not last:
-            draws, draw_index = a["uniforms"][bounce], index
-            u1, u2 = a["uniforms"][bounce, index].unbind(dim=1)
+            draws, draw_index = uniforms[bounce], index
+            u1, u2 = uniforms[bounce, index].unbind(dim=1)
         elif not last:
             u = torch.rand((2, cur.count), generator=g, device=dev)
             draws, u1, u2 = u.T, u[0], u[1]
         before = path.SHADE_LAUNCHES
         got = path.shade_kernel(hits, cur, throughput, index,
-                                radiance.clone(), a["mats"], a["bg"],
-                                a["lo"], a["hi"], last=last, draws=draws,
+                                radiance.clone(), mats, bg, lo, hi,
+                                last=last, draws=draws,
                                 draw_index=draw_index, **kw)
         assert path.SHADE_LAUNCHES == before + 1
         want = path._shade_sample(hits, cur, throughput, index, radiance,
-                                  a["mats"], None, a["bg"], a["lo"],
-                                  a["hi"], last=last, u1=u1, u2=u2, **kw)
+                                  mats, None, bg, lo, hi, last=last, u1=u1,
+                                  u2=u2, **kw)
         if last:
             assert torch.equal(_bits(got), _bits(want))
             break
@@ -1665,6 +1676,68 @@ def test_render_path_stackless_bounces_through_the_kernel(cuda, monkeypatch,
     assert records == [rtk_tpu_torch.Hits] * 3
     monkeypatch.setattr(path, "_shade_card", path._shade_plain)
     want = frame()
+    assert torch.equal(_bits(got), _bits(want))
+    assert float(got.amax()) > 0.2
+
+
+@pytest.fixture
+def instanced_path(cuda):
+    """tests/test_torch_instanced_path.py's four rotated, unevenly scaled
+    instances on the card, seen by 256^2 camera rays, with uniforms for 4
+    bounces."""
+    from test_torch_instanced_path import instanced_case
+
+    c = instanced_case(device=cuda, side=256)
+    c["uniforms"] = torch.rand((4, c["rays"].count, 2), device=cuda,
+                               generator=torch.Generator(
+                                   device=cuda).manual_seed(26))
+    return c
+
+
+@pytest.mark.parametrize("sort_rays", [True, False])
+def test_shade_kernel_equals_plain_on_instanced_records(instanced_path,
+                                                        sort_rays):
+    """The shade kernel on instanced records (the normal mapped to world
+    space by the hit instance's object_from_world) against the eager plain
+    pass on the card, bit for bit on every output of every batch of a
+    compacted 4-bounce frame over rotated, unevenly scaled instances."""
+    c = instanced_path
+    seen = []
+
+    def record(hits):
+        assert hits.instance is not None
+        seen.append(set(hits.instance[hits.hit].tolist()))
+
+    _shade_frame(c["tracer"], c["rays"], c["mats"],
+                 torch.tensor(PATH_BG, device=c["rays"].device),
+                 c["tracer"].scene.bounds_min, c["tracer"].scene.bounds_max,
+                 c["uniforms"], sort_rays=sort_rays, handed=True,
+                 record=record)
+    assert len(seen) == 5 and len(seen[0]) == 4
+
+
+def test_render_path_over_instances_through_the_shade_kernel(instanced_path,
+                                                             monkeypatch):
+    """render_path over an InstancedTracer on the card: the frame through
+    the kernel equals the frame through the plain pass bit for bit; 5
+    traces, each an instanced call whose launched rounds are the roots
+    variant's launches."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.models import path
+
+    c = instanced_path
+    kw = dict(bounces=4, background=PATH_BG, epsilon=1e-3,
+              uniforms=c["uniforms"])
+    for name in ("SHADE_LAUNCHES", "INSTANCED_TRACES", "INSTANCED_ROUNDS"):
+        monkeypatch.setattr(path if name.startswith("SHADE") else instancing,
+                            name, 0)
+    roots = packet_trace.ROOTS_LAUNCHES
+    got = path.render_path(c["tracer"], c["rays"], c["mats"], **kw)
+    torch.cuda.synchronize()
+    assert path.SHADE_LAUNCHES == 5 and instancing.INSTANCED_TRACES == 5
+    assert instancing.INSTANCED_ROUNDS == packet_trace.ROOTS_LAUNCHES - roots
+    monkeypatch.setattr(path, "_shade_card", path._shade_plain)
+    want = path.render_path(c["tracer"], c["rays"], c["mats"], **kw)
     assert torch.equal(_bits(got), _bits(want))
     assert float(got.amax()) > 0.2
 

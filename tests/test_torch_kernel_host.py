@@ -12,6 +12,7 @@ held bit for bit against their plain versions.  This checks
 the kernels' logic and arithmetic; that nvcc builds them for sm_90a, and the
 card's results, are tests/test_torch_kernel.py's."""
 import ctypes
+import dataclasses
 import pathlib
 import re
 import shutil
@@ -1121,6 +1122,52 @@ def test_shade_kernel_takes_cuda_tensors(shade_scene):
             "tri_vidx", "tri_mesh", "tri_prim")},
            "slot": hits.slot.to(torch.int64)}))
     assert path.SHADE_LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def instanced_shade():
+    """tests/test_torch_instanced_path.py's four rotated, unevenly scaled
+    instances seen by 32^2 camera rays (misses around them), its
+    InstancedTracer as the tracer and the union of its boxes as the
+    scene's bounds."""
+    from test_torch_instanced_path import instanced_case
+
+    c = instanced_case(side=SHADE_SIDE)
+    return dict(c, scene=c["tracer"].scene, bg=torch.tensor([0.2, 0.3, 0.4]))
+
+
+@pytest.mark.parametrize("sort_rays", [True, False])
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_host_shade_equals_plain_on_instanced_records(
+        shade_lib, instanced_shade, bounce, sort_rays):
+    """csrc/shade.cu built for the host equals the plain _shade_sample bit
+    for bit on instanced records (the normal mapped to world space by the
+    hit instance's object_from_world, a miss's -1 clamped to instance 0),
+    on the camera's batch and a bounce batch, with the uniforms handed in
+    by path; and the mapping moves the next rays."""
+    from rtk_tpu_torch.models import path
+
+    sc = instanced_shade
+    cur, tp, index, radiance, uniforms = shade_batch(sc, bounce, 60 + bounce)
+    hits = sc["tracer"].closest(cur)
+    assert hits.instance is not None
+    assert 0 < int(hits.hit.sum()) < cur.count
+    u = uniforms[index]
+    lo, hi = sc["scene"].bounds_min, sc["scene"].bounds_max
+    want = path._shade_sample(
+        hits, cur, tp, index, radiance.clone(), sc["mats"], None, sc["bg"],
+        lo, hi, epsilon=1e-4, sort_rays=sort_rays, last=False, u1=u[:, 0],
+        u2=u[:, 1])
+    got = host_shade(shade_lib, hits, cur, tp, index, radiance.clone(), sc,
+                     sort_rays=sort_rays, last=False, draws=uniforms,
+                     draw_index=index)
+    assert_shade_equal(got, want, sc, sort_rays)
+    flat = host_shade(shade_lib, dataclasses.replace(
+        hits, instance=None, object_from_world=None), cur, tp, index,
+        radiance.clone(), sc, sort_rays=sort_rays, last=False,
+        draws=uniforms, draw_index=index)
+    moved = (flat[1].direction != got[1].direction).any(dim=1)
+    assert bool(moved[hits.hit].all()) and not bool(moved[~hits.hit].any())
 
 
 # ---- a deforming frame's refit and repack: csrc/refit.cu ----

@@ -2,12 +2,14 @@
 profiler call while nothing records; under a profiler, one span of each
 stage of a call, nested by the profiler as the call nests, in the call's
 order, and the lazy record's gathers after the call's root; a frame's
-refit and repack (`rtk.refit`, `rtk.repack`) ahead of its trace."""
+refit and repack (`rtk.refit`, `rtk.repack`) ahead of its trace; an
+instanced frame's `rtk.instanced.*` inside its `rtk.path.trace`."""
 import numpy as np
 import pytest
 import torch
 
 import rtk_tpu_torch as rt
+from rtk_tpu_torch import instancing
 from rtk_tpu_torch.ops import packet_trace as pt
 from rtk_tpu_torch.testing import scenes
 from rtk_tpu_torch.utils import stats
@@ -173,3 +175,75 @@ def test_other_engines_have_the_root_span(tracer, engine):
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         other.closest(_rays(8))
     assert [e.name for e in _spans(prof)] == [ROOT]
+
+
+INSTANCED = ("rtk.instanced.trace", "rtk.instanced.candidates",
+             "rtk.instanced.round", "rtk.instanced.residual")
+INSTANCED_COUNTERS = ("INSTANCED_TRACES", "INSTANCED_ROUNDS",
+                      "INSTANCED_ROWS", "INSTANCED_SYNCS",
+                      "INSTANCED_RESIDUAL")
+
+
+def test_instanced_frame_spans_and_counters(monkeypatch):
+    """One render_path frame over an InstancedTracer (2 bounces, 3
+    traces): each rtk.path.trace holds one rtk.instanced.trace, which
+    holds its slab, its C rounds and its residual (the residual's own
+    all-instance slab inside it); a round that launches holds the rooted
+    trace's rtk.packet_trace.  The counters equal what the traces
+    report: rounds launched, their rows, the rays re-traced, and a host
+    sync a round, one for the residual and one a residual round."""
+    from test_torch_instanced_path import BOUNCES, _render, instanced_case
+
+    case = instanced_case()
+    stats_of = []
+    real = instancing.trace_closest_instanced_packets
+
+    def counted(*a, **kw):
+        st = {}
+        out = real(*a, stats=st, **kw)
+        stats_of.append(st)
+        return out
+
+    monkeypatch.setattr(instancing, "trace_closest_instanced_packets",
+                        counted)
+    for c in INSTANCED_COUNTERS:
+        monkeypatch.setattr(instancing, c, 0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _render(case)
+    spans = [e for e in _spans(prof) if e.name.startswith("rtk.instanced")
+             or e.name in ("rtk.path.trace", FRONT)]
+    traces = BOUNCES + 1
+    c = case["tracer"].max_candidates
+    by = {}
+    for e in spans:
+        by.setdefault(e.name, []).append(e)
+    assert len(by["rtk.path.trace"]) == len(by[INSTANCED[0]]) == traces
+    assert all(e.cpu_parent.name == "rtk.path.trace"
+               for e in by[INSTANCED[0]])
+    assert len(by["rtk.instanced.round"]) == c * traces
+    assert len(by["rtk.instanced.residual"]) == traces
+    for e in by["rtk.instanced.round"] + by["rtk.instanced.residual"]:
+        assert e.cpu_parent.name == INSTANCED[0]
+    inside = [e.cpu_parent.name for e in by["rtk.instanced.candidates"]]
+    assert inside.count(INSTANCED[0]) == traces
+    assert set(inside) <= {INSTANCED[0], "rtk.instanced.residual"}
+    launched = [e for e in by[FRONT]
+                if e.cpu_parent.name == "rtk.instanced.round"]
+    assert all(e.cpu_parent.name == "rtk.instanced.round" for e in by[FRONT])
+
+    assert len(stats_of) == traces
+    rows = sum(sum(st["live_counts"]) for st in stats_of)
+    rounds = sum(sum(n > 0 for n in st["live_counts"]) for st in stats_of)
+    residual = sum(st["residual"] for st in stats_of)
+    assert rounds == len(launched) and residual > 0
+    got = {n: getattr(instancing, n) for n in INSTANCED_COUNTERS}
+    assert got["INSTANCED_TRACES"] == traces
+    assert got["INSTANCED_ROUNDS"] == rounds
+    assert got["INSTANCED_ROWS"] == rows
+    assert got["INSTANCED_RESIDUAL"] == residual
+    # A sync a round and one a residual; then one a residual round, at
+    # least one for each residual that re-traced rays.
+    syncs = got["INSTANCED_SYNCS"] - (c + 1) * traces
+    assert sum(st["residual"] > 0 for st in stats_of) <= syncs
+    assert syncs <= case["pscene"].iscene.num_instances * traces

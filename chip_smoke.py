@@ -117,7 +117,9 @@ Phases (each prints one line):
      wavefront (bench.py:803-894) on phase 5's two forests with pooled
      calibrated round caps, every bounce batch held against the plain
      version of the rounds and against the flat world-space Tracer at
-     phase 5's bars;
+     phase 5's bars, and its candidate slab's kernel (csrc/candidates.cu,
+     one launch a trace and one a residual, counted) alone beside its
+     bound and the plain slab, bit for bit;
  10. the Tracer's remaining engines on the atrium (BASELINE config 3, LBVH
      leaf 16 through build_scene, 1024^2 primaries and phase 7's cosine
      bounce): Tracer(engine="grid") closest on the bounce and the
@@ -265,6 +267,12 @@ PEAK_BYTES = 3.35e12  # HBM bytes a second
 # counted.
 OPS_PER_BOX = 19
 OPS_PER_TRI = 53
+# The instance candidate slab's kernel (csrc/candidates.cu): about 30 f32
+# operations a box test (6 sub, 6 mul, 12 min/max, the compare and the
+# list's test), 32 bytes read a ray (origin, direction, min_t, max_t) and
+# 8 C + 4 written (the candidates' ids and distances, the overflow).
+SLAB_OPS_PER_TEST = 30
+SLAB_READ_BYTES_PER_RAY = 32
 # Phase 7: the atrium's camera and bounce (bench.py:623-633).
 ATRIUM_CAM = dict(eye=(0, 6, 9), look_at=(0, 2, 0), up=(0, 1, 0),
                   fov_deg=60)
@@ -1880,6 +1888,31 @@ def host_syncs(run):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def slab_alone(instancing, iscene, rays, c, reps=20):
+    """The instance candidate slab's kernel (candidates_kernel) alone on a
+    batch (a camera's expanded origin made contiguous first, as
+    _instance_candidates does), back to back, beside its bound and the
+    plain slab (_instance_candidates_impl) on the same CUDA tensors, whose
+    three outputs it must equal bit for bit -> {"kernel_ms", "bound_ms",
+    "binds", "plain_ms"}."""
+    lo, hi = iscene.inst_lo, iscene.inst_hi
+    rays = type(rays)(*(a.contiguous() for a in (
+        rays.origin, rays.direction, rays.min_t, rays.max_t)))
+    got, ms = timed(lambda: instancing.candidates_kernel(lo, hi, rays, c),
+                    reps=reps)
+    want, plain_ms = timed(lambda: instancing._instance_candidates_impl(
+        lo, hi, rays, c), reps=2)
+    for g, w, name in zip(got, want, ("cand_idx", "cand_t", "overflow")):
+        check(bits_equal(g, w), f"candidate slab kernel/plain: {name}")
+    n, n_box = rays.count, lo.shape[0]
+    t_ops = n * n_box * SLAB_OPS_PER_TEST / PEAK_F32_INSTR * 1e3
+    t_bytes = (n * (SLAB_READ_BYTES_PER_RAY + 8 * min(c, n_box) + 4)
+               / PEAK_BYTES * 1e3)
+    return {"kernel_ms": ms, "bound_ms": max(t_ops, t_bytes),
+            "binds": "operations" if t_ops >= t_bytes else "bytes",
+            "plain_ms": plain_ms}
+
+
 def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
            direct_sub=128, ao_samples=8):
     """The render path: render_path, render_direct and render_ao on the
@@ -2223,11 +2256,17 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
         caps = instancing.caps_from_counts(
             np.max(np.stack(col), axis=0), rays.count, n_inst, p_pk=16)
         wlog = []
+        slabs = instancing.CANDIDATE_LAUNCHES
         (total, h1), got_c = counted(lambda: wavefront4(
             rt, ps, rays, box, 5, caps=caps, log=wlog))
+        slabs = instancing.CANDIDATE_LAUNCHES - slabs
         check(got_c["ROOTS_LAUNCHES"] > 0
               and got_c["ROOTS_LAUNCHES"] == got_c["KERNEL_LAUNCHES"],
               f"9c {name}: launches {got_c}")
+        # One slab launch a trace, one more a residual that re-traced.
+        check(slabs == len(wlog) + sum(st["residual"] > 0
+                                       for *_, st, _, _ in wlog),
+              f"9c {name}: {slabs} candidate slab launches")
         # Caps never change an exact answer.
         check(total == total0 and torch.equal(h1.t, h0.t)
               and torch.equal(h1.hit, h0.hit),
@@ -2261,6 +2300,7 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
                   f"{what}: non-finite t")
             slab_ms = timed(lambda: instancing._instance_candidates(
                 inst.iscene, rb, INST_CANDIDATES), reps=2)[1]
+            slab = slab_alone(instancing, inst.iscene, rb, INST_CANDIDATES)
             # Round 0's launch alone in the rounds' order, with each
             # instance's rows sorted by their object-space coherence key,
             # and in the batch's own order: does an ordering pay for
@@ -2278,6 +2318,7 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
             per.append({"live": int((rb.max_t > rb.min_t).sum()),
                         "hits": int(hits.hit.sum()),
                         "trace_ms": trace_ms, "candidate_slab_ms": slab_ms,
+                        "slab_kernel": slab,
                         "rounds_ms": trace_ms - slab_ms,
                         "round_live_counts": st["live_counts"],
                         "round0": r0,
@@ -2286,7 +2327,8 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
                         "flat_hit_mismatch": mism, "flat_t_share": t_share})
         rec_c[name] = {"total_rays": total, "ms": best,
                        "mrays_s": total / best / 1e3, "caps": caps,
-                       "launches": got_c, "per_bounce": per}
+                       "launches": got_c, "candidate_launches": slabs,
+                       "per_bounce": per}
     return ({"9a": rec_a, "9b": rec_b, "9c": rec_c},
             {k.split("_LAUNCHES")[0].lower(): v for k, v in launches.items()},
             errs)
@@ -3262,7 +3304,8 @@ def main():
     def ptxas(key):
         """ptxas -v's registers, frame and spills per instantiation: w8,
         w16 and (without a filter) w8_march, and per kernel of the
-        coherence key, the unsort, the refit and the repack."""
+        coherence key, the unsort, the refit, the repack and the candidate
+        slab (nearest_boxes<K>)."""
         out, name = {}, None
         for ln in library.BUILD_LOGS[key].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -3275,6 +3318,9 @@ def main():
                                           "refit_parents", "refit_leaves",
                                           "refit_slots", "repack")
                               if k in m.group(1)), None))
+                k = re.search(r"nearest_boxesILi(\d+)E", m.group(1))
+                if k:
+                    name = f"nearest_boxes<{k.group(1)}>"
             elif name and ("registers" in ln or "spill" in ln):
                 out.setdefault(name, []).append(
                     ln.split("ptxas info    : ")[-1].strip())

@@ -3,8 +3,11 @@
   * All BLAS scenes merge into ONE concatenated node/triangle space (child
     and leaf ids offset per BLAS), so one traversal serves every instance:
     the per-ray BLAS root is just a start row.
-  * The top level is a dense (rays x instances) slab test that keeps each
-    ray's nearest C instance candidates by AABB entry distance.
+  * The top level tests each ray against every instance's world box and
+    keeps its nearest C instance candidates by AABB entry distance: on the
+    card one launch of csrc/candidates.cu (candidates_kernel, one thread a
+    ray, the nearest list in registers), on the CPU the plain dense
+    (rays x instances) slab (_instance_candidates_impl).
   * Candidate rounds walk them nearest-first: a ray transforms into the
     candidate's object space (affine inverse, direction unnormalised so
     object-space t == world-space t) and traces the merged BLAS from that
@@ -27,10 +30,11 @@ hit instance and the instance table, so that the shade pass maps the
 object-space normal to world space.
 
 Spans (utils/stats.py::span): `rtk.instanced.trace` (an instanced closest
-call), `rtk.instanced.candidates` (the slab; the residual's all-instance
-slab too), `rtk.instanced.round` (a candidate round, from its live count's
-host sync to the scatter of its hits: the sort by instance, the object
-rays and the rooted trace; a round with no live ray ends at the sync) and
+call), `rtk.instanced.candidates` (the slab: on the card the kernel's
+checks, outputs and launch; the residual's all-instance slab too),
+`rtk.instanced.round` (a candidate round, from its live count's host sync
+to the scatter of its hits: the sort by instance, the object rays and the
+rooted trace; a round with no live ray ends at the sync) and
 `rtk.instanced.residual` (the exactness residual).
 """
 from __future__ import annotations
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from rtk_tpu_torch.config import TraceConfig
+from rtk_tpu_torch.ops import library
 from rtk_tpu_torch.ops.packet_trace import (DEFAULT_P, PKT, _trace_rooted,
                                             front_steps)
 from rtk_tpu_torch.scene import Scene
@@ -56,12 +61,15 @@ from rtk_tpu_torch.utils.stats import span
 # live count, the residual's count and its rounds'; the stack engine's
 # steps sync on their own) and INSTANCED_RESIDUAL the rays the residual
 # re-traced over all instances.  A run resets them and reads them back,
-# as ops/packet_trace.py's launch counters.
+# as ops/packet_trace.py's launch counters.  CANDIDATE_LAUNCHES counts
+# launches of the candidate slab's kernel (candidates_kernel): one an
+# instanced trace on the card, and one a residual that re-traces rays.
 INSTANCED_TRACES = 0
 INSTANCED_ROUNDS = 0
 INSTANCED_ROWS = 0
 INSTANCED_SYNCS = 0
 INSTANCED_RESIDUAL = 0
+CANDIDATE_LAUNCHES = 0
 
 @dataclasses.dataclass
 class InstancedScene:
@@ -254,9 +262,68 @@ def _instance_candidates_impl(lo, hi, rays: Rays, c: int):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def candidates_kernel(lo, hi, rays: Rays, c: int):
+    """_instance_candidates_impl on the card: one launch of the library's
+    rtk_instance_candidates (csrc/candidates.cu) on the current stream,
+    with no host sync, for any c; its outputs (torch.empty) equal the
+    plain version's on the same CUDA tensors bit for bit.  lo, hi: (B, 3)
+    f32 box corners; the rays' origin and direction (N, 3) and min_t and
+    max_t (N,) f32; every tensor contiguous, on one CUDA device.  Raises
+    before the launch on any other input."""
+    global CANDIDATE_LAUNCHES
+    dev, f32, check = lo.device, torch.float32, library.check_tensor
+    check(lo, "lo", f32, (None, 3), dev)
+    n_box, n = lo.shape[0], rays.count
+    check(hi, "hi", f32, (n_box, 3), dev)
+    check(rays.origin, "origin", f32, (n, 3), dev)
+    check(rays.direction, "direction", f32, (n, 3), dev)
+    check(rays.min_t, "min_t", f32, (n,), dev)
+    check(rays.max_t, "max_t", f32, (n,), dev)
+    if not all(a.is_contiguous() for a in (lo, hi, rays.origin,
+                                           rays.direction, rays.min_t,
+                                           rays.max_t)):
+        raise ValueError("candidates_kernel takes contiguous tensors")
+    if not n_box or c < 1:
+        raise ValueError(f"candidates_kernel needs a box and c >= 1, not "
+                         f"{n_box} boxes and c = {c}")
+    if dev.type != "cuda":
+        raise ValueError("candidates_kernel takes CUDA tensors; the plain "
+                         "version is _instance_candidates_impl")
+    c = min(int(c), n_box)
+    cand_idx = torch.empty((n, c), dtype=torch.int32, device=dev)
+    cand_t = torch.empty((n, c), dtype=f32, device=dev)
+    overflow = torch.empty((n,), dtype=f32, device=dev)
+    if n:
+        library.launch(dev, "rtk_instance_candidates", _candidates_call,
+                       library.load_kernel(), lo, hi, rays, c, cand_idx,
+                       cand_t, overflow)
+        CANDIDATE_LAUNCHES += 1
+    return cand_idx, cand_t, overflow
+
+
+def _candidates_call(lib, lo, hi, rays, c, cand_idx, cand_t, overflow,
+                     stream):
+    """rtk_instance_candidates of contiguous f32 boxes and rays into the
+    contiguous outputs -> its error code."""
+    return lib.rtk_instance_candidates(
+        lo.data_ptr(), hi.data_ptr(), lo.shape[0], rays.origin.data_ptr(),
+        rays.direction.data_ptr(), rays.min_t.data_ptr(),
+        rays.max_t.data_ptr(), rays.count, c, cand_idx.data_ptr(),
+        cand_t.data_ptr(), overflow.data_ptr(), stream)
+
+
 def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int):
-    """_instance_candidates_impl over the instances' world boxes."""
+    """The nearest-c instance boxes of each ray, as
+    _instance_candidates_impl gives them over the instances' world boxes:
+    candidates_kernel for rays on the card, the plain version on the
+    CPU."""
     with span("rtk.instanced.candidates"):
+        if rays.device.type == "cuda":
+            return candidates_kernel(
+                iscene.inst_lo, iscene.inst_hi,
+                Rays(*(a.contiguous() for a in (
+                    rays.origin, rays.direction, rays.min_t, rays.max_t))),
+                c)
         return _instance_candidates_impl(iscene.inst_lo, iscene.inst_hi,
                                          rays, c)
 

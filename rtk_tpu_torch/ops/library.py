@@ -2,7 +2,7 @@
 binding and the launch of its entry points, each a C function that takes
 the stream last and returns a CUDA error code.  The wrappers that check
 tensors and count launches are their callers' (ops/packet_trace.py,
-models/path.py, scene.py, trace/packed.py)."""
+models/path.py, scene.py, trace/packed.py, instancing.py)."""
 from __future__ import annotations
 
 import ctypes
@@ -30,8 +30,10 @@ SHADE_SRC = CSRC / "shade.cu"
 # trace/packed.py::repack_kernel), so that an AOT refit artifact carries
 # them too.
 REFIT_SRC = CSRC / "refit.cu"
+# The instance candidate slab (instancing.py::candidates_kernel).
+CANDIDATES_SRC = CSRC / "candidates.cu"
 LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC, SHADE_SRC,
-                REFIT_SRC]
+                REFIT_SRC, CANDIDATES_SRC]
 FILTER_OPS = CSRC / "filter_ops.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -94,6 +96,9 @@ def bind_library(path, march: bool):
     lib.rtk_unsort.argtypes = [ptr, i64] + [ptr] * 11
     lib.rtk_shade.restype = i32
     lib.rtk_shade.argtypes = [ptr, ptr]
+    lib.rtk_instance_candidates.restype = i32
+    lib.rtk_instance_candidates.argtypes = ([ptr, ptr, i32] + [ptr] * 4
+                                            + [i64, i32] + [ptr] * 4)
     declare_refit(lib)
     if march:
         lib.rtk_packet_march.restype = i32

@@ -8,8 +8,10 @@ takes time at start-up is nvcc.  So the artifact carries the library
 itself: the .so that ops/library.kernel_library built for the trace's
 keywords (a jit_filter's own build when it has one), which holds the
 traversal, the sorted front end's coherence key, rows pass and unsort,
-and the refit and repack that a refit artifact runs on the card.  A server writes it under the package's build directory by its
-hash, loads it with ctypes and calls it; it never calls nvcc.
+the refit and repack that a refit artifact runs on the card, and the
+instance candidate slab.  A server writes it under the package's build
+directory by its hash, loads it with ctypes and calls it; it never calls
+nvcc.
 
 The flat signatures are the reference's:
 
@@ -61,9 +63,11 @@ from rtk_tpu_torch.utils.build import BUILD_DIR
 # a version-1 library lacks; 3: it holds rtk_shade (render_path's shade
 # pass), which a version-2 library lacks; 4: it holds the refit and repack
 # (csrc/refit.cu: rtk_refit_parents, rtk_refit_leaves, rtk_refit_slots,
-# rtk_repack), which a version-3 library lacks.  An artifact of another
-# version is refused before the loader binds it.
-AOT_VERSION = 4
+# rtk_repack), which a version-3 library lacks; 5: it holds the instance
+# candidate slab (csrc/candidates.cu: rtk_instance_candidates), which a
+# version-4 library lacks.  An artifact of another version is refused
+# before the loader binds it.
+AOT_VERSION = 5
 KIND_TRACE = 16  # container kinds of this module (serialize.py has 0-2)
 KIND_REFIT = 17
 PLATFORMS = ("cpu", "cuda")

@@ -200,14 +200,17 @@ def test_aot_refuses_foreign_blobs():
 
 @pytest.mark.parametrize(
     "load,old_version", [("trace", 1), ("refit", 1), ("trace", 2),
-                         ("refit", 2), ("trace", 3), ("refit", 3)],
-    ids=["trace", "refit", "trace-v2", "refit-v2", "trace-v3", "refit-v3"])
+                         ("refit", 2), ("trace", 3), ("refit", 3),
+                         ("trace", 4), ("refit", 4)],
+    ids=["trace", "refit", "trace-v2", "refit-v2", "trace-v3", "refit-v3",
+         "trace-v4", "refit-v4"])
 def test_aot_refuses_a_version_1_artifact(load, old_version):
     """An artifact stamped with version 1 (exported before the library
     held the rows pass, rtk_ray_rows), version 2 (before it held the
-    shade pass, rtk_shade) or version 3 (before it held the refit and
-    repack, csrc/refit.cu) is refused by the version check before its
-    library is bound, with the loader's own error."""
+    shade pass, rtk_shade), version 3 (before it held the refit and
+    repack, csrc/refit.cu) or version 4 (before it held the instance
+    candidate slab, csrc/candidates.cu) is refused by the version check
+    before its library is bound, with the loader's own error."""
     scene = rt.build_from_soup(scenes.cornell_box(),
                                config=rt.BuildConfig(leaf_size=8), device=CPU)
     packed = pack_scene(scene)
@@ -215,7 +218,7 @@ def test_aot_refuses_a_version_1_artifact(load, old_version):
                      aot.load_packet_trace) if load == "trace" else
                     (aot.export_refit_trace(packed, scene, 64),
                      aot.load_refit_trace))
-    assert aot.AOT_VERSION == 4
+    assert aot.AOT_VERSION == 5
     old = bytearray(blob)
     # meta ints start at byte 32: (AOT_VERSION, n_rays)
     struct.pack_into("<q", old, 32, old_version)

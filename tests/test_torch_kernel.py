@@ -1760,3 +1760,205 @@ def test_shade_kernel_refuses_a_cpu_tensor(atrium_path):
                           a["bg"], a["lo"], a["hi"], epsilon=1e-4,
                           sort_rays=True, last=True)
     assert path.SHADE_LAUNCHES == before
+
+
+# ---- the instance candidate slab: csrc/candidates.cu ----
+
+def _on_grid(a, step=0.25):
+    """Values rounded to a grid, so that entry distances tie."""
+    return (np.round(np.asarray(a) / step) * step).astype(np.float32)
+
+
+def candidate_case(name, device="cpu"):
+    """Boxes and rays of one case of the candidate slab -> (lo, hi, Rays),
+    f32 on `device`.  mixed: 60 boxes on a grid (ten of them repeated) and
+    300 rays (not a whole block): origins inside boxes, aimed, axis-aligned
+    with +-0.0 components and random directions, min_t of 0, 1e-3 and
+    -inf, short and dead rows.  zero_dirs: origins on the boxes' planes,
+    components of 0.0, -0.0 and +-1 (+0.0 and -0.0 distances), min_t of
+    +-0.0.  ties: 14 equal boxes of 16 met by every ray; ties_wide: 40
+    equal boxes of 50.  inside: nested boxes around the origins.
+    dead_miss: dead rows and rays that miss every box.  one_ray, empty:
+    batches of 1 and 0 rays."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    n_box, n = {"mixed": (60, 300), "zero_dirs": (24, 200),
+                "ties": (16, 300), "ties_wide": (50, 100),
+                "inside": (30, 200), "dead_miss": (20, 100),
+                "one_ray": (20, 1), "empty": (20, 0)}[name]
+    centre = _on_grid(rng.uniform(-4, 4, (n_box, 3)))
+    half = _on_grid(rng.uniform(0.25, 1.5, (n_box, 3)))
+    o = _on_grid(rng.uniform(-6, 6, (n, 3)))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    min_t = np.zeros(n, np.float32)
+    max_t = np.full(n, 3.4e38, np.float32)
+    if name == "mixed":
+        centre[40:50], half[40:50] = centre[10:20], half[10:20]
+        o[:30] = centre[:30]
+        d[:150] = centre[rng.integers(0, n_box, 150)] - o[:150]
+        axis = np.zeros((75, 3), np.float32)
+        axis[np.arange(75), rng.integers(0, 3, 75)] = rng.choice([-1, 1],
+                                                                  75)
+        axis[rng.random((75, 3)) < 0.3] *= -1  # -0.0 among the zeros
+        d[150:225] = axis
+        min_t[::7], min_t[::11] = 1e-3, -np.inf
+        max_t[::5] = 4.0
+        min_t[::13], max_t[::13] = 5.0, 1.0
+    elif name == "zero_dirs":
+        lo_, hi_ = centre - half, centre + half
+        pick = rng.integers(0, n_box, n)
+        on = rng.random((n, 3)) < 0.5
+        o = np.where(on, np.where(rng.random((n, 3)) < 0.5, lo_[pick],
+                                  hi_[pick]), o).astype(np.float32)
+        d = rng.choice(np.array([0.0, -0.0, 1.0, -1.0, 0.5], np.float32),
+                       (n, 3))
+        min_t[rng.random(n) < 0.5] = -0.0
+    elif name in ("ties", "ties_wide"):
+        centre[:], half[:] = 0.0, 1.0
+        odd = rng.choice(n_box, n_box // 8, replace=False)
+        centre[odd, 0] = _on_grid(rng.uniform(-0.5, 0.5, odd.size))
+        o = np.stack([np.full(n, -5.0), rng.uniform(-0.9, 0.9, n),
+                      rng.uniform(-0.9, 0.9, n)], 1).astype(np.float32)
+        d = np.tile(np.float32([1, 0, 0]), (n, 1))
+        d[n // 2:] = [1.0, 0.125, -0.0]
+    elif name == "inside":
+        centre[:] = 0.0
+        half = np.linspace(0.5, 8.0, n_box, dtype=np.float32)[:, None] \
+            * np.float32([1, 1, 1])
+        half[::4] = 0.25  # boxes the outer origins are not in
+        o = _on_grid(rng.uniform(-0.4, 0.4, (n, 3)))
+    elif name == "dead_miss":
+        centre[:, 0] = np.abs(centre[:, 0]) + 2.0
+        o[:, 0] = -1.0
+        d[:, 0] = -np.abs(d[:, 0]) - 0.1
+        min_t[::2], max_t[::2] = 2.0, 1.0
+    ray = rtk_tpu_torch.Rays(*(torch.from_numpy(np.ascontiguousarray(a))
+                               .to(device) for a in (o, d, min_t, max_t)))
+    return (torch.from_numpy(centre - half).to(device),
+            torch.from_numpy(centre + half).to(device), ray)
+
+
+# (case, c): c = 1, 12, above K for one pass (c + 1 > 32 takes passes of
+# 32), c = B and c > B, and every list length (K = 4, 8, 16, 32).
+CANDIDATE_CASES = [("mixed", 1), ("mixed", 3), ("mixed", 12), ("mixed", 40),
+                   ("mixed", 60), ("mixed", 75), ("zero_dirs", 4),
+                   ("zero_dirs", 15), ("ties", 5), ("ties", 12),
+                   ("ties", 20), ("ties_wide", 40), ("inside", 8),
+                   ("dead_miss", 3), ("one_ray", 12), ("empty", 3)]
+
+
+def assert_same_candidates(got, want, what):
+    """cand_idx, cand_t and overflow equal bit for bit."""
+    for g, w, name in zip(got, want, ("cand_idx", "cand_t", "overflow")):
+        assert g.shape == w.shape, f"{what}: {name} shape"
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f"{what}: {name}"
+
+
+@pytest.mark.parametrize("name,c", CANDIDATE_CASES)
+def test_candidates_kernel_equals_plain(cuda, name, c):
+    """csrc/candidates.cu against _instance_candidates_impl on the same
+    CUDA tensors, bit for bit: ties (the first instance wins), +-0.0
+    components and distances, origins inside boxes, dead and missing rows,
+    c from 1 to past B, the passes of a c + 1 above 32, ragged batches."""
+    from rtk_tpu_torch import instancing
+
+    lo, hi, rays = candidate_case(name, cuda)
+    before = instancing.CANDIDATE_LAUNCHES
+    got = instancing.candidates_kernel(lo, hi, rays, c)
+    torch.cuda.synchronize()
+    assert instancing.CANDIDATE_LAUNCHES == before + bool(rays.count)
+    want = instancing._instance_candidates_impl(lo, hi, rays, c)
+    assert_same_candidates(got, want, f"{name} c={c}")
+
+
+def test_candidates_kernel_on_configuration_5(cuda):
+    """Configuration 5's instance boxes (125 instances of blob(6) on the
+    5^3 lattice) and its 1024^2 Morton primaries, C = 12: the kernel's
+    three outputs equal the plain slab's bit for bit."""
+    from rtk_tpu_torch import instancing
+
+    blas = rtk_tpu_torch.build_from_soup(
+        scenes.blob(6)[0], config=rtk_tpu_torch.BuildConfig(leaf_size=8),
+        device=cuda)
+    tf = np.zeros((125, 3, 4), np.float32)
+    rng = np.random.default_rng(7)
+    for i in range(125):
+        tf[i, :, :3] = np.eye(3, dtype=np.float32) * (0.35
+                                                      + 0.15 * rng.random())
+        tf[i, :, 3] = (np.array([i % 5, i // 5 % 5, i // 25], np.float32)
+                       * 1.1 + rng.random(3).astype(np.float32) * 0.2)
+    iscene = rtk_tpu_torch.build_instanced([blas], np.zeros(125, np.int64),
+                                           tf)
+    rays = scenes.camera_rays((7.0, 6.5, 8.0), (2.2, 2.2, 2.2), (0, 1, 0),
+                              55, 1024, 1024, order="morton", device=cuda)
+    got = instancing._instance_candidates(iscene, rays, 12)
+    want = instancing._instance_candidates_impl(iscene.inst_lo,
+                                                iscene.inst_hi, rays, 12)
+    assert_same_candidates(got, want, "configuration 5")
+    live = got[0] >= 0
+    assert bool(live[:, 0].any()) and bool(live[:, 11].any())
+
+
+def test_instanced_trace_through_the_kernel_slab(cuda, monkeypatch):
+    """trace_closest_instanced_packets through the kernel slab and through
+    the plain slab give the same records and instance ids bit for bit,
+    with and without the exactness residual's all-instance slab."""
+    from rtk_tpu_torch import instancing
+    from test_torch_instanced_path import instanced_case
+
+    c = instanced_case(device=cuda, side=128)
+    ps, rays = c["tracer"].pscene, c["rays"]
+
+    def trace(k):
+        st = {}
+        hits, ids = instancing.trace_closest_instanced_packets(
+            ps, rays, max_candidates=k, stats=st)
+        return hits, ids, st["residual"]
+
+    for k in (1, 2, 4):
+        got = trace(k)
+        with monkeypatch.context() as m:
+            m.setattr(instancing, "candidates_kernel",
+                      instancing._instance_candidates_impl)
+            want = trace(k)
+        _assert_same(got[0], want[0])
+        assert torch.equal(got[1], want[1]) and got[2] == want[2]
+        if k == 1:
+            assert got[2] > 0  # the residual ran its all-instance slab
+
+
+def test_candidate_launches_count_traces_and_residuals(cuda, monkeypatch):
+    """CANDIDATE_LAUNCHES: one launch an instanced trace, and one more for
+    a residual that re-traces rays (its slab over every instance); a
+    render_path frame of 4 bounces launches it once a trace."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.models import path
+    from test_torch_instanced_path import instanced_case
+
+    c = instanced_case(device=cuda, side=128)
+    ps, rays = c["tracer"].pscene, c["rays"]
+    residuals = []
+    real = instancing._residual_exhaustive
+    monkeypatch.setattr(instancing, "_residual_exhaustive",
+                        lambda *a: residuals.append(1) or real(*a))
+    monkeypatch.setattr(instancing, "CANDIDATE_LAUNCHES", 0)
+    instancing.trace_closest_instanced_packets(ps, rays, max_candidates=4,
+                                               exact=False)
+    assert instancing.CANDIDATE_LAUNCHES == 1 and not residuals
+    st = {}
+    instancing.trace_closest_instanced_packets(ps, rays, max_candidates=1,
+                                               stats=st)
+    assert st["residual"] > 0 and len(residuals) == 1
+    assert instancing.CANDIDATE_LAUNCHES == 3
+    for name in ("CANDIDATE_LAUNCHES", "INSTANCED_TRACES"):
+        monkeypatch.setattr(instancing, name, 0)
+    residuals.clear()
+    uniforms = torch.rand((4, rays.count, 2), device=cuda,
+                          generator=torch.Generator(
+                              device=cuda).manual_seed(27))
+    path.render_path(c["tracer"], rays, c["mats"], bounces=4,
+                     background=PATH_BG, epsilon=1e-3, uniforms=uniforms)
+    torch.cuda.synchronize()
+    assert instancing.INSTANCED_TRACES == 5
+    assert instancing.CANDIDATE_LAUNCHES == 5 + len(residuals)

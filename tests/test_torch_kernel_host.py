@@ -7,16 +7,17 @@ off the card): every instantiation (8- and 16-wide tables, the grid march
 and a filter build) in every mode equals the plain PyTorch version bit for
 bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
 csrc/dispatch_probe.cu, csrc/coherence_key.cu, csrc/ray_rows.cu,
-csrc/unsort.cu, csrc/shade.cu and csrc/refit.cu are built the same way and
-held bit for bit against their plain versions.  This checks
-the kernels' logic and arithmetic; that nvcc builds them for sm_90a, and the
-card's results, are tests/test_torch_kernel.py's."""
+csrc/unsort.cu, csrc/shade.cu, csrc/refit.cu and csrc/candidates.cu are
+built the same way and held bit for bit against their plain versions.
+This checks the kernels' logic and arithmetic; that nvcc builds them for
+sm_90a, and the card's results, are tests/test_torch_kernel.py's."""
 import ctypes
 import dataclasses
 import pathlib
 import re
 import shutil
 import subprocess
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -30,9 +31,11 @@ from rtk_tpu_torch.testing.grid import build_grid, march_batch
 from rtk_tpu_torch.trace.packed import pack_binary_tree, pack_scene
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
-from test_torch_kernel import (FILTERS, MASK_QMASKS, TIE_CASES,
-                               _root_slot_boxes, chain_forest, chain_grid,
-                               chain_rays, leaf_root_case, long_tail_rays,
+from test_torch_kernel import (CANDIDATE_CASES, FILTERS, MASK_QMASKS,
+                               TIE_CASES, _root_slot_boxes,
+                               assert_same_candidates, candidate_case,
+                               chain_forest, chain_grid, chain_rays,
+                               leaf_root_case, long_tail_rays,
                                long_tail_scene, mask_tree, ptrace, tie_rays,
                                tie_tree, wide_tie_tree)
 
@@ -567,7 +570,8 @@ REVERSED_HOST_LAUNCH = (r"for (long long b_ = (long long)(\2) * \3 - 1; "
 
 def front_host_source(src, launches, reduce_blocks=None, reverse=False):
     """csrc/coherence_key.cu, csrc/ray_rows.cu, csrc/unsort.cu,
-    csrc/shade.cu or csrc/refit.cu for a host build behind CUDA_SHIM: each
+    csrc/shade.cu, csrc/refit.cu or csrc/candidates.cu for a host build
+    behind CUDA_SHIM: each
     of its `launches` launches runs as a loop over the threads in turn
     (reverse: from the last thread to the first); reduce_blocks: the key's
     bounds kernels' grid cap, to make a small batch take several turns of
@@ -586,9 +590,9 @@ def front_host_source(src, launches, reduce_blocks=None, reverse=False):
 
 def host_library(tmp, name, reduce_blocks=None):
     """The library kernel_library builds (the traversal without a filter,
-    the coherence key, the rows pass, the unsort, render_path's shade pass
-    and the refit and repack in one .so), built for the host -> its
-    path."""
+    the coherence key, the rows pass, the unsort, render_path's shade
+    pass, the refit and repack and the instance candidate slab in one .so),
+    built for the host -> its path."""
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     sources = {
         "trace": library.KERNEL_SRC.read_text()
@@ -598,7 +602,8 @@ def host_library(tmp, name, reduce_blocks=None):
         "rows": front_host_source(library.ROWS_SRC, 1),
         "unsort": front_host_source(library.UNSORT_SRC, 1),
         "shade": front_host_source(library.SHADE_SRC, 1),
-        "refit": front_host_source(library.REFIT_SRC, 4)}
+        "refit": front_host_source(library.REFIT_SRC, 4),
+        "candidates": front_host_source(library.CANDIDATES_SRC, 1)}
     for part, text in sources.items():
         (tmp / f"{name}_{part}.cpp").write_text(text)
     so = tmp / f"lib{name}.so"
@@ -837,6 +842,66 @@ def test_ray_rows_kernel_takes_cuda_tensors():
     with pytest.raises(ValueError, match=r"\(N,\)"):
         pt.ray_rows_kernel(o, d, mn[:4], mx)
     assert pt.ROWS_LAUNCHES == before
+
+
+# ---- csrc/candidates.cu: the instance candidate slab ----
+
+@pytest.mark.parametrize("name,c", CANDIDATE_CASES)
+def test_host_instance_candidates(key_libs, name, c):
+    """csrc/candidates.cu built for the host (its launch a loop over the
+    threads) equals _instance_candidates_impl bit for bit, through the
+    wrapper's own call (_candidates_call), every output filled with
+    SENTINEL first: ties on entry distance (the first instance wins),
+    +-0.0 components and distances, origins inside boxes, dead rows and
+    rows that miss every box, c from 1 to past B, a c + 1 above 32 (the
+    passes), a batch that is not a whole block, one ray and none."""
+    from rtk_tpu_torch import instancing
+
+    lo, hi, rays = candidate_case(name)
+    n, k = rays.count, min(c, lo.shape[0])
+    out = (torch.full((n, k), SENTINEL, dtype=torch.int32),
+           torch.full((n, k), SENTINEL, dtype=torch.int32).view(
+               torch.float32),
+           torch.full((n,), SENTINEL, dtype=torch.int32).view(torch.float32))
+    if n:
+        assert instancing._candidates_call(key_libs[None], lo, hi, rays, k,
+                                           *out, None) == 0
+    want = instancing._instance_candidates_impl(lo, hi, rays, c)
+    assert_same_candidates(out, want, f"{name} c={c}")
+
+
+def test_candidates_kernel_checks_before_launch(monkeypatch):
+    """The slab's wrapper refuses a tensor of the wrong device, dtype or
+    shape, a view that is not contiguous, no box or c < 1, and CPU tensors,
+    before it launches; the dispatcher sends CPU rays to the plain slab."""
+    from rtk_tpu_torch import instancing
+
+    monkeypatch.setattr(library, "launch", lambda *a: pytest.fail(
+        "the wrapper launched"))
+    lo, hi, rays = candidate_case("mixed")
+    before = instancing.CANDIDATE_LAUNCHES
+
+    def refused(match, lo=lo, hi=hi, c=12, **over):
+        bad = dataclasses.replace(rays, **over)
+        with pytest.raises(ValueError, match=match):
+            instancing.candidates_kernel(lo, hi, bad, c)
+
+    refused("CUDA")
+    refused("origin", origin=rays.origin.to("meta"))
+    refused("direction", direction=rays.direction.double())
+    refused("min_t", min_t=rays.min_t[:-1])
+    refused("max_t", max_t=rays.max_t[:, None])
+    refused("hi", hi=hi[:-1])
+    refused("lo", lo=lo.to(torch.float16))
+    refused("contiguous",
+            direction=rays.direction.T.contiguous().T)
+    refused("c >= 1", c=0)
+    refused("a box", lo=lo[:0], hi=hi[:0])
+    assert instancing.CANDIDATE_LAUNCHES == before
+    iscene = SimpleNamespace(inst_lo=lo, inst_hi=hi)
+    assert_same_candidates(
+        instancing._instance_candidates(iscene, rays, 12),
+        instancing._instance_candidates_impl(lo, hi, rays, 12), "dispatch")
 
 
 # ---- csrc/shade.cu: render_path's shade pass ----

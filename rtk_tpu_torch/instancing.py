@@ -33,9 +33,13 @@ Spans (utils/stats.py::span): `rtk.instanced.trace` (an instanced closest
 call), `rtk.instanced.candidates` (the slab: on the card the kernel's
 checks, outputs and launch; the residual's all-instance slab too),
 `rtk.instanced.round` (a candidate round, from its live count's host sync
-to the scatter of its hits: the sort by instance, the object rays and the
-rooted trace; a round with no live ray ends at the sync) and
-`rtk.instanced.residual` (the exactness residual).
+to the scatter of its hits; a round with no live ray ends at the sync)
+and `rtk.instanced.residual` (the exactness residual).  Inside a round,
+in order: `rtk.instanced.live` (the live mask and its `nonzero` sync, all
+that an empty round holds), `rtk.instanced.rays` (the sort by instance,
+the round cap, the object rays and the gathers of best t and roots), the
+rooted trace's own `rtk.packet_trace`, and `rtk.instanced.scatter` (the
+better hits' boolean-mask indexes and index-puts).
 """
 from __future__ import annotations
 
@@ -57,13 +61,18 @@ from rtk_tpu_torch.utils.stats import span
 
 # trace_closest_instanced_packets in this process: INSTANCED_TRACES calls,
 # INSTANCED_ROUNDS candidate rounds launched, INSTANCED_ROWS the rows they
-# traced, INSTANCED_SYNCS the host syncs of this module's own (a round's
-# live count, the residual's count and its rounds'; the stack engine's
-# steps sync on their own) and INSTANCED_RESIDUAL the rays the residual
-# re-traced over all instances.  A run resets them and reads them back,
-# as ops/packet_trace.py's launch counters.  CANDIDATE_LAUNCHES counts
-# launches of the candidate slab's kernel (candidates_kernel): one an
-# instanced trace on the card, and one a residual that re-traces rays.
+# traced, INSTANCED_SYNCS the host syncs of this module's own and
+# INSTANCED_RESIDUAL the rays the residual re-traced over all instances.
+# INSTANCED_SYNCS counts, beside the statements that make them, the syncs
+# on the card: each `nonzero`, each boolean-mask index of a device tensor
+# (a `nonzero` inside), the auto caps' `tolist`, and in a round a cap
+# cuts `bincount`'s two reads and a Python scalar index-put's copy.  A round syncs once for its live count and six times
+# more if it launches; the residual once, then as the rounds do.  The
+# stack engine's steps in the residual sync on their own, uncounted here.
+# A run resets them and reads them back, as ops/packet_trace.py's launch
+# counters.  CANDIDATE_LAUNCHES counts launches of the candidate slab's
+# kernel (candidates_kernel): one an instanced trace on the card, and one
+# a residual that re-traces rays.
 INSTANCED_TRACES = 0
 INSTANCED_ROUNDS = 0
 INSTANCED_ROWS = 0
@@ -524,6 +533,7 @@ def _residual_exhaustive(pscene: PackedInstancedScene, rays: Rays, best):
         best["v"][r] = h.v[better]
         best["slot"][r] = pscene.slot_of_sorted[sorted_slot[better].long()]
         best["inst"][r] = inst[better].to(torch.int32)
+        INSTANCED_SYNCS += 6  # the six boolean-mask indexes
 
 
 def _residual(pscene: PackedInstancedScene, rays: Rays, best,
@@ -574,6 +584,7 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
         round_caps = tuple(
             _pow2_cap(c + unit * min(c, n_inst), blk, M)
             for c in cnt.tolist())
+        INSTANCED_SYNCS += 1
     elif round_caps is not None:
         round_caps = tuple(int(c_) for c_ in round_caps)
         if len(round_caps) != C:
@@ -588,42 +599,51 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
     live_counts = []
     for s in range(C):
         with span("rtk.instanced.round"):
-            live = cand_t[:, s] < best["t"]
-            rows = torch.nonzero(live).squeeze(1)
-            INSTANCED_SYNCS += 1
-            live_counts.append(rows.numel())
+            with span("rtk.instanced.live"):
+                live = cand_t[:, s] < best["t"]
+                rows = torch.nonzero(live).squeeze(1)
+                INSTANCED_SYNCS += 1
+                live_counts.append(rows.numel())
             if not rows.numel():
                 continue  # candidates are nearest-first: later rounds are empty
-            inst = cand_idx[rows, s].long()
-            order = torch.sort(inst, stable=True).indices
-            rows, inst = rows[order], inst[order]
-            if round_caps is not None and round_caps[s] < M:
-                # Row of each live ray in the reference's grouped layout.
-                counts = torch.bincount(inst, minlength=n_inst)
-                padded = (counts + unit - 1) // unit * unit
-                pos = ((torch.cumsum(padded, 0) - padded)[inst]
-                       + torch.arange(rows.numel(), device=dev)
-                       - (torch.cumsum(counts, 0) - counts)[inst])
-                keep = pos < round_caps[s]
-                over_cap[rows[~keep]] = True
-                rows, inst = rows[keep], inst[keep]
-            o, d = _object_rays(iscene.object_from_world[inst],
-                                rays.origin[rows], rays.direction[rows])
-            bt = best["t"][rows]
-            # Roots gathered from pack_instanced's checked rows by instance
-            # ids in range: the launch makes no host sync to check them.
-            h = _trace_rooted(steps, packed,
-                              Rays(o, d, rays.min_t[rows], bt),
-                              pscene.packed_roots[iscene.instance_blas[inst]])
+            with span("rtk.instanced.rays"):
+                inst = cand_idx[rows, s].long()
+                order = torch.sort(inst, stable=True).indices
+                rows, inst = rows[order], inst[order]
+                if round_caps is not None and round_caps[s] < M:
+                    # Row of each live ray in the reference's grouped layout.
+                    counts = torch.bincount(inst, minlength=n_inst)
+                    INSTANCED_SYNCS += 2  # on the card: its min and its max
+                    padded = (counts + unit - 1) // unit * unit
+                    pos = ((torch.cumsum(padded, 0) - padded)[inst]
+                           + torch.arange(rows.numel(), device=dev)
+                           - (torch.cumsum(counts, 0) - counts)[inst])
+                    keep = pos < round_caps[s]
+                    over_cap[rows[~keep]] = True
+                    rows, inst = rows[keep], inst[keep]
+                    # The three boolean-mask indexes, and True copied to
+                    # the card for the index-put.
+                    INSTANCED_SYNCS += 4
+                o, d = _object_rays(iscene.object_from_world[inst],
+                                    rays.origin[rows], rays.direction[rows])
+                bt = best["t"][rows]
+                # Roots gathered from pack_instanced's checked rows by
+                # instance ids in range: the launch makes no host sync to
+                # check them.
+                round_rays = Rays(o, d, rays.min_t[rows], bt)
+                roots = pscene.packed_roots[iscene.instance_blas[inst]]
+            h = _trace_rooted(steps, packed, round_rays, roots)
             INSTANCED_ROUNDS += 1
             INSTANCED_ROWS += rows.numel()
-            better = h.hit & (h.t < bt)
-            r = rows[better]
-            best["t"][r] = h.t[better]
-            best["u"][r] = h.u[better]
-            best["v"][r] = h.v[better]
-            best["slot"][r] = h.slot[better]
-            best["inst"][r] = inst[better].to(torch.int32)
+            with span("rtk.instanced.scatter"):
+                better = h.hit & (h.t < bt)
+                r = rows[better]
+                best["t"][r] = h.t[better]
+                best["u"][r] = h.u[better]
+                best["v"][r] = h.v[better]
+                best["slot"][r] = h.slot[better]
+                best["inst"][r] = inst[better].to(torch.int32)
+                INSTANCED_SYNCS += 6  # the six boolean-mask indexes
 
     # A ray whose (C+1)-th instance entry is still closer than its best hit
     # is unproven, and so is one a round cap cut.

@@ -3,8 +3,10 @@ coherence key, the rows pass and the unsort) and the dispatch probe of
 tools/torch_profile_trace.py, against their plain PyTorch versions on the
 card.  Needs a CUDA device and nvcc: each test skips without a card.  On
 the H100: `python -m pytest tests/test_torch_kernel.py -m cuda -q`."""
+import contextlib
 import os
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -1962,3 +1964,107 @@ def test_candidate_launches_count_traces_and_residuals(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert instancing.INSTANCED_TRACES == 5
     assert instancing.CANDIDATE_LAUNCHES == 5 + len(residuals)
+
+
+
+@contextlib.contextmanager
+def _host_syncs(monkeypatch):
+    """Counts torch's host sync warnings inside the block, as
+    chip_smoke.py::host_syncs does, and apart those made inside the stack
+    engine's loops (the instanced residual's) -> (a function giving the
+    count so far, the list of each loop's count)."""
+    from rtk_tpu_torch.trace import stack
+
+    loops = []
+    real_loop = stack._trace_loop
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+
+            def count():
+                return sum("synchroniz" in str(w.message) for w in caught)
+
+            def loop(*a, **kw):
+                before = count()
+                out = real_loop(*a, **kw)
+                loops.append(count() - before)
+                return out
+
+            monkeypatch.setattr(stack, "_trace_loop", loop)
+            yield count, loops
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        monkeypatch.setattr(stack, "_trace_loop", real_loop)
+
+
+def test_instanced_frame_syncs_equal_the_counters(instanced_path,
+                                                  monkeypatch):
+    """One instanced render_path frame (4 bounces, 2 candidates a ray, so
+    the residual re-traces rays on the stack engine): torch's count of
+    host syncs equals the syncs INSTANCED_SYNCS and PATH_SYNCS count,
+    beside those the stack engine's steps make in the residual and one
+    more: render_path copies its background to the card (types._f32)."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.models import path
+
+    c = instanced_path
+    kw = dict(bounces=4, background=PATH_BG, epsilon=1e-3,
+              uniforms=c["uniforms"])
+    path.render_path(c["tracer"], c["rays"], c["mats"], **kw)
+    for name in ("INSTANCED_SYNCS", "INSTANCED_RESIDUAL"):
+        monkeypatch.setattr(instancing, name, 0)
+    monkeypatch.setattr(path, "PATH_SYNCS", 0)
+    with _host_syncs(monkeypatch) as (count, loops):
+        path.render_path(c["tracer"], c["rays"], c["mats"], **kw)
+        total = count()
+    assert instancing.INSTANCED_RESIDUAL > 0 and loops
+    assert path.PATH_SYNCS == 4
+    assert total == (instancing.INSTANCED_SYNCS + path.PATH_SYNCS
+                     + sum(loops) + 1)
+
+
+@pytest.mark.parametrize("caps", ["auto", "starved"])
+def test_instanced_capped_trace_syncs_equal_the_counter(instanced_path,
+                                                        monkeypatch, caps):
+    """An instanced trace with round caps on the card: torch's count of
+    host syncs equals INSTANCED_SYNCS (the auto caps' tolist; in a round
+    a cap cuts, bincount's two reads, the cut's three masks and True
+    copied to the card) beside the syncs of the residual's stack
+    engine."""
+    from rtk_tpu_torch import instancing
+
+    c = instanced_path
+    ps, rays = c["pscene"], c["rays"]
+    n_c = c["tracer"].max_candidates
+    kw = dict(max_candidates=n_c,
+              round_caps=caps if caps == "auto" else (128,) * n_c)
+    instancing.trace_closest_instanced_packets(ps, rays, **kw)
+    monkeypatch.setattr(instancing, "INSTANCED_SYNCS", 0)
+    with _host_syncs(monkeypatch) as (count, loops):
+        instancing.trace_closest_instanced_packets(ps, rays, **kw)
+        total = count()
+    assert total == instancing.INSTANCED_SYNCS + sum(loops)
+
+
+def test_sorted_closest_call_makes_no_sync(cuda, monkeypatch):
+    """A sorted Tracer.closest call and its six field reads, as a
+    closest-hit user makes them: no host sync, so that one CUDA graph can
+    hold the call."""
+    v, f = scenes.blob(4)[1:]
+    tracer = rtk_tpu_torch.Tracer(rtk_tpu_torch.build_scene((v, f),
+                                                            device=cuda))
+    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 128,
+                              128, device=cuda)
+    assert rays.count >= packet_trace.SORT_RAYS_MIN
+
+    def call():
+        h = tracer.closest(rays)
+        return [getattr(h, k) for k in ("hit", "t", "u", "v",
+                                         "triangle_index", "mesh_index")]
+
+    call()
+    with _host_syncs(monkeypatch) as (count, _):
+        call()
+        assert count() == 0

@@ -179,35 +179,88 @@ def test_other_engines_have_the_root_span(tracer, engine):
 
 INSTANCED = ("rtk.instanced.trace", "rtk.instanced.candidates",
              "rtk.instanced.round", "rtk.instanced.residual")
+# What a launched round holds, in order; an empty round holds the first.
+ROUND = ("rtk.instanced.live", "rtk.instanced.rays", FRONT,
+         "rtk.instanced.scatter")
 INSTANCED_COUNTERS = ("INSTANCED_TRACES", "INSTANCED_ROUNDS",
                       "INSTANCED_ROWS", "INSTANCED_SYNCS",
                       "INSTANCED_RESIDUAL")
+
+
+def _count_traces(monkeypatch):
+    """Zero the instanced counters and wrap trace_closest_instanced_packets
+    so that each trace keeps its stats, beside the rounds its residual
+    launched on the stack engine (counted by a wrap of the engine's loop,
+    which only the residual runs here) -> the list of (stats, residual
+    rounds), one entry a trace."""
+    traces, loops = [], []
+    real = instancing.trace_closest_instanced_packets
+    real_loop = instancing._stack._trace_loop
+
+    def counted(*a, **kw):
+        st, before = {}, len(loops)
+        out = real(*a, stats=st, **kw)
+        traces.append((st, len(loops) - before))
+        return out
+
+    def loop(*a, **kw):
+        loops.append(1)
+        return real_loop(*a, **kw)
+
+    monkeypatch.setattr(instancing, "trace_closest_instanced_packets",
+                        counted)
+    monkeypatch.setattr(instancing._stack, "_trace_loop", loop)
+    for c in INSTANCED_COUNTERS:
+        monkeypatch.setattr(instancing, c, 0)
+    return traces
+
+
+def _sync_tally(st, residual_rounds, n, n_inst, auto=False):
+    """The host syncs of one instanced trace as its stats give them: one a
+    round for its live count and six more a launched round (its scatter's
+    boolean masks), six more a round its cap cut (bincount's two reads,
+    three masks and the copy of True for the index-put), one for auto
+    caps' tolist; the residual's count, and where it re-traces rays, a
+    live count and six masks a residual round it launched, and the live
+    count of the empty round that ended it (none where every instance was
+    a round)."""
+    m, _ = instancing._grouped_size(n, n_inst, pt.PKT, pt.DEFAULT_P)
+    caps = st["caps"] or (m,) * len(st["live_counts"])
+    launched = [cap for k, cap in zip(st["live_counts"], caps) if k]
+    syncs = (len(st["live_counts"]) + 6 * len(launched)
+             + 6 * sum(cap < m for cap in launched) + int(auto) + 1)
+    if st["residual"]:
+        syncs += 7 * residual_rounds + int(residual_rounds < n_inst)
+    return syncs
+
+
+def _held(spans, rounds):
+    """The names of the spans each round holds, in the order they start;
+    each ends before the next starts."""
+    held = {id(e): [] for e in rounds}
+    for e in spans:
+        if e.cpu_parent is not None and id(e.cpu_parent) in held:
+            held[id(e.cpu_parent)].append(e)
+    for inner in held.values():
+        inner.sort(key=lambda x: x.time_range.start)
+        for a, b in zip(inner, inner[1:]):
+            assert a.time_range.end <= b.time_range.start
+    return {k: tuple(x.name for x in v) for k, v in held.items()}
 
 
 def test_instanced_frame_spans_and_counters(monkeypatch):
     """One render_path frame over an InstancedTracer (2 bounces, 3
     traces): each rtk.path.trace holds one rtk.instanced.trace, which
     holds its slab, its C rounds and its residual (the residual's own
-    all-instance slab inside it); a round that launches holds the rooted
-    trace's rtk.packet_trace.  The counters equal what the traces
-    report: rounds launched, their rows, the rays re-traced, and a host
-    sync a round, one for the residual and one a residual round."""
+    all-instance slab inside it); a round that launches holds its live
+    count, its object rays, the rooted trace's rtk.packet_trace and its
+    scatter, in that order, and an empty round its live count alone.  The
+    counters equal what the traces report: rounds launched, their rows,
+    the rays re-traced, and the host syncs of instancing.py's own."""
     from test_torch_instanced_path import BOUNCES, _render, instanced_case
 
     case = instanced_case()
-    stats_of = []
-    real = instancing.trace_closest_instanced_packets
-
-    def counted(*a, **kw):
-        st = {}
-        out = real(*a, stats=st, **kw)
-        stats_of.append(st)
-        return out
-
-    monkeypatch.setattr(instancing, "trace_closest_instanced_packets",
-                        counted)
-    for c in INSTANCED_COUNTERS:
-        monkeypatch.setattr(instancing, c, 0)
+    traced = _count_traces(monkeypatch)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         _render(case)
@@ -231,19 +284,95 @@ def test_instanced_frame_spans_and_counters(monkeypatch):
     launched = [e for e in by[FRONT]
                 if e.cpu_parent.name == "rtk.instanced.round"]
     assert all(e.cpu_parent.name == "rtk.instanced.round" for e in by[FRONT])
+    held = _held(spans, by["rtk.instanced.round"])
+    assert set(held.values()) <= {ROUND, ROUND[:1]}
+    assert [*held.values()].count(ROUND) == len(launched)
+    for stage in set(ROUND) - {FRONT}:
+        assert all(e.cpu_parent.name == "rtk.instanced.round"
+                   for e in by[stage])
 
-    assert len(stats_of) == traces
-    rows = sum(sum(st["live_counts"]) for st in stats_of)
-    rounds = sum(sum(n > 0 for n in st["live_counts"]) for st in stats_of)
-    residual = sum(st["residual"] for st in stats_of)
+    assert len(traced) == traces
+    rows = sum(sum(st["live_counts"]) for st, _ in traced)
+    rounds = sum(sum(n > 0 for n in st["live_counts"]) for st, _ in traced)
+    residual = sum(st["residual"] for st, _ in traced)
     assert rounds == len(launched) and residual > 0
     got = {n: getattr(instancing, n) for n in INSTANCED_COUNTERS}
     assert got["INSTANCED_TRACES"] == traces
     assert got["INSTANCED_ROUNDS"] == rounds
     assert got["INSTANCED_ROWS"] == rows
     assert got["INSTANCED_RESIDUAL"] == residual
-    # A sync a round and one a residual; then one a residual round, at
-    # least one for each residual that re-traced rays.
-    syncs = got["INSTANCED_SYNCS"] - (c + 1) * traces
-    assert sum(st["residual"] > 0 for st in stats_of) <= syncs
-    assert syncs <= case["pscene"].iscene.num_instances * traces
+    n_inst = case["pscene"].iscene.num_instances
+    assert sum(k > 0 for _, k in traced) > 0
+    assert got["INSTANCED_SYNCS"] == sum(
+        _sync_tally(st, k, case["rays"].count, n_inst) for st, k in traced)
+
+
+@pytest.mark.parametrize("caps", ["auto", "starved"])
+def test_instanced_syncs_with_round_caps(monkeypatch, caps):
+    """INSTANCED_SYNCS of a trace with round caps: the auto caps' tolist,
+    and in each round a cap cuts, bincount's reads, the three masks of
+    the cut and True copied for its index-put, beside the uncapped
+    trace's syncs."""
+    from test_torch_instanced_path import instanced_case
+
+    case = instanced_case()
+    ps, rays = case["pscene"], case["rays"]
+    c = case["tracer"].max_candidates
+    traced = _count_traces(monkeypatch)
+    want = instancing.trace_closest_instanced_packets(ps, rays, c)
+    got = instancing.trace_closest_instanced_packets(
+        ps, rays, c, round_caps=caps if caps == "auto" else (128,) * c)
+    assert torch.equal(got[0].t, want[0].t)
+    assert torch.equal(got[1], want[1])
+    n_inst = ps.iscene.num_instances
+    auto = caps == "auto"
+    tallies = [_sync_tally(st, k, rays.count, n_inst, auto=auto and i == 1)
+               for i, (st, k) in enumerate(traced)]
+    assert instancing.INSTANCED_SYNCS == sum(tallies)
+    if caps == "starved":
+        assert tallies[1] > tallies[0] and traced[1][0]["residual"] > 0
+
+
+def test_instanced_spans_no_profiler_range(monkeypatch):
+    """The round's stages draw no profiler range while nothing records,
+    and the frame equals the traced one."""
+    from test_torch_instanced_path import _render, instanced_case
+
+    case = instanced_case()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        want = _render(case)
+    assert {e.name for e in _spans(prof)} >= set(ROUND)
+
+    def refuse(name):
+        raise AssertionError(f"a profiler range {name!r} with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    assert not torch.autograd._profiler_enabled()
+    assert torch.equal(_render(case), want)
+
+
+def test_empty_rounds_hold_their_live_count(monkeypatch):
+    """Rays that meet no instance box: every round finds no live ray and
+    holds only rtk.instanced.live, and the trace syncs once a round and
+    once for its residual."""
+    from test_torch_instanced_path import instanced_case
+
+    case = instanced_case()
+    ps, rays = case["pscene"], case["rays"]
+    away = rt.Rays(rays.origin, -rays.direction, rays.min_t, rays.max_t)
+    traced = _count_traces(monkeypatch)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        hits, _ = instancing.trace_closest_instanced_packets(ps, away, 2)
+    assert not bool(hits.hit.any())
+    spans = _spans(prof)
+    rounds = [e for e in spans if e.name == "rtk.instanced.round"]
+    assert len(rounds) == 2
+    held = _held(spans, rounds)
+    assert set(held.values()) == {ROUND[:1]}
+    ((st, k),) = traced
+    assert st["live_counts"] == [0, 0] and st["residual"] == 0
+    assert instancing.INSTANCED_SYNCS == _sync_tally(
+        st, k, rays.count, ps.iscene.num_instances) == 3

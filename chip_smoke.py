@@ -119,7 +119,10 @@ Phases (each prints one line):
      version of the rounds and against the flat world-space Tracer at
      phase 5's bars, and its candidate slab's kernel (csrc/candidates.cu,
      one launch a trace and one a residual, counted) alone beside its
-     bound and the plain slab, bit for bit;
+     bound and the plain slab, bit for bit; the rounds' glue
+     (csrc/rounds.cu, two launches a round, counted) alone at a 1024^2
+     batch in a round's order beside its bound and the eager glue, bit for
+     bit;
  10. the Tracer's remaining engines on the atrium (BASELINE config 3, LBVH
      leaf 16 through build_scene, 1024^2 primaries and phase 7's cosine
      bounce): Tracer(engine="grid") closest on the bounce and the
@@ -273,6 +276,15 @@ OPS_PER_TRI = 53
 # 8 C + 4 written (the candidates' ids and distances, the overflow).
 SLAB_OPS_PER_TEST = 30
 SLAB_READ_BYTES_PER_RAY = 32
+# An instanced round's glue (csrc/rounds.cu), bytes a row: the object rays
+# read the ray and instance ids (8 each), origin and direction (12 each),
+# min t and best t (4 each) and write origin and direction, min t, max t,
+# root and instance (40); the scatter reads the ray id, hit flag, t and
+# best t (17) and, where the row improves, u, v, slot and instance (16
+# more) and writes t, u, v, slot and instance (20).
+ROUND_RAYS_BYTES = 48 + 40
+ROUND_SCATTER_BYTES = 17
+ROUND_SCATTER_BETTER_BYTES = 16 + 20
 # Phase 7: the atrium's camera and bounce (bench.py:623-633).
 ATRIUM_CAM = dict(eye=(0, 6, 9), look_at=(0, 2, 0), up=(0, 1, 0),
                   fov_deg=60)
@@ -1913,6 +1925,66 @@ def slab_alone(instancing, iscene, rays, c, reps=20):
             "plain_ms": plain_ms}
 
 
+def round_glue_alone(instancing, pt, ps, rays, c, reps=20):
+    """An instanced round's glue alone at a batch of every ray of `rays`
+    (1,048,576 at config 5), in a round's order: each ray's nearest
+    candidate instance (instance i mod I where it has none), sorted by
+    instance.  The kernels (round_rays_kernel, then round_scatter_kernel
+    on that batch's own rooted trace) back to back beside their byte
+    bound and the eager glue (round_rays_reference,
+    round_scatter_reference) on the same CUDA tensors, whose outputs they
+    must equal bit for bit -> {"rows", "rays_ms", "rays_plain_ms",
+    "rays_bound_ms", "scatter_ms", "scatter_plain_ms", "scatter_bound_ms",
+    "better"}."""
+    iscene = ps.iscene
+    n, dev = rays.count, rays.origin.device
+    world = tuple(a.contiguous() for a in (rays.origin, rays.direction,
+                                           rays.min_t))
+    cand = instancing._instance_candidates(iscene, rays, c)[0][:, 0].long()
+    cand = torch.where(cand >= 0, cand, torch.arange(n, device=dev)
+                       % iscene.num_instances)
+    inst, rows = torch.sort(cand, stable=True)
+    best_t = rays.max_t.contiguous().clone()
+    args = (rows, inst, *world, best_t, iscene.object_from_world,
+            iscene.instance_blas, ps.packed_roots)
+    got, rays_ms = timed(lambda: instancing.round_rays_kernel(*args),
+                         reps=reps)
+    want, rays_plain_ms = timed(
+        lambda: instancing.round_rays_reference(*args), reps=reps)
+    for name in ("origin", "direction", "min_t", "max_t"):
+        check(bits_equal(getattr(got[0], name), getattr(want[0], name)),
+              f"9c round rays kernel/plain: {name}")
+    check(torch.equal(got[1], want[1])
+          and torch.equal(got[2], want[2].to(torch.int32)),
+          "9c round rays kernel/plain: roots or instance")
+    h = pt._trace_rooted(pt.CARD, ps.packed, got[0], got[1])
+    sargs = (rows, h.hit, h.t, h.u, h.v, h.slot, got[0].max_t, got[2])
+
+    def fresh():
+        return {"t": best_t.clone(), "u": torch.zeros_like(best_t),
+                "v": torch.zeros_like(best_t),
+                "slot": torch.full((n,), -1, dtype=torch.int32, device=dev),
+                "inst": torch.full((n,), -1, dtype=torch.int32, device=dev)}
+
+    # Writing a round's better hits again writes the same bits, so the
+    # back-to-back calls time the scatter at its own batch.
+    best_k, best_p = fresh(), fresh()
+    scatter_ms = timed(lambda: instancing.round_scatter_kernel(
+        *sargs, best_k), reps=reps)[1]
+    scatter_plain_ms = timed(lambda: instancing.round_scatter_reference(
+        *sargs, best_p), reps=reps)[1]
+    for k in best_k:
+        check(bits_equal(best_k[k], best_p[k]),
+              f"9c round scatter kernel/plain: {k}")
+    better = int((best_k["slot"] >= 0).sum())
+    return {"rows": n, "rays_ms": rays_ms, "rays_plain_ms": rays_plain_ms,
+            "rays_bound_ms": n * ROUND_RAYS_BYTES / PEAK_BYTES * 1e3,
+            "scatter_ms": scatter_ms, "scatter_plain_ms": scatter_plain_ms,
+            "scatter_bound_ms": (n * ROUND_SCATTER_BYTES
+                                 + better * ROUND_SCATTER_BETTER_BYTES)
+            / PEAK_BYTES * 1e3, "better": better}
+
+
 def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
            direct_sub=128, ao_samples=8):
     """The render path: render_path, render_direct and render_ao on the
@@ -2257,9 +2329,15 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
             np.max(np.stack(col), axis=0), rays.count, n_inst, p_pk=16)
         wlog = []
         slabs = instancing.CANDIDATE_LAUNCHES
+        glue = (instancing.ROUND_LAUNCHES, instancing.INSTANCED_ROUNDS)
         (total, h1), got_c = counted(lambda: wavefront4(
             rt, ps, rays, box, 5, caps=caps, log=wlog))
         slabs = instancing.CANDIDATE_LAUNCHES - slabs
+        glue = (instancing.ROUND_LAUNCHES - glue[0],
+                instancing.INSTANCED_ROUNDS - glue[1])
+        # The rounds' glue: two launches of csrc/rounds.cu a round.
+        check(glue[0] == 2 * glue[1] > 0,
+              f"9c {name}: {glue[0]} round launches, {glue[1]} rounds")
         check(got_c["ROOTS_LAUNCHES"] > 0
               and got_c["ROOTS_LAUNCHES"] == got_c["KERNEL_LAUNCHES"],
               f"9c {name}: launches {got_c}")
@@ -2328,7 +2406,10 @@ def phase9(rt, dev, launch_log, inst, width=1024, bounces=4,
         rec_c[name] = {"total_rays": total, "ms": best,
                        "mrays_s": total / best / 1e3, "caps": caps,
                        "launches": got_c, "candidate_launches": slabs,
-                       "per_bounce": per}
+                       "round_launches": glue[0], "per_bounce": per}
+    # The rounds' glue alone at a whole 1024^2 batch (csrc/rounds.cu).
+    rec_c["round_glue"] = round_glue_alone(
+        instancing, pt, inst.tables["sahq16"], rays, INST_CANDIDATES)
     return ({"9a": rec_a, "9b": rec_b, "9c": rec_c},
             {k.split("_LAUNCHES")[0].lower(): v for k, v in launches.items()},
             errs)

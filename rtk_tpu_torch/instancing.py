@@ -39,7 +39,12 @@ in order: `rtk.instanced.live` (the live mask and its `nonzero` sync, all
 that an empty round holds), `rtk.instanced.rays` (the sort by instance,
 the round cap, the object rays and the gathers of best t and roots), the
 rooted trace's own `rtk.packet_trace`, and `rtk.instanced.scatter` (the
-better hits' boolean-mask indexes and index-puts).
+better hits written back).  A round's object rays and its scatter are, on
+the card, one launch each of csrc/rounds.cu (round_rays_kernel,
+round_scatter_kernel: no mask and no host sync); for CPU tensors and
+plain=True their plain versions (round_rays_reference: _object_rays and
+the eager gathers; round_scatter_reference: the better hits'
+boolean-mask indexes and index-puts).
 """
 from __future__ import annotations
 
@@ -52,8 +57,8 @@ import torch
 
 from rtk_tpu_torch.config import TraceConfig
 from rtk_tpu_torch.ops import library
-from rtk_tpu_torch.ops.packet_trace import (DEFAULT_P, PKT, _trace_rooted,
-                                            front_steps)
+from rtk_tpu_torch.ops.packet_trace import (DEFAULT_P, PKT, PLAIN,
+                                            _trace_rooted, front_steps)
 from rtk_tpu_torch.scene import Scene
 from rtk_tpu_torch.trace import stack as _stack
 from rtk_tpu_torch.types import Hits, PacketHits, Rays
@@ -66,19 +71,24 @@ from rtk_tpu_torch.utils.stats import span
 # INSTANCED_SYNCS counts, beside the statements that make them, the syncs
 # on the card: each `nonzero`, each boolean-mask index of a device tensor
 # (a `nonzero` inside), the auto caps' `tolist`, and in a round a cap
-# cuts `bincount`'s two reads and a Python scalar index-put's copy.  A round syncs once for its live count and six times
-# more if it launches; the residual once, then as the rounds do.  The
-# stack engine's steps in the residual sync on their own, uncounted here.
-# A run resets them and reads them back, as ops/packet_trace.py's launch
-# counters.  CANDIDATE_LAUNCHES counts launches of the candidate slab's
-# kernel (candidates_kernel): one an instanced trace on the card, and one
-# a residual that re-traces rays.
+# cuts `bincount`'s two reads and a Python scalar index-put's copy.  A
+# round syncs once for its live count, and six times more if it launches
+# on the plain route (its scatter's masks; the card's scatter makes none);
+# the residual once, then as the plain rounds do.  The stack engine's
+# steps in the residual sync on their own, uncounted here.  A run resets
+# them and reads them back, as ops/packet_trace.py's launch counters.
+# CANDIDATE_LAUNCHES counts launches of the candidate slab's kernel
+# (candidates_kernel): one an instanced trace on the card, and one a
+# residual that re-traces rays.  ROUND_LAUNCHES counts launches of the
+# rounds' two kernels (round_rays_kernel, round_scatter_kernel): two a
+# launched round on the card, none on the plain route.
 INSTANCED_TRACES = 0
 INSTANCED_ROUNDS = 0
 INSTANCED_ROWS = 0
 INSTANCED_SYNCS = 0
 INSTANCED_RESIDUAL = 0
 CANDIDATE_LAUNCHES = 0
+ROUND_LAUNCHES = 0
 
 @dataclasses.dataclass
 class InstancedScene:
@@ -348,6 +358,139 @@ def _object_rays(object_from_world, origin, direction):
     return o, d
 
 
+def round_rays_reference(rows, inst, origin, direction, min_t, best_t,
+                         object_from_world, instance_blas, packed_roots):
+    """A candidate round's rays in object space, the plain version: rows
+    (M,) ray indices and inst (M,) their instances (int64, in the round's
+    order); the frame's world origin and direction (N, 3), min_t and
+    best_t (N,); the instance table's object_from_world (I, 3, 4) and
+    instance_blas (I,), and pack_instanced's packed_roots (B,) -> (Rays:
+    object-space origin and direction, min t, max t = best t; (M,) i32
+    roots; the instances).  The roots are gathered from pack_instanced's
+    checked rows by instance ids in range, so the traversal's launch makes
+    no host sync to check them."""
+    o, d = _object_rays(object_from_world[inst], origin[rows],
+                        direction[rows])
+    return (Rays(o, d, min_t[rows], best_t[rows]),
+            packed_roots[instance_blas[inst]], inst)
+
+
+def round_rays_kernel(rows, inst, origin, direction, min_t, best_t,
+                      object_from_world, instance_blas, packed_roots):
+    """round_rays_reference on the card: one launch of the library's
+    rtk_instanced_round_rays (csrc/rounds.cu) on the current stream, with
+    no host sync; its outputs (torch.empty, contiguous) equal the plain
+    version's bit for bit, the instances as i32.  rows, inst: int64;
+    object_from_world, origin, direction, min_t, best_t: f32;
+    instance_blas, packed_roots: i32; every tensor contiguous, on one CUDA
+    device, and every id in range.  Raises before the launch on any other
+    input."""
+    global ROUND_LAUNCHES
+    dev, f32, i32, check = rows.device, torch.float32, torch.int32, \
+        library.check_tensor
+    check(rows, "rows", torch.int64, (None,), dev)
+    m = rows.shape[0]
+    check(inst, "inst", torch.int64, (m,), dev)
+    check(origin, "origin", f32, (None, 3), dev)
+    n = origin.shape[0]
+    check(direction, "direction", f32, (n, 3), dev)
+    check(min_t, "min_t", f32, (n,), dev)
+    check(best_t, "best_t", f32, (n,), dev)
+    check(object_from_world, "object_from_world", f32, (None, 3, 4), dev)
+    check(instance_blas, "instance_blas", i32,
+          (object_from_world.shape[0],), dev)
+    check(packed_roots, "packed_roots", i32, (None,), dev)
+    ins = (rows, inst, origin, direction, min_t, best_t, object_from_world,
+           instance_blas, packed_roots)
+    if not all(a.is_contiguous() for a in ins):
+        raise ValueError("round_rays_kernel takes contiguous tensors")
+    if dev.type != "cuda":
+        raise ValueError("round_rays_kernel takes CUDA tensors; the plain "
+                         "version is round_rays_reference")
+    o = torch.empty((m, 3), dtype=f32, device=dev)
+    d = torch.empty_like(o)
+    lo, hi = (torch.empty((m,), dtype=f32, device=dev) for _ in range(2))
+    roots, inst32 = (torch.empty((m,), dtype=i32, device=dev)
+                     for _ in range(2))
+    if m:
+        library.launch(dev, "rtk_instanced_round_rays", _round_rays_call,
+                       library.load_kernel(), *ins, o, d, lo, hi, roots,
+                       inst32)
+        ROUND_LAUNCHES += 1
+    return Rays(o, d, lo, hi), roots, inst32
+
+
+def _round_rays_call(lib, rows, inst, *tensors):
+    """rtk_instanced_round_rays of round_rays_kernel's contiguous rows,
+    inst and seven more inputs into its six outputs (the stream last) ->
+    its error code."""
+    *ts, stream = tensors
+    return lib.rtk_instanced_round_rays(
+        rows.data_ptr(), inst.data_ptr(), rows.shape[0],
+        *(a.data_ptr() for a in ts), stream)
+
+
+def round_scatter_reference(rows, hit, t, u, v, slot, bt, inst, best):
+    """A candidate round's better hits written back, the plain version:
+    where hit & (t < bt), best's "t", "u", "v", "slot" and "inst" at rows
+    take the round's t, u, v, slot and inst, in place (six boolean-mask
+    indexes and five index-puts; rows are distinct)."""
+    global INSTANCED_SYNCS
+    better = hit & (t < bt)
+    r = rows[better]
+    best["t"][r] = t[better]
+    best["u"][r] = u[better]
+    best["v"][r] = v[better]
+    best["slot"][r] = slot[better]
+    best["inst"][r] = inst[better].to(torch.int32)
+    INSTANCED_SYNCS += 6  # the six boolean-mask indexes
+
+
+def round_scatter_kernel(rows, hit, t, u, v, slot, bt, inst, best):
+    """round_scatter_reference on the card: one launch of the library's
+    rtk_instanced_round_scatter (csrc/rounds.cu) on the current stream,
+    with no mask and no host sync; best's tensors after it equal the plain
+    version's bit for bit.  rows: (M,) int64, distinct; hit: (M,) bool;
+    t, u, v, bt: (M,) f32; slot, inst: (M,) i32; best: "t", "u", "v" (N,)
+    f32 and "slot", "inst" (N,) i32; every tensor contiguous, on one CUDA
+    device.  Raises before the launch on any other input."""
+    global ROUND_LAUNCHES
+    dev, f32, i32, check = rows.device, torch.float32, torch.int32, \
+        library.check_tensor
+    check(rows, "rows", torch.int64, (None,), dev)
+    m = rows.shape[0]
+    check(hit, "hit", torch.bool, (m,), dev)
+    for name, a, dt in (("t", t, f32), ("u", u, f32), ("v", v, f32),
+                        ("slot", slot, i32), ("bt", bt, f32),
+                        ("inst", inst, i32)):
+        check(a, name, dt, (m,), dev)
+    out = [best[k] for k in ("t", "u", "v", "slot", "inst")]
+    n = out[0].shape[0]
+    for k, a in zip(("t", "u", "v", "slot", "inst"), out):
+        check(a, f"best[{k!r}]", i32 if k in ("slot", "inst") else f32,
+              (n,), dev)
+    ins = (rows, hit, t, u, v, slot, bt, inst)
+    if not all(a.is_contiguous() for a in (*ins, *out)):
+        raise ValueError("round_scatter_kernel takes contiguous tensors")
+    if dev.type != "cuda":
+        raise ValueError("round_scatter_kernel takes CUDA tensors; the "
+                         "plain version is round_scatter_reference")
+    if m:
+        library.launch(dev, "rtk_instanced_round_scatter",
+                       _round_scatter_call, library.load_kernel(), *ins,
+                       *out)
+        ROUND_LAUNCHES += 1
+
+
+def _round_scatter_call(lib, rows, *tensors):
+    """rtk_instanced_round_scatter of round_scatter_kernel's contiguous
+    rows, seven inputs and five best tensors (the stream last) -> its
+    error code."""
+    *ts, stream = tensors
+    return lib.rtk_instanced_round_scatter(
+        rows.data_ptr(), rows.shape[0], *(a.data_ptr() for a in ts), stream)
+
+
 def _stack_config(iscene: InstancedScene, config: TraceConfig) -> TraceConfig:
     """The stack engine's config with a stack deep enough for every BLAS."""
     return dataclasses.replace(
@@ -596,6 +739,13 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
             "slot": torch.full((n,), -1, dtype=torch.int32, device=dev),
             "inst": torch.full((n,), -1, dtype=torch.int32, device=dev)}
     over_cap = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # A round's object rays and scatter run on the card where its trace
+    # does (the kernels take contiguous world rays), else eagerly.
+    round_glue = ((round_rays_kernel, round_scatter_kernel)
+                  if steps is not PLAIN else
+                  (round_rays_reference, round_scatter_reference))
+    world = tuple(a.contiguous() for a in (rays.origin, rays.direction,
+                                           rays.min_t))
     live_counts = []
     for s in range(C):
         with span("rtk.instanced.round"):
@@ -607,9 +757,9 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
             if not rows.numel():
                 continue  # candidates are nearest-first: later rounds are empty
             with span("rtk.instanced.rays"):
-                inst = cand_idx[rows, s].long()
-                order = torch.sort(inst, stable=True).indices
-                rows, inst = rows[order], inst[order]
+                inst, order = torch.sort(cand_idx[rows, s].long(),
+                                         stable=True)
+                rows = rows[order]
                 if round_caps is not None and round_caps[s] < M:
                     # Row of each live ray in the reference's grouped layout.
                     counts = torch.bincount(inst, minlength=n_inst)
@@ -624,26 +774,15 @@ def _instanced_rounds(pscene: PackedInstancedScene, rays: Rays,
                     # The three boolean-mask indexes, and True copied to
                     # the card for the index-put.
                     INSTANCED_SYNCS += 4
-                o, d = _object_rays(iscene.object_from_world[inst],
-                                    rays.origin[rows], rays.direction[rows])
-                bt = best["t"][rows]
-                # Roots gathered from pack_instanced's checked rows by
-                # instance ids in range: the launch makes no host sync to
-                # check them.
-                round_rays = Rays(o, d, rays.min_t[rows], bt)
-                roots = pscene.packed_roots[iscene.instance_blas[inst]]
+                round_rays, roots, inst = round_glue[0](
+                    rows, inst, *world, best["t"], iscene.object_from_world,
+                    iscene.instance_blas, pscene.packed_roots)
             h = _trace_rooted(steps, packed, round_rays, roots)
             INSTANCED_ROUNDS += 1
             INSTANCED_ROWS += rows.numel()
             with span("rtk.instanced.scatter"):
-                better = h.hit & (h.t < bt)
-                r = rows[better]
-                best["t"][r] = h.t[better]
-                best["u"][r] = h.u[better]
-                best["v"][r] = h.v[better]
-                best["slot"][r] = h.slot[better]
-                best["inst"][r] = inst[better].to(torch.int32)
-                INSTANCED_SYNCS += 6  # the six boolean-mask indexes
+                round_glue[1](rows, h.hit, h.t, h.u, h.v, h.slot,
+                              round_rays.max_t, inst, best)
 
     # A ray whose (C+1)-th instance entry is still closer than its best hit
     # is unproven, and so is one a round cap cut.
@@ -676,7 +815,8 @@ def trace_closest_instanced_packets(
       per instance, p_pk packets per block): live rows past a round's cap
       go to the residual.  With exact=True no cap changes the result.
     plain: run every round through the kernel's plain version
-      (trace_packets_reference) on any device.
+      (trace_packets_reference) and the rounds' eager glue
+      (round_rays_reference, round_scatter_reference) on any device.
     stats: optional dict, filled with "live_counts", "caps" and
       "residual" (the number of rays re-traced exhaustively).
     interpret, leaf_loop and ordered pick the TPU kernel's schedule and

@@ -32,8 +32,11 @@ SHADE_SRC = CSRC / "shade.cu"
 REFIT_SRC = CSRC / "refit.cu"
 # The instance candidate slab (instancing.py::candidates_kernel).
 CANDIDATES_SRC = CSRC / "candidates.cu"
+# An instanced candidate round's object rays and hit scatter
+# (instancing.py::round_rays_kernel, round_scatter_kernel).
+ROUNDS_SRC = CSRC / "rounds.cu"
 LIBRARY_SRCS = [KERNEL_SRC, KEY_SRC, ROWS_SRC, UNSORT_SRC, SHADE_SRC,
-                REFIT_SRC, CANDIDATES_SRC]
+                REFIT_SRC, CANDIDATES_SRC, ROUNDS_SRC]
 FILTER_OPS = CSRC / "filter_ops.h"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -99,6 +102,10 @@ def bind_library(path, march: bool):
     lib.rtk_instance_candidates.restype = i32
     lib.rtk_instance_candidates.argtypes = ([ptr, ptr, i32] + [ptr] * 4
                                             + [i64, i32] + [ptr] * 4)
+    lib.rtk_instanced_round_rays.restype = i32
+    lib.rtk_instanced_round_rays.argtypes = [ptr, ptr, i64] + [ptr] * 14
+    lib.rtk_instanced_round_scatter.restype = i32
+    lib.rtk_instanced_round_scatter.argtypes = [ptr, i64] + [ptr] * 13
     declare_refit(lib)
     if march:
         lib.rtk_packet_march.restype = i32

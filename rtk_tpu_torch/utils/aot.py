@@ -65,9 +65,11 @@ from rtk_tpu_torch.utils.build import BUILD_DIR
 # (csrc/refit.cu: rtk_refit_parents, rtk_refit_leaves, rtk_refit_slots,
 # rtk_repack), which a version-3 library lacks; 5: it holds the instance
 # candidate slab (csrc/candidates.cu: rtk_instance_candidates), which a
-# version-4 library lacks.  An artifact of another version is refused
-# before the loader binds it.
-AOT_VERSION = 5
+# version-4 library lacks; 6: it holds an instanced round's object rays
+# and hit scatter (csrc/rounds.cu: rtk_instanced_round_rays,
+# rtk_instanced_round_scatter), which a version-5 library lacks.  An
+# artifact of another version is refused before the loader binds it.
+AOT_VERSION = 6
 KIND_TRACE = 16  # container kinds of this module (serialize.py has 0-2)
 KIND_REFIT = 17
 PLATFORMS = ("cpu", "cuda")

@@ -201,16 +201,19 @@ def test_aot_refuses_foreign_blobs():
 @pytest.mark.parametrize(
     "load,old_version", [("trace", 1), ("refit", 1), ("trace", 2),
                          ("refit", 2), ("trace", 3), ("refit", 3),
-                         ("trace", 4), ("refit", 4)],
+                         ("trace", 4), ("refit", 4), ("trace", 5),
+                         ("refit", 5)],
     ids=["trace", "refit", "trace-v2", "refit-v2", "trace-v3", "refit-v3",
-         "trace-v4", "refit-v4"])
+         "trace-v4", "refit-v4", "trace-v5", "refit-v5"])
 def test_aot_refuses_a_version_1_artifact(load, old_version):
     """An artifact stamped with version 1 (exported before the library
     held the rows pass, rtk_ray_rows), version 2 (before it held the
     shade pass, rtk_shade), version 3 (before it held the refit and
-    repack, csrc/refit.cu) or version 4 (before it held the instance
-    candidate slab, csrc/candidates.cu) is refused by the version check
-    before its library is bound, with the loader's own error."""
+    repack, csrc/refit.cu), version 4 (before it held the instance
+    candidate slab, csrc/candidates.cu) or version 5 (before it held an
+    instanced round's object rays and scatter, csrc/rounds.cu) is refused
+    by the version check before its library is bound, with the loader's
+    own error."""
     scene = rt.build_from_soup(scenes.cornell_box(),
                                config=rt.BuildConfig(leaf_size=8), device=CPU)
     packed = pack_scene(scene)
@@ -218,7 +221,7 @@ def test_aot_refuses_a_version_1_artifact(load, old_version):
                      aot.load_packet_trace) if load == "trace" else
                     (aot.export_refit_trace(packed, scene, 64),
                      aot.load_refit_trace))
-    assert aot.AOT_VERSION == 5
+    assert aot.AOT_VERSION == 6
     old = bytearray(blob)
     # meta ints start at byte 32: (AOT_VERSION, n_rays)
     struct.pack_into("<q", old, 32, old_version)

@@ -2005,34 +2005,50 @@ def test_instanced_frame_syncs_equal_the_counters(instanced_path,
     the residual re-traces rays on the stack engine): torch's count of
     host syncs equals the syncs INSTANCED_SYNCS and PATH_SYNCS count,
     beside those the stack engine's steps make in the residual and one
-    more: render_path copies its background to the card (types._f32)."""
+    more: render_path copies its background to the card (types._f32).
+    It holds on the card's route, where a launched round syncs once (its
+    live count; csrc/rounds.cu's scatter none), and through the rounds'
+    eager glue, which syncs six times more a launched round."""
     from rtk_tpu_torch import instancing
     from rtk_tpu_torch.models import path
 
     c = instanced_path
     kw = dict(bounces=4, background=PATH_BG, epsilon=1e-3,
               uniforms=c["uniforms"])
-    path.render_path(c["tracer"], c["rays"], c["mats"], **kw)
-    for name in ("INSTANCED_SYNCS", "INSTANCED_RESIDUAL"):
-        monkeypatch.setattr(instancing, name, 0)
-    monkeypatch.setattr(path, "PATH_SYNCS", 0)
-    with _host_syncs(monkeypatch) as (count, loops):
+
+    def counted_frame():
         path.render_path(c["tracer"], c["rays"], c["mats"], **kw)
-        total = count()
-    assert instancing.INSTANCED_RESIDUAL > 0 and loops
-    assert path.PATH_SYNCS == 4
-    assert total == (instancing.INSTANCED_SYNCS + path.PATH_SYNCS
-                     + sum(loops) + 1)
+        for name in ("INSTANCED_SYNCS", "INSTANCED_RESIDUAL",
+                     "INSTANCED_ROUNDS"):
+            monkeypatch.setattr(instancing, name, 0)
+        monkeypatch.setattr(path, "PATH_SYNCS", 0)
+        with _host_syncs(monkeypatch) as (count, loops):
+            path.render_path(c["tracer"], c["rays"], c["mats"], **kw)
+            total = count()
+        assert instancing.INSTANCED_RESIDUAL > 0 and loops
+        assert path.PATH_SYNCS == 4
+        assert total == (instancing.INSTANCED_SYNCS + path.PATH_SYNCS
+                         + sum(loops) + 1)
+        return instancing.INSTANCED_SYNCS, instancing.INSTANCED_ROUNDS
+
+    card = counted_frame()
+    monkeypatch.setattr(instancing, "round_rays_kernel",
+                        instancing.round_rays_reference)
+    monkeypatch.setattr(instancing, "round_scatter_kernel",
+                        instancing.round_scatter_reference)
+    eager = counted_frame()
+    assert card[1] == eager[1] > 0
+    assert eager[0] - card[0] == 6 * card[1]
 
 
 @pytest.mark.parametrize("caps", ["auto", "starved"])
 def test_instanced_capped_trace_syncs_equal_the_counter(instanced_path,
                                                         monkeypatch, caps):
     """An instanced trace with round caps on the card: torch's count of
-    host syncs equals INSTANCED_SYNCS (the auto caps' tolist; in a round
-    a cap cuts, bincount's two reads, the cut's three masks and True
-    copied to the card) beside the syncs of the residual's stack
-    engine."""
+    host syncs equals INSTANCED_SYNCS (each round's live count; the auto
+    caps' tolist; in a round a cap cuts, bincount's two reads, the cut's
+    three masks and True copied to the card; the rounds' kernels none)
+    beside the syncs of the residual's stack engine."""
     from rtk_tpu_torch import instancing
 
     c = instanced_path
@@ -2068,3 +2084,222 @@ def test_sorted_closest_call_makes_no_sync(cuda, monkeypatch):
     with _host_syncs(monkeypatch) as (count, _):
         call()
         assert count() == 0
+
+
+# ---- an instanced round's object rays and scatter: csrc/rounds.cu ----
+
+# (affines, rows): uniform scales, rotations with uneven scales, a negative
+# scale, a round whose rows are all of one instance; 0, 1, 31, 33 rows (a
+# warp and a block each side) and 391 (not a whole block).
+ROUND_CASES = [("uniform", 0), ("uniform", 1), ("uniform", 31),
+               ("rotation", 33), ("negative", 391), ("one_instance", 33),
+               ("rotation", 391)]
+
+
+def round_case(affines, m, device="cpu"):
+    """Inputs of a candidate round's object rays (round_rays_reference's
+    arguments) -> tuple, on `device`: m distinct rows of a frame of 2m + 5
+    rays grouped by instance as a round sorts them; origins and directions
+    with +-0.0 components, min t of 0, 1e-3 and -inf, best t finite and
+    RTK_INF; 9 instances (one for one_instance) of 3 BLAS."""
+    from rtk_tpu_torch.instancing import _affine_inverse
+    from rtk_tpu_torch.types import RTK_INF
+    from test_torch_instanced_path import _rotation
+
+    rng = np.random.default_rng(m * 7 + sum(map(ord, affines)))
+    n, n_inst = 2 * m + 5, 1 if affines == "one_instance" else 9
+    tf = np.zeros((n_inst, 3, 4))
+    for i in range(n_inst):
+        scale = rng.uniform(0.2, 3.0, 3)
+        if affines == "uniform":
+            lin = np.eye(3) * scale[0]
+        elif affines == "negative":
+            lin = np.diag(scale * np.where(np.arange(3) == i % 3, -1, 1))
+        else:
+            lin = _rotation(rng.normal(size=3),
+                            rng.uniform(0, 2 * np.pi)) @ np.diag(scale)
+        tf[i, :, :3], tf[i, :, 3] = lin, rng.uniform(-8, 8, 3)
+    ofw = np.stack([_affine_inverse(a) for a in tf]).astype(np.float32)
+    rows = rng.permutation(n)[:m]
+    inst = rng.integers(0, n_inst, m)
+    order = np.argsort(inst, kind="stable")
+    o = rng.normal(size=(n, 3)).astype(np.float32) * 5
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[rng.random((n, 3)) < 0.1] = 0.0
+    d[rng.random((n, 3)) < 0.1] = -0.0
+    o[rng.random((n, 3)) < 0.05] = -0.0
+    min_t = rng.choice(np.float32([0.0, 1e-3, -np.inf]), n)
+    best_t = rng.uniform(0.5, 40, n).astype(np.float32)
+    best_t[rng.random(n) < 0.3] = RTK_INF
+
+    def on(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    return (on(rows[order], torch.int64), on(inst[order], torch.int64),
+            on(o), on(d), on(min_t), on(best_t), on(ofw),
+            on(rng.integers(0, 3, n_inst), torch.int32),
+            on(rng.integers(0, 5000, 3), torch.int32))
+
+
+def assert_same_round_rays(got, want, what):
+    """round_rays_kernel's (Rays, roots, inst) against the plain version's,
+    bit for bit (the instances as i32)."""
+    (g_rays, g_roots, g_inst), (w_rays, w_roots, w_inst) = got, want
+    for name in ("origin", "direction", "min_t", "max_t"):
+        g, w = getattr(g_rays, name), getattr(w_rays, name)
+        assert g.shape == w.shape, f"{what}: {name} shape"
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), \
+            f"{what}: {name}"
+    assert g_roots.dtype == w_roots.dtype == torch.int32
+    assert torch.equal(g_roots, w_roots), f"{what}: roots"
+    assert g_inst.dtype == torch.int32
+    assert torch.equal(g_inst, w_inst.to(torch.int32)), f"{what}: inst"
+
+
+# (case, rows): hits that improve, misses, ties with best t, NaN t; a
+# round where no row improves; 0, 1, 33 and 391 rows.
+SCATTER_CASES = [("mixed", 0), ("mixed", 1), ("mixed", 33), ("mixed", 391),
+                 ("none", 33), ("ties", 391)]
+
+
+def scatter_case(name, m, device="cpu"):
+    """Inputs of a candidate round's scatter (round_scatter_kernel's
+    arguments but best) and the frame's best records -> (args, best), on
+    `device`: m distinct rows of a frame of 2m + 5 rays, bt each row's
+    best t; mixed: hit or not, t below, equal to and above bt, NaN t, u
+    and v of +-0.0; none: no hit is below bt (equal, above, or no hit);
+    ties: every hit's t equals bt but a few."""
+    rng = np.random.default_rng(m * 5 + sum(map(ord, name)))
+    n = 2 * m + 5
+    rows = rng.permutation(n)[:m]
+    best_t = rng.uniform(0.5, 40, n).astype(np.float32)
+    bt = best_t[rows]
+    hit = rng.random(m) < 0.7
+    pick = rng.integers(0, 4, m)
+    t = np.where(pick == 0, bt * np.float32(0.5),
+                 np.where(pick == 1, bt, bt + np.float32(1.0)))
+    t = np.where(pick == 3, np.float32(np.nan), t).astype(np.float32)
+    if name == "none":
+        t = np.where(t < bt, bt, t).astype(np.float32)
+    elif name == "ties":
+        t = bt.copy()
+        t[::17] = bt[::17] * np.float32(0.25)
+    uv = rng.uniform(0, 1, (2, m)).astype(np.float32)
+    uv[rng.random((2, m)) < 0.1] = -0.0
+
+    def on(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    args = (on(rows, torch.int64), on(hit), on(t), on(uv[0]), on(uv[1]),
+            on(rng.integers(-1, 9000, m), torch.int32), on(bt),
+            on(rng.integers(0, 125, m), torch.int32))
+    best = {"t": on(best_t), "u": on(rng.uniform(0, 1, n).astype(np.float32)),
+            "v": on(rng.uniform(0, 1, n).astype(np.float32)),
+            "slot": on(rng.integers(-1, 9000, n), torch.int32),
+            "inst": on(rng.integers(-1, 125, n), torch.int32)}
+    return args, best
+
+
+def assert_same_best(got, want, what):
+    """The frame's best records, bit for bit."""
+    for k in ("t", "u", "v", "slot", "inst"):
+        g, w = got[k], want[k]
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f"{what}: best[{k!r}]"
+
+
+@pytest.mark.parametrize("affines,m", ROUND_CASES + [
+    ("rotation", 1_048_577), ("negative", 1_048_577)])
+def test_round_rays_kernel_equals_plain(cuda, affines, m):
+    """csrc/rounds.cu's round rays against round_rays_reference
+    (_object_rays and the eager gathers) on the same CUDA tensors, bit for
+    bit: uniform scales, rotations, negative scales, one instance; 0 to
+    1,048,577 rows; one launch a round with rows."""
+    from rtk_tpu_torch import instancing
+
+    args = round_case(affines, m, cuda)
+    before = instancing.ROUND_LAUNCHES
+    got = instancing.round_rays_kernel(*args)
+    torch.cuda.synchronize()
+    assert instancing.ROUND_LAUNCHES == before + bool(m)
+    assert_same_round_rays(got, instancing.round_rays_reference(*args),
+                           f"{affines} m={m}")
+
+
+@pytest.mark.parametrize("name,m", SCATTER_CASES + [("mixed", 1_048_577)])
+def test_round_scatter_kernel_equals_plain(cuda, name, m):
+    """csrc/rounds.cu's scatter against round_scatter_reference (the
+    masked index-puts) on the same CUDA tensors: the frame's best records
+    bit for bit afterwards, with misses, ties with best t, NaN t and a
+    round where no row improves; one launch a round with rows."""
+    from rtk_tpu_torch import instancing
+
+    args, best = scatter_case(name, m, cuda)
+    want = {k: v.clone() for k, v in best.items()}
+    before = instancing.ROUND_LAUNCHES
+    instancing.round_scatter_kernel(*args, best)
+    torch.cuda.synchronize()
+    assert instancing.ROUND_LAUNCHES == before + bool(m)
+    instancing.round_scatter_reference(*args, want)
+    assert_same_best(best, want, f"{name} m={m}")
+    if name == "none":
+        assert_same_best(best, scatter_case(name, m, cuda)[1], "unchanged")
+
+
+def _round_scene(device):
+    """16 instances of two BLAS (blob(2) and a box): uniform scales,
+    rotations with uneven scales and negative scales, spread so that rays
+    meet several boxes, and 128^2 Morton camera rays that see them."""
+    from test_torch_instanced_path import _rotation
+
+    rng = np.random.default_rng(30)
+    blas = [rtk_tpu_torch.build_scene(_soup_of(t), device=device)
+            for t in (scenes.blob(2)[0],
+                      scenes.box([-0.5, -0.5, -0.5], [0.5, 0.5, 0.5]))]
+    tf = np.zeros((16, 3, 4), np.float32)
+    for i in range(16):
+        scale = rng.uniform(0.3, 0.9, 3)
+        lin = (np.eye(3) * scale[0] if i % 3 == 0 else
+               np.diag(-scale) if i % 3 == 1 else
+               _rotation(rng.normal(size=3), rng.uniform(0, 6)) @ np.diag(
+                   scale))
+        tf[i, :, :3], tf[i, :, 3] = lin, rng.uniform(-3, 3, 3)
+    pscene = rtk_tpu_torch.pack_instanced(rtk_tpu_torch.build_instanced(
+        blas, rng.integers(0, 2, 16), tf))
+    rays = scenes.camera_rays((0, 1.5, 9), (0, 0, 0), (0, 1, 0), 50, 128,
+                              128, order="morton", device=device)
+    return pscene, rays
+
+
+@pytest.mark.parametrize("caps", [None, "auto", "starved"])
+@pytest.mark.parametrize("c", [1, 2, 12])
+def test_instanced_rounds_kernel_route_equals_plain(cuda, c, caps):
+    """trace_closest_instanced_packets on the card through the rounds'
+    kernels against plain=True (the eager glue and the plain traversal)
+    on the same CUDA tensors: t, u, v, slot, hit and instance bit for bit,
+    at C = 1, 2 and 12, uncapped, with auto caps and with starved caps;
+    ROUND_LAUNCHES two a launched round on the kernel route, none on the
+    plain one."""
+    from rtk_tpu_torch import instancing
+
+    pscene, rays = _round_scene(cuda)
+    kw = dict(max_candidates=c,
+              round_caps=(128,) * c if caps == "starved" else caps)
+    launches, rounds = instancing.ROUND_LAUNCHES, instancing.INSTANCED_ROUNDS
+    st = {}
+    got = instancing.trace_closest_instanced_packets(pscene, rays, stats=st,
+                                                     **kw)
+    torch.cuda.synchronize()
+    rounds = instancing.INSTANCED_ROUNDS - rounds
+    assert rounds == sum(k > 0 for k in st["live_counts"]) > 0
+    assert instancing.ROUND_LAUNCHES - launches == 2 * rounds
+    launches = instancing.ROUND_LAUNCHES
+    want = instancing.trace_closest_instanced_packets(pscene, rays,
+                                                      plain=True, **kw)
+    assert instancing.ROUND_LAUNCHES == launches
+    _assert_same(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert int(got[0].hit.sum()) > rays.count // 8
+    if caps == "starved":
+        assert st["residual"] > 0

@@ -7,8 +7,9 @@ off the card): every instantiation (8- and 16-wide tables, the grid march
 and a filter build) in every mode equals the plain PyTorch version bit for
 bit, counts included.  Built with -ffp-contract=off, as nvcc's -fmad=false.
 csrc/dispatch_probe.cu, csrc/coherence_key.cu, csrc/ray_rows.cu,
-csrc/unsort.cu, csrc/shade.cu, csrc/refit.cu and csrc/candidates.cu are
-built the same way and held bit for bit against their plain versions.
+csrc/unsort.cu, csrc/shade.cu, csrc/refit.cu, csrc/candidates.cu and
+csrc/rounds.cu are built the same way and held bit for bit against their
+plain versions.
 This checks the kernels' logic and arithmetic; that nvcc builds them for
 sm_90a, and the card's results, are tests/test_torch_kernel.py's."""
 import ctypes
@@ -32,8 +33,11 @@ from rtk_tpu_torch.trace.packed import pack_binary_tree, pack_scene
 from rtk_tpu_torch.utils.native_sah import NativeOracle
 
 from test_torch_kernel import (CANDIDATE_CASES, FILTERS, MASK_QMASKS,
-                               TIE_CASES, _root_slot_boxes,
-                               assert_same_candidates, candidate_case,
+                               ROUND_CASES, SCATTER_CASES, TIE_CASES,
+                               _root_slot_boxes, assert_same_best,
+                               assert_same_candidates,
+                               assert_same_round_rays, candidate_case,
+                               round_case, scatter_case,
                                chain_forest, chain_grid, chain_rays,
                                leaf_root_case, long_tail_rays,
                                long_tail_scene, mask_tree, ptrace, tie_rays,
@@ -591,8 +595,9 @@ def front_host_source(src, launches, reduce_blocks=None, reverse=False):
 def host_library(tmp, name, reduce_blocks=None):
     """The library kernel_library builds (the traversal without a filter,
     the coherence key, the rows pass, the unsort, render_path's shade
-    pass, the refit and repack and the instance candidate slab in one .so),
-    built for the host -> its path."""
+    pass, the refit and repack, the instance candidate slab and an
+    instanced round's object rays and scatter in one .so), built for the
+    host -> its path."""
     (tmp / "cuda_shim.h").write_text(CUDA_SHIM)
     sources = {
         "trace": library.KERNEL_SRC.read_text()
@@ -603,7 +608,8 @@ def host_library(tmp, name, reduce_blocks=None):
         "unsort": front_host_source(library.UNSORT_SRC, 1),
         "shade": front_host_source(library.SHADE_SRC, 1),
         "refit": front_host_source(library.REFIT_SRC, 4),
-        "candidates": front_host_source(library.CANDIDATES_SRC, 1)}
+        "candidates": front_host_source(library.CANDIDATES_SRC, 1),
+        "rounds": front_host_source(library.ROUNDS_SRC, 2)}
     for part, text in sources.items():
         (tmp / f"{name}_{part}.cpp").write_text(text)
     so = tmp / f"lib{name}.so"
@@ -902,6 +908,126 @@ def test_candidates_kernel_checks_before_launch(monkeypatch):
     assert_same_candidates(
         instancing._instance_candidates(iscene, rays, 12),
         instancing._instance_candidates_impl(lo, hi, rays, 12), "dispatch")
+
+
+# ---- csrc/rounds.cu: an instanced round's object rays and scatter ----
+
+@pytest.mark.parametrize("affines,m", ROUND_CASES)
+def test_host_round_rays(key_libs, affines, m):
+    """csrc/rounds.cu's round rays built for the host (its launch a loop
+    over the threads) equal round_rays_reference (_object_rays and the
+    eager gathers) bit for bit, through the wrapper's own call
+    (_round_rays_call), every output filled with SENTINEL first: uniform
+    scales, rotations, negative scales, one instance; 0 to 391 rows."""
+    from rtk_tpu_torch import instancing
+    from rtk_tpu_torch.types import Rays
+
+    args = round_case(affines, m)
+    ids = torch.full((2, m), SENTINEL, dtype=torch.int32)
+    out = (_filled(m, 3), _filled(m, 3), _filled(m), _filled(m), *ids)
+    assert instancing._round_rays_call(key_libs[None], *args, *out,
+                                       None) == 0
+    assert_same_round_rays((Rays(*out[:4]), out[4], out[5]),
+                           instancing.round_rays_reference(*args),
+                           f"{affines} m={m}")
+
+
+@pytest.mark.parametrize("name,m", SCATTER_CASES)
+def test_host_round_scatter(key_libs, name, m):
+    """csrc/rounds.cu's scatter built for the host leaves the frame's best
+    records bit-equal to round_scatter_reference's (the masked
+    index-puts), through the wrapper's own call (_round_scatter_call):
+    misses, ties with best t, NaN t, a round where no row improves; 0 to
+    391 rows."""
+    from rtk_tpu_torch import instancing
+
+    args, best = scatter_case(name, m)
+    want = {k: v.clone() for k, v in best.items()}
+    out = [best[k] for k in ("t", "u", "v", "slot", "inst")]
+    assert instancing._round_scatter_call(key_libs[None], *args, *out,
+                                          None) == 0
+    instancing.round_scatter_reference(*args, want)
+    assert_same_best(best, want, f"{name} m={m}")
+
+
+def test_round_kernels_check_before_launch(monkeypatch):
+    """The rounds' wrappers refuse a tensor of the wrong dtype, shape or
+    device, a view that is not contiguous, and CPU tensors, before they
+    launch; ROUND_LAUNCHES does not move."""
+    from rtk_tpu_torch import instancing
+
+    monkeypatch.setattr(library, "launch", lambda *a: pytest.fail(
+        "the wrapper launched"))
+    args = round_case("rotation", 33)
+    names = {instancing.round_rays_kernel: (
+        "rows", "inst", "origin", "direction", "min_t", "best_t",
+        "object_from_world", "instance_blas", "packed_roots"),
+        instancing.round_scatter_kernel: (
+            "rows", "hit", "t", "u", "v", "slot", "bt", "inst")}
+    before = instancing.ROUND_LAUNCHES
+
+    def refused(fn, base, match, best=None, **over):
+        got = dict(zip(names[fn], base))
+        got.update(over)
+        with pytest.raises(ValueError, match=match):
+            fn(*got.values(), *(() if best is None else (best,)))
+
+    rays = instancing.round_rays_kernel
+    refused(rays, args, "CUDA")
+    refused(rays, args, "rows", rows=args[0].int())
+    refused(rays, args, "inst", inst=args[1][:-1])
+    refused(rays, args, "origin", origin=args[2].to("meta"))
+    refused(rays, args, "direction", direction=args[3].double())
+    refused(rays, args, "min_t", min_t=args[4][:-1])
+    refused(rays, args, "best_t", best_t=args[5][:, None])
+    refused(rays, args, "object_from_world",
+            object_from_world=args[6].reshape(-1, 4, 3))
+    refused(rays, args, "instance_blas", instance_blas=args[7].long())
+    refused(rays, args, "packed_roots", packed_roots=args[8].float())
+    refused(rays, args, "contiguous",
+            direction=args[3].T.contiguous().T)
+    refused(rays, args, "contiguous",
+            rows=torch.stack([args[0], args[0]], 1)[:, 0])
+    sargs, best = scatter_case("mixed", 33)
+    scatter = instancing.round_scatter_kernel
+    refused(scatter, sargs, "CUDA", best=best)
+    refused(scatter, sargs, "hit", best=best, hit=sargs[1].int())
+    refused(scatter, sargs, "^t must", best=best, t=sargs[2][:-1])
+    refused(scatter, sargs, "slot", best=best, slot=sargs[5].long())
+    refused(scatter, sargs, "bt", best=best, bt=sargs[6].double())
+    refused(scatter, sargs, "inst", best=best, inst=sargs[7][:, None])
+    refused(scatter, sargs, r"best\['v'\]",
+            best={**best, "v": best["v"][:-1]})
+    refused(scatter, sargs, r"best\['slot'\]",
+            best={**best, "slot": best["slot"].float()})
+    refused(scatter, sargs, "contiguous", best=best,
+            u=torch.stack([sargs[3], sargs[3]], 1)[:, 0])
+    refused(scatter, sargs, "contiguous",
+            best={**best, "t": torch.stack([best["t"]] * 2, 1)[:, 0]})
+    assert instancing.ROUND_LAUNCHES == before
+
+
+def test_round_launches_stay_zero_on_the_plain_route(monkeypatch):
+    """An instanced trace of CPU tensors runs its rounds' glue eagerly:
+    ROUND_LAUNCHES stays 0, six syncs a launched round are counted, and no
+    kernel wrapper is called."""
+    from rtk_tpu_torch import instancing
+    from test_torch_instanced_path import instanced_case
+
+    for name in ("round_rays_kernel", "round_scatter_kernel"):
+        monkeypatch.setattr(instancing, name, lambda *a: pytest.fail(
+            "the plain route called a round kernel"))
+    for name in ("ROUND_LAUNCHES", "INSTANCED_SYNCS", "INSTANCED_ROUNDS"):
+        monkeypatch.setattr(instancing, name, 0)
+    case = instanced_case()
+    st = {}
+    hits, _ = instancing.trace_closest_instanced_packets(
+        case["pscene"], case["rays"], 4, exact=False, stats=st)
+    assert instancing.ROUND_LAUNCHES == 0 and bool(hits.hit.any())
+    assert instancing.INSTANCED_ROUNDS == sum(k > 0 for k in
+                                              st["live_counts"]) > 0
+    assert instancing.INSTANCED_SYNCS == (len(st["live_counts"])
+                                          + 6 * instancing.INSTANCED_ROUNDS)
 
 
 # ---- csrc/shade.cu: render_path's shade pass ----

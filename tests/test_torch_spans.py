@@ -216,8 +216,11 @@ def _count_traces(monkeypatch):
 
 
 def _sync_tally(st, residual_rounds, n, n_inst, auto=False):
-    """The host syncs of one instanced trace as its stats give them: one a
-    round for its live count and six more a launched round (its scatter's
+    """The host syncs of one instanced trace on the plain route (CPU
+    tensors, or plain=True: the rounds' eager glue; on the card the scatter
+    is a launch of csrc/rounds.cu with no sync, so a launched round there
+    syncs only for its live count) as its stats give them: one a round
+    for its live count and six more a launched round (its scatter's
     boolean masks), six more a round its cap cut (bincount's two reads,
     three masks and the copy of True for the index-put), one for auto
     caps' tolist; the residual's count, and where it re-traces rays, a
